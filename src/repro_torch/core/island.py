@@ -1,0 +1,158 @@
+"""Asynchronous island-model GA (paper §3, Fig. 2), batched over islands.
+
+One ``epoch_step`` runs M generations of island-local evolution on the
+(I, P, G) population — every operation is island-local along the leading
+axis, the port's form of the reference's collective-free ``vmap`` — then a
+single migration over the island axis (``torch.roll``).
+
+Randomness: a generation draws, in the reference's per-island order, the
+tournament uniforms and then the variation uniforms, each batched over
+islands, from a uniform source; migration draws each shift's victim
+uniforms. ``epoch_step`` seeds a ``torch.Generator`` from ``pop.rng``, runs
+the epoch from it and advances ``pop.rng``.
+
+Not ported yet: the meta-GA's ``hyper`` / ``pop_active`` overrides.
+"""
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from repro_torch.configs.base import GAConfig
+from repro_torch.core import nsga2, operators
+from repro_torch.core.broker import Broker
+from repro_torch.core.population import Population, next_rng, rng_seed
+from repro_torch.core.uniforms import GeneratorUniforms, as_source
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (I, N, D), idx (I, K) -> x[i, idx[i]] (I, K, D)."""
+    return torch.gather(x, 1, idx.unsqueeze(-1).expand(
+        idx.shape + x.shape[-1:]))
+
+
+def make_generation_step(cfg: GAConfig, broker: Broker,
+                         device) -> Callable:
+    """One NSGA-II generation for all islands (no cross-island traffic):
+    ``generation(pop, rng) -> (pop, metrics)``, with ``rng`` a uniform
+    source or a ``torch.Generator``."""
+    lo_np, hi_np = cfg.bounds()
+    lo = torch.as_tensor(lo_np, device=device)
+    hi = torch.as_tensor(hi_np, device=device)
+    # hyperparameters live on the device once: no host->device copy per
+    # generation
+    hp = {k: torch.tensor(v, dtype=torch.float32, device=device)
+          for k, v in (("eta_cx", cfg.crossover_eta),
+                       ("prob_cx", cfg.crossover_prob),
+                       ("eta_mut", cfg.mutation_eta),
+                       ("prob_mut", cfg.mutation_prob),
+                       ("indpb", cfg.indpb))}
+
+    def generation(pop: Population, rng) -> Tuple[Population, dict]:
+        i, p, g = pop.genomes.shape
+        rand = as_source(rng, pop.genomes.device)
+
+        # island-local selection keys (rank, crowding)
+        _, _, keys = nsga2.nsga2_keys(pop.fitness)             # (I, P)
+        parents_idx = operators.tournament_select(
+            rand, keys.to(torch.float32), cfg.pop_per_island,
+            tsize=cfg.tournament_size)                         # (I, P)
+        parents = _take_rows(pop.genomes, parents_idx)
+        offspring = operators.variation(
+            rand, parents, lower=lo, upper=hi,
+            use_kernel=cfg.fused_operators, **hp)
+
+        # shared-pool evaluation (the broker = the paper's queue)
+        fit_flat, stats = broker.evaluate(offspring.reshape(i * p, g))
+        off_fit = fit_flat.reshape(i, p, -1)
+
+        # (mu+lambda) island-local survivor selection
+        new_g, new_f = nsga2.survivor_select(
+            torch.cat([pop.genomes, offspring], dim=1),
+            torch.cat([pop.fitness, off_fit], dim=1), p)
+
+        newpop = pop._replace(genomes=new_g, fitness=new_f,
+                              generation=pop.generation + 1,
+                              evals=pop.evals + i * p)
+        metrics = {"best": torch.amin(new_f[..., 0], dim=1),   # per island
+                   "skew": stats["skew"],
+                   "balanced": stats["balanced"]}
+        return newpop, metrics
+
+    return generation
+
+
+def _migration_shifts(topology: str, num_islands: int) -> list:
+    """Island-axis shifts per topology (generalized island model,
+    Izzo et al. 2012 — cited by the paper). Each shift s means: island k
+    sends its elites to island (k+s) mod I."""
+    if topology == "ring":
+        return [1]
+    if topology == "bidirectional":
+        return [1, -1]
+    if topology == "torus":
+        # 2D neighbors on a near-square factorization of I
+        a = max(1, int(num_islands ** 0.5))
+        while num_islands % a:
+            a -= 1
+        return [1, num_islands // a] if a > 1 else [1]
+    if topology == "all":
+        return list(range(1, num_islands))
+    raise ValueError(topology)
+
+
+def migrate_ring(cfg: GAConfig, pop: Population, rng) -> Population:
+    """Migration: best ``m`` of island k replace random non-elite slots of
+    each neighbor per the configured topology (paper §4 uses "ring":
+    "sending out the best individual and replacing a randomly selected
+    individual"). Draws (I, m) victim uniforms per shift from ``rng``."""
+    m = cfg.num_migrants
+    i, p, g = pop.genomes.shape
+    rand = as_source(rng, pop.genomes.device)
+    genomes, fitness = pop.genomes, pop.fitness
+    for shift in _migration_shifts(cfg.migration_pattern, i):
+        _, _, keys = nsga2.nsga2_keys(fitness)
+        order = torch.argsort(keys, dim=1, stable=True)    # best first
+        best_idx = order[:, :m]                            # (I, m)
+        recv_g = torch.roll(_take_rows(genomes, best_idx), shift, dims=0)
+        recv_f = torch.roll(_take_rows(fitness, best_idx), shift, dims=0)
+
+        # random non-elite victims: positions >= m in sorted order
+        u = rand((i, m))
+        victim_rank = (m + torch.floor(u * float(p - m))).to(
+            torch.int64).clamp_(max=p - 1)
+        victim = torch.gather(order, 1, victim_rank).unsqueeze(-1)
+        genomes = genomes.scatter(1, victim.expand(i, m, g), recv_g)
+        fitness = fitness.scatter(1, victim.expand(i, m, fitness.shape[-1]),
+                                  recv_f)
+    return pop._replace(genomes=genomes, fitness=fitness, epoch=pop.epoch + 1)
+
+
+def make_epoch_step(cfg: GAConfig, broker: Broker, device) -> Callable:
+    """M island-local generations + one migration:
+    ``epoch_step(pop) -> (pop, metrics)`` with metrics["best"] (M, I)."""
+    generation = make_generation_step(cfg, broker, device)
+
+    def epoch_step(pop: Population) -> Tuple[Population, dict]:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(rng_seed(pop.rng))
+        rand = GeneratorUniforms(gen, device)
+        trace = []
+        for _ in range(cfg.generations_per_epoch):
+            pop, metrics = generation(pop, rand)
+            trace.append(metrics)
+        pop = migrate_ring(cfg, pop, rand)
+        pop = pop._replace(rng=next_rng(pop.rng))
+        return pop, {k: torch.stack([t[k] for t in trace]) for k in trace[0]}
+
+    return epoch_step
+
+
+def evaluate_population(cfg: GAConfig, broker: Broker,
+                        pop: Population) -> Population:
+    """Initial fitness evaluation of a fresh population."""
+    i, p, g = pop.genomes.shape
+    fit, _ = broker.evaluate(pop.genomes.reshape(i * p, g))
+    return pop._replace(fitness=fit.reshape(i, p, -1),
+                        evals=pop.evals + i * p)

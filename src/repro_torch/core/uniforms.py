@@ -1,0 +1,65 @@
+"""Uniform sources: where every random draw of the port comes from.
+
+JAX's threefry streams and torch's Philox streams never agree, so the port
+draws every random number through a *uniform source*, a callable
+``source(shape) -> float32 tensor`` of U[0, 1) values:
+
+* :class:`GeneratorUniforms` draws from an explicit ``torch.Generator``
+  (production);
+* :class:`ArrayUniforms` hands out pre-drawn arrays in order (parity runs
+  replay the reference's draws through it).
+
+Operators take a source as their first argument, in the place of the
+reference's ``rng`` key, and consume it in the reference's draw order.
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+
+
+class GeneratorUniforms:
+    """U[0, 1) float32 draws from one ``torch.Generator`` on ``device``."""
+
+    def __init__(self, generator: torch.Generator, device):
+        self.generator = generator
+        self.device = torch.device(device)
+
+    def __call__(self, shape) -> torch.Tensor:
+        return torch.rand(tuple(shape), generator=self.generator,
+                          device=self.device, dtype=torch.float32)
+
+
+class ArrayUniforms:
+    """Pre-drawn uniforms, handed out in order; each request must match the
+    next array's shape exactly (a replay out of step raises)."""
+
+    def __init__(self, arrays: Iterable, device="cpu"):
+        self.device = torch.device(device)
+        self._queue = deque(np.array(a, np.float32) for a in arrays)
+
+    def __call__(self, shape) -> torch.Tensor:
+        if not self._queue:
+            raise IndexError(f"no pre-drawn uniforms left for {tuple(shape)}")
+        a = self._queue.popleft()
+        if a.shape != tuple(shape):
+            raise ValueError(f"pre-drawn uniforms have shape {a.shape}, "
+                             f"the draw asked for {tuple(shape)}")
+        return torch.from_numpy(a).to(self.device)
+
+    def remaining(self) -> int:
+        return len(self._queue)
+
+
+def as_source(rng, device=None) -> Callable:
+    """A uniform source from a source (returned as is) or a
+    ``torch.Generator`` (drawing on ``device``, default the generator's)."""
+    if isinstance(rng, torch.Generator):
+        return GeneratorUniforms(rng, device if device is not None
+                                 else rng.device)
+    if callable(rng):
+        return rng
+    raise TypeError(f"not a uniform source or torch.Generator: {rng!r}")

@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels.
+
+Route: ``nvcc`` compiles each ``csrc/*.cu`` source for ``sm_90a`` into a
+shared library with a plain C interface, which ``ctypes`` loads. That takes
+seconds per source, where a source that includes PyTorch's headers takes
+minutes. Builds run at first use (or through :func:`build`), never at
+import, into ``build/repro_torch_kernels/`` at the root of the checkout,
+which ``.gitignore`` lists. A library's file name carries a hash of its
+source and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is. Each library is written under a temporary name and
+renamed into place, so a reader never sees a half-written file.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+KERNELS_DIR = Path(__file__).resolve().parent
+REPO_ROOT = KERNELS_DIR.parents[2]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
+
+#: kernel name -> CUDA source
+SOURCES = {
+    "fused_variation": KERNELS_DIR / "genetic" / "csrc" / "fused_variation.cu",
+}
+
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# -fmad=false: no contraction of a*b+c, so every operation rounds as the
+# plain float32 version's does; -Xptxas -v: registers and spills per kernel
+NVCC_FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict = {}
+
+
+def nvcc_path() -> str:
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+                           "where the CUDA toolkit is installed")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = SOURCES[name]
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=None) -> dict:
+    """Compile every named kernel (default: all) whose library is missing,
+    one ``nvcc`` per source, all started together. Returns
+    {name: compiler output} for the kernels it compiled; raises with the
+    compiler's output when a build fails."""
+    names = list(SOURCES if names is None else names)
+    todo = {n: library_path(n) for n in names if not library_path(n).is_file()}
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
+               str(SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, {}
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            failed[name] = logs[name]
+            tmp.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"--- {n} ---\n{log}" for n, log in failed.items()))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built first if it is missing."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,79 @@
+"""The port's GA driver on the CPU: the reference's log-line forms, its
+flags, checkpoint resume, and the refusals (GPU absent, not yet ported)."""
+import re
+
+import pytest
+import torch
+
+from repro.launch import ga_run as jax_ga_run
+from repro_torch.launch import ga_run
+
+ARGS = ["--fitness", "rastrigin", "--genes", "4", "--islands", "2",
+        "--pop", "12", "--epochs", "3", "--gens-per-epoch", "2"]
+NUM = re.compile(r"-?\d+(\.\d+)?(e[-+]?\d+)?")
+
+
+def _forms(text):
+    """Each printed line with its numbers replaced by '#' (numpy pads an
+    array's numbers to a common width, sign included)."""
+    return [NUM.sub("#", " ".join(line.replace("[", "[ ").split()))
+            for line in text.strip().splitlines()]
+
+
+def test_log_lines_have_the_reference_forms(capsys):
+    jax_ga_run.main(ARGS)
+    ref = capsys.readouterr().out
+    pop, hist = ga_run.main(ARGS + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert _forms(out) == _forms(ref)
+    assert _forms(out)[:3] == ["scaling plan: horizontal=# vertical=#",
+                               "epoch # best # skew #",
+                               "epoch # best # skew #"]
+    assert re.search(r"^best fitness: \d+\.\d{6}$", out, re.M)
+    assert len(hist) == 3 and pop.genomes.shape == (2, 12, 4)
+
+
+def test_checkpoint_resume_continues_epochs(tmp_path, capsys):
+    args = ARGS + ["--device", "cpu", "--ckpt-dir", str(tmp_path)]
+    ga_run.main(args)
+    capsys.readouterr()
+    _, hist = ga_run.main(args)
+    out = capsys.readouterr().out
+    assert hist[0]["epoch"] == 3
+    assert re.search(r"^epoch\s+3 best", out, re.M)
+
+
+def test_pipelined_flags_give_identical_best(capsys):
+    pop1, _ = ga_run.main(ARGS + ["--device", "cpu"])
+    pop2, _ = ga_run.main(ARGS + ["--device", "cpu", "--sync-every", "2",
+                                  "--pipeline-depth", "2"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("best genome")]
+    assert lines[0] == lines[1]
+    assert torch.equal(pop1.genomes, pop2.genomes)
+
+
+@pytest.mark.parametrize("extra", [["--fitness", "hvdc"], ["--fitness", "lm"],
+                                   ["--dispatch-backend", "mq-mock"],
+                                   ["--dispatch-backend", "host-thread"]])
+def test_not_yet_ported_exits(extra, capsys):
+    with pytest.raises(SystemExit) as exc:
+        ga_run.main(ARGS + ["--device", "cpu"] + extra)
+    assert exc.value.code != 0
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_gpu_requested_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        ga_run.main(ARGS)
+
+
+@pytest.mark.parametrize("fitness", ["sphere", "rosenbrock", "ackley",
+                                     "griewank"])
+def test_every_benchmark_fitness_runs(fitness, capsys):
+    pop, hist = ga_run.main(["--fitness", fitness, "--genes", "3",
+                             "--islands", "2", "--pop", "8", "--epochs", "2",
+                             "--device", "cpu"])
+    assert hist[-1]["best"] <= hist[0]["best"]
+    assert "best fitness:" in capsys.readouterr().out
