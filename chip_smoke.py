@@ -50,9 +50,8 @@ BOUND = 5.12
 TOL, SWEEP_TOL = (1e-5, 1e-6), (1e-4, 1e-5)
 TEST_SHAPES = [(16, 4), (64, 18), (130, 33), (256, 128)]
 
-# Peak rates from the on-chip-measurement guide's table (NVIDIA data
-# sheets, dense, at the full 700 W limit): memory bytes/s and float32
-# (non-tensor-core) operations/s.
+# Peak rates from NVIDIA's data sheets (dense, at the full 700 W limit):
+# memory bytes/s and float32 (non-tensor-core) operations/s.
 PEAKS = {"H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
 # float32 operations of the fused variation, counted from the source with
 # each powf as ONE operation (a lower bound): per gene pair always (mask
