@@ -1,28 +1,47 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: the quickest proof that the port builds, is right and runs its main
-path on the card.
+paths on the card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Phases, in order; any failure exits non-zero:
+Two main paths: the GA loop (``repro_torch.launch.ga_run``) and LM
+serving (``repro_torch.launch.serve``: prefill + decode). Phases, in
+order; any failure exits non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
-2. build:  every CUDA kernel of the port, compiled from this checkout's
-           sources for sm_90a (one nvcc per source, all started together);
-3. check:  each kernel against its plain PyTorch version on the card, at
-           the reference's test shapes, a hyperparameter sweep and the main
-           path's shape; and one generation on the card against the same
-           generation on the CPU, replayed from the same uniforms;
+2. build:  every CUDA kernel of the port (fused variation, flash attention,
+           SSD intra-chunk), compiled from this checkout's sources for
+           sm_90a (one nvcc per source, all started together);
+3. check:  each kernel against its plain PyTorch version on the card: the
+           fused variation at the reference's test shapes, a
+           hyperparameter sweep and the GA main path's shape, and one
+           generation on the card against the same generation on the CPU;
+           flash attention at tests/test_kernels.py's cases, a q_offset
+           case with fully masked rows and gemma2-2b's layer shapes
+           (float32 3e-5, bfloat16 2e-2); the SSD kernel and the whole
+           chunked scan at the reference's cases and mamba2-780m's shapes
+           (1e-4);
 4. main:   ``python -m repro_torch.launch.ga_run --fitness rastrigin`` at
            I=32 islands x P=1024 individuals x G=128 genes, 5 generations x
-           3 epochs, with the kernel launch counts zeroed just before and
-           read just after; then again with --sync-every 2
-           --pipeline-depth 2, which must give the bit-identical best genome;
-5. times:  with CUDA events, medians of repeats: the kernel beside its
-           bound and its plain version, one generation phase by phase,
-           and epoch seconds, generations/s and evaluations/s;
-6. the ``{"kernels": [...]}`` line, the card line, and last the result line
+           3 epochs, then again with --sync-every 2 --pipeline-depth 2,
+           which must give the bit-identical best genome; then
+           ``python -m repro_torch.launch.serve --no-reduced`` on gemma2-2b
+           (batch 4, prompt 4500 > its 4096 window, 32 tokens) and
+           mamba2-780m (batch 4, prompt 4000, 32 tokens): random weights
+           from a seed, every logit finite, the flash kernel launched 26
+           times (one per layer) in gemma2's prefill and the SSD kernel 48
+           times in mamba2's. Every run has the launch counts zeroed just
+           before it and read just after;
+5. times:  with CUDA events, medians of repeats: each kernel beside its
+           bound and its plain version (flash also beside PyTorch's
+           scaled_dot_product_attention, a yardstick the port never
+           calls), one GA generation phase by phase, GA epochs, and
+           prefill ms, decode ms/token and tokens/s of each served model;
+6. trace:  one prefill and 8 decode steps of each served model under
+           torch.profiler: the device's idle share and the kernels' share
+           of each window, read from the trace;
+7. the ``{"kernels": [...]}`` line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or outside a checkout, it exits non-zero and prints no
@@ -53,6 +72,44 @@ TEST_SHAPES = [(16, 4), (64, 18), (130, 33), (256, 128)]
 # Peak rates from NVIDIA's data sheets (dense, at the full 700 W limit):
 # memory bytes/s and float32 (non-tensor-core) operations/s.
 PEAKS = {"H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
+# LM serving path: (arch, prompt length, kernel launches of its run, one
+# prefill: gemma2-2b's 26 attention layers, mamba2-780m's 48 SSD layers)
+SERVE_RUNS = [("gemma2-2b", 4500, {"flash_attention": 26}),
+              ("mamba2-780m", 4000, {"ssd_chunk": 48})]
+SERVE_BATCH, SERVE_GEN = 4, 32
+# decode steps in each traced decode window; the device symbols of the
+# port's kernels, as they appear in a trace
+TRACE_DECODE = 8
+KERNEL_SYMBOLS = ("fused_variation_kernel", "flash_fwd_kernel",
+                  "ssd_chunk_kernel")
+# tests/test_kernels.py:53-61: (B, S, H, KV, hd, causal, window, softcap,
+# dtype); then gemma2-2b's layer shapes on the serving path (batch 4,
+# prompt 4500): its windowed and its global layers
+ATTN_CASES = [
+    (2, 256, 8, 4, 64, True, 0, 0.0, "float32"),
+    (1, 200, 4, 4, 32, True, 50, 0.0, "float32"),
+    (2, 128, 8, 2, 64, False, 0, 30.0, "float32"),
+    (1, 384, 6, 2, 128, True, 100, 50.0, "float32"),
+    (1, 256, 8, 8, 64, True, 0, 0.0, "bfloat16"),
+    (1, 160, 4, 1, 256, True, 0, 0.0, "float32"),
+]
+ATTN_MAIN = [(4, 4500, 8, 4, 256, True, 4096, 50.0, "float32"),
+             (4, 4500, 8, 4, 256, True, 0, 50.0, "float32")]
+ATTN_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (2e-2, 2e-2)}
+# queries at 64..95 against keys 0..63, window 16: rows >= 15 see no key
+ATTN_MASKED = dict(case=(1, 32, 4, 2, 64, True, 16, 0.0, "float32"), t=64,
+                   q_offset=64, first_masked=15)
+# tests/test_kernels.py:103-108: (B, L, H, P, N, chunk); then mamba2-780m's
+# shape (L = 4096 whole chunks, and the serving path's 4000, padded)
+SSD_CASES = [(2, 128, 4, 32, 16, 32), (1, 256, 8, 64, 128, 64),
+             (2, 96, 2, 32, 64, 32), (1, 64, 4, 128, 128, 64)]
+SSD_MAIN = (4, 4096, 48, 64, 128, 256)
+SSD_SERVE_L = 4000
+SSD_TOL = (1e-4, 1e-4)
+# with Mamba-2's dt and a, some head's chunk decay exp(cum_Q) must exceed
+# this, so the far tiles and the inter-chunk recurrence carry weight
+SSD_MIN_DECAY = 1e-4
+
 # float32 operations of the fused variation, counted from the source with
 # each powf as ONE operation (a lower bound): per gene pair always (mask
 # compares and selects), per gene pair where crossover applies, and per
@@ -346,6 +403,412 @@ def phase_times(pop, main_err, launches, device, card):
             "library_ms": None}
 
 
+# ---------------------------------------------------------------------------
+# LM serving path: flash attention and SSD kernels, prefill + decode
+# ---------------------------------------------------------------------------
+
+def attn_tensors(case, device, seed, t=None):
+    import torch
+    b, s, h, kv, hd = case[:5]
+    dtype = getattr(torch, case[8])
+    t = s if t is None else t
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd))]
+
+
+def attn_kwargs(case, q_offset=0):
+    hd, causal, window, cap = case[4:8]
+    return dict(scale=hd ** -0.5, causal=causal, window=window,
+                attn_softcap=cap, q_offset=q_offset)
+
+
+def check_flash(case, device, seed, t=None, q_offset=0):
+    import torch
+    from repro_torch.kernels.attention import ops as attn_ops
+    q, k, v = attn_tensors(case, device, seed, t)
+    kw = attn_kwargs(case, q_offset)
+    out = attn_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref = attn_ops.flash_attention_plain(q, k, v, **kw)
+    ok, err = close(out.float(), ref.float(), *ATTN_TOL[case[8]])
+    if not ok or out.dtype != q.dtype:
+        fail(f"flash attention kernel disagrees with its plain version at "
+             f"{case} q_offset={q_offset}: max abs err {err}")
+    return err, out
+
+
+def ssd_tensors(b, l, h, p, n, device, seed, mamba2=False):
+    """x, dt, a, B, C. By default drawn as tests/test_kernels.py draws them
+    (dt = softplus(z), a = -exp(0.3 z): ~-0.8 per step, so a 256-step
+    chunk decays to 0 in float32); with ``mamba2``, in the range of
+    Mamba-2's own initialisation (dt log-uniform in [1e-3, 1e-1],
+    a = -U(1, 16), one head per 1/H stratum of the range so the slowest
+    heads are always drawn), where the decay across a chunk and between
+    chunks stays above 0 on the heads of small |a|."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
+    x = rnd(b, l, h, p) * 0.5
+    if mamba2:
+        dt = torch.exp(uniform(math.log(1e-3), math.log(1e-1), b, l, h))
+        a = -(1.0 + 15.0 * (torch.arange(h, device=device)
+                            + uniform(0.0, 1.0, h)) / h)
+    else:
+        dt = torch.nn.functional.softplus(rnd(b, l, h))
+        a = -torch.exp(rnd(h) * 0.3)
+    return x, dt, a, rnd(b, l, n) * 0.3, rnd(b, l, n) * 0.3
+
+
+def check_ssd(case, device, seed, intra=True, mamba2=False):
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import (ssd_chunked_ref,
+                                             ssd_intra_chunk_plain)
+    b, l, h, p, n, q = case
+    args = ssd_tensors(b, l, h, p, n, device, seed, mamba2)
+    err = 0.0
+    if intra:
+        out = ssd_ops.ssd_intra_chunk(*args, chunk=q)
+        torch.cuda.synchronize()
+        ref = ssd_intra_chunk_plain(*args, chunk=q)
+        for name, a, r in zip(("y_diag", "states", "in_decay"), out, ref):
+            ok, e = close(a, r, *SSD_TOL)
+            if not ok:
+                fail(f"SSD kernel's {name} disagrees with its plain version "
+                     f"at {case}: max abs err {e}")
+            err = max(err, e)
+        if mamba2:
+            # the chunk's decay exp(cum_Q) carries the state between chunks
+            decay = float(out[2][..., -1].max())
+            if not decay > SSD_MIN_DECAY:
+                fail(f"SSD inputs at {case}: the largest chunk decay is "
+                     f"{decay}, not above {SSD_MIN_DECAY}")
+            say(f"check: SSD {case}, Mamba-2's range: largest chunk decay "
+                f"{decay:.4g}")
+    y, s = ssd_ops.ssd_chunked(*args, q)
+    y_ref, s_ref = ssd_chunked_ref(*args, q)
+    for name, a, r in (("y", y, y_ref), ("final state", s, s_ref)):
+        ok, e = close(a, r, *SSD_TOL)
+        if not ok:
+            fail(f"ssd_chunked's {name} disagrees with ssd_chunked_ref at "
+                 f"{case}: max abs err {e}")
+        err = max(err, e)
+    return err
+
+
+def phase_check_lm(device):
+    """Flash attention and SSD kernels against their plain versions."""
+    for i, case in enumerate(ATTN_CASES):
+        err, _ = check_flash(case, device, seed=i)
+        say(f"check: flash attention {case}: max abs err {err:.3g}")
+    m = ATTN_MASKED
+    err, out = check_flash(m["case"], device, seed=7, t=m["t"],
+                           q_offset=m["q_offset"])
+    if not bool((out[:, m["first_masked"]:] == 0).all()):
+        fail("flash attention: fully masked rows are not zero")
+    say(f"check: flash attention q_offset {m['q_offset']} (rows "
+        f">= {m['first_masked']} fully masked, zeros): max abs err {err:.3g}")
+    flash_err = 0.0
+    for i, case in enumerate(ATTN_MAIN):
+        err, _ = check_flash(case, device, seed=100 + i)
+        flash_err = max(flash_err, err)
+        say(f"check: flash attention main-path shape {case}: max abs err "
+            f"{err:.3g}")
+    for i, case in enumerate(SSD_CASES):
+        err = check_ssd(case, device, seed=i)
+        say(f"check: SSD {case}: max abs err {err:.3g}")
+    ssd_err = 0.0
+    padded = SSD_MAIN[:1] + (SSD_SERVE_L,) + SSD_MAIN[2:]
+    for mamba2 in (False, True):
+        draws = "Mamba-2's range" if mamba2 else "the tests' draws"
+        err = check_ssd(SSD_MAIN, device, seed=200, mamba2=mamba2)
+        ssd_err = max(ssd_err, err)
+        say(f"check: SSD main-path shape {SSD_MAIN}, {draws}: max abs err "
+            f"{err:.3g}")
+        err = check_ssd(padded, device, seed=201, intra=False, mamba2=mamba2)
+        say(f"check: ssd_chunked at the serving path's {padded} (padded to "
+            f"whole chunks), {draws}: max abs err {err:.3g}")
+    return flash_err, ssd_err
+
+
+def serve_args(arch, prompt):
+    return ["--arch", arch, "--no-reduced", "--device", "cuda",
+            "--batch", str(SERVE_BATCH), "--prompt-len", str(prompt),
+            "--gen", str(SERVE_GEN)]
+
+
+def phase_serve():
+    """The serving path at published widths, one run per model, with the
+    kernels' launch counts zeroed just before and read just after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import serve
+    launches = {}
+    for arch, prompt, expect in SERVE_RUNS:
+        attn_ops.launches = ssd_ops.launches = 0
+        stats = {}
+        t0 = time.perf_counter()
+        out = serve.main(serve_args(arch, prompt), stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"flash_attention": attn_ops.launches,
+               "ssd_chunk": ssd_ops.launches}
+        want = dict({"flash_attention": 0, "ssd_chunk": 0}, **expect)
+        say(f"main: serve {arch} --no-reduced batch {SERVE_BATCH} prompt "
+            f"{prompt} gen {SERVE_GEN}: {wall:.3f} s wall (set-up "
+            f"included), launches {got}")
+        if got != want:
+            fail(f"serve {arch}: kernel launches {got}, expected {want}")
+        if not stats.get("logits_finite"):
+            fail(f"serve {arch}: a logit is not finite")
+        vocab = get_config(arch).vocab_size
+        if tuple(out.shape) != (SERVE_BATCH, SERVE_GEN) or \
+                int(out.min()) < 0 or int(out.max()) >= vocab:
+            fail(f"serve {arch}: tokens of shape {tuple(out.shape)} in "
+                 f"[{int(out.min())}, {int(out.max())}]")
+        launches.update(expect)
+        torch.cuda.empty_cache()
+    return launches
+
+
+def flash_bound(case, mem_rate, f32_rate):
+    """(bound ms, bound_by, flops, bytes): float32 multiply-adds over the
+    visible (query, key) pairs (2 hd for Q K^T, 2 hd for P V, per query
+    head), and q, k, v, out each moved once."""
+    b, s, h, kv, hd, causal, window = case[:7]
+    pairs = 0
+    for pos in range(s):
+        vis = pos + 1 if causal else s
+        pairs += min(vis, window) if window else vis
+    flops = 4 * hd * b * h * pairs
+    nbytes = 4 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / f32_rate * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", flops, nbytes)
+
+
+def ssd_bound(case, mem_rate, f32_rate):
+    """(bound ms, bound_by, flops, bytes): the products the function needs,
+    over the Q(Q+1)/2 pairs i >= j of the causal form: C B^T once per
+    chunk (B and C are shared by the heads, n_groups = 1), Q(Q+1)P for
+    W X and 2QPN for the state per (chunk, head); inputs and outputs moved
+    once."""
+    b, l, h, p, n, q = case
+    nc = l // q
+    flops = b * nc * (q * (q + 1) * n + h * (q * (q + 1) * p + 2 * q * p * n))
+    nbytes = 4 * (b * l * h * p + b * l * h + h + 2 * b * l * n
+                  + b * l * h * p + b * nc * h * p * n + b * nc * h * q)
+    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / f32_rate * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", flops, nbytes)
+
+
+def phase_times_lm(device, card, launches, flash_err, ssd_err):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_plain
+    from repro_torch.launch import serve
+    mem_rate, f32_rate = next(
+        (v for k, v in PEAKS.items() if k in card), PEAKS["H100"])
+
+    rows = []
+    for i, case in enumerate(ATTN_MAIN):
+        q, k, v = attn_tensors(case, device, seed=300 + i)
+        kw = attn_kwargs(case)
+        ms = cuda_ms(lambda: attn_ops.flash_attention(q, k, v, **kw),
+                     repeats=5, inner=3)
+        plain = cuda_ms(lambda: attn_ops.flash_attention_plain(q, k, v, **kw),
+                        repeats=3, inner=1)
+        bound, by, flops, nbytes = flash_bound(case, mem_rate, f32_rate)
+        rows.append((ms, plain, bound, by))
+        say(f"times: flash attention {case}: kernel {ms:.4f} ms, plain "
+            f"version {plain:.4f} ms, bound {bound:.4f} ms ({by}: {flops} "
+            f"FLOP at {f32_rate:.3g}/s, {nbytes} bytes at {mem_rate:.3g} "
+            f"B/s), {bound / ms:.3f} of the bound")
+    # yardstick: one PyTorch call for the causal, uncapped, unwindowed case
+    q, k, v = (t.transpose(1, 2).contiguous()
+               for t in attn_tensors(ATTN_MAIN[1], device, seed=310))
+    hd = ATTN_MAIN[1][4]
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True, scale=hd ** -0.5),
+        repeats=5, inner=3)
+    say(f"times: scaled_dot_product_attention (is_causal, enable_gqa, "
+        f"softcap 0, window 0) at {ATTN_MAIN[1][:5]}: {sdpa_ms:.4f} ms")
+    del q, k, v
+
+    args = ssd_tensors(*SSD_MAIN[:5], device, seed=320, mamba2=True)
+    chunk = SSD_MAIN[5]
+    ssd_ms = cuda_ms(lambda: ssd_ops.ssd_intra_chunk(*args, chunk=chunk),
+                     repeats=5, inner=3)
+    ssd_plain = cuda_ms(lambda: ssd_intra_chunk_plain(*args, chunk=chunk),
+                        repeats=3, inner=1)
+    sbound, sby, sflops, sbytes = ssd_bound(SSD_MAIN, mem_rate, f32_rate)
+    say(f"times: SSD intra-chunk {SSD_MAIN}: kernel {ssd_ms:.4f} ms, plain "
+        f"version {ssd_plain:.4f} ms, bound {sbound:.4f} ms ({sby}: {sflops} "
+        f"FLOP at {f32_rate:.3g}/s, {sbytes} bytes at {mem_rate:.3g} B/s), "
+        f"{sbound / ssd_ms:.3f} of the bound")
+    del args
+
+    served = {}
+    for arch, prompt, _ in SERVE_RUNS:
+        stats = {}
+        serve.main(serve_args(arch, prompt), stats=stats)
+        torch.cuda.empty_cache()
+        tok_s = SERVE_BATCH * SERVE_GEN / stats["seconds"]
+        served[arch] = dict(stats, tokens_per_s=tok_s)
+        say(f"times: serve {arch} (second run): prefill "
+            f"{stats['prefill_ms']:.3f} ms, decode "
+            f"{stats['decode_ms_per_token']:.4f} ms/token, {tok_s:.2f} "
+            f"tokens/s over {stats['seconds']:.3f} s")
+    flash_ms = [r[0] for r in rows]
+    # gemma2-2b's prefill runs half its flash launches windowed, half global
+    share = {
+        "gemma2-2b flash": launches["flash_attention"] / 2 * sum(flash_ms)
+        / served["gemma2-2b"]["prefill_ms"],
+        "mamba2-780m ssd": launches["ssd_chunk"] * ssd_ms
+        / served["mamba2-780m"]["prefill_ms"]}
+    say("times: kernels' share of prefill (kernel ms x launches / prefill "
+        "ms): " + ", ".join(f"{k} {v:.4f}" for k, v in share.items()))
+    say("times: " + json.dumps({
+        "card": card, "serve": served, "prefill_share": share,
+        "flash_ms": {"window": flash_ms[0], "global": flash_ms[1]},
+        "sdpa_ms": sdpa_ms, "ssd_ms": ssd_ms}))
+
+    def mean(i):
+        return sum(r[i] for r in rows) / len(rows)
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/attention/flash.py:119",
+         "launches": launches["flash_attention"], "max_abs_err": flash_err,
+         "ms": mean(0), "plain_ms": mean(1), "bound_ms": mean(2),
+         "bound_by": rows[0][3], "library_ms": sdpa_ms},
+        {"name": "ssd_chunk", "route": "cuda",
+         "source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
+         "replaces": "src/repro/kernels/ssd/chunk_kernel.py:101",
+         "launches": launches["ssd_chunk"], "max_abs_err": ssd_err,
+         "ms": ssd_ms, "plain_ms": ssd_plain, "bound_ms": sbound,
+         "bound_by": sby, "library_ms": None},
+    ]
+
+
+def profiled(fn):
+    """Run ``fn`` once under torch.profiler (CPU and CUDA activity), then
+    synchronise. Returns (window ms from the first to the last traced
+    event, device busy ms = the union of the device's kernel, copy and
+    set intervals, {device event name: summed ms}); busy is None where the
+    trace holds no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events)) / 1e3
+    device = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in events if e.device_type == DeviceType.CUDA)
+    if not device:
+        return span, None, {}
+    busy, by_name = 0.0, {}
+    cur_start, cur_end = device[0][:2]
+    for start, end, name in device:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start = start
+        cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    return span, busy / 1e3, by_name
+
+
+def phase_trace(device, card):
+    """One prefill and TRACE_DECODE decode steps of each served model (the
+    serving path's steps, kernels on, published widths) under
+    torch.profiler, after a warm-up: the device's idle share over each
+    window and the port's kernels' share of it, read from the trace. Each
+    window's host time without the profiler is taken first, before any
+    window is traced."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models.model import Model
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step)
+    windows, keep = [], []
+    for arch, prompt, _ in SERVE_RUNS:
+        cfg = get_config(arch)
+        max_cache = prompt + SERVE_GEN + 64
+        model = Model(cfg, device=device, attn_impl="kernel",
+                      use_ssd_kernel=True, max_seq=max_cache)
+        model.init_params(torch.Generator(device=device).manual_seed(0))
+        data = SyntheticTokens(cfg, SERVE_BATCH, prompt, seed=0,
+                               mode="bigram")
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch(0).items()}
+        batch["tokens"] = batch["tokens"][:, :prompt]
+        prefill = make_prefill_step(model, max_cache)
+        decode = make_decode_step(model)
+        state = {}
+        keep.append((model, state))
+
+        def run_prefill(prefill=prefill, batch=batch, state=state):
+            state["tok"], _, state["cache"] = prefill(batch)
+
+        def run_decode(decode=decode, prompt=prompt, state=state):
+            tok, cache = state["tok"][:, None], state["cache"]
+            for i in range(TRACE_DECODE):
+                tok, _, cache = decode(cache, tok, prompt + i)
+        windows += [(f"{arch} prefill", run_prefill),
+                    (f"{arch} decode", run_decode)]
+
+    out = {}
+    for name, fn in windows:
+        fn()                                                # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[name] = {"host_ms": (time.perf_counter() - t0) * 1e3}
+    for name, fn in windows:
+        span, busy, by_name = profiled(fn)
+        ours = sum(v for k, v in by_name.items()
+                   if any(n in k for n in KERNEL_SYMBOLS))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        row = out[name]
+        row.update(traced_ms=span, device_busy_ms=busy,
+                   idle_share=None if busy is None else 1 - busy / span,
+                   kernels_ms=ours, kernels_share=ours / span,
+                   top_device_ms={k[:90]: v for k, v in top})
+        if busy is None:
+            say(f"trace: {name}: the profiler recorded no device activity; "
+                f"idle share not measured")
+            continue
+        steps = f" ({TRACE_DECODE} steps)" if name.endswith("decode") else ""
+        say(f"trace: {name}{steps}: host {row['host_ms']:.3f} ms "
+            f"unprofiled, {span:.3f} ms traced; device busy {busy:.3f} ms, "
+            f"idle share {row['idle_share']:.4f} of the traced window, "
+            f"{1 - busy / row['host_ms']:.4f} of the unprofiled one; port "
+            f"kernels {ours:.3f} ms = {row['kernels_share']:.4f} of the "
+            f"traced window")
+    del keep, windows
+    torch.cuda.empty_cache()
+    say("trace: " + json.dumps({"card": card, "windows": out}))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -374,13 +837,17 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry" in line:
                 say(f"build: {name}: {line.strip()}")
 
     main_err = phase_check(device)
+    flash_err, ssd_err = phase_check_lm(device)
     launches, pop = phase_main()
-    kernel = phase_times(pop, main_err, launches, device, card)
-    say(json.dumps({"kernels": [kernel]}))
+    lm_launches = phase_serve()
+    kernels = [phase_times(pop, main_err, launches, device, card)]
+    kernels += phase_times_lm(device, card, lm_launches, flash_err, ssd_err)
+    phase_trace(device, card)
+    say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,33 @@
-from repro_torch.configs.base import GAConfig
+"""Config registry: ``get_config(arch_id)`` / ``list_archs()``.
 
-__all__ = ["GAConfig"]
+Each architecture the port carries has its own module defining ``CONFIG``,
+a copy of the reference's module of the same name. Only the architectures
+whose families the port runs are registered so far.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import GAConfig, ModelConfig
+
+# arch-id -> module name
+_ARCH_MODULES = {
+    "gemma2-2b":            "gemma2_2b",
+    "mamba2-780m":          "mamba2_780m",
+    "tinyllama-1.1b":       "tinyllama_1_1b",
+}
+
+
+def list_archs() -> list[str]:
+    return sorted(_ARCH_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+    return mod.CONFIG
+
+
+__all__ = ["GAConfig", "ModelConfig", "get_config", "list_archs"]

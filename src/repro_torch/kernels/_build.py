@@ -26,13 +26,22 @@ BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 #: kernel name -> CUDA source
 SOURCES = {
     "fused_variation": KERNELS_DIR / "genetic" / "csrc" / "fused_variation.cu",
+    "flash_attention": KERNELS_DIR / "attention" / "csrc" / "flash_attention.cu",
+    "ssd_chunk": KERNELS_DIR / "ssd" / "csrc" / "ssd_chunk.cu",
 }
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-# -fmad=false: no contraction of a*b+c, so every operation rounds as the
-# plain float32 version's does; -Xptxas -v: registers and spills per kernel
-NVCC_FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# -Xptxas -v: registers and spills per kernel
+NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+#: flags of one source beyond NVCC_FLAGS (each source's header says why).
+#: -fmad=false: no contraction of a*b+c, so every operation of the fused
+#: variation rounds as the plain float32 version's does (an exact match)
+EXTRA_FLAGS = {"fused_variation": ("-fmad=false",)}
+
+
+def flags(name: str) -> tuple:
+    return ARCH_FLAGS + NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 _loaded: dict = {}
 
@@ -51,7 +60,7 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = SOURCES[name]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()
+        src.read_bytes() + " ".join(flags(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -70,7 +79,7 @@ def build(names=None) -> dict:
     procs = {}
     for name, out in todo.items():
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc, *flags(name), "-o", str(tmp),
                str(SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

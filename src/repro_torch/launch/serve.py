@@ -1,0 +1,106 @@
+"""Serving entry point: batched prefill + decode with a KV / SSM cache
+(port of ``repro/launch/serve.py``).
+
+Runs on the GPU unless ``--device cpu`` is given; without a GPU and
+without ``--device cpu`` it fails. Parameters are random, drawn on the
+device from a seeded ``torch.Generator``: nothing is downloaded. By
+default the port runs its kernels: ``--attn-impl kernel`` (the flash
+attention kernel) and ``--ssd-kernel`` (the SSD intra-chunk kernel); on
+the CPU those are their plain versions. ``--no-reduced`` runs the
+architecture at its published widths (the reference's ``--reduced`` flag
+cannot be turned off).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+      --no-reduced --batch 4 --prompt-len 4500 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+      --reduced --batch 4 --prompt-len 32 --gen 16 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config, list_archs
+from repro_torch.core.device import resolve_device
+from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.models.attention import IMPLS
+from repro_torch.models.model import Model
+from repro_torch.train.serve_step import generate
+
+
+def serve(arch: str = "gemma2-2b", *, reduced: bool = True, batch: int = 4,
+          prompt_len: int = 32, gen: int = 16, temperature: float = 0.0,
+          seed: int = 0, device="cuda", attn_impl: str = "kernel",
+          use_ssd_kernel: bool = True, log_fn=print, stats=None):
+    """Generate ``gen`` tokens for a (batch, prompt_len) synthetic prompt.
+    Returns the (batch, gen) tokens. ``stats``, where given, receives the
+    wall seconds, ``logits_finite`` and, on the GPU, ``prefill_ms`` and
+    ``decode_ms_per_token`` (CUDA events)."""
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    max_cache = prompt_len + gen + 64
+    model = Model(cfg, device=dev, attn_impl=attn_impl,
+                  use_ssd_kernel=use_ssd_kernel, max_seq=max_cache)
+    model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    data = SyntheticTokens(cfg, batch, prompt_len, seed=seed, mode="bigram")
+    b = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+    b["tokens"] = b["tokens"][:, :prompt_len]
+    timings = {}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.monotonic()
+    out = generate(model, b, steps=gen, max_cache_len=max_cache,
+                   temperature=temperature,
+                   generator=torch.Generator(device=dev).manual_seed(seed),
+                   timings=timings)
+    out = out.cpu()
+    dt = time.monotonic() - t0
+    log_fn(f"generated {tuple(out.shape)} tokens in {dt:.2f}s "
+           f"({batch * gen / dt:.1f} tok/s)")
+    if "prefill_ms" in timings:
+        log_fn(f"prefill {timings['prefill_ms']:.3f} ms, decode "
+               f"{timings['decode_ms_per_token']:.3f} ms/token "
+               f"(CUDA events, {torch.cuda.get_device_name(dev)})")
+    if stats is not None:
+        stats.update(timings, seconds=dt)
+    return out
+
+
+def main(argv=None, stats=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="gemma2-2b", choices=list_archs())
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="the reduced smoke-test config (default) or, with "
+                         "--no-reduced, the published widths")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="run on the GPU (default; fails without one) or "
+                         "the CPU")
+    ap.add_argument("--attn-impl", default="kernel", choices=IMPLS,
+                    help="attention for full sequences: the flash kernel "
+                         "(default), or the dense / blocked / auto plain "
+                         "versions")
+    ap.add_argument("--ssd-kernel", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="the SSD intra-chunk kernel (default) or the plain "
+                         "chunked scan")
+    args = ap.parse_args(argv)
+    return serve(args.arch, reduced=args.reduced, batch=args.batch,
+                 prompt_len=args.prompt_len, gen=args.gen,
+                 temperature=args.temperature, seed=args.seed,
+                 device=args.device, attn_impl=args.attn_impl,
+                 use_ssd_kernel=args.ssd_kernel, stats=stats)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,422 @@
+"""Model assembly for the dense and SSM families (port of
+``repro/models/model.py``).
+
+One :class:`Model` (an ``nn.Module``) covers the families ported so far
+through ``ModelConfig`` dispatch: dense llama/gemma-like stacks (attention
++ dense FFN) and pure Mamba-2 (SSD mixer, no FFN). The reference groups
+layers into ``scan_period``-sized periods with stacked parameters under
+``lax.scan``; here every layer is its own module and the stack is a Python
+loop. The period still decides each layer's kinds: layer ``i`` is
+sub-layer ``s = i % scan_period`` of period ``i // scan_period``, and
+``cfg.is_local_layer(s)`` picks gemma2's sliding-window layers, as in the
+reference.
+
+Modes:
+  * ``forward``  — logits over the full sequence (teacher forcing)
+  * ``prefill``  — last-token logits + populated decode cache
+  * ``decode_step`` — one token against the cache (updated in place)
+
+The cache mirrors the reference's tree, with the period axis as a list:
+``cache["sub{s}"][period]`` is one layer's ``{"attn": {k, v, cache_pos}}``
+or ``{"ssm": {conv, state}}``. ``models.convert.cache_to_numpy`` stacks it
+back into the reference's layout.
+
+The MoE, hybrid, VLM and audio families are not ported yet and raise at
+construction.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.models import ssm as SSM
+from repro_torch.models.attention import IMPLS, attend
+from repro_torch.models.layers import (apply_norm, apply_rope,
+                                       decode_attention, dense_init_, ffn,
+                                       rope_tables, softcap)
+
+NOT_PORTED_FAMILIES = ("moe", "hybrid", "vlm", "audio")
+
+
+def _param(shape, dtype, device, fill=None) -> nn.Parameter:
+    t = torch.empty(shape, dtype=dtype, device=device)
+    if fill is not None:
+        t.fill_(fill)
+    return nn.Parameter(t, requires_grad=False)
+
+
+class _Weights(nn.Module):
+    """A module whose own parameters carry the reference's leaf names."""
+
+    def weights(self, dtype) -> dict:
+        """Own parameters by name, cast to the compute dtype (as the
+        reference's ``_cast``; a no-op where the dtypes agree)."""
+        return {k: v.to(dtype) for k, v in self.named_parameters(
+            recurse=False)}
+
+
+class Norm(_Weights):
+    def __init__(self, cfg: ModelConfig, d: int, device):
+        super().__init__()
+        self.cfg = cfg
+        self.scale = _param((d,), torch.float32, device, 1.0)
+        if cfg.norm_type == "layernorm":
+            self.bias = _param((d,), torch.float32, device, 0.0)
+
+    def forward(self, x):
+        return apply_norm(self.cfg, self.weights(torch.float32), x)
+
+
+class Attention(_Weights):
+    """Self-attention sub-layer: pre-norm, q/k/v/o projections, RoPE,
+    ``attend`` for full sequences and ``decode_attention`` on the cache."""
+
+    def __init__(self, cfg: ModelConfig, local: bool, dtype, device,
+                 attn_impl: str):
+        super().__init__()
+        self.cfg, self.local, self.attn_impl = cfg, local, attn_impl
+        d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        self.ln = Norm(cfg, d, device)
+        self.q = _param((d, h * hd), dtype, device)
+        self.k = _param((d, kv * hd), dtype, device)
+        self.v = _param((d, kv * hd), dtype, device)
+        self.o = _param((h * hd, d), dtype, device)
+        self.post_ln = Norm(cfg, d, device) if cfg.post_norm else None
+
+    def reset_parameters(self, gen):
+        d, hhd = self.cfg.d_model, self.cfg.num_heads * self.cfg.head_dim
+        for w, fan_in in ((self.q, d), (self.k, d), (self.v, d),
+                          (self.o, hhd)):
+            dense_init_(w, fan_in, gen)
+
+    def forward(self, h, *, sincos, mode, cache, pos, max_cache_len, cd):
+        cfg = self.cfg
+        b, s, _ = h.shape
+        nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        w = self.weights(cd)
+        x = self.ln(h)
+        q = (x @ w["q"]).reshape(b, s, nh, hd)
+        k = (x @ w["k"]).reshape(b, s, kvh, hd)
+        v = (x @ w["v"]).reshape(b, s, kvh, hd)
+        if sincos is not None:
+            sin, cos = sincos
+            q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+        scale = (cfg.query_pre_attn_scalar or hd) ** -0.5
+        window = cfg.sliding_window if self.local else 0
+        new_cache = {}
+        if mode == "decode":
+            tc = cache["k"].shape[1]
+            slot = pos % tc
+            cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+            cache["cache_pos"][slot] = pos
+            out = decode_attention(q, cache["k"], cache["v"], kv_len=0,
+                                   cache_pos=cache["cache_pos"], scale=scale,
+                                   attn_softcap=cfg.attn_softcap)
+            new_cache = cache
+        else:
+            out = attend(q, k, v, scale=scale, causal=True, window=window,
+                         attn_softcap=cfg.attn_softcap, impl=self.attn_impl)
+            if mode == "prefill":
+                tc = (min(window, max_cache_len) if (self.local and window)
+                      else max_cache_len)
+                new_cache = _build_prefill_cache(k, v, tc)
+        return out.reshape(b, s, nh * hd) @ w["o"], new_cache
+
+
+class FFN(_Weights):
+    """Dense gated FFN sub-layer (SwiGLU / GeGLU)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        d, f = cfg.d_model, cfg.d_ff
+        self.ln = Norm(cfg, d, device)
+        self.wi = _param((d, f), dtype, device)
+        self.wg = _param((d, f), dtype, device)
+        self.wo = _param((f, d), dtype, device)
+        self.post_ln = Norm(cfg, d, device) if cfg.post_norm else None
+
+    def reset_parameters(self, gen):
+        d, f = self.cfg.d_model, self.cfg.d_ff
+        for w, fan_in in ((self.wi, d), (self.wg, d), (self.wo, f)):
+            dense_init_(w, fan_in, gen)
+
+    def forward(self, h, cd):
+        return ffn(self.cfg, self.weights(cd), self.ln(h))
+
+
+class Mamba2(_Weights):
+    """Mamba-2 mixer sub-layer (``models.ssm``)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, use_kernel: bool):
+        super().__init__()
+        self.cfg, self.use_kernel = cfg, use_kernel
+        d, d_in, n, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        conv_ch = d_in + 2 * n
+        self.ln = Norm(cfg, d, device)
+        self.in_proj = _param((d, 2 * d_in + 2 * n + nh), dtype, device)
+        self.conv = _param((cfg.ssm_conv_width, conv_ch), dtype, device)
+        self.conv_bias = _param((conv_ch,), dtype, device, 0.0)
+        self.A_log = _param((nh,), torch.float32, device)
+        self.D = _param((nh,), torch.float32, device, 1.0)
+        self.dt_bias = _param((nh,), torch.float32, device)
+        self.norm_scale = _param((d_in,), torch.float32, device, 1.0)
+        self.out_proj = _param((d_in, d), dtype, device)
+
+    def reset_parameters(self, gen):
+        cfg = self.cfg
+        dense_init_(self.in_proj, cfg.d_model, gen)
+        dense_init_(self.conv, cfg.ssm_conv_width, gen)
+        dense_init_(self.out_proj, cfg.d_inner, gen)
+        with torch.no_grad():
+            self.conv_bias.zero_()
+            self.D.fill_(1.0)
+            self.norm_scale.fill_(1.0)
+            # A = -exp(A_log) with A_log = log U(1, 16) (mamba2)
+            self.A_log.uniform_(1.0, 16.0, generator=gen).log_()
+            # dt bias so that softplus(dt_bias) spans [1e-3, 1e-1] (mamba2)
+            self.dt_bias.uniform_(math.log(1e-3), math.log(1e-1),
+                                  generator=gen)
+            self.dt_bias.copy_(torch.log(torch.expm1(torch.exp(
+                self.dt_bias))))
+
+    def forward(self, h, *, mode, cache, cd):
+        x = self.ln(h)
+        w = self.weights(cd)
+        if mode == "decode":
+            return SSM.mamba2_decode(self.cfg, w, x, cache)
+        if mode == "prefill":
+            return SSM.mamba2_forward(self.cfg, w, x, return_cache=True,
+                                      use_kernel=self.use_kernel)
+        return SSM.mamba2_forward(self.cfg, w, x,
+                                  use_kernel=self.use_kernel), {}
+
+
+class Block(nn.Module):
+    """One layer: a mixer (attention or Mamba-2) and, where the config has
+    one, a dense FFN, each with its residual (and gemma2's post-norms)."""
+
+    def __init__(self, cfg: ModelConfig, sub: int, dtype, device,
+                 attn_impl: str, use_ssd_kernel: bool):
+        super().__init__()
+        self.cfg = cfg
+        mix, f = cfg.mixer_kind(sub), cfg.ffn_kind(sub)
+        self.attn = (Attention(cfg, cfg.is_local_layer(sub), dtype, device,
+                               attn_impl) if mix == "attn" else None)
+        self.ssm = (Mamba2(cfg, dtype, device, use_ssd_kernel)
+                    if mix == "ssm" else None)
+        self.ffn = FFN(cfg, dtype, device) if f == "dense" else None
+
+    def _residual(self, h, out, post_ln):
+        if post_ln is not None:
+            out = post_ln(out)
+        return h + self.cfg.residual_scale * out
+
+    def forward(self, h, *, sincos, mode, cache, pos, max_cache_len, cd):
+        nc = {}
+        if self.attn is not None:
+            out, c = self.attn(h, sincos=sincos, mode=mode,
+                               cache=cache["attn"] if cache else None,
+                               pos=pos, max_cache_len=max_cache_len, cd=cd)
+            h = self._residual(h, out, self.attn.post_ln)
+            if c:
+                nc["attn"] = c
+        else:
+            out, c = self.ssm(h, mode=mode,
+                              cache=cache["ssm"] if cache else None, cd=cd)
+            h = self._residual(h, out, None)
+            if c:
+                if cache:
+                    cache["ssm"].update(c)      # decode: in place
+                    c = cache["ssm"]
+                nc["ssm"] = c
+        if self.ffn is not None:
+            h = self._residual(h, self.ffn(h, cd), self.ffn.post_ln)
+        return h, nc
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig | str, *, device="cuda",
+                 compute_dtype: str = "float32", attn_impl: str = "auto",
+                 use_ssd_kernel: bool = False, max_seq: int = 4096):
+        super().__init__()
+        self.cfg = cfg = get_config(cfg) if isinstance(cfg, str) else cfg
+        if (cfg.family in NOT_PORTED_FAMILIES or cfg.num_experts
+                or cfg.attn_every or cfg.is_encoder_decoder
+                or cfg.frontend != "none" or cfg.pos_embedding == "learned"):
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family is not yet ported to "
+                f"repro_torch (ported: dense, ssm)")
+        if attn_impl not in IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r}; use one of "
+                             f"{IMPLS}")
+        self.device = resolve_device(device)
+        self.compute_dtype = getattr(torch, compute_dtype)
+        self.param_dtype = getattr(torch, cfg.param_dtype)
+        self.attn_impl = attn_impl
+        self.use_ssd_kernel = use_ssd_kernel
+        self.max_seq = max_seq
+        dt, dev, d = self.param_dtype, self.device, cfg.d_model
+        self.embed = nn.ParameterDict(
+            {"tokens": _param((cfg.padded_vocab, d), dt, dev)})
+        self.layers = nn.ModuleList(
+            Block(cfg, i % cfg.scan_period, dt, dev, attn_impl,
+                  use_ssd_kernel) for i in range(cfg.num_layers))
+        self.final_norm = Norm(cfg, d, dev)
+        self.unembed = (None if cfg.tie_embeddings
+                        else _param((d, cfg.padded_vocab), dt, dev))
+
+    # ------------------------------------------------------------------
+    # Parameter init
+    # ------------------------------------------------------------------
+    def init_params(self, generator: torch.Generator) -> "Model":
+        """Random parameters from ``generator`` (on the model's device), in
+        place: truncated-normal fan-in projections, ones for norms, the
+        Mamba-2 A_log / dt_bias distributions. Returns the model."""
+        d = self.cfg.d_model
+        dense_init_(self.embed["tokens"], d, generator)
+        for layer in self.layers:
+            for sub in (layer.attn, layer.ssm, layer.ffn):
+                if sub is not None:
+                    sub.reset_parameters(generator)
+        if self.unembed is not None:
+            dense_init_(self.unembed, d, generator)
+        return self
+
+    # ------------------------------------------------------------------
+    # Stack
+    # ------------------------------------------------------------------
+    def _run_stack(self, h, *, sincos, mode, cache, pos, max_cache_len):
+        period = self.cfg.scan_period
+        new_cache = {f"sub{s}": [] for s in range(period)}
+        for i, layer in enumerate(self.layers):
+            s, per = i % period, i // period
+            lc = cache[f"sub{s}"][per] if mode == "decode" else None
+            h, nc = layer(h, sincos=sincos, mode=mode, cache=lc, pos=pos,
+                          max_cache_len=max_cache_len, cd=self.compute_dtype)
+            new_cache[f"sub{s}"].append(nc)
+        return h, (new_cache if mode == "prefill" else cache)
+
+    # ------------------------------------------------------------------
+    # Public API
+    # ------------------------------------------------------------------
+    def _embed(self, tokens):
+        emb = self.embed["tokens"].to(self.compute_dtype)
+        h = emb[tokens.to(self.device).long()]
+        if self.cfg.embed_scale != 1.0:
+            h = h * self.cfg.embed_scale
+        return h
+
+    def _pos_tables(self, s: int, start: int = 0, positions=None):
+        cfg = self.cfg
+        if cfg.pos_embedding != "rope" or not cfg.num_heads:
+            return None
+        if positions is None:
+            positions = start + torch.arange(s, device=self.device)
+        return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+    def _logits(self, h, last_only: bool = False):
+        cfg = self.cfg
+        if last_only:
+            h = h[:, -1:]
+        h = self.final_norm(h)
+        if cfg.tie_embeddings:
+            logits = h @ self.embed["tokens"].to(self.compute_dtype).t()
+        else:
+            logits = h @ self.unembed.to(self.compute_dtype)
+        return softcap(logits.float(), cfg.final_softcap)
+
+    def forward(self, batch):
+        """Full-sequence logits. Returns (logits_f32 (B, S, padded_vocab),
+        aux): aux is 0, the MoE load-balance loss of the families not
+        ported yet."""
+        h = self._embed(batch["tokens"])
+        sincos = self._pos_tables(h.shape[1])
+        h, _ = self._run_stack(h, sincos=sincos, mode="fwd", cache=None,
+                               pos=None, max_cache_len=0)
+        return self._logits(h), torch.zeros((), device=self.device)
+
+    def prefill(self, batch, max_cache_len: int):
+        """Populate the decode cache; returns (last_logits (B, 1, V),
+        cache)."""
+        h = self._embed(batch["tokens"])
+        sincos = self._pos_tables(h.shape[1])
+        h, cache = self._run_stack(h, sincos=sincos, mode="prefill",
+                                   cache=None, pos=None,
+                                   max_cache_len=max_cache_len)
+        return self._logits(h, last_only=True), cache
+
+    def decode_step(self, cache, tokens, pos: int):
+        """One decode step. tokens: (B, 1); pos: int, the next index.
+        Returns (logits (B, 1, V), cache); the cache is updated in place."""
+        h = self._embed(tokens)
+        sincos = self._pos_tables(
+            1, positions=torch.tensor([int(pos)], device=self.device))
+        h, cache = self._run_stack(h, sincos=sincos, mode="decode",
+                                   cache=cache, pos=int(pos),
+                                   max_cache_len=0)
+        return self._logits(h), cache
+
+    # ------------------------------------------------------------------
+    # Cache init (for decode-only entry)
+    # ------------------------------------------------------------------
+    def init_cache(self, batch_size: int, max_cache_len: int, dtype=None):
+        cfg = self.cfg
+        dtype = dtype or self.compute_dtype
+        kvh, hd, dev = cfg.num_kv_heads, cfg.head_dim, self.device
+        cache = {f"sub{s}": [] for s in range(cfg.scan_period)}
+        for i in range(cfg.num_layers):
+            s = i % cfg.scan_period
+            if cfg.mixer_kind(s) == "attn":
+                tc = (min(cfg.sliding_window, max_cache_len)
+                      if cfg.is_local_layer(s) and cfg.sliding_window
+                      else max_cache_len)
+                layer = {"attn": {
+                    "k": torch.zeros((batch_size, tc, kvh, hd), dtype=dtype,
+                                     device=dev),
+                    "v": torch.zeros((batch_size, tc, kvh, hd), dtype=dtype,
+                                     device=dev),
+                    "cache_pos": torch.full((tc,), -1, dtype=torch.int32,
+                                            device=dev)}}
+            else:
+                layer = {"ssm": SSM.mamba2_init_cache(cfg, batch_size, dtype,
+                                                      dev)}
+            cache[f"sub{s}"].append(layer)
+        return cache
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+def _build_prefill_cache(k: torch.Tensor, v: torch.Tensor, tc: int) -> dict:
+    """Pack computed K/V (B, S, KV, hd) into a ring cache of length tc."""
+    s = k.shape[1]
+    dev = k.device
+    if s <= tc:
+        kc = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, tc - s))
+        vc = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, tc - s))
+        idx = torch.arange(tc, device=dev)
+        cp = torch.where(idx < s, idx, -1)
+    else:
+        # keep the last tc entries, laid out at slot = abs_pos % tc
+        shift = s % tc
+        kc = torch.roll(k[:, s - tc:], shift, dims=1)
+        vc = torch.roll(v[:, s - tc:], shift, dims=1)
+        cp = torch.roll(torch.arange(s - tc, s, device=dev), shift)
+    return {"k": kc, "v": vc, "cache_pos": cp.to(torch.int32)}
+
+
+def build_model(arch: str | ModelConfig, **kw) -> Model:
+    return Model(arch, **kw)
+
+
+def init_params(model: Model, generator: torch.Generator) -> Model:
+    return model.init_params(generator)

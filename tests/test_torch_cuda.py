@@ -1,5 +1,7 @@
-"""Tests that need an NVIDIA GPU: the CUDA kernel against its plain
-version, the wrapper's refusals, and the port's main path on the card.
+"""Tests that need an NVIDIA GPU: each CUDA kernel against its plain
+version, the wrappers' refusals, and the port's paths on the card (the GA
+main path; prefill with the kernels against prefill with their plain
+versions; the serving entry point).
 They skip without a card. This file imports no JAX, so it runs on a
 machine that has PyTorch for CUDA and no JAX:
 
@@ -15,9 +17,19 @@ from repro_torch.core.broker import Broker
 from repro_torch.core.population import init_population
 from repro_torch.core.uniforms import ArrayUniforms
 from repro_torch.fitness import rastrigin
+from repro_torch.configs import get_config
+from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.genetic import ops
-from repro_torch.launch import ga_run
-from torch_parity import TOL, cuda_device, kernel_args, to_np  # noqa: F401
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+from repro_torch.launch import ga_run, serve
+from repro_torch.models.convert import cache_to_numpy
+from repro_torch.models.model import Model
+from torch_parity import (ATTN_BF16_TOL, ATTN_CASES, ATTN_TOL,  # noqa: F401
+                          MASKED_CASE, MODEL_TOL, SSD_CASES,
+                          SSD_CHUNK256_CASES, SSD_MIN_DECAY, SSD_TOL, TOL,
+                          attn_inputs, cuda_device, kernel_args,
+                          ssd_inputs, to_np)
 
 pytestmark = pytest.mark.cuda
 
@@ -89,3 +101,162 @@ def test_ga_run_on_card_launches_the_kernel(cuda_device, capsys):
     assert torch.equal(pop.genomes, pop2.genomes)
     assert hist[-1]["best"] <= hist[0]["best"]
     assert "best fitness:" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def _attn(shape_args, dtype, device, seed=0, t=None):
+    return [torch.from_numpy(a).to(device=device, dtype=getattr(torch, dtype))
+            for a in attn_inputs(*shape_args, seed=seed, t=t)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,win,cap,dtype", ATTN_CASES)
+def test_flash_kernel_matches_plain_version(cuda_device, b, s, h, kv, hd,
+                                            causal, win, cap, dtype):
+    q, k, v = _attn((b, s, h, kv, hd), dtype, cuda_device, seed=s)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=win, attn_softcap=cap)
+    before = attn_ops.launches
+    out = attn_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert attn_ops.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    plain = attn_ops.flash_attention_plain(q, k, v, **kw)
+    tol = ATTN_BF16_TOL if dtype == "bfloat16" else ATTN_TOL
+    np.testing.assert_allclose(to_np(out.float()), to_np(plain.float()),
+                               **tol)
+
+
+def test_flash_kernel_fully_masked_rows(cuda_device):
+    c = MASKED_CASE
+    q, k, v = _attn((c["b"], c["sq"], c["h"], c["kv"], c["hd"]), "float32",
+                    cuda_device, seed=5, t=c["t"])
+    kw = dict(scale=c["hd"] ** -0.5, causal=True, window=c["window"],
+              q_offset=c["q_offset"])
+    out = to_np(attn_ops.flash_attention(q, k, v, **kw))
+    np.testing.assert_allclose(
+        out, to_np(attn_ops.flash_attention_plain(q, k, v, **kw)), **ATTN_TOL)
+    first_masked = c["t"] + c["window"] - 1 - c["q_offset"]
+    assert np.all(out[:, first_masked:] == 0.0)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    q, k, v = _attn((1, 32, 4, 2, 64), "float32", cuda_device)
+    kw = dict(scale=0.125)
+    before = attn_ops.launches
+    with pytest.raises(ValueError, match="float32 or"):
+        attn_ops.flash_attention(q.half(), k.half(), v.half(), **kw)
+    with pytest.raises(ValueError, match="float32 or"):
+        attn_ops.flash_attention(q, k.bfloat16(), v, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        attn_ops.flash_attention(q.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), k, v, **kw)
+    with pytest.raises(ValueError, match="head dim"):
+        attn_ops.flash_attention(q[..., :48].contiguous(),
+                                 k[..., :48].contiguous(),
+                                 v[..., :48].contiguous(), **kw)
+    with pytest.raises(ValueError, match="match"):
+        attn_ops.flash_attention(q[:, :, :3].contiguous(), k, v, **kw)
+    with pytest.raises(RuntimeError, match="forward only"):
+        attn_ops.flash_attention(q.requires_grad_(), k, v, **kw)
+    assert attn_ops.launches == before
+
+
+# ---------------------------------------------------------------------------
+# SSD
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize(
+    "b,l,h,p,n,q,mamba2",
+    [c + (False,) for c in SSD_CASES + [(2, 100, 4, 32, 16, 32)]]
+    + [c + (True,) for c in SSD_CHUNK256_CASES])
+def test_ssd_kernel_matches_plain_version(cuda_device, b, l, h, p, n, q,
+                                          mamba2):
+    """At the reference's cases, and at chunk 256 (four 64-row tiles,
+    three chunks) with dt and a in Mamba-2's range, where the far tiles,
+    the state loop and the recurrence between chunks carry weight."""
+    arrs = [torch.from_numpy(a).to(cuda_device)
+            for a in ssd_inputs(b, l, h, p, n, seed=l + n, mamba2=mamba2)]
+    before = ssd_ops.launches
+    y, s = ssd_ops.ssd_chunked(*arrs, q)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    y_ref, s_ref = ssd_chunked_ref(*arrs, q)
+    np.testing.assert_allclose(to_np(y), to_np(y_ref), **SSD_TOL)
+    np.testing.assert_allclose(to_np(s), to_np(s_ref), **SSD_TOL)
+    if l % q == 0:
+        from repro_torch.kernels.ssd.ref import ssd_intra_chunk_plain
+        out = ssd_ops.ssd_intra_chunk(*arrs, chunk=q)
+        plain = ssd_intra_chunk_plain(*arrs, chunk=q)
+        for got, want in zip(out, plain):
+            np.testing.assert_allclose(to_np(got), to_np(want), **SSD_TOL)
+        if mamba2:
+            assert float(out[2][..., -1].max()) > SSD_MIN_DECAY
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x, dt, a, bm, cm = [torch.from_numpy(t).to(cuda_device)
+                        for t in ssd_inputs(1, 64, 2, 32, 16)]
+    before = ssd_ops.launches
+    with pytest.raises(ValueError, match="float32"):
+        ssd_ops.ssd_intra_chunk(x.double(), dt, a, bm, cm, chunk=32)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_ops.ssd_intra_chunk(x, dt, a.cpu(), bm, cm, chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd_intra_chunk(x, dt, a, bm.mT.contiguous().mT, cm,
+                                chunk=32)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_ops.ssd_intra_chunk(x, dt[:, :32], a, bm, cm, chunk=32)
+    with pytest.raises(ValueError, match="multiple"):
+        ssd_ops.ssd_intra_chunk(x, dt, a, bm, cm, chunk=48)
+    with pytest.raises(ValueError, match="P in"):
+        ssd_ops.ssd_intra_chunk(x[..., :8].contiguous(), dt, a, bm, cm,
+                                chunk=32)
+    assert ssd_ops.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the model and the serving entry point on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-780m"])
+def test_prefill_with_kernels_matches_plain_versions(cuda_device, arch):
+    cfg = get_config(arch).reduced()
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(0))
+    outs = []
+    for impl, ssd_kernel in (("kernel", True), ("blocked", False)):
+        m = Model(cfg, device=cuda_device, attn_impl=impl,
+                  use_ssd_kernel=ssd_kernel, max_seq=96)
+        m.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+        launches = (attn_ops.launches, ssd_ops.launches)
+        with torch.inference_mode():
+            last, cache = m.prefill({"tokens": toks.to(cuda_device)}, 64)
+        torch.cuda.synchronize()
+        grew = (attn_ops.launches - launches[0],
+                ssd_ops.launches - launches[1])
+        outs.append((last, cache_to_numpy(cache), grew))
+    (kl, kc, kgrew), (pl, pc, pgrew) = outs
+    n = cfg.num_layers
+    assert kgrew == ((n, 0) if arch == "gemma2-2b" else (0, n))
+    assert pgrew == (0, 0)
+    np.testing.assert_allclose(to_np(kl), to_np(pl), **MODEL_TOL)
+    for sub in kc:
+        for kind in kc[sub]:
+            for leaf in kc[sub][kind]:
+                np.testing.assert_allclose(kc[sub][kind][leaf],
+                                           pc[sub][kind][leaf], **MODEL_TOL)
+
+
+def test_serve_on_card_launches_the_kernels(cuda_device):
+    for arch in ("gemma2-2b", "mamba2-780m"):
+        n = get_config(arch).reduced().num_layers        # one per layer
+        expect = (n, 0) if arch == "gemma2-2b" else (0, n)
+        attn_ops.launches = ssd_ops.launches = 0
+        stats = {}
+        out = serve.serve(arch, batch=2, prompt_len=40, gen=4,
+                          log_fn=lambda s: None, stats=stats)
+        assert (attn_ops.launches, ssd_ops.launches) == expect
+        assert out.shape == (2, 4)
+        assert stats["prefill_ms"] > 0 and stats["decode_ms_per_token"] > 0

@@ -15,6 +15,44 @@ import torch
 # tolerances of tests/test_kernels.py (genetic kernel, lines 30-31, 44-45)
 TOL = dict(rtol=1e-5, atol=1e-6)
 SWEEP_TOL = dict(rtol=1e-4, atol=1e-5)
+# flash attention (tests/test_kernels.py:75): float32 3e-5, bfloat16 2e-2
+ATTN_TOL = dict(rtol=3e-5, atol=3e-5)
+ATTN_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# SSD chunked scan (tests/test_kernels.py:122-125)
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)
+# whole model (tests/test_models_smoke.py:74-99): logits and caches 2e-4,
+# decode past the window through the ring cache 3e-4
+MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
+RING_TOL = dict(rtol=3e-4, atol=3e-4)
+
+# tests/test_kernels.py:53-61, dtype by name:
+# (B, S, H, KV, hd, causal, window, softcap, dtype)
+ATTN_CASES = [
+    (2, 256, 8, 4, 64, True, 0, 0.0, "float32"),
+    (1, 200, 4, 4, 32, True, 50, 0.0, "float32"),
+    (2, 128, 8, 2, 64, False, 0, 30.0, "float32"),
+    (1, 384, 6, 2, 128, True, 100, 50.0, "float32"),
+    (1, 256, 8, 8, 64, True, 0, 0.0, "bfloat16"),
+    (1, 160, 4, 1, 256, True, 0, 0.0, "float32"),   # MQA, gemma head_dim
+]
+# a q_offset that leaves rows fully masked: queries at 64..95 against keys
+# 0..63 with window 16, so every query at position >= 79 sees no key
+MASKED_CASE = dict(b=1, sq=32, t=64, h=4, kv=2, hd=64, window=16,
+                   q_offset=64)
+
+# tests/test_kernels.py:103-108: (B, L, H, P, N, chunk)
+SSD_CASES = [
+    (2, 128, 4, 32, 16, 32),
+    (1, 256, 8, 64, 128, 64),
+    (2, 96, 2, 32, 64, 32),
+    (1, 64, 4, 128, 128, 64),
+]
+# mamba2-780m's chunk 256 over three chunks (whole, and padded), with
+# ssd_inputs(mamba2=True): the far 64-row tiles of a chunk and the
+# recurrence between chunks carry weight there. The largest chunk decay
+# exp(cum_Q) must exceed SSD_MIN_DECAY.
+SSD_CHUNK256_CASES = [(1, 768, 48, 64, 128, 256), (1, 700, 48, 64, 128, 256)]
+SSD_MIN_DECAY = 1e-4
 
 UNIFORM_KEYS = ("u_cx", "m_pair", "m_gene", "u_mut", "m_ind", "m_genem")
 
@@ -49,6 +87,35 @@ def kernel_args(p, g, seed, islands=None, device="cpu"):
     lo = torch.full((g,), -1.0, device=device)
     hi = torch.full((g,), 1.0, device=device)
     return parents, rnd, scalars, lo, hi
+
+
+def attn_inputs(b, sq, h, kv, hd, seed=0, t=None):
+    """float32 numpy q (B, Sq, H, hd), k/v (B, T, KV, hd)."""
+    rs = np.random.default_rng(seed)
+    t = sq if t is None else t
+    return tuple(rs.standard_normal(shape).astype(np.float32) for shape in
+                 ((b, sq, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+
+
+def ssd_inputs(b, l, h, p, n, seed=0, mamba2=False):
+    """float32 numpy (x, dt, a, b_mat, c_mat) distributed as
+    tests/test_kernels.py draws them: dt softplus'd, a = -exp(0.3 z), so
+    the decay is ~exp(-0.8) per step. With ``mamba2``, dt and a are drawn
+    in the range of Mamba-2's own initialisation: dt log-uniform in
+    [1e-3, 1e-1], a = -U(1, 16) with one head per 1/H stratum of the range
+    (the slowest heads are always drawn), so a 256-step chunk's decay
+    stays above 0 on those heads."""
+    rs = np.random.default_rng(seed)
+    x = rs.standard_normal((b, l, h, p)) * 0.5
+    if mamba2:
+        dt = np.exp(rs.uniform(np.log(1e-3), np.log(1e-1), (b, l, h)))
+        a = -(1.0 + 15.0 * (np.arange(h) + rs.random(h)) / h)
+    else:
+        dt = np.logaddexp(rs.standard_normal((b, l, h)), 0.0)
+        a = -np.exp(rs.standard_normal(h) * 0.3)
+    bm = rs.standard_normal((b, l, n)) * 0.3
+    cm = rs.standard_normal((b, l, n)) * 0.3
+    return tuple(np32(v) for v in (x, dt, a, bm, cm))
 
 
 @pytest.fixture
