@@ -12,7 +12,8 @@ order; any failure exits non-zero:
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
 2. build:  every CUDA kernel of the port (fused variation, flash attention,
            SSD intra-chunk), compiled from this checkout's sources for
-           sm_90a (one nvcc per source, all started together);
+           sm_90a (one nvcc per source, all started together); ptxas's
+           entry, register and spill lines of every compiled kernel;
 3. check:  each kernel against its plain PyTorch version on the card: the
            fused variation at the reference's test shapes, a
            hyperparameter sweep and the GA main path's shape, and one
@@ -34,10 +35,15 @@ order; any failure exits non-zero:
            times in mamba2's. Every run has the launch counts zeroed just
            before it and read just after;
 5. times:  with CUDA events, medians of repeats: each kernel beside its
-           bound and its plain version (flash also beside PyTorch's
-           scaled_dot_product_attention, a yardstick the port never
-           calls), one GA generation phase by phase, GA epochs, and
-           prefill ms, decode ms/token and tokens/s of each served model;
+           bound and its plain version. The flash and SSD kernels run their
+           products as 3xTF32 on the tensor cores: their bound is at the
+           TF32 rate (three products per float32 product), and the share of
+           the float32 SIMT bound is printed beside it. Flash is also timed
+           like for like beside PyTorch's scaled_dot_product_attention
+           (causal, global, softcap 0, the same tensors; the fastest
+           backend that computes that function in float32), a yardstick
+           the port never calls. Then one GA generation phase by phase, GA epochs, and prefill ms, decode
+           ms/token and tokens/s of each served model;
 6. trace:  one prefill and 8 decode steps of each served model under
            torch.profiler: the device's idle share and the kernels' share
            of each window, read from the trace;
@@ -53,6 +59,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -70,8 +77,12 @@ TOL, SWEEP_TOL = (1e-5, 1e-6), (1e-4, 1e-5)
 TEST_SHAPES = [(16, 4), (64, 18), (130, 33), (256, 128)]
 
 # Peak rates from NVIDIA's data sheets (dense, at the full 700 W limit):
-# memory bytes/s and float32 (non-tensor-core) operations/s.
-PEAKS = {"H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
+# memory bytes/s, float32 operations/s outside the tensor cores, and TF32
+# tensor-core operations/s.
+PEAKS = {"H200": (4.8e12, 67e12, 495e12), "H100": (3.35e12, 67e12, 495e12)}
+# the flash and SSD kernels issue each float32 product as three TF32
+# tensor-core products (3xTF32, src/repro_torch/kernels/csrc/mma_tf32.cuh)
+TF32_PRODUCTS = 3
 # LM serving path: (arch, prompt length, kernel launches of its run, one
 # prefill: gemma2-2b's 26 attention layers, mamba2-780m's 48 SSD layers)
 SERVE_RUNS = [("gemma2-2b", 4500, {"flash_attention": 26}),
@@ -123,6 +134,11 @@ def fail(msg):
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+def peaks(card):
+    """(bytes/s, float32 op/s, TF32 op/s) of the card named in ``card``."""
+    return next((v for k, v in PEAKS.items() if k in card), PEAKS["H100"])
 
 
 def cuda_ms(fn, repeats=10, inner=5):
@@ -306,8 +322,7 @@ def phase_times(pop, main_err, launches, device, card):
     kernel_ms = cuda_ms(lambda: ops.fused_variation(*args))
     plain_ms = cuda_ms(lambda: ops.fused_variation_plain(*args), repeats=5,
                        inner=2)
-    mem_rate, f32_rate = next(
-        (v for k, v in PEAKS.items() if k in card), PEAKS["H100"])
+    mem_rate, f32_rate, _ = peaks(card)
     nbytes = 4 * (rows * g * 4 + (rows // 2) * g * 2 + rows // 2 + rows
                   + 2 * g + 5)
     _, rnd, scalars, _, _ = args
@@ -579,47 +594,110 @@ def phase_serve():
     return launches
 
 
-def flash_bound(case, mem_rate, f32_rate):
-    """(bound ms, bound_by, flops, bytes): float32 multiply-adds over the
-    visible (query, key) pairs (2 hd for Q K^T, 2 hd for P V, per query
-    head), and q, k, v, out each moved once."""
+def tensor_bound(flops, nbytes, card):
+    """The least time of a kernel whose float32 products run as 3xTF32 on
+    the tensor cores: the larger of its bytes over the memory rate and
+    3 x its FLOP over the TF32 rate. Also the bound at the float32 rate
+    outside the tensor cores, for comparison with SIMT designs."""
+    mem_rate, f32_rate, tf32_rate = peaks(card)
+    bytes_ms = nbytes / mem_rate * 1e3
+    tc_ms = TF32_PRODUCTS * flops / tf32_rate * 1e3
+    simt_ms = flops / f32_rate * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(bytes_ms, tc_ms),
+            "bound_by": "bytes" if bytes_ms >= tc_ms else "operations",
+            "simt_bound_ms": max(bytes_ms, simt_ms), "rates": (
+                f"{flops} FLOP x {TF32_PRODUCTS} at {tf32_rate:.3g} TF32 "
+                f"op/s, or at {f32_rate:.3g} float32 op/s; {nbytes} bytes "
+                f"at {mem_rate:.3g} B/s")}
+
+
+def flash_bound(case, card):
+    """float32 multiply-adds over the visible (query, key) pairs (2 hd for
+    Q K^T, 2 hd for P V, per query head), and q, k, v, out each moved
+    once (``tensor_bound``)."""
     b, s, h, kv, hd, causal, window = case[:7]
     pairs = 0
     for pos in range(s):
         vis = pos + 1 if causal else s
         pairs += min(vis, window) if window else vis
-    flops = 4 * hd * b * h * pairs
-    nbytes = 4 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
-    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / f32_rate * 1e3
-    return (max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations", flops, nbytes)
+    itemsize = 2 if case[8] == "bfloat16" else 4
+    return tensor_bound(4 * hd * b * h * pairs,
+                        itemsize * (2 * b * s * h * hd + 2 * b * s * kv * hd),
+                        card)
 
 
-def ssd_bound(case, mem_rate, f32_rate):
-    """(bound ms, bound_by, flops, bytes): the products the function needs,
-    over the Q(Q+1)/2 pairs i >= j of the causal form: C B^T once per
-    chunk (B and C are shared by the heads, n_groups = 1), Q(Q+1)P for
-    W X and 2QPN for the state per (chunk, head); inputs and outputs moved
-    once."""
+def ssd_bound(case, card):
+    """The products the function needs, over the Q(Q+1)/2 pairs i >= j of
+    the causal form: C B^T once per chunk (B and C are shared by the heads,
+    n_groups = 1), Q(Q+1)P for W X and 2QPN for the state per (chunk,
+    head); inputs and outputs moved once (``tensor_bound``)."""
     b, l, h, p, n, q = case
     nc = l // q
     flops = b * nc * (q * (q + 1) * n + h * (q * (q + 1) * p + 2 * q * p * n))
     nbytes = 4 * (b * l * h * p + b * l * h + h + 2 * b * l * n
                   + b * l * h * p + b * nc * h * p * n + b * nc * h * q)
-    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / f32_rate * 1e3
-    return (max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations", flops, nbytes)
+    return tensor_bound(flops, nbytes, card)
+
+
+def say_kernel_time(label, ms, plain, bnd):
+    say(f"times: {label}: kernel {ms:.4f} ms, plain version {plain:.4f} ms, "
+        f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; "
+        f"{bnd['rates']}): {bnd['bound_ms'] / ms:.3f} of the 3xTF32 bound, "
+        f"{bnd['simt_bound_ms'] / ms:.3f} of the float32 SIMT bound "
+        f"({bnd['simt_bound_ms']:.4f} ms)")
+
+
+def sdpa_yardstick(q, k, v, scale, out):
+    """The fastest backend of F.scaled_dot_product_attention that computes
+    this float32 GQA case (causal, no softcap, no window) on the kernel's
+    own tensors, in SDPA's (B, H, S, hd) layout: (ms, backend). The flash
+    backend refuses float32. MATH takes the KV heads as they are
+    (enable_gqa); EFFICIENT_ATTENTION and CUDNN_ATTENTION refuse
+    enable_gqa, so they get K and V with each KV head repeated for its G
+    query heads (what enable_gqa means), built before the timed calls.
+    Each backend's output is held against the kernel's ``out``. The port
+    never calls SDPA."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    g = qt.shape[1] // kt.shape[1]
+    ke, ve = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
+    tries = [(SDPBackend.EFFICIENT_ATTENTION, ke, ve, False),
+             (SDPBackend.CUDNN_ATTENTION, ke, ve, False),
+             (SDPBackend.MATH, kt, vt, True)]
+    best = None
+    for backend, kb, vb, gqa in tries:
+        def call(backend=backend, kb=kb, vb=vb, gqa=gqa):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(
+                    qt, kb, vb, is_causal=True, enable_gqa=gqa, scale=scale)
+        try:
+            with warnings.catch_warnings():   # the refusal's reasons
+                warnings.simplefilter("ignore")
+                got = call()
+        except RuntimeError as err:
+            say(f"times: scaled_dot_product_attention {backend.name}: "
+                f"refused ({str(err).splitlines()[0][:120]})")
+            continue
+        err = float((got.transpose(1, 2) - out).abs().max())
+        del got
+        ms = cuda_ms(call, repeats=5, inner=3)
+        say(f"times: scaled_dot_product_attention {backend.name}"
+            f"{'' if gqa else ' (K, V repeated to H heads)'}: {ms:.4f} ms, "
+            f"max abs difference from the kernel {err:.3g}")
+        if best is None or ms < best[0]:
+            best = (ms, backend.name)
+    if best is None:
+        fail("no scaled_dot_product_attention backend takes the case")
+    return best
 
 
 def phase_times_lm(device, card, launches, flash_err, ssd_err):
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_intra_chunk_plain
     from repro_torch.launch import serve
-    mem_rate, f32_rate = next(
-        (v for k, v in PEAKS.items() if k in card), PEAKS["H100"])
 
     rows = []
     for i, case in enumerate(ATTN_MAIN):
@@ -629,22 +707,24 @@ def phase_times_lm(device, card, launches, flash_err, ssd_err):
                      repeats=5, inner=3)
         plain = cuda_ms(lambda: attn_ops.flash_attention_plain(q, k, v, **kw),
                         repeats=3, inner=1)
-        bound, by, flops, nbytes = flash_bound(case, mem_rate, f32_rate)
-        rows.append((ms, plain, bound, by))
-        say(f"times: flash attention {case}: kernel {ms:.4f} ms, plain "
-            f"version {plain:.4f} ms, bound {bound:.4f} ms ({by}: {flops} "
-            f"FLOP at {f32_rate:.3g}/s, {nbytes} bytes at {mem_rate:.3g} "
-            f"B/s), {bound / ms:.3f} of the bound")
-    # yardstick: one PyTorch call for the causal, uncapped, unwindowed case
-    q, k, v = (t.transpose(1, 2).contiguous()
-               for t in attn_tensors(ATTN_MAIN[1], device, seed=310))
-    hd = ATTN_MAIN[1][4]
-    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True, scale=hd ** -0.5),
-        repeats=5, inner=3)
-    say(f"times: scaled_dot_product_attention (is_causal, enable_gqa, "
-        f"softcap 0, window 0) at {ATTN_MAIN[1][:5]}: {sdpa_ms:.4f} ms")
+        bnd = flash_bound(case, card)
+        rows.append((ms, plain, bnd))
+        say_kernel_time(f"flash attention {case}", ms, plain, bnd)
+    # yardstick, like for like: the kernel and PyTorch's
+    # scaled_dot_product_attention on the same tensors at the one case SDPA
+    # computes (causal, global, softcap 0)
+    like = ATTN_MAIN[1][:7] + (0.0, ATTN_MAIN[1][8])
+    q, k, v = attn_tensors(like, device, seed=310)
+    kw = attn_kwargs(like)
+    like_ms = cuda_ms(lambda: attn_ops.flash_attention(q, k, v, **kw),
+                      repeats=5, inner=3)
+    sdpa_ms, backend = sdpa_yardstick(q, k, v, kw["scale"],
+                                      attn_ops.flash_attention(q, k, v, **kw))
+    say(f"times: like for like at {like}: flash kernel {like_ms:.4f} ms, "
+        f"scaled_dot_product_attention ({backend}, the fastest backend that "
+        f"computes it in float32) {sdpa_ms:.4f} ms")
     del q, k, v
+    torch.cuda.empty_cache()
 
     args = ssd_tensors(*SSD_MAIN[:5], device, seed=320, mamba2=True)
     chunk = SSD_MAIN[5]
@@ -652,11 +732,8 @@ def phase_times_lm(device, card, launches, flash_err, ssd_err):
                      repeats=5, inner=3)
     ssd_plain = cuda_ms(lambda: ssd_intra_chunk_plain(*args, chunk=chunk),
                         repeats=3, inner=1)
-    sbound, sby, sflops, sbytes = ssd_bound(SSD_MAIN, mem_rate, f32_rate)
-    say(f"times: SSD intra-chunk {SSD_MAIN}: kernel {ssd_ms:.4f} ms, plain "
-        f"version {ssd_plain:.4f} ms, bound {sbound:.4f} ms ({sby}: {sflops} "
-        f"FLOP at {f32_rate:.3g}/s, {sbytes} bytes at {mem_rate:.3g} B/s), "
-        f"{sbound / ssd_ms:.3f} of the bound")
+    sbnd = ssd_bound(SSD_MAIN, card)
+    say_kernel_time(f"SSD intra-chunk {SSD_MAIN}", ssd_ms, ssd_plain, sbnd)
     del args
 
     served = {}
@@ -681,24 +758,32 @@ def phase_times_lm(device, card, launches, flash_err, ssd_err):
         "ms): " + ", ".join(f"{k} {v:.4f}" for k, v in share.items()))
     say("times: " + json.dumps({
         "card": card, "serve": served, "prefill_share": share,
-        "flash_ms": {"window": flash_ms[0], "global": flash_ms[1]},
-        "sdpa_ms": sdpa_ms, "ssd_ms": ssd_ms}))
+        "flash_ms": {"window": flash_ms[0], "global": flash_ms[1],
+                     "like_for_like": like_ms},
+        "sdpa_ms": sdpa_ms, "sdpa_backend": backend, "ssd_ms": ssd_ms,
+        "bound_share": {
+            "flash": [r[2]["bound_ms"] / r[0] for r in rows],
+            "flash_simt": [r[2]["simt_bound_ms"] / r[0] for r in rows],
+            "ssd": sbnd["bound_ms"] / ssd_ms,
+            "ssd_simt": sbnd["simt_bound_ms"] / ssd_ms}}))
 
-    def mean(i):
-        return sum(r[i] for r in rows) / len(rows)
+    def mean(values):
+        return sum(values) / len(values)
     return [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/attention/flash.py:119",
          "launches": launches["flash_attention"], "max_abs_err": flash_err,
-         "ms": mean(0), "plain_ms": mean(1), "bound_ms": mean(2),
-         "bound_by": rows[0][3], "library_ms": sdpa_ms},
+         "ms": mean(flash_ms), "plain_ms": mean([r[1] for r in rows]),
+         "bound_ms": mean([r[2]["bound_ms"] for r in rows]),
+         "bound_by": rows[0][2]["bound_by"], "library_ms": sdpa_ms,
+         "library_case_ms": like_ms, "library_backend": backend},
         {"name": "ssd_chunk", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
          "replaces": "src/repro/kernels/ssd/chunk_kernel.py:101",
          "launches": launches["ssd_chunk"], "max_abs_err": ssd_err,
-         "ms": ssd_ms, "plain_ms": ssd_plain, "bound_ms": sbound,
-         "bound_by": sby, "library_ms": None},
+         "ms": ssd_ms, "plain_ms": ssd_plain, "bound_ms": sbnd["bound_ms"],
+         "bound_by": sbnd["bound_by"], "library_ms": None},
     ]
 
 

@@ -6,7 +6,9 @@ seconds per source, where a source that includes PyTorch's headers takes
 minutes. Builds run at first use (or through :func:`build`), never at
 import, into ``build/repro_torch_kernels/`` at the root of the checkout,
 which ``.gitignore`` lists. A library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and an unchanged one is
+source, of every header the source includes (``#include "..."``, found
+beside the source or in ``csrc/`` of this package, recursively) and of its
+flags, so an edited source or header is rebuilt and an unchanged one is
 loaded as it is. Each library is written under a temporary name and
 renamed into place, so a reader never sees a half-written file.
 """
@@ -15,11 +17,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
+#: headers shared by the kernels (``-I``)
+INCLUDE_DIR = KERNELS_DIR / "csrc"
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 
@@ -57,12 +62,40 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def includes(src: Path) -> list:
+    """The headers ``src`` includes with ``#include "..."``, recursively,
+    each once, in the order first met; a header is looked up beside the
+    file that includes it, then in INCLUDE_DIR, as nvcc does. Raises if
+    one is not found."""
+    found, todo = [], [Path(src)]
+    while todo:
+        cur = todo.pop(0)
+        for rel in _INCLUDE.findall(cur.read_bytes()):
+            rel = rel.decode()
+            path = next((d / rel for d in (cur.parent, INCLUDE_DIR)
+                         if (d / rel).is_file()), None)
+            if path is None:
+                raise FileNotFoundError(f"{cur}: included header {rel!r} "
+                                        f"not found in {INCLUDE_DIR}")
+            path = path.resolve()
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def library_path(name: str) -> Path:
+    """Where the kernel's library is built: the name carries a hash of the
+    source, the headers it includes and its flags."""
     src = SOURCES[name]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(flags(name)).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in includes(src):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict:
@@ -79,7 +112,7 @@ def build(names=None) -> dict:
     procs = {}
     for name, out in todo.items():
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *flags(name), "-o", str(tmp),
+        cmd = [nvcc, *flags(name), "-I", str(INCLUDE_DIR), "-o", str(tmp),
                str(SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

@@ -1,6 +1,6 @@
 // Flash attention forward for Hopper (sm_90a): causal / non-causal GQA with
 // an optional tanh softcap, key padding, causal and sliding-window masks,
-// online softmax in float32.
+// online softmax in float32, products on the tensor cores in 3xTF32.
 //
 // Replaces the TPU kernel repro/kernels/attention/flash.py::_kernel
 // (launched by flash_attention_fwd, wrapped by attention/ops.py).
@@ -9,68 +9,92 @@
 // 2*hd multiply-adds for Q K^T and 2*hd for P V, against 4 bytes per
 // element of q, k, v and out read or written once. At the main path's
 // layer shape (B, S, H, KV, hd) = (4, 4500, 8, 4, 256) that is ~330 GFLOP
-// per layer over ~440 MB: on an NVIDIA H100 80GB HBM3 at its 700.00 W
-// limit (data-sheet peaks: 67 TFLOP/s float32 without tensor cores,
-// 3.35 TB/s), ~5 ms of arithmetic against ~0.13 ms of memory traffic.
+// per layer over ~440 MB. On an NVIDIA H100 80GB HBM3 at its 700.00 W limit
+// the products run as three TF32 tensor-core products each (float32
+// accuracy, see ../../csrc/mma_tf32.cuh): ~2.0 ms at the 495 TFLOP/s TF32
+// data-sheet peak, against ~0.13 ms of memory traffic at 3.35 TB/s (and
+// ~4.9 ms at the 67 TFLOP/s of float32 outside the tensor cores).
 //
-// Design (simple and right first; wgmma, TMA and pipelining are later
-// work):
-//  * one thread block per (batch x KV head, tile of 64 rows), where the
-//    rows are the flattened (query position, query head of this KV head)
+// Design:
+//  * one block of 8 warps per (batch x KV head, tile of 128 rows), where
+//    the rows are the flattened (query position, query head of this KV head)
 //    pairs: row r is position r / G and head kv*G + r % G, as the TPU
 //    kernel holds all G query heads of one KV head in one program. For a
 //    given position the G heads are adjacent in memory, so a row tile is
 //    read as contiguous runs, and any G (including G = 3) fits one tile
-//    shape;
-//  * a loop inside the block walks the KV tiles (64 keys each) in place of
-//    the TPU's sequential third grid axis. It visits only the tiles the
-//    causal and window limits of the tile's rows can reach: a skipped tile
-//    would contribute p = 0 and a correction of 1, so skipping is exact;
-//  * the Q tile (pre-scaled by `scale`, as flash.py:47 scales before the
-//    product), the K and V tiles and the 64 x 64 score tile live in shared
-//    memory as float32 (bf16 inputs are widened on load); rows of Q and K
-//    are padded by one float so the 16 keys a half-warp reads sit in 16
-//    banks. At hd = 256 that is 214,528 bytes of dynamic shared memory,
-//    under the 232,448 bytes a block may use on an H100, so one block runs
-//    per SM;
-//  * each of the 256 threads computes a 4 x 4 block of scores and owns
-//    4 rows x hd/16 columns of the output accumulator in registers; one
-//    warp per 8 rows does the row max / exp / sum with shuffles;
-//  * numerics follow flash.py:52-83: softcap before the mask, masked
-//    scores -inf, the running max clamped at -0.7 * FLT_MAX so a fully
-//    masked row gives p = 0 and output 0, l == 0 treated as 1. expf and
-//    tanhf are the accurate versions (no --use_fast_math).
+//    shape. Row tiles are issued last-first, so the tiles that see the most
+//    keys start first;
+//  * each warp owns 16 rows: Q K^T and P V are m16n8k8 mma.sync products in
+//    3xTF32 (hi/lo split of every operand, three products into float32
+//    accumulators; the split uses integer rounding, not cvt, whose
+//    conversion pipe bounded the first version). The 16 x hd output
+//    accumulator lives in registers (hd / 2 floats a lane: 128 at
+//    hd = 256); Q K^T sums its small terms apart from hi*hi, so each
+//    n-tile gives two independent mma chains;
+//  * the online softmax runs in registers on the score fragment: a lane
+//    holds two rows, so the row max and sum take two shuffles within a quad.
+//    The score fragment feeds P V as the A operand with no shuffle or
+//    staging tile: the k index of each 8-key step is permuted (slot t is key
+//    2t, slot t + 4 key 2t + 1) and V's rows are read in the same order;
+//  * K and V tiles of 32 keys are copied with 16-byte cp.async, one buffer
+//    each: the next K tile is copied while this tile's P V runs, the next
+//    V tile while the next Q K^T runs. Q (pre-scaled by `scale`, as
+//    flash.py:47 scales before the product) stays in shared memory for the
+//    block's life. Rows are padded to hd + 4 floats so every fragment load
+//    hits 32 distinct banks. At hd = 256: 128 x 260 x 4 (Q) + 2 x 32 x 260
+//    x 4 (K, V) = 199,680 bytes of dynamic shared memory, under the 232,448
+//    a block may use on an H100: one block, 8 warps, per SM;
+//  * a loop inside the block walks the KV tiles in place of the TPU's
+//    sequential third grid axis. It visits only the tiles the causal and
+//    window limits of the block's rows reach, and each warp skips the tiles
+//    its own 16 rows cannot see: a skipped tile would contribute p = 0 and
+//    a correction of 1, so skipping is exact. Only tiles that straddle a
+//    limit (causal, window, or the end of the keys) evaluate the masks;
+//  * numerics follow flash.py:52-83: softcap before the mask, masked scores
+//    -inf, the running max clamped at -0.7 * FLT_MAX so a fully masked row
+//    gives p = 0 and output 0, l == 0 treated as 1. expf and tanhf are the
+//    accurate versions (no --use_fast_math). bf16 inputs are widened to
+//    float32 on load and take the same path.
 // Flags: default nvcc contraction (-fmad=true); the float32 tolerance of
-// the tests (3e-5) covers multiply-add rounding and the summation order.
+// the tests (3e-5) covers the split products and the summation order.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int R = 64;        // rows (query position, query head) per block
-constexpr int BK = 64;       // keys per KV tile
+using tf32x3::FragA;
+
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int R = 16 * WARPS;  // rows (query position, query head) per block
+constexpr int BK = 32;         // keys per KV tile
 constexpr float MIN_CLAMP = -0.7f * 3.402823466e38f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-    return __bfloat162float(x);
+__device__ __forceinline__ float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
 }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-    return x;
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 template <int HD>
 constexpr size_t smem_bytes() {
-    return sizeof(float) * ((size_t)R * (HD + 1) + (size_t)BK * (HD + 1)
-                            + (size_t)BK * HD + (size_t)R * (BK + 1) + 3 * R);
+    return sizeof(float) * (size_t)(R + 2 * BK) * (HD + 4);
 }
 
 template <int HD, typename T>
@@ -81,179 +105,222 @@ flash_fwd_kernel(const T* __restrict__ q,      // (B, Sq, H, HD)
                  T* __restrict__ out,          // (B, Sq, H, HD)
                  int sq, int tk, int h, int kvh, float scale, int causal,
                  int window, float cap, int64_t q_offset) {
-    extern __shared__ float smem[];
-    constexpr int QS = HD + 1;               // padded row stride of Q and K
-    constexpr int SS = BK + 1;               // padded row stride of S
-    constexpr int NCOL = HD / 16;            // accumulator columns/thread
-    float* Qs = smem;                        // R x QS
-    float* Ks = Qs + R * QS;                 // BK x QS
-    float* Vs = Ks + BK * QS;                // BK x HD
-    float* Ss = Vs + BK * HD;                // R x SS
-    float* m_s = Ss + R * SS;                // R running max
-    float* l_s = m_s + R;                    // R running denominator
-    float* c_s = l_s + R;                    // R correction of this tile
+    extern __shared__ float4 smem4[];
+    constexpr int S = HD + 4;                // padded row stride
+    constexpr int NT = HD / 8;               // n-tiles of the output
+    float* Qs = reinterpret_cast<float*>(smem4);   // R x S
+    float* Ks = Qs + R * S;                  // BK x S
+    float* Vs = Ks + BK * S;                 // BK x S
 
     const int tid = threadIdx.x;
-    const int tx = tid & 15, ty = tid >> 4;
     const int warp = tid >> 5, lane = tid & 31;
-    const int g = h / kvh;
+    const int g = lane >> 2, t = lane & 3;
+    const int G = h / kvh;
     const int b = blockIdx.y / kvh, kh = blockIdx.y % kvh;
-    const int64_t rows_total = (int64_t)sq * g;
-    const int64_t r0 = (int64_t)blockIdx.x * R;
+    const int64_t rows_total = (int64_t)sq * G;
+    const int64_t r0 = (int64_t)(gridDim.x - 1 - blockIdx.x) * R;
 
     // offset of row r's first element in q / out
     auto row_offset = [&](int64_t rg) -> int64_t {
-        const int64_t s = rg / g;
-        const int gi = (int)(rg - s * g);
-        return (((int64_t)b * sq + s) * h + (int64_t)kh * g + gi) * HD;
+        const int64_t s = rg / G;
+        const int gi = (int)(rg - s * G);
+        return (((int64_t)b * sq + s) * h + (int64_t)kh * G + gi) * HD;
     };
 
-    for (int idx = tid; idx < R * HD; idx += THREADS) {
-        const int r = idx / HD, d = idx % HD;
+    for (int idx = tid; idx < R * HD / 4; idx += THREADS) {
+        const int r = idx / (HD / 4), d = (idx % (HD / 4)) * 4;
         const int64_t rg = r0 + r;
-        Qs[r * QS + d] = rg < rows_total
-            ? to_f32(q[row_offset(rg) + d]) * scale : 0.0f;
-    }
-    if (tid < R) {
-        m_s[tid] = -INFINITY;
-        l_s[tid] = 0.0f;
+        float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (rg < rows_total) {
+            val = load4(q + row_offset(rg) + d);
+            val.x *= scale; val.y *= scale; val.z *= scale; val.w *= scale;
+        }
+        *reinterpret_cast<float4*>(&Qs[r * S + d]) = val;
     }
 
-    // the keys this tile's rows can see
+    // the keys this block's rows can see
     const int64_t last = (r0 + R - 1 < rows_total ? r0 + R - 1
                                                    : rows_total - 1);
-    const int64_t qpos_lo = q_offset + r0 / g, qpos_hi = q_offset + last / g;
+    const int64_t qpos_lo = q_offset + r0 / G, qpos_hi = q_offset + last / G;
     int64_t k_begin = 0, k_end = tk;
     if (causal && qpos_hi + 1 < k_end) k_end = qpos_hi + 1;
     if (window > 0 && qpos_lo - window + 1 > k_begin)
         k_begin = qpos_lo - window + 1;
+    const int ntiles = k_end > k_begin ? (int)((k_end - k_begin + BK - 1) / BK)
+                                       : 0;
 
-    float acc[4][NCOL];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NCOL; ++c) acc[i][c] = 0.0f;
+    // the keys this warp's 16 rows can see
+    const int64_t w_r0 = r0 + 16 * warp;
+    const bool active = w_r0 < rows_total;
+    const int64_t w_last = (w_r0 + 15 < rows_total ? w_r0 + 15
+                                                    : rows_total - 1);
+    const int64_t wq_lo = q_offset + w_r0 / G, wq_hi = q_offset + w_last / G;
+    int64_t wk_begin = 0, wk_end = tk;
+    if (causal && wq_hi + 1 < wk_end) wk_end = wq_hi + 1;
+    if (window > 0 && wq_lo - window + 1 > wk_begin)
+        wk_begin = wq_lo - window + 1;
+    // query positions of this lane's two rows (g and g + 8)
+    const int64_t qpos0 = q_offset + (w_r0 + g) / G;
+    const int64_t qpos1 = q_offset + (w_r0 + g + 8) / G;
 
-    for (int64_t k0 = k_begin; k0 < k_end; k0 += BK) {
-        __syncthreads();                     // last tile's readers are done
-        for (int idx = tid; idx < BK * HD; idx += THREADS) {
-            const int j = idx / HD, d = idx % HD;
+    // one tile (BK keys) of k or v into its buffer; one commit group
+    auto load_tile = [&](int it, const T* src, float* dst) {
+        const int64_t k0 = k_begin + (int64_t)it * BK;
+        for (int idx = tid; idx < BK * HD / 4; idx += THREADS) {
+            const int j = idx / (HD / 4), d = (idx % (HD / 4)) * 4;
             const int64_t kp = k0 + j;
-            float kval = 0.0f, vval = 0.0f;  // padded keys: zero, masked
-            if (kp < tk) {
-                const int64_t off = (((int64_t)b * tk + kp) * kvh + kh) * HD
-                                    + d;
-                kval = to_f32(k[off]);
-                vval = to_f32(v[off]);
+            const bool ok = kp < tk;         // padded keys: zero, masked
+            const int64_t off = ok ? (((int64_t)b * tk + kp) * kvh + kh) * HD
+                                     + d : 0;
+            if constexpr (sizeof(T) == 4) {
+                tf32x3::cp_async16(dst + j * S + d, src + off, ok ? 16 : 0);
+            } else {
+                *reinterpret_cast<float4*>(dst + j * S + d) =
+                    ok ? load4(src + off)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
             }
-            Ks[j * QS + d] = kval;
-            Vs[j * HD + d] = vval;
         }
-        __syncthreads();
+        tf32x3::cp_async_commit();
+    };
 
-        // scores: rows ty + 16 i, keys tx + 16 j
-        float s[4][4];
+    float acc[NT][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-        for (int d = 0; d < HD; ++d) {
-            float qv[4], kv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * QS + d];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int r = ty + 16 * i;
-            const int64_t qpos = q_offset + (r0 + r) / g;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int64_t kp = k0 + tx + 16 * j;
-                float sv = s[i][j];
-                if (cap != 0.0f) sv = cap * tanhf(sv / cap);
-                bool ok = kp < tk;
-                if (causal) ok = ok && qpos >= kp;
-                if (window > 0) ok = ok && (qpos - kp) < window;
-                Ss[r * SS + tx + 16 * j] = ok ? sv : -INFINITY;
-            }
-        }
-        __syncthreads();
+    for (int c = 0; c < NT; ++c)
+        acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.0f;
+    float m0 = -INFINITY, m1 = -INFINITY;   // running max of rows g, g + 8
+    float l0 = 0.0f, l1 = 0.0f;             // this lane's share of the sums
+    const float* Qw = Qs + (16 * warp + g) * S + t;
 
-        // online softmax, one warp per R / 8 rows
-        for (int rr = 0; rr < R / 8; ++rr) {
-            const int r = warp * (R / 8) + rr;
-            float sv[BK / 32];
-            float mx = -INFINITY;
-#pragma unroll
-            for (int u = 0; u < BK / 32; ++u) {
-                sv[u] = Ss[r * SS + lane + 32 * u];
-                mx = fmaxf(mx, sv[u]);
-            }
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_prev = m_s[r];
-            const float m_new = fmaxf(m_prev, mx);
-            const float m_safe = fmaxf(m_new, MIN_CLAMP);
-            float sum = 0.0f;
-#pragma unroll
-            for (int u = 0; u < BK / 32; ++u) {
-                const float p = expf(sv[u] - m_safe);
-                Ss[r * SS + lane + 32 * u] = p;
-                sum += p;
-            }
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                sum += __shfl_xor_sync(0xffffffffu, sum, off);
-            if (lane == 0) {
-                const float corr = expf(fmaxf(m_prev, MIN_CLAMP) - m_safe);
-                l_s[r] = l_s[r] * corr + sum;
-                m_s[r] = m_new;
-                c_s[r] = corr;
-            }
-        }
-        __syncthreads();
-
-        // acc = acc * corr + P V: rows ty + 16 i, columns tx + 16 c
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const float corr = c_s[ty + 16 * i];
-#pragma unroll
-            for (int c = 0; c < NCOL; ++c) acc[i][c] *= corr;
-        }
-#pragma unroll 2
-        for (int jj = 0; jj < BK; ++jj) {
-            float pv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) pv[i] = Ss[(ty + 16 * i) * SS + jj];
-#pragma unroll
-            for (int c = 0; c < NCOL; ++c) {
-                const float vv = Vs[jj * HD + tx + 16 * c];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) acc[i][c] += pv[i] * vv;
-            }
-        }
+    // K and V have one buffer each: the next K tile is copied while this
+    // tile's P V runs, the next V tile while the next Q K^T runs. Commit
+    // groups go K0, V0, K1, V1, ...; "wait<1>" leaves only the latest open.
+    if (ntiles > 0) {
+        load_tile(0, k, Ks);
+        load_tile(0, v, Vs);
     }
-    __syncthreads();
+    for (int it = 0; it < ntiles; ++it) {
+        tf32x3::cp_async_wait<1>();          // K_it has landed
+        __syncthreads();
+        const int64_t k0 = k_begin + (int64_t)it * BK;
+        const bool visible = active && k0 < wk_end && k0 + BK > wk_begin;
+        float s[BK / 8][4];
+        if (visible) {
+            // scores, 16 rows x BK keys: n-tile n holds keys 8n .. 8n + 7.
+            // Each n-tile sums the small terms apart from hi*hi: 2 x BK / 8
+            // independent chains of mma.sync
+            float sp[2][BK / 8][4];
+#pragma unroll
+            for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) sp[0][n][e] = sp[1][n][e] = 0.0f;
+#pragma unroll 2
+            for (int kk = 0; kk < HD / 8; ++kk) {
+                FragA a;
+                a.set(Qw[kk * 8], Qw[8 * S + kk * 8], Qw[kk * 8 + 4],
+                      Qw[8 * S + kk * 8 + 4]);
+#pragma unroll
+                for (int n = 0; n < BK / 8; ++n) {
+                    const float* kr = Ks + (n * 8 + g) * S + kk * 8 + t;
+                    tf32x3::mma3_split(sp[0][n], sp[1][n], a, kr[0], kr[4]);
+                }
+            }
 
+            const bool full = k0 + BK <= tk &&
+                              (!causal || k0 + BK - 1 <= wq_lo) &&
+                              (window <= 0 || wq_hi - k0 < window);
+            float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        const int64_t rg = r0 + r;
-        if (rg >= rows_total) continue;
-        float l = l_s[r];
-        if (l == 0.0f) l = 1.0f;
-        T* o = out + row_offset(rg);
+            for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
-        for (int c = 0; c < NCOL; ++c)
-            o[tx + 16 * c] = from_f32<T>(acc[i][c] / l);
+                for (int e = 0; e < 4; ++e) {
+                    float sv = sp[0][n][e] + sp[1][n][e];
+                    if (cap != 0.0f) sv = cap * tanhf(sv / cap);
+                    if (!full) {
+                        const int64_t kp = k0 + n * 8 + 2 * t + (e & 1);
+                        const int64_t qp = e < 2 ? qpos0 : qpos1;
+                        bool ok = kp < tk;
+                        if (causal) ok = ok && qp >= kp;
+                        if (window > 0) ok = ok && (qp - kp) < window;
+                        if (!ok) sv = -INFINITY;
+                    }
+                    s[n][e] = sv;
+                }
+                mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+                mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+            }
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+            const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+            const float ms0 = fmaxf(mn0, MIN_CLAMP);
+            const float ms1 = fmaxf(mn1, MIN_CLAMP);
+            const float corr0 = expf(fmaxf(m0, MIN_CLAMP) - ms0);
+            const float corr1 = expf(fmaxf(m1, MIN_CLAMP) - ms1);
+            m0 = mn0;
+            m1 = mn1;
+            float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+            for (int n = 0; n < BK / 8; ++n) {
+                s[n][0] = expf(s[n][0] - ms0);
+                s[n][1] = expf(s[n][1] - ms0);
+                s[n][2] = expf(s[n][2] - ms1);
+                s[n][3] = expf(s[n][3] - ms1);
+                sum0 += s[n][0] + s[n][1];
+                sum1 += s[n][2] + s[n][3];
+            }
+            l0 = l0 * corr0 + sum0;
+            l1 = l1 * corr1 + sum1;
+#pragma unroll
+            for (int c = 0; c < NT; ++c) {
+                acc[c][0] *= corr0;
+                acc[c][1] *= corr0;
+                acc[c][2] *= corr1;
+                acc[c][3] *= corr1;
+            }
+        }
+        __syncthreads();                     // every read of K_it done
+        if (it + 1 < ntiles) load_tile(it + 1, k, Ks);
+        else tf32x3::cp_async_commit();      // keep one group per step
+        tf32x3::cp_async_wait<1>();          // V_it has landed
+        __syncthreads();
+        if (visible) {
+            // acc += P V; the k index of step n is permuted: slot t is key
+            // 8n + 2t, slot t + 4 key 8n + 2t + 1 (mma_tf32.cuh)
+#pragma unroll
+            for (int n = 0; n < BK / 8; ++n) {
+                FragA a;
+                a.set(s[n][0], s[n][2], s[n][1], s[n][3]);
+                const float* vr = Vs + (n * 8 + 2 * t) * S + g;
+#pragma unroll
+                for (int c = 0; c < NT; ++c)
+                    tf32x3::mma3(acc[c], a, vr[c * 8], vr[S + c * 8]);
+            }
+        }
+        __syncthreads();                     // every read of V_it done
+        if (it + 1 < ntiles) load_tile(it + 1, v, Vs);
+        else tf32x3::cp_async_commit();
+    }
+
+    if (!active) return;
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    if (l0 == 0.0f) l0 = 1.0f;
+    if (l1 == 0.0f) l1 = 1.0f;
+    const int64_t rg0 = w_r0 + g, rg1 = w_r0 + g + 8;
+    if (rg0 < rows_total) {
+        T* o = out + row_offset(rg0) + 2 * t;
+#pragma unroll
+        for (int c = 0; c < NT; ++c)
+            store2(o + c * 8, acc[c][0] / l0, acc[c][1] / l0);
+    }
+    if (rg1 < rows_total) {
+        T* o = out + row_offset(rg1) + 2 * t;
+#pragma unroll
+        for (int c = 0; c < NT; ++c)
+            store2(o + c * 8, acc[c][2] / l1, acc[c][3] / l1);
     }
 }
 
@@ -297,9 +364,9 @@ int launch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). q (B, Sq, H, hd), k/v
-// (B, Tk, KV, hd), out (B, Sq, H, hd), all contiguous, float32
-// (is_bf16 = 0) or bfloat16 (is_bf16 = 1); hd in {32, 64, 128, 256};
-// H % KV == 0. Launches on `stream`; returns 0 or the CUDA error.
+// (B, Tk, KV, hd), out (B, Sq, H, hd), all contiguous and 16-byte aligned,
+// float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); hd in {32, 64, 128,
+// 256}; H % KV == 0. Launches on `stream`; returns 0 or the CUDA error.
 extern "C" int flash_attention_fwd_launch(
         const void* q, const void* k, const void* v, void* out, int b,
         int sq, int tk, int h, int kvh, int hd, int is_bf16, float scale,

@@ -6,7 +6,8 @@ q_offset)`` takes q (B, Sq, H, hd) and k/v (B, T, KV, hd) and returns
 
 * On CPU tensors it runs the plain version (``ref.flash_attention_blocked``).
 * On CUDA tensors it checks dtype (float32 or bfloat16, the same for all
-  three), shapes (hd in 32/64/128/256, H a multiple of KV) and contiguity,
+  three), shapes (hd in 32/64/128/256, H a multiple of KV), contiguity and
+  16-byte alignment,
   then launches the CUDA kernel or raises. Nothing falls back.
 
 Forward only: the kernel has no backward yet, so the wrapper refuses
@@ -56,6 +57,9 @@ def _check(q, k, v):
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned (the kernel copies 16-byte rows)")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention: the kernel is forward only; "
                            "run it under torch.no_grad() or "

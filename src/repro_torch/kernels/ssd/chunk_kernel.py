@@ -5,9 +5,12 @@
 
 x (B, L, H, P), dt (B, L, H), a (H,), B/C (B, L, N) with L a multiple of
 the chunk Q are read in place; y_diag comes back as (B, L, H, P), the chunk
-states as (B, NC, H, P, N) and in_decay as (B, NC, H, Q), all float32. The
-library is compiled and loaded at the first launch, never at import.
-Callers go through ``ops.ssd_intra_chunk``, which checks the arguments.
+states as (B, NC, H, P, N) and in_decay as (B, NC, H, Q), all float32. One
+block computes C B^T of a chunk once for a group of adjacent heads; the
+C launcher picks the group from (H, P, N, Q) and the device's shared
+memory. The library is compiled and loaded at the first launch, never at
+import. Callers go through ``ops.ssd_intra_chunk``, which checks the
+arguments.
 """
 from __future__ import annotations
 

@@ -11,8 +11,8 @@ product in torch ops.
 
 ``ssd_intra_chunk`` runs the plain version (``ref.ssd_intra_chunk_plain``)
 on CPU tensors. On CUDA tensors it checks dtype (float32 only), shapes
-(P in 32/64/128, N in 16/64/128, L a multiple of the chunk) and
-contiguity, then launches the CUDA kernel or raises. Nothing falls back.
+(P in 32/64/128, N in 16/64/128, L a multiple of the chunk),
+contiguity and 16-byte alignment, then launches the CUDA kernel or raises. Nothing falls back.
 
 ``launches`` counts the kernel launches of this process; it grows only
 where the kernel is launched.
@@ -49,6 +49,9 @@ def _check(x, dt, a, b_mat, c_mat, chunk):
                              f"{tuple(t.shape)}, expected {expected[name]}")
         if not t.is_contiguous():
             raise ValueError(f"ssd_intra_chunk: {name} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"ssd_intra_chunk: {name} is not 16-byte "
+                             f"aligned (the kernel copies 16-byte rows)")
     if p not in HEAD_DIMS or n not in STATE_DIMS:
         raise ValueError(f"ssd_intra_chunk: (P, N) = ({p}, {n}); the kernel "
                          f"takes P in {HEAD_DIMS} and N in {STATE_DIMS}")

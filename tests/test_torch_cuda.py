@@ -141,6 +141,43 @@ def test_flash_kernel_fully_masked_rows(cuda_device):
     assert np.all(out[:, first_masked:] == 0.0)
 
 
+# tiling edges of the kernel (8 warps of 16 rows = 128 flattened (position,
+# head) rows, 32-key tiles): G = 1, 2, 3, 4, 8; rows and keys that are not
+# multiples of the tiles; a window shorter than one key tile; q_offset > 0
+# with Sq < Tk; hd 32 to 256; bf16.
+# (B, Sq, Tk, H, KV, hd, causal, window, softcap, q_offset, dtype)
+FLASH_EDGE_CASES = [
+    (1, 100, 100, 4, 4, 64, True, 0, 0.0, 0, "float32"),       # G = 1
+    (2, 77, 77, 4, 2, 128, True, 0, 50.0, 0, "float32"),       # G = 2
+    (1, 131, 131, 6, 2, 64, True, 20, 0.0, 0, "float32"),      # G = 3
+    (1, 90, 90, 8, 2, 32, True, 0, 30.0, 0, "float32"),        # G = 4
+    (1, 70, 70, 8, 1, 256, True, 0, 0.0, 0, "float32"),        # G = 8
+    (1, 37, 101, 4, 2, 64, True, 0, 0.0, 64, "float32"),       # Sq < Tk
+    (2, 45, 99, 6, 3, 128, True, 7, 50.0, 54, "float32"),      # window 7
+    (1, 50, 83, 4, 1, 32, False, 0, 0.0, 0, "float32"),        # Tk % 32
+    (1, 99, 99, 6, 2, 256, True, 40, 50.0, 0, "bfloat16"),
+    (2, 33, 33, 4, 4, 128, True, 0, 0.0, 0, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("b,sq,t,h,kv,hd,causal,win,cap,q_offset,dtype",
+                         FLASH_EDGE_CASES)
+def test_flash_kernel_tiling_edges(cuda_device, b, sq, t, h, kv, hd, causal,
+                                   win, cap, q_offset, dtype):
+    q, k, v = _attn((b, sq, h, kv, hd), dtype, cuda_device, seed=sq + t,
+                    t=t)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=win, attn_softcap=cap,
+              q_offset=q_offset)
+    before = attn_ops.launches
+    out = attn_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert attn_ops.launches == before + 1
+    plain = attn_ops.flash_attention_plain(q, k, v, **kw)
+    tol = ATTN_BF16_TOL if dtype == "bfloat16" else ATTN_TOL
+    np.testing.assert_allclose(to_np(out.float()), to_np(plain.float()),
+                               **tol)
+
+
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     q, k, v = _attn((1, 32, 4, 2, 64), "float32", cuda_device)
     kw = dict(scale=0.125)
@@ -158,6 +195,9 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                                  v[..., :48].contiguous(), **kw)
     with pytest.raises(ValueError, match="match"):
         attn_ops.flash_attention(q[:, :, :3].contiguous(), k, v, **kw)
+    shifted = k.new_empty(k.numel() + 1)[1:].view(k.shape).copy_(k)
+    with pytest.raises(ValueError, match="aligned"):
+        attn_ops.flash_attention(q, shifted, v, **kw)
     with pytest.raises(RuntimeError, match="forward only"):
         attn_ops.flash_attention(q.requires_grad_(), k, v, **kw)
     assert attn_ops.launches == before
@@ -195,6 +235,52 @@ def test_ssd_kernel_matches_plain_version(cuda_device, b, l, h, p, n, q,
             assert float(out[2][..., -1].max()) > SSD_MIN_DECAY
 
 
+# head groups (H = 3 and 5 leave a partial last group), chunk 32, 64 and
+# 256, P 32 and 128, N 16: (B, L, H, P, N, chunk, mamba2)
+SSD_EDGE_CASES = [
+    (1, 128, 5, 64, 128, 64, False),     # groups of 2: 2 + 2 + 1
+    (2, 96, 3, 64, 64, 32, False),       # groups of 2: 2 + 1
+    (1, 256, 3, 32, 16, 256, True),      # a group of 3, one chunk of 256
+    (2, 128, 5, 32, 16, 32, True),       # groups of 4: 4 + 1
+    (1, 512, 6, 128, 128, 256, True),    # P = 128: one head per block
+]
+
+
+@pytest.mark.parametrize("b,l,h,p,n,q,mamba2", SSD_EDGE_CASES)
+def test_ssd_kernel_head_groups_and_chunks(cuda_device, b, l, h, p, n, q,
+                                           mamba2):
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_plain
+    arrs = [torch.from_numpy(a).to(cuda_device)
+            for a in ssd_inputs(b, l, h, p, n, seed=l + h, mamba2=mamba2)]
+    before = ssd_ops.launches
+    out = ssd_ops.ssd_intra_chunk(*arrs, chunk=q)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    plain = ssd_intra_chunk_plain(*arrs, chunk=q)
+    for got, want in zip(out, plain):
+        np.testing.assert_allclose(to_np(got), to_np(want), **SSD_TOL)
+    if mamba2:
+        assert float(out[2][..., -1].max()) > SSD_MIN_DECAY
+
+
+def test_ssd_chunked_serving_length(cuda_device):
+    """mamba2-780m's serving prompt, L = 4000 (padded to 16 chunks of 256),
+    with dt and a in Mamba-2's range."""
+    arrs = [torch.from_numpy(a).to(cuda_device)
+            for a in ssd_inputs(1, 4000, 48, 64, 128, seed=4000,
+                                mamba2=True)]
+    x, dt, a = arrs[:3]
+    before = ssd_ops.launches
+    y, s = ssd_ops.ssd_chunked(*arrs, 256)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    y_ref, s_ref = ssd_chunked_ref(*arrs, 256)
+    np.testing.assert_allclose(to_np(y), to_np(y_ref), **SSD_TOL)
+    np.testing.assert_allclose(to_np(s), to_np(s_ref), **SSD_TOL)
+    decay = torch.exp((dt[:, :256] * a).sum(1)).max()
+    assert float(decay) > SSD_MIN_DECAY
+
+
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     x, dt, a, bm, cm = [torch.from_numpy(t).to(cuda_device)
                         for t in ssd_inputs(1, 64, 2, 32, 16)]
@@ -210,6 +296,9 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         ssd_ops.ssd_intra_chunk(x, dt[:, :32], a, bm, cm, chunk=32)
     with pytest.raises(ValueError, match="multiple"):
         ssd_ops.ssd_intra_chunk(x, dt, a, bm, cm, chunk=48)
+    shifted = x.new_empty(x.numel() + 1)[1:].view(x.shape).copy_(x)
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_ops.ssd_intra_chunk(shifted, dt, a, bm, cm, chunk=32)
     with pytest.raises(ValueError, match="P in"):
         ssd_ops.ssd_intra_chunk(x[..., :8].contiguous(), dt, a, bm, cm,
                                 chunk=32)
