@@ -16,7 +16,10 @@ order; any failure exits non-zero:
            entry, register and spill lines of every compiled kernel;
 3. check:  each kernel against its plain PyTorch version on the card: the
            fused variation at the reference's test shapes, a
-           hyperparameter sweep and the GA main path's shape, and one
+           hyperparameter sweep, the GA main path's shape (ga_run's and
+           the paper's Table 3 hyperparameters) and its template edges
+           (float4 and scalar-load templates, unaligned parents,
+           per-gene bounds, all and no pair-genes crossing), and one
            generation on the card against the same generation on the CPU;
            flash attention at tests/test_kernels.py's cases, a q_offset
            case with fully masked rows and gemma2-2b's layer shapes
@@ -35,15 +38,20 @@ order; any failure exits non-zero:
            times in mamba2's. Every run has the launch counts zeroed just
            before it and read just after;
 5. times:  with CUDA events, medians of repeats: each kernel beside its
-           bound and its plain version. The flash and SSD kernels run their
-           products as 3xTF32 on the tensor cores: their bound is at the
-           TF32 rate (three products per float32 product), and the share of
-           the float32 SIMT bound is printed beside it. Flash is also timed
+           bound and its plain version. The fused variation at the main
+           shape at three points (no crossover or mutation, so no powf
+           runs; ga_run's; Table 3's), both templates, Table 3 at the
+           HVDC gene count G = 18, and the host µs per wrapper call. The flash and
+           SSD kernels run their products as 3xTF32 on the tensor cores:
+           their bound is at the TF32 rate (three products per float32
+           product), and the share of the float32 SIMT bound is printed
+           beside it. Flash is also timed
            like for like beside PyTorch's scaled_dot_product_attention
            (causal, global, softcap 0, the same tensors; the fastest
            backend that computes that function in float32), a yardstick
-           the port never calls. Then one GA generation phase by phase, GA epochs, and prefill ms, decode
-           ms/token and tokens/s of each served model;
+           the port never calls. Then one GA generation phase by phase,
+           GA epochs, and prefill ms, decode ms/token and tokens/s of each
+           served model;
 6. trace:  one prefill and 8 decode steps of each served model under
            torch.profiler: the device's idle share and the kernels' share
            of each window, read from the trace;
@@ -69,12 +77,51 @@ MAIN_ARGS = ["--fitness", "rastrigin", "--genes", str(MAIN["genes"]),
              "--islands", str(MAIN["islands"]), "--pop", str(MAIN["pop"]),
              "--gens-per-epoch", str(MAIN["gens_per_epoch"]),
              "--epochs", str(MAIN["epochs"]), "--device", "cuda"]
-# main-path hyperparameters (launch/ga_run.py::build)
+# main-path hyperparameters (launch/ga_run.py::build), and the paper's
+# Table 3 point, which its HVDC runs use (repro/launch/ga_run.py:222-223)
 HP = dict(eta_cx=15.0, prob_cx=0.9, eta_mut=20.0, prob_mut=0.7)
+TABLE3 = dict(eta_cx=97.5, prob_cx=1.0, eta_mut=34.6, prob_mut=0.7)
 BOUND = 5.12
 # tolerances of tests/test_kernels.py for the genetic kernel
 TOL, SWEEP_TOL = (1e-5, 1e-6), (1e-4, 1e-5)
 TEST_SHAPES = [(16, 4), (64, 18), (130, 33), (256, 128)]
+# the fused variation's templates and edges, each held against the plain
+# version at TOL: (rows, genes, kernel_args options, floats per load of the
+# template the launcher must pick: 4 where G % 4 == 0 and every stream is
+# 16-byte aligned, else 1)
+VARIATION_EDGES = [
+    (2048, 4, {}, 4), (2048, 33, {}, 1), (2048, 128, {}, 4),
+    (2048, 128, dict(unaligned=True), 1), (2048, 4, dict(unaligned=True), 1),
+    (2048, 128, dict(hp=TABLE3), 4), (2048, 33, dict(hp=TABLE3), 1),
+    (2048, 18, dict(hp=TABLE3), 1),
+    (2048, 128, dict(per_gene=True), 4), (2048, 33, dict(per_gene=True), 1),
+    (2048, 128, dict(cross="all", hp=dict(HP, indpb=0.4)), 4),
+    (2048, 33, dict(cross="all", hp=dict(HP, indpb=0.4)), 1),
+    (2048, 128, dict(cross="none", hp=dict(HP, indpb=0.4)), 4)]
+# the kernel timed at (I, P) of the main shape at three points: no
+# crossover and no mutation (no powf runs: the layout's memory floor),
+# ga_run's point and Table 3's; the first two again with unaligned
+# parents, which take the scalar-load template; and Table 3 at G = 18,
+# the HVDC genome (repro/powerflow/grid.py: n_hvdc), which takes the
+# scalar-load template too (name: (genes, hyperparameters, kernel_args
+# options))
+NO_POWF = dict(HP, prob_cx=0.0, prob_mut=0.0)
+HVDC_GENES = 18
+VARIATION_POINTS = {"no_powf": (MAIN["genes"], NO_POWF, {}),
+                    "ga_run": (MAIN["genes"], HP, {}),
+                    "table3": (MAIN["genes"], TABLE3, {}),
+                    "no_powf_scalar": (MAIN["genes"], NO_POWF,
+                                       dict(unaligned=True)),
+                    "ga_run_scalar": (MAIN["genes"], HP,
+                                      dict(unaligned=True)),
+                    "table3_g18": (HVDC_GENES, TABLE3, {})}
+# host time of a wrapper call: mean over this many calls, one sync at the
+# end, at the main shape and at a small one where the device keeps up
+HOST_CALLS = 1000
+HOST_SMALL = (1, 16, 4)
+# the busy-wait (GPU clock cycles, ~2 ms) that device_ms queues its calls
+# behind
+SLEEP_CYCLES = 1 << 22
 
 # Peak rates from NVIDIA's data sheets (dense, at the full 700 W limit):
 # memory bytes/s, float32 operations/s outside the tensor cores, and TF32
@@ -160,6 +207,40 @@ def cuda_ms(fn, repeats=10, inner=5):
     return statistics.median(times)
 
 
+def device_ms(fn, launches=20, repeats=10):
+    """Median over ``repeats`` of the device ms per call of ``launches``
+    back-to-back calls of ``fn``, with CUDA events, for kernels that take
+    less time than the host takes to call them: the calls are queued
+    behind a busy-wait kernel (``torch.cuda._sleep``), so the device runs
+    them with no host gap in between. Where the host took longer to queue
+    them than the wait lasted, the wait is doubled and the repeat made
+    again."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles, times = SLEEP_CYCLES, []
+    while len(times) < repeats:
+        gate, start, stop = (torch.cuda.Event(enable_timing=True)
+                             for _ in range(3))
+        gate.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        stop.record()
+        stop.synchronize()
+        if host_ms < gate.elapsed_time(start):
+            times.append(start.elapsed_time(stop) / launches)
+        elif cycles >= SLEEP_CYCLES << 10:
+            fail(f"the host took {host_ms:.3f} ms to queue {launches} calls, "
+                 f"longer than a wait of {cycles} cycles")
+        else:
+            cycles *= 2
+    return statistics.median(times)
+
+
 def close(a, b, rtol, atol):
     """(all close, max abs error) of two tensors, NaN-aware."""
     import torch
@@ -169,9 +250,15 @@ def close(a, b, rtol, atol):
     return bool(ok.all()), float(torch.where(both_nan, 0.0, err).max())
 
 
-def kernel_args(rows, genes, seed, hp, bound, device, islands=None):
+def kernel_args(rows, genes, seed, hp, bound, device, islands=None,
+                unaligned=False, per_gene=False, cross=None):
     """Parents (rows, genes) — or (islands, rows, genes), as the main path
-    calls the wrapper — uniforms, scalars and bounds for one launch."""
+    calls the wrapper — uniforms, scalars and bounds for one launch. ``hp``
+    holds the hyperparameters; its indpb defaults to 1/genes. Options:
+    ``unaligned`` parents (a contiguous view at element offset 1 of a
+    larger buffer), ``per_gene`` bounds with lo != -hi inside [-bound,
+    bound], ``cross`` "all" or "none" to force every pair-gene's crossover
+    mask on or off."""
     import torch
     from repro_torch.kernels.genetic import ops
     from repro_torch.kernels.genetic.ref import draw_uniforms
@@ -180,25 +267,42 @@ def kernel_args(rows, genes, seed, hp, bound, device, islands=None):
     lead = () if islands is None else (islands,)
     parents = (torch.rand(lead + (rows, genes), generator=gen, device=device)
                * 2 - 1) * bound
-    rnd = draw_uniforms(gen, rows, genes, device, islands=islands)
-    scalars = ops.pack_scalars(hp["eta_cx"], hp["prob_cx"], hp["eta_mut"],
-                               hp["prob_mut"], hp["indpb"], device=device)
     lo = torch.full((genes,), -bound, device=device)
     hi = torch.full((genes,), bound, device=device)
+    if per_gene:
+        lo = -bound * torch.rand(genes, generator=gen, device=device)
+        hi = lo + (bound - lo) * (0.2 + 0.8 * torch.rand(
+            genes, generator=gen, device=device))
+        parents = lo + (hi - lo) * (parents + bound) / (2 * bound)
+    if unaligned:
+        buf = torch.empty(parents.numel() + 1, device=device)
+        parents = buf[1:].view(parents.shape).copy_(parents)
+    rnd = draw_uniforms(gen, rows, genes, device, islands=islands)
+    if cross == "all":
+        rnd["m_pair"].zero_()
+        rnd["m_gene"].zero_()
+    elif cross == "none":
+        rnd["m_gene"].fill_(0.75)
+    scalars = ops.pack_scalars(hp["eta_cx"], hp["prob_cx"], hp["eta_mut"],
+                               hp["prob_mut"], hp.get("indpb", 1.0 / genes),
+                               device=device)
     return parents, rnd, scalars, lo, hi
 
 
-def check_kernel(rows, genes, seed, hp, bound, tol, device, islands=None):
+def check_kernel(rows, genes, seed, hp, bound, tol, device, islands=None,
+                 **options):
     from repro_torch.kernels.genetic import ops
-    args = kernel_args(rows, genes, seed, hp, bound, device, islands)
+    args = kernel_args(rows, genes, seed, hp, bound, device, islands,
+                       **options)
     out = ops.fused_variation(*args)
     ref = ops.fused_variation_plain(*args)
     ok, err = close(out, ref, *tol)
-    inside = bool(((out >= -bound) & (out <= bound)).all())
+    lo, hi = args[3:]
+    inside = bool(((out >= lo) & (out <= hi)).all())
     if not (ok and inside):
         fail(f"fused_variation kernel disagrees with its plain version at "
-             f"({rows}, {genes}) hp={hp}: max abs err {err}, within bounds "
-             f"{inside}")
+             f"({rows}, {genes}) hp={hp} {options}: max abs err {err}, "
+             f"within bounds {inside}")
     return err
 
 
@@ -213,6 +317,7 @@ def phase_check(device):
     from repro_torch.core.population import init_population
     from repro_torch.core.uniforms import ArrayUniforms
     from repro_torch.fitness import rastrigin
+    from repro_torch.kernels.genetic import fused_variation
     for p, g in TEST_SHAPES:
         err = check_kernel(p - p % 2, g, p + g, dict(HP, indpb=1.0 / g), 1.0,
                            TOL, device)
@@ -231,6 +336,25 @@ def phase_check(device):
                             device, MAIN["islands"])
     say(f"check: kernel main-path shape ({MAIN['islands']}, {MAIN['pop']}, "
         f"{MAIN['genes']}) max abs err {main_err:.3g}")
+    err = check_kernel(MAIN["pop"], MAIN["genes"], 8, TABLE3, BOUND, TOL,
+                       device, MAIN["islands"])
+    say(f"check: kernel main-path shape, Table 3 point {TABLE3}: max abs "
+        f"err {err:.3g}")
+    for k, (rows, genes, options, vec) in enumerate(VARIATION_EDGES):
+        options = dict(options)
+        hp = options.pop("hp", HP)
+        args = kernel_args(rows, genes, 300 + k, hp, BOUND, device,
+                           **options)
+        got = fused_variation.template(*args[:2], *args[3:],
+                                       torch.empty_like(args[0]))
+        if got != (vec, 32):
+            fail(f"fused_variation at ({rows}, {genes}) {options}: template "
+                 f"{got}, expected ({vec}, 32)")
+        err = check_kernel(rows, genes, 300 + k, hp, BOUND, TOL, device,
+                           **options)
+        say(f"check: kernel edge ({rows}, {genes}) hp={hp} {options}: "
+            f"template {vec} float(s) per load, 32-bit index, max abs err "
+            f"{err:.3g}")
 
     # one generation, card vs CPU, from the same pre-drawn uniforms
     cfg = GAConfig(num_genes=8, pop_per_island=16, num_islands=4,
@@ -305,6 +429,80 @@ def phase_main():
     return runs[0][2], runs[0][4]
 
 
+def variation_bound(args, card):
+    """(bound ms, "bytes" or "operations") of one fused variation launch
+    on ``args``: every input read once and the offspring written once at
+    the memory rate, or the float32 operations these inputs need (OPS_*,
+    each powf one operation) at the float32 rate, whichever is longer."""
+    parents, rnd, scalars, _, _ = args
+    g = parents.shape[-1]
+    rows = parents.numel() // g
+    mem_rate, f32_rate, _ = peaks(card)
+    nbytes = 4 * (rows * g * 4 + (rows // 2) * g * 2 + rows // 2 + rows
+                  + 2 * g + 5)
+    prob_cx, prob_mut, indpb = (float(scalars[k]) for k in (1, 3, 4))
+    n_cx = int(((rnd["m_pair"] < prob_cx) & (rnd["m_gene"] < 0.5)).sum())
+    n_mut = int(((rnd["m_ind"] < prob_mut) & (rnd["m_genem"] < indpb)).sum())
+    nops = (OPS_PAIR_GENE * (rows // 2) * g + OPS_CROSSOVER * n_cx
+            + OPS_MUTATION * n_mut)
+    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, nops / f32_rate * 1e3
+    say(f"times: fused_variation bound: {nbytes} bytes at {mem_rate:.3g} "
+        f"B/s = {bytes_ms:.5f} ms; {nops} ops ({n_cx} crossing pair-genes, "
+        f"{n_mut} mutating genes) at {f32_rate:.3g} op/s = {ops_ms:.5f} ms")
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def host_us(fn):
+    """Mean host microseconds per call of ``fn`` over HOST_CALLS calls
+    after a warm-up call, with one synchronize at the end, outside the
+    clock."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def variation_times(device, card):
+    """The fused variation kernel at (I, P) of the main shape, called
+    through ``ops.fused_variation`` only, so this also runs on an older
+    tree of the port: its device time (``device_ms``) at each
+    VARIATION_POINTS point (the same parents and uniforms at one G)
+    beside its bound, and the host µs per wrapper call at the main shape
+    and at HOST_SMALL. Returns ({point: (ms, bound ms, bound_by, args)},
+    {shape: host µs})."""
+    from repro_torch.kernels.genetic import ops
+    i, p = MAIN["islands"], MAIN["pop"]
+    points = {}
+    for name, (g, hp, options) in VARIATION_POINTS.items():
+        args = kernel_args(p, g, 11, hp, BOUND, device, i, **options)
+        ms = device_ms(lambda: ops.fused_variation(*args))
+        bound_ms, bound_by = variation_bound(args, card)
+        points[name] = (ms, bound_ms, bound_by, args)
+        say(f"times: fused_variation ({i}, {p}, {g}) at {name} {hp} "
+            f"{options}: kernel {ms:.5f} ms, {bound_ms / ms:.3f} of the "
+            f"bound ({bound_ms:.5f} ms, {bound_by})")
+    host = {}
+    for shape in ((i, p, MAIN["genes"]), HOST_SMALL):
+        args = kernel_args(shape[1], shape[2], 12, HP, BOUND, device,
+                           shape[0])
+        host[shape] = host_us(lambda: ops.fused_variation(*args))
+        say(f"times: fused_variation host µs per wrapper call at {shape}: "
+            f"{host[shape]:.3f} (mean over {HOST_CALLS} calls, one sync at "
+            f"the end)")
+    del args
+    say("times: " + json.dumps({
+        "card": card, "variation_ms": {k: v[0] for k, v in points.items()},
+        "variation_bound_share": {k: v[1] / v[0] for k, v in points.items()},
+        "variation_host_us": {str(k): v for k, v in host.items()}}))
+    return points, host
+
+
 def phase_times(pop, main_err, launches, device, card):
     import torch
     from repro_torch.configs.base import GAConfig
@@ -318,26 +516,14 @@ def phase_times(pop, main_err, launches, device, card):
 
     i, p, g = pop.genomes.shape
     rows = i * p
-    args = kernel_args(p, g, 11, dict(HP, indpb=1.0 / g), BOUND, device, i)
-    kernel_ms = cuda_ms(lambda: ops.fused_variation(*args))
+    points, _ = variation_times(device, card)
+    kernel_ms, bound_ms, bound_by, args = points["ga_run"]
     plain_ms = cuda_ms(lambda: ops.fused_variation_plain(*args), repeats=5,
                        inner=2)
-    mem_rate, f32_rate, _ = peaks(card)
-    nbytes = 4 * (rows * g * 4 + (rows // 2) * g * 2 + rows // 2 + rows
-                  + 2 * g + 5)
-    _, rnd, scalars, _, _ = args
-    prob_cx, prob_mut, indpb = (float(scalars[k]) for k in (1, 3, 4))
-    n_cx = int(((rnd["m_pair"] < prob_cx) & (rnd["m_gene"] < 0.5)).sum())
-    n_mut = int(((rnd["m_ind"] < prob_mut) & (rnd["m_genem"] < indpb)).sum())
-    nops = (OPS_PAIR_GENE * (rows // 2) * g + OPS_CROSSOVER * n_cx
-            + OPS_MUTATION * n_mut)
-    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, nops / f32_rate * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    say(f"times: fused_variation ({i}, {p}, {g}): kernel {kernel_ms:.5f} ms, "
-        f"plain version {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
-        f"({bound_by}: {nbytes} bytes at {mem_rate:.3g} B/s; {nops} ops at "
-        f"{f32_rate:.3g} op/s), {bound_ms / kernel_ms:.3f} of the bound")
+    say(f"times: fused_variation ({i}, {p}, {g}), ga_run's point: kernel "
+        f"{kernel_ms:.5f} ms, plain version {plain_ms:.5f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / kernel_ms:.3f} of the "
+        f"bound")
 
     # one generation, phase by phase, on the main path's population
     cfg = GAConfig(num_genes=g, pop_per_island=p, num_islands=i,
@@ -894,6 +1080,14 @@ def phase_trace(device, card):
     return out
 
 
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -907,10 +1101,7 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     say(f"card: {card}")
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")

@@ -62,27 +62,40 @@ def fused_variation(parents: torch.Tensor, rnd: dict, scalars: torch.Tensor,
     if parents.device.type != "cuda":
         raise ValueError(f"fused_variation runs on cuda or cpu tensors, "
                          f"not {parents.device}")
-    lead = tuple(parents.shape[:-2])
-    expected = {"u_cx": lead + (p // 2, g), "m_pair": lead + (p // 2, 1),
-                "m_gene": lead + (p // 2, g), "u_mut": lead + (p, g),
-                "m_ind": lead + (p, 1), "m_genem": lead + (p, g)}
-    args = {"parents": parents, "scalars": scalars, "lower": lower,
-            "upper": upper, **{k: rnd[k] for k in expected}}
-    expected.update(parents=tuple(parents.shape), scalars=(5,), lower=(g,),
-                    upper=(g,))
-    for name, t in args.items():
-        if t.device != parents.device or t.dtype != torch.float32:
+    args = _expected(parents, rnd, scalars, lower, upper)
+    dev, f32 = parents.device, torch.float32
+    if not all(t.dtype == f32 and t.device == dev and t.shape == shape
+               and t.is_contiguous() for _, t, shape in args):
+        _reject(args, dev)
+    out = fused_variation_cuda(parents, rnd, scalars, lower, upper)
+    launches += 1
+    return out
+
+
+def _expected(parents, rnd, scalars, lower, upper) -> tuple:
+    """(name, tensor, expected shape) of every argument the kernel reads."""
+    *lead, p, g = parents.shape
+    half, full = (*lead, p // 2), (*lead, p)
+    return (("parents", parents, parents.shape), ("scalars", scalars, (5,)),
+            ("lower", lower, (g,)), ("upper", upper, (g,)),
+            ("u_cx", rnd["u_cx"], (*half, g)),
+            ("m_pair", rnd["m_pair"], (*half, 1)),
+            ("m_gene", rnd["m_gene"], (*half, g)),
+            ("u_mut", rnd["u_mut"], (*full, g)),
+            ("m_ind", rnd["m_ind"], (*full, 1)),
+            ("m_genem", rnd["m_genem"], (*full, g)))
+
+
+def _reject(args, device):
+    """Raise for the first argument the kernel does not take: type or
+    device, then shape, then contiguity."""
+    for name, t, shape in args:
+        if t.device != device or t.dtype != torch.float32:
             raise ValueError(f"fused_variation: {name} is {t.dtype} on "
                              f"{t.device}; the kernel takes float32 on "
-                             f"{parents.device}")
-        if tuple(t.shape) != expected[name]:
+                             f"{device}")
+        if t.shape != shape:
             raise ValueError(f"fused_variation: {name} has shape "
-                             f"{tuple(t.shape)}, expected {expected[name]}")
+                             f"{tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"fused_variation: {name} is not contiguous")
-    flat = {k: rnd[k].reshape(-1, rnd[k].shape[-1]) for k in
-            ("u_cx", "m_pair", "m_gene", "u_mut", "m_ind", "m_genem")}
-    out = fused_variation_cuda(parents.reshape(-1, g), flat, scalars,
-                               lower, upper)
-    launches += 1
-    return out.reshape(parents.shape)

@@ -19,14 +19,14 @@ from repro_torch.core.uniforms import ArrayUniforms
 from repro_torch.fitness import rastrigin
 from repro_torch.configs import get_config
 from repro_torch.kernels.attention import ops as attn_ops
-from repro_torch.kernels.genetic import ops
+from repro_torch.kernels.genetic import fused_variation, ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 from repro_torch.launch import ga_run, serve
 from repro_torch.models.convert import cache_to_numpy
 from repro_torch.models.model import Model
 from torch_parity import (ATTN_BF16_TOL, ATTN_CASES, ATTN_TOL,  # noqa: F401
-                          MASKED_CASE, MODEL_TOL, SSD_CASES,
+                          GA_RUN_HP, MASKED_CASE, MODEL_TOL, SSD_CASES,
                           SSD_CHUNK256_CASES, SSD_MIN_DECAY, SSD_TOL, TOL,
                           attn_inputs, cuda_device, kernel_args,
                           ssd_inputs, to_np)
@@ -34,17 +34,64 @@ from torch_parity import (ATTN_BF16_TOL, ATTN_CASES, ATTN_TOL,  # noqa: F401
 pytestmark = pytest.mark.cuda
 
 
-@pytest.mark.parametrize("p,g,islands", [(16, 4, None), (130, 33, None),
-                                         (256, 128, None), (1024, 128, 4)])
-def test_kernel_matches_plain_version(cuda_device, p, g, islands):
-    p -= p % 2
-    args = kernel_args(p, g, p + g, islands=islands, device=cuda_device)
+# (P, G, islands, kernel_args case, floats per load of the template the
+# launcher must pick): G % 4 == 0 with aligned streams takes the float4
+# path, any other G or an unaligned stream the scalar-load one
+@pytest.mark.parametrize("p,g,islands,case,vec", [
+    (16, 4, None, "ga_run", 4), (130, 33, None, "ga_run", 1),
+    (256, 128, None, "ga_run", 4), (1024, 128, 4, "ga_run", 4),
+    (64, 1000, None, "ga_run", 4), (64, 18, None, "ga_run", 1),
+    (256, 128, None, "unaligned", 1), (130, 33, None, "unaligned", 1),
+    (256, 128, None, "bounds", 4), (130, 33, None, "bounds", 1),
+    (256, 128, None, "table3", 4), (64, 18, None, "table3", 1),
+    (256, 128, None, "all_cross", 4), (130, 33, None, "all_cross", 1),
+    (256, 128, None, "no_cross", 4), (130, 33, None, "no_cross", 1)])
+def test_kernel_matches_plain_version(cuda_device, p, g, islands, case, vec):
+    args = kernel_args(p, g, p + g, islands=islands, device=cuda_device,
+                       case=case)
+    parents, rnd, _, lo, hi = args
+    assert fused_variation.template(parents, rnd, lo, hi,
+                                    torch.empty_like(parents)) == (vec, 32)
     before = ops.launches
     out = ops.fused_variation(*args)
     torch.cuda.synchronize()
     assert ops.launches == before + 1
     plain = ops.fused_variation_plain(*args)      # on the card as well
     np.testing.assert_allclose(to_np(out), to_np(plain), **TOL)
+    assert bool(((out >= lo) & (out <= hi)).all())
+
+
+@pytest.mark.parametrize("g,vec", [(128, 4), (33, 1)])
+def test_kernel_64bit_index_template(cuda_device, g, vec):
+    """pairs * G >= 2^31 takes the 64-bit template. The streams alias, so
+    the inputs fit on one card (~40 GB): one (R, G) tensor stands for the
+    parents, u_mut and m_genem, one (R/2, G) for u_cx and m_gene. The
+    first 64 rows and the last 64, which lie wholly past 2^32 elements,
+    are held against the plain version."""
+    pairs = -(-(1 << 31) // g) + 32
+    rows = 2 * pairs
+    gen = torch.Generator(device=cuda_device).manual_seed(g)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=cuda_device)
+    full, half = rand(rows, g), rand(pairs, g)
+    rnd = {"u_cx": half, "m_pair": rand(pairs, 1), "m_gene": half,
+           "u_mut": full, "m_ind": rand(rows, 1), "m_genem": full}
+    scalars = ops.pack_scalars(*GA_RUN_HP, 0.4, device=cuda_device)
+    lo = torch.full((g,), -1.0, device=cuda_device)
+    hi = torch.full((g,), 1.0, device=cuda_device)
+    out = ops.fused_variation(full, rnd, scalars, lo, hi)
+    torch.cuda.synchronize()
+    assert fused_variation.template(full, rnd, lo, hi, out) == (vec, 64)
+    for first in (0, rows - 64):
+        r, h = slice(first, first + 64), slice(first // 2, first // 2 + 32)
+        part = {"u_cx": half[h], "m_pair": rnd["m_pair"][h],
+                "m_gene": half[h], "u_mut": full[r], "m_ind": rnd["m_ind"][r],
+                "m_genem": full[r]}
+        plain = ops.fused_variation_plain(full[r], part, scalars, lo, hi)
+        np.testing.assert_allclose(to_np(out[r]), to_np(plain), **TOL)
+    del full, half, rnd, out
+    torch.cuda.empty_cache()
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):

@@ -12,11 +12,12 @@ from repro.kernels.genetic.ref import fused_variation_ref as jax_ref
 from repro_torch.kernels.genetic import ops
 from repro_torch.kernels.genetic.ref import (draw_uniforms,
                                              fused_variation_ref)
-from torch_parity import (SWEEP_TOL, TOL, UNIFORM_KEYS, kernel_args, to_np,
-                          to_torch)
+from torch_parity import (GA_RUN_HP, SWEEP_TOL, TABLE3_HP, TOL, UNIFORM_KEYS,
+                          gene_bounds, kernel_args, to_np, to_torch)
 
 SHAPES = [(16, 4), (64, 18), (130, 33), (256, 128)]
-KW = dict(eta_cx=15.0, prob_cx=0.9, eta_mut=20.0, prob_mut=0.7)
+HP_NAMES = ("eta_cx", "prob_cx", "eta_mut", "prob_mut")
+KW = dict(zip(HP_NAMES, GA_RUN_HP))
 
 
 def _inputs(p, g, seed, lo=-1.0, hi=1.0):
@@ -30,7 +31,8 @@ def _inputs(p, g, seed, lo=-1.0, hi=1.0):
 
 
 def _three_ways(parents, rnd, kw, lo, hi):
-    """(Pallas interpret, jnp oracle, port plain version), each (P, G)."""
+    """(Pallas interpret, jnp oracle, port plain version), each (P, G);
+    lo and hi are numbers or (G,) arrays."""
     p, g = parents.shape
     lo_a = np.full((g,), lo, np.float32)
     hi_a = np.full((g,), hi, np.float32)
@@ -57,6 +59,22 @@ def test_plain_version_matches_pallas_and_oracle(p, g):
     pallas, oracle, port = _three_ways(parents, rnd, kw, -1.0, 1.0)
     np.testing.assert_allclose(port, pallas, **TOL)
     np.testing.assert_allclose(port, oracle, **TOL)
+
+
+@pytest.mark.parametrize("hp,per_gene", [("table3", False),
+                                          ("ga_run", True), ("table3", True)])
+@pytest.mark.parametrize("p,g", [(64, 18), (256, 128)])
+def test_plain_version_table3_and_per_gene_bounds(p, g, hp, per_gene):
+    """The paper's Table 3 point (its HVDC runs: eta_cx 97.5, prob_cx 1.0,
+    eta_mut 34.6, prob_mut 0.7) and per-gene bounds with lo != -hi."""
+    lo, hi = gene_bounds(g, seed=g) if per_gene else (-1.0, 1.0)
+    parents, rnd = _inputs(p, g, seed=p + g, lo=lo, hi=hi)
+    kw = dict(zip(HP_NAMES, TABLE3_HP if hp == "table3" else GA_RUN_HP),
+              indpb=1.0 / g)
+    pallas, oracle, port = _three_ways(parents, rnd, kw, lo, hi)
+    np.testing.assert_allclose(port, pallas, **TOL)
+    np.testing.assert_allclose(port, oracle, **TOL)
+    assert np.all((port >= lo) & (port <= hi))
 
 
 SWEEP = [tuple(np.random.default_rng(s).uniform([1, 1, 0], [80, 80, 1]))
@@ -108,6 +126,25 @@ def test_wrapper_rejects_odd_pop():
     parents, rnd, scalars, lo, hi = kernel_args(16, 5, 0)
     with pytest.raises(ValueError, match="odd"):
         ops.fused_variation(parents[:15], rnd, scalars, lo, hi)
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("dtype", "m_gene is torch.float64 on cpu; the kernel takes float32"),
+    ("shape", r"m_ind has shape \(8, 1\), expected \(16, 1\)"),
+    ("layout", "u_mut is not contiguous")])
+def test_wrapper_checks_name_the_first_bad_argument(bad, match):
+    """The wrapper's checks, in the order it makes them (type and device,
+    shape, contiguity), name the argument the kernel does not take. They
+    run before any CUDA launch, so they are tested here on CPU tensors."""
+    parents, rnd, scalars, lo, hi = kernel_args(16, 8, 1)
+    args = ops._expected(parents, rnd, scalars, lo, hi)
+    ops._reject(args, parents.device)                 # nothing to reject
+    rnd = {"dtype": dict(rnd, m_gene=rnd["m_gene"].double()),
+           "shape": dict(rnd, m_ind=rnd["m_ind"][:8]),
+           "layout": dict(rnd, u_mut=rnd["u_mut"].t().contiguous().t())}[bad]
+    with pytest.raises(ValueError, match=match):
+        ops._reject(ops._expected(parents, rnd, scalars, lo, hi),
+                    parents.device)
 
 
 def test_pack_scalars_keeps_tensor_hyperparameters_on_device():

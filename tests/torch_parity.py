@@ -71,22 +71,56 @@ def to_np(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def kernel_args(p, g, seed, islands=None, device="cpu"):
+# fused variation hyperparameters (eta_cx, prob_cx, eta_mut, prob_mut):
+# launch/ga_run.py's, and the paper's Table 3 (its HVDC runs,
+# repro/launch/ga_run.py:222-223)
+GA_RUN_HP = (15.0, 0.9, 20.0, 0.7)
+TABLE3_HP = (97.5, 1.0, 34.6, 0.7)
+#: kernel_args cases: ga_run's point; Table 3's; per-gene bounds with
+#: lo != -hi; parents contiguous but not 16-byte aligned (a view at element
+#: offset 1); every pair-gene crossing, and none, each with indpb 0.4
+VARIATION_CASES = ("ga_run", "table3", "bounds", "unaligned", "all_cross",
+                   "no_cross")
+
+
+def gene_bounds(g, seed):
+    """Per-gene float32 bounds (lo, hi), lo in [-3, 0.5), hi - lo in
+    [0.5, 4)."""
+    rs = np.random.default_rng(seed)
+    lo = rs.uniform(-3.0, 0.5, g)
+    return np32(lo), np32(lo + rs.uniform(0.5, 4.0, g))
+
+
+def kernel_args(p, g, seed, islands=None, device="cpu", case="ga_run"):
     """Parents (numpy seed), uniforms (torch seed), scalars and bounds for
-    one ``ops.fused_variation`` call at the main path's hyperparameters."""
+    one ``ops.fused_variation`` call, at the main path's hyperparameters
+    unless ``case`` (one of VARIATION_CASES) says otherwise."""
     from repro_torch.kernels.genetic import ops
     from repro_torch.kernels.genetic.ref import draw_uniforms
+    if case not in VARIATION_CASES:
+        raise ValueError(f"unknown case {case!r}")
     rs = np.random.default_rng(seed)
     lead = () if islands is None else (islands,)
-    parents = to_torch(rs.uniform(-1, 1, lead + (p, g)).astype(np.float32),
+    lo, hi = (gene_bounds(g, seed + 1) if case == "bounds"
+              else (np.full(g, -1, np.float32), np.full(g, 1, np.float32)))
+    parents = to_torch(rs.uniform(lo, hi, lead + (p, g)).astype(np.float32),
                        device)
+    if case == "unaligned":
+        buf = torch.empty(parents.numel() + 1, device=device)
+        parents = buf[1:].view(parents.shape).copy_(parents)
     gen = torch.Generator().manual_seed(seed)
     rnd = {k: v.to(device) for k, v in
            draw_uniforms(gen, p, g, "cpu", islands=islands).items()}
-    scalars = ops.pack_scalars(15.0, 0.9, 20.0, 0.7, 1.0 / g, device=device)
-    lo = torch.full((g,), -1.0, device=device)
-    hi = torch.full((g,), 1.0, device=device)
-    return parents, rnd, scalars, lo, hi
+    if case == "all_cross":
+        rnd["m_pair"].zero_()
+        rnd["m_gene"].zero_()
+    elif case == "no_cross":
+        rnd["m_gene"].fill_(0.75)
+    hp = TABLE3_HP if case == "table3" else GA_RUN_HP
+    indpb = 0.4 if case in ("all_cross", "no_cross") else 1.0 / g
+    scalars = ops.pack_scalars(*hp, indpb, device=device)
+    return (parents, rnd, scalars, to_torch(lo, device),
+            to_torch(hi, device))
 
 
 def attn_inputs(b, sq, h, kv, hd, seed=0, t=None):
