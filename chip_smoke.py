@@ -5,9 +5,10 @@ paths on the card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Two main paths: the GA loop (``repro_torch.launch.ga_run``) and LM
-serving (``repro_torch.launch.serve``: prefill + decode). Phases, in
-order; any failure exits non-zero:
+Three main paths: the GA loop (``repro_torch.launch.ga_run``), LM
+serving (``repro_torch.launch.serve``: prefill + decode) and the paper's
+HVDC dispatch (``ga_run --fitness hvdc``: batched AC Newton power flow on
+the German-size grid). Phases, in order; any failure exits non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
 2. build:  every CUDA kernel of the port (fused variation, flash attention,
@@ -25,7 +26,14 @@ order; any failure exits non-zero:
            case with fully masked rows and gemma2-2b's layer shapes
            (float32 3e-5, bfloat16 2e-2); the SSD kernel and the whole
            chunked scan at the reference's cases and mamba2-780m's shapes
-           (1e-4);
+           (1e-4); the fused variation at the HVDC runs' shapes (2, 16 and
+           8, 18); the HVDC fitness on the card against the same code on
+           the CPU (LAPACK's LU) for four genomes at the tests' 60-bus grid
+           (8 contingencies, full AC and screened to 4 and 12) and at the
+           German grid's base case (vm, va 1e-4; iters and converged exact; the
+           screened lists exact past their islanding head; objectives
+           1e-4 on converged lanes), an
+           islanding outage that reads 10.0 without raising, and TF32 off;
 4. main:   ``python -m repro_torch.launch.ga_run --fitness rastrigin`` at
            I=32 islands x P=1024 individuals x G=128 genes, 5 generations x
            3 epochs, then again with --sync-every 2 --pipeline-depth 2,
@@ -35,8 +43,13 @@ order; any failure exits non-zero:
            mamba2-780m (batch 4, prompt 4000, 32 tokens): random weights
            from a seed, every logit finite, the flash kernel launched 26
            times (one per layer) in gemma2's prefill and the SSD kernel 48
-           times in mamba2's. Every run has the launch counts zeroed just
-           before it and read just after;
+           times in mamba2's; ``ga_run --fitness hvdc --grid-size 2715
+           --hvdc-lines 18 --islands 2 --gens-per-epoch 2 --epochs 2
+           --num-workers 4``, horizontal (--pop 16) and vertical (--pop 8
+           --contingencies 8: full AC on 8 outages per genome), each
+           launching the fused variation exactly 4 times, with finite
+           fitness and genomes in [-1, 1]. Every run has the launch counts
+           zeroed just before it and read just after;
 5. times:  with CUDA events, medians of repeats: each kernel beside its
            bound and its plain version. The fused variation at the main
            shape at three points (no crossover or mutation, so no powf
@@ -51,7 +64,12 @@ order; any failure exits non-zero:
            backend that computes that function in float32), a yardstick
            the port never calls. Then one GA generation phase by phase,
            GA epochs, and prefill ms, decode ms/token and tokens/s of each
-           served model;
+           served model; one HVDC generation phase by phase, the batched
+           LU (torch.linalg.solve_ex at (B, 5430, 5430), B = 1 and 16)
+           beside its float32 bound, one Newton solve per system and its
+           LU share, evaluations/s and power-flow solves/s of each HVDC
+           run's population, the share of LU work on converged lanes, and
+           each HVDC run's peak device memory;
 6. trace:  one prefill and 8 decode steps of each served model under
            torch.profiler: the device's idle share and the kernels' share
            of each window, read from the trace;
@@ -115,6 +133,24 @@ VARIATION_POINTS = {"no_powf": (MAIN["genes"], NO_POWF, {}),
                     "ga_run_scalar": (MAIN["genes"], HP,
                                       dict(unaligned=True)),
                     "table3_g18": (HVDC_GENES, TABLE3, {})}
+# HVDC dispatch path (``ga_run --fitness hvdc``): the tests' 60-bus grid
+# and its islanding line 11 (it cuts bus 36, of degree 1, loose); the
+# German-size runs (--grid-size 2715 builds 2715 buses, 5348 lines, 18
+# HVDC lines; population and depth are the cuts), horizontal and vertical
+# (full AC on 8 outages per genome)
+HVDC_SMALL = dict(n_bus=60, n_line=110, n_gen=15, n_hvdc=4, seed=1)
+HVDC_BRIDGE = 11
+HVDC_TOL, HVDC_PF_ATOL = (1e-4, 1e-4), 1e-4
+HVDC_BUSES, HVDC_EPOCHS = 2715, 2
+HVDC_GENS = 2 * HVDC_EPOCHS          # generations per epoch x epochs
+HVDC_ARGS = ["--fitness", "hvdc", "--grid-size", str(HVDC_BUSES),
+             "--hvdc-lines", str(HVDC_GENES), "--islands", "2",
+             "--gens-per-epoch", str(HVDC_GENS // HVDC_EPOCHS),
+             "--epochs", str(HVDC_EPOCHS), "--num-workers", "4",
+             "--device", "cuda"]
+HVDC_RUNS = {"horizontal": ["--pop", "16"],
+             "vertical": ["--pop", "8", "--contingencies", "8"]}
+HVDC_SOLVE_BATCHES = (1, 16)
 # host time of a wrapper call: mean over this many calls, one sync at the
 # end, at the main shape and at a small one where the device keeps up
 HOST_CALLS = 1000
@@ -205,6 +241,20 @@ def cuda_ms(fn, repeats=10, inner=5):
         stop.synchronize()
         times.append(start.elapsed_time(stop) / inner)
     return statistics.median(times)
+
+
+def once_ms(fn):
+    """Device ms of one call of ``fn``, with CUDA events and no warm-up
+    (for calls that take seconds and were warmed by an earlier run)."""
+    import torch
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+    start.record()
+    fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop)
 
 
 def device_ms(fn, launches=20, repeats=10):
@@ -503,35 +553,22 @@ def variation_times(device, card):
     return points, host
 
 
-def phase_times(pop, main_err, launches, device, card):
+def generation_phases(pop, broker, scalars, bound, device,
+                      migrate_cfg=None):
+    """One generation on ``pop``, phase by phase (CUDA events, median of 3
+    single calls): NSGA-II keys, tournament with the parent gather, the
+    variation's uniform draws, one fused variation wrapper call (genes in
+    [-bound, bound], hyperparameters ``scalars``), the fitness through
+    ``broker``, survivor selection; and one migration when
+    ``migrate_cfg`` is given. Returns {phase: ms}."""
     import torch
-    from repro_torch.configs.base import GAConfig
     from repro_torch.core import island, nsga2, operators
-    from repro_torch.core.broker import Broker
-    from repro_torch.core.engine import GAEngine
     from repro_torch.core.uniforms import GeneratorUniforms
-    from repro_torch.fitness import rastrigin
     from repro_torch.kernels.genetic import ops
     from repro_torch.kernels.genetic.ref import draw_uniforms
-
     i, p, g = pop.genomes.shape
-    rows = i * p
-    points, _ = variation_times(device, card)
-    kernel_ms, bound_ms, bound_by, args = points["ga_run"]
-    plain_ms = cuda_ms(lambda: ops.fused_variation_plain(*args), repeats=5,
-                       inner=2)
-    say(f"times: fused_variation ({i}, {p}, {g}), ga_run's point: kernel "
-        f"{kernel_ms:.5f} ms, plain version {plain_ms:.5f} ms, bound "
-        f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / kernel_ms:.3f} of the "
-        f"bound")
-
-    # one generation, phase by phase, on the main path's population
-    cfg = GAConfig(num_genes=g, pop_per_island=p, num_islands=i,
-                   lower=-BOUND, upper=BOUND, mutation_prob=0.7,
-                   mutation_eta=20.0, crossover_prob=0.9, crossover_eta=15.0)
-    broker = Broker(rastrigin)
-    lo = torch.full((g,), -BOUND, device=device)
-    hi = torch.full((g,), BOUND, device=device)
+    lo = torch.full((g,), -bound, device=device)
+    hi = torch.full((g,), bound, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     rand = GeneratorUniforms(gen, device)
@@ -550,25 +587,50 @@ def phase_times(pop, main_err, launches, device, card):
 
     def variation():
         state["off"] = ops.fused_variation(state["parents"], state["rnd"],
-                                           args[2], lo, hi)
+                                           scalars, lo, hi)
 
     def fitness():
-        state["fit"] = broker.evaluate(state["off"].reshape(rows, g))[0]
+        state["fit"] = broker.evaluate(state["off"].reshape(i * p, g))[0]
 
     def survivors():
         nsga2.survivor_select(
             torch.cat([pop.genomes, state["off"]], 1),
-            torch.cat([pop.fitness, state["fit"].reshape(i, p, 1)], 1), p)
+            torch.cat([pop.fitness, state["fit"].reshape(i, p, -1)], 1), p)
 
-    def migration():
-        island.migrate_ring(cfg, pop, rand)
+    steps = [("nsga2_keys", keys), ("tournament", tournament),
+             ("uniform_draws", draws), ("variation_kernel", variation),
+             ("fitness", fitness), ("survivor_select", survivors)]
+    if migrate_cfg is not None:
+        steps.append(("migration",
+                      lambda: island.migrate_ring(migrate_cfg, pop, rand)))
+    return {name: cuda_ms(fn, repeats=3, inner=1) for name, fn in steps}
 
-    phases = {}
-    for name, fn in [("nsga2_keys", keys), ("tournament", tournament),
-                     ("uniform_draws", draws), ("variation_kernel", variation),
-                     ("fitness", fitness), ("survivor_select", survivors),
-                     ("migration", migration)]:
-        phases[name] = cuda_ms(fn, repeats=3, inner=1)
+
+def phase_times(pop, main_err, launches, device, card):
+    import torch
+    from repro_torch.configs.base import GAConfig
+    from repro_torch.core.broker import Broker
+    from repro_torch.core.engine import GAEngine
+    from repro_torch.fitness import rastrigin
+    from repro_torch.kernels.genetic import ops
+
+    i, p, g = pop.genomes.shape
+    rows = i * p
+    points, _ = variation_times(device, card)
+    kernel_ms, bound_ms, bound_by, args = points["ga_run"]
+    plain_ms = cuda_ms(lambda: ops.fused_variation_plain(*args), repeats=5,
+                       inner=2)
+    say(f"times: fused_variation ({i}, {p}, {g}), ga_run's point: kernel "
+        f"{kernel_ms:.5f} ms, plain version {plain_ms:.5f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / kernel_ms:.3f} of the "
+        f"bound")
+
+    # one generation, phase by phase, on the main path's population
+    cfg = GAConfig(num_genes=g, pop_per_island=p, num_islands=i,
+                   lower=-BOUND, upper=BOUND, mutation_prob=0.7,
+                   mutation_eta=20.0, crossover_prob=0.9, crossover_eta=15.0)
+    phases = generation_phases(pop, Broker(rastrigin), args[2], BOUND,
+                               device, migrate_cfg=cfg)
     gen_ms = sum(v for k, v in phases.items() if k != "migration")
     say("times: one generation at (I, P, G) = "
         f"({i}, {p}, {g}), ms per phase: "
@@ -602,6 +664,332 @@ def phase_times(pop, main_err, launches, device, card):
             "launches": launches, "max_abs_err": main_err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# HVDC dispatch path: batched AC Newton power flow through ga_run
+# ---------------------------------------------------------------------------
+
+def hvdc_genomes(h, seed):
+    """(4, H) float32 genomes in [-1, 1]: zero dispatch, alternating +-1,
+    two uniform draws (numpy seed)."""
+    import numpy as np
+    import torch
+    rs = np.random.default_rng(seed)
+    return torch.from_numpy(np.stack(
+        [np.zeros(h), np.resize([1.0, -1.0], h), rs.uniform(-1, 1, h),
+         rs.uniform(-1, 1, h)]).astype(np.float32))
+
+
+def hvdc_eval(grid, device, genomes, **fitness_kw):
+    """On ``device``: the base-case Newton result of ``genomes``, their
+    objectives, the screened outage lists (or None) and the islanding
+    mask of the DC model (or None), all moved to the CPU."""
+    from repro_torch.fitness.powerflow import HVDCDispatchFitness
+    from repro_torch.powerflow.dc import screen_contingencies
+    from repro_torch.powerflow.hvdc import apply_hvdc, scale_genome_to_dispatch
+    from repro_torch.powerflow.newton import newton_powerflow
+    fit = HVDCDispatchFitness(grid, device=device, **fitness_kw)
+    gridt, genomes = fit.gridt, genomes.to(device)
+    pe = apply_hvdc(gridt, scale_genome_to_dispatch(gridt, genomes))
+    res = newton_powerflow(gridt, p_extra=pe, num_iters=fit.newton_iters)
+    obj = fit(genomes)
+    cases = islanding = None
+    if fit.dc_model is not None:
+        cases = screen_contingencies(fit.dc_model, gridt["p_inj"] + pe,
+                                     gridt["rate"], fit.screen_top_k).cpu()
+        islanding = (fit.dc_model.bridge_score > 50.0).cpu()
+    return (res._replace(**{k: v.cpu() for k, v in res._asdict().items()}),
+            obj.cpu(), cases, islanding)
+
+
+def check_hvdc(grid, label, device, **fitness_kw):
+    """HVDCDispatchFitness on the card against the same code on the CPU
+    (LAPACK's LU) for hvdc_genomes: vm and va atol HVDC_PF_ATOL, iters and
+    converged exact, objectives at HVDC_TOL on the lanes whose base case
+    converged (a non-converged lane scores 100 x a round-off-driven
+    iterate), screened lists equal past their head of islanding outages
+    (which of those lead, in which order, is round-off: each islanding
+    line's LODF column is round-off / 1e-6)."""
+    import torch
+    genomes = hvdc_genomes(grid.n_hvdc, seed=5)
+    card = hvdc_eval(grid, device, genomes, **fitness_kw)
+    cpu = hvdc_eval(grid, torch.device("cpu"), genomes, **fitness_kw)
+    (cres, cobj, ccases, cisl), (res, obj, cases, isl) = card, cpu
+    errs = {}
+    for field in ("vm", "va"):
+        ok, errs[field] = close(getattr(cres, field), getattr(res, field),
+                                0.0, HVDC_PF_ATOL)
+        if not ok:
+            fail(f"HVDC {label}: {field} on the card differs from the CPU's "
+                 f"by {errs[field]}")
+    if not (torch.equal(cres.iters, res.iters)
+            and torch.equal(cres.converged, res.converged)):
+        fail(f"HVDC {label}: iters/converged {cres.iters.tolist()} "
+             f"{cres.converged.tolist()} on the card, {res.iters.tolist()} "
+             f"{res.converged.tolist()} on the CPU")
+    conv = res.converged
+    if not bool(torch.isfinite(cobj).all()):
+        fail(f"HVDC {label}: objectives {cobj.tolist()} not finite")
+    ok, errs["objective"] = close(cobj[conv], obj[conv], *HVDC_TOL)
+    if not ok:
+        fail(f"HVDC {label}: objectives {cobj.tolist()} on the card, "
+             f"{obj.tolist()} on the CPU")
+    if cases is not None:
+        if not torch.equal(cisl, isl):
+            fail(f"HVDC {label}: islanding lines differ card vs CPU")
+        head = min(cases.shape[1], int(isl.sum()))
+        for a, b in zip(ccases.tolist(), cases.tolist()):
+            if not (all(isl[k] for k in a[:head] + b[:head])
+                    and a[head:] == b[head:]):
+                fail(f"HVDC {label}: screened {a} on the card, {b} on the "
+                     f"CPU")
+    say(f"check: HVDC {label}: {int(conv.sum())} of {len(conv)} base cases "
+        f"converged (iters {res.iters.tolist()}), vm max abs err "
+        f"{errs['vm']:.3g}, va {errs['va']:.3g}, objectives "
+        f"{errs['objective']:.3g}"
+        + ("" if cases is None else
+           f", screened lists {ccases.tolist()} (islanding head {head})"))
+
+
+def phase_check_hvdc(device):
+    """The fused variation at the HVDC runs' shapes; the HVDC fitness on
+    the card against the CPU at the tests' 60-bus grid (8 contingencies,
+    full AC and screened to 4 and 12) and at the German grid's base case;
+    an islanding outage reads 10.0 without raising."""
+    import torch
+    from repro_torch.powerflow.contingency import contingency_loadings
+    from repro_torch.powerflow.grid import (make_german_grid,
+                                            make_synthetic_grid)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("torch.backends.cuda.matmul.allow_tf32 is set: TF32 in the "
+             "complex GEMMs would eat into the Newton tolerance")
+    for p in (16, 8):                 # the HVDC runs' (I, P, G) shapes
+        err = check_kernel(p, HVDC_GENES, 400 + p,
+                           dict(TABLE3, indpb=1.0 / HVDC_GENES), 1.0, TOL,
+                           device, islands=2)
+        say(f"check: kernel HVDC main-path shape (2, {p}, {HVDC_GENES}), "
+            f"Table 3: max abs err {err:.3g}")
+    small = make_synthetic_grid(**HVDC_SMALL)
+    check_hvdc(small, "60-bus, 8 contingencies", device, contingencies=8)
+    for k in (4, 12):                 # inside and past the islanding head
+        check_hvdc(small, f"60-bus, 8 contingencies screened to {k}", device,
+                   contingencies=8, screen_top_k=k)
+    german = make_german_grid(0)
+    check_hvdc(german, f"German grid ({german.n_bus} buses, {german.n_line} "
+               f"lines, {german.n_hvdc} HVDC), base case", device)
+    load = contingency_loadings(small.to_torch(device),
+                                torch.tensor([HVDC_BRIDGE, 3], device=device))
+    torch.cuda.synchronize()
+    if not (bool((load[0, 0] == 10.0).all())
+            and bool((load[0, 1] < 10.0).all())):
+        fail(f"HVDC: the islanding outage of line {HVDC_BRIDGE} reads "
+             f"{load[0, 0].max().item()}, line 3's {load[0, 1].max().item()}")
+    say(f"check: HVDC islanding outage (line {HVDC_BRIDGE}, a degree-1 bus "
+        f"cut loose) reads 10.0 on every line without raising")
+
+
+def phase_main_hvdc():
+    """``ga_run --fitness hvdc`` on the German-size grid, horizontal and
+    vertical, each with the fused variation's count zeroed just before and
+    read just after: exactly HVDC_GENS launches (the initial evaluation
+    launches none), finite fitness, genomes in [-1, 1]."""
+    import torch
+    from repro_torch.kernels.genetic import ops
+    from repro_torch.launch import ga_run
+    runs = {}
+    for name, extra in HVDC_RUNS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.launches = 0
+        t0 = time.perf_counter()
+        pop, hist = ga_run.main(HVDC_ARGS + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launches
+        peak = torch.cuda.max_memory_allocated()
+        i, p, g = pop.genomes.shape
+        evals = i * p * (1 + HVDC_GENS)
+        contingencies = int(extra[extra.index("--contingencies") + 1]) \
+            if "--contingencies" in extra else 0
+        say(f"main: ga_run hvdc {name} {' '.join(extra)}: {wall:.3f} s wall "
+            f"(set-up included), fused_variation launches {launches}, "
+            f"{evals} evaluations, peak memory {peak} B")
+        if launches != HVDC_GENS:
+            fail(f"fused_variation launched {launches} times in ga_run hvdc "
+                 f"{name}, expected {HVDC_GENS}")
+        if g != HVDC_GENES or len(hist) != HVDC_EPOCHS or \
+                not bool(torch.isfinite(pop.fitness).all()) or \
+                not all(math.isfinite(h["best"]) for h in hist):
+            fail(f"ga_run hvdc {name}: genes {g}, {len(hist)} epochs, "
+                 f"fitness finite {bool(torch.isfinite(pop.fitness).all())}")
+        if not bool((pop.genomes.abs() <= 1.0).all()):
+            fail(f"ga_run hvdc {name}: genomes outside [-1, 1]")
+        if any(h["balanced"] != 1.0 for h in hist):
+            fail(f"ga_run hvdc {name}: balanced dispatch did not engage")
+        runs[name] = dict(pop=pop, launches=launches, wall_s=wall,
+                          evaluations=evals, contingencies=contingencies,
+                          peak_bytes=peak, best=hist[-1]["best"],
+                          skew=[h["skew"] for h in hist])
+    return runs
+
+
+def finished_share(iters, num_iters):
+    """Share of a static schedule's LU work spent on lanes already done."""
+    return 1.0 - float(iters.float().mean()) / num_iters
+
+
+def phase_times_hvdc(runs, device, card):
+    """HVDC times on the card (CUDA events): one generation phase by phase
+    at the horizontal run's shape; the batched LU (torch.linalg.solve_ex)
+    at (B, 2n, 2n) beside its float32 bound, under each linear-algebra
+    library PyTorch can prefer; one Newton solve per system and its LU
+    share; the fitness of each run's population: evaluations/s and
+    power-flow solves/s; the share of LU work on lanes already
+    converged."""
+    import argparse
+    import torch
+    from repro_torch.core.broker import Broker
+    from repro_torch.kernels.genetic import ops
+    from repro_torch.launch import ga_run
+    from repro_torch.powerflow.contingency import select_contingency_lines
+    from repro_torch.powerflow.hvdc import apply_hvdc, scale_genome_to_dispatch
+    from repro_torch.powerflow.newton import newton_powerflow
+    out = {"card": card}
+    fits = {}
+    for name, extra in HVDC_RUNS.items():
+        pop = runs[name]["pop"]
+        i, p, g = pop.genomes.shape
+        ns = argparse.Namespace(
+            grid_size=HVDC_BUSES, hvdc_lines=HVDC_GENES, pop=p, islands=i,
+            gens_per_epoch=HVDC_GENS // HVDC_EPOCHS, epochs=HVDC_EPOCHS,
+            seed=0, contingencies=runs[name]["contingencies"],
+            screen_top_k=0)
+        cfg, fit, cost = ga_run.build("hvdc", ns, device)
+        fits[name] = (cfg, fit, cost, pop)
+    cfg, fit, cost, pop = fits["horizontal"]
+    i, p, g = pop.genomes.shape
+    scalars = ops.pack_scalars(cfg.crossover_eta, cfg.crossover_prob,
+                               cfg.mutation_eta, cfg.mutation_prob, cfg.indpb,
+                               device=device)
+    phases = generation_phases(pop, Broker(fit, cost, num_workers=4),
+                               scalars, 1.0, device)
+    gen_ms = sum(phases.values())
+    say(f"times: one HVDC generation at (I, P, G) = ({i}, {p}, {g}), "
+        f"{HVDC_BUSES} buses, ms per phase: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
+        + f"; generation total {gen_ms:.4f}")
+    out.update(phase_ms=phases, generation_ms=gen_ms)
+
+    # the batched LU at the Jacobian's shape, on diagonally dominant
+    # matrices, beside its bound: 2/3 (2n)^3 FLOP per system at the float32
+    # rate, or its bytes (the matrix read, the solution written); under
+    # PyTorch's default choice of library (what the port runs) and under
+    # each library it can be told to prefer
+    m = 2 * HVDC_BUSES
+    mem_rate, f32_rate, _ = peaks(card)
+    solve = {}
+    default_lib = torch.backends.cuda.preferred_linalg_library()
+    for b in HVDC_SOLVE_BATCHES:
+        gen = torch.Generator(device=device).manual_seed(b)
+        a = torch.rand((b, m, m), generator=gen, device=device)
+        a.diagonal(dim1=-2, dim2=-1).add_(m)
+        rhs = torch.rand((b, m, 1), generator=gen, device=device)
+        flops = b * 2 / 3 * m ** 3
+        nbytes = 4 * b * (m * m + 2 * m)
+        ops_ms, bytes_ms = flops / f32_rate * 1e3, nbytes / mem_rate * 1e3
+        row = dict(bound_ms=max(ops_ms, bytes_ms),
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        for lib in ("default", "cusolver", "magma"):
+            try:
+                torch.backends.cuda.preferred_linalg_library(lib)
+                ms = cuda_ms(lambda: torch.linalg.solve_ex(a, rhs),
+                             repeats=3, inner=1)
+            except RuntimeError as err:
+                say(f"times: solve_ex with {lib} preferred: refused "
+                    f"({str(err).splitlines()[0][:120]})")
+                continue
+            finally:
+                torch.backends.cuda.preferred_linalg_library(default_lib)
+            row[lib] = ms
+            say(f"times: torch.linalg.solve_ex at ({b}, {m}, {m}) float32, "
+                f"{lib} library: {ms:.4f} ms, {ms / b:.4f} ms per system; "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                f"{flops:.4g} FLOP at {f32_rate:.3g} op/s, {nbytes} B at "
+                f"{mem_rate:.3g} B/s), {row['bound_ms'] / ms:.3f} of it")
+        row.update(ms=row["default"], ms_per_system=row["default"] / b)
+        solve[b] = row
+        del a, rhs
+    out["solve_ex"] = solve
+
+    # one Newton solve per system (base case, newton_iters iterations); the
+    # B = 16 solve's iterations give the base case's share of LU work on
+    # lanes already converged
+    gridt = fit.gridt
+    newton = {}
+    for b in HVDC_SOLVE_BATCHES:
+        genomes = pop.genomes.reshape(-1, g)[:b]
+        pe = apply_hvdc(gridt, scale_genome_to_dispatch(gridt, genomes))
+        res = {}
+
+        def solve_once(pe=pe, res=res):
+            res["r"] = newton_powerflow(gridt, p_extra=pe,
+                                        num_iters=fit.newton_iters)
+        ms = cuda_ms(solve_once, repeats=1, inner=1)
+        lu = fit.newton_iters * solve[b]["ms"] / ms
+        iters = res["r"].iters
+        newton[b] = dict(ms=ms, ms_per_system=ms / b, lu_share=lu,
+                         iters=iters.tolist(),
+                         finished_lane_lu_share=finished_share(
+                             iters, fit.newton_iters))
+        say(f"times: newton_powerflow at B = {b} ({fit.newton_iters} "
+            f"iterations): {ms:.4f} ms, {ms / b:.4f} ms per system; LU "
+            f"share {lu:.3f} ({fit.newton_iters} x solve_ex); iters "
+            f"{iters.tolist()}, LU work on converged lanes "
+            f"{newton[b]['finished_lane_lu_share']:.4f}")
+    out["newton"] = newton
+
+    # each run's whole-population fitness, one call timed after the runs
+    # warmed it: evaluations/s, power-flow solves/s
+    for name, (cfg, fit, cost, pop) in fits.items():
+        flat = pop.genomes.reshape(-1, g)
+        broker = Broker(fit, cost, num_workers=4)
+        ms = once_ms(lambda: broker.evaluate(flat))
+        c = runs[name]["contingencies"]
+        evals_s = flat.shape[0] / ms * 1e3
+        row = dict(fitness_ms=ms, evaluations_per_s=evals_s,
+                   powerflow_solves_per_s=evals_s * (1 + c),
+                   peak_bytes=runs[name]["peak_bytes"],
+                   run_wall_s=runs[name]["wall_s"],
+                   run_evaluations_per_s=runs[name]["evaluations"]
+                   / runs[name]["wall_s"])
+        if c:
+            # the contingency cases of the first two genomes: their share
+            # of LU work on lanes already converged
+            gridt = fit.gridt
+            pe = apply_hvdc(gridt, scale_genome_to_dispatch(gridt, flat[:2]))
+            lines = torch.as_tensor(
+                select_contingency_lines(fit.grid, c, 0), device=device)
+            mask = torch.ones((2 * c, fit.grid.n_line), device=device)
+            mask[torch.arange(2 * c, device=device), lines.repeat(2)] = 0.0
+            iters = newton_powerflow(
+                gridt, p_extra=pe.repeat_interleave(c, 0),
+                num_iters=fit.newton_iters, line_mask=mask).iters
+            row.update(case_iters=iters.tolist(),
+                       case_finished_lane_lu_share=finished_share(
+                           iters, fit.newton_iters))
+        out[name] = row
+        say(f"times: HVDC {name} fitness of {flat.shape[0]} genomes x "
+            f"{1 + c} power flows: {ms:.3f} ms, {evals_s:.3f} "
+            f"evaluations/s, {row['powerflow_solves_per_s']:.3f} power-flow "
+            f"solves/s; run: {row['run_evaluations_per_s']:.3f} "
+            f"evaluations/s over {runs[name]['wall_s']:.3f} s wall (set-up "
+            f"included), peak memory {runs[name]['peak_bytes']} B"
+            + (f"; contingency cases' iters {row['case_iters']}, LU work on "
+               f"converged lanes {row['case_finished_lane_lu_share']:.4f}"
+               if c else ""))
+    say("times: hvdc " + json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1118,10 +1506,17 @@ def main():
 
     main_err = phase_check(device)
     flash_err, ssd_err = phase_check_lm(device)
+    phase_check_hvdc(device)
     launches, pop = phase_main()
     lm_launches = phase_serve()
+    hvdc_runs = phase_main_hvdc()
     kernels = [phase_times(pop, main_err, launches, device, card)]
+    kernels[0]["launches_by_path"] = dict(
+        {"ga_run rastrigin": launches},
+        **{f"ga_run hvdc {k}": v["launches"] for k, v in hvdc_runs.items()})
     kernels += phase_times_lm(device, card, lm_launches, flash_err, ssd_err)
+    phase_times_hvdc(hvdc_runs, device, card)
+    del hvdc_runs
     phase_trace(device, card)
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -11,9 +11,15 @@ Usage:
       --genes 128 --islands 32 --pop 1024 --epochs 3
   PYTHONPATH=src python -m repro_torch.launch.ga_run --fitness rastrigin \
       --genes 8 --islands 4 --pop 48 --epochs 20 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.ga_run --fitness hvdc \
+      --grid-size 2715 --hvdc-lines 18 --islands 2 --pop 16 --epochs 2 \
+      --gens-per-epoch 2 --num-workers 4
 
-Not ported yet: ``--fitness hvdc|lm`` and every ``--dispatch-backend``
-other than ``inline``.
+``--fitness hvdc`` is the paper's §4.2 HVDC dispatch (batched AC Newton
+power flow on a synthetic grid of ``--grid-size`` buses), with its cost
+model driving the broker's balanced dispatch over ``--num-workers`` lanes.
+Not ported yet: ``--fitness lm`` and every ``--dispatch-backend`` other
+than ``inline``.
 """
 from __future__ import annotations
 
@@ -30,14 +36,32 @@ from repro_torch.core.scaling import plan_scaling
 from repro_torch.fitness import get_benchmark
 
 BENCHMARKS = ("rastrigin", "sphere", "rosenbrock", "ackley", "griewank")
-NOT_PORTED_FITNESS = ("hvdc", "lm")
+NOT_PORTED_FITNESS = ("lm",)
 DISPATCH_BACKENDS = ("inline", "host-thread", "host-process", "slurm",
                      "slurm-mock", "k8s", "k8s-mock", "mq", "mq-mock",
                      "mq-net")
 
 
-def build(fitness_name: str, args):
-    """(GAConfig, fitness_fn) for a benchmark fitness."""
+def build(fitness_name: str, args, device):
+    """(GAConfig, fitness_fn, cost_fn) for a fitness on ``device``."""
+    if fitness_name == "hvdc":
+        from repro_torch.fitness.powerflow import HVDCDispatchFitness
+        from repro_torch.powerflow.grid import make_synthetic_grid
+        n = args.grid_size
+        grid = make_synthetic_grid(
+            n_bus=n, n_line=int(n * 1.97), n_gen=max(4, n // 4),
+            n_hvdc=args.hvdc_lines, seed=args.seed)
+        fit = HVDCDispatchFitness(grid, contingencies=args.contingencies,
+                                  screen_top_k=args.screen_top_k,
+                                  device=device)
+        cfg = GAConfig(num_genes=grid.n_hvdc, pop_per_island=args.pop,
+                       num_islands=args.islands,
+                       generations_per_epoch=args.gens_per_epoch,
+                       num_epochs=args.epochs, lower=-1.0, upper=1.0,
+                       mutation_prob=0.7, mutation_eta=34.6,   # paper Tab. 3
+                       crossover_prob=1.0, crossover_eta=97.5,
+                       seed=args.seed)
+        return cfg, fit, fit.cost_model()
     cfg = GAConfig(num_genes=args.genes, pop_per_island=args.pop,
                    num_islands=args.islands,
                    generations_per_epoch=args.gens_per_epoch,
@@ -45,7 +69,7 @@ def build(fitness_name: str, args):
                    mutation_prob=0.7, mutation_eta=20.0,
                    crossover_prob=0.9, crossover_eta=15.0,
                    seed=args.seed)
-    return cfg, get_benchmark(fitness_name)
+    return cfg, get_benchmark(fitness_name), None
 
 
 def main(argv=None):
@@ -57,12 +81,18 @@ def main(argv=None):
     ap.add_argument("--gens-per-epoch", type=int, default=5)
     ap.add_argument("--epochs", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--grid-size", type=int, default=60)
+    ap.add_argument("--hvdc-lines", type=int, default=4)
+    ap.add_argument("--contingencies", type=int, default=0)
+    ap.add_argument("--screen-top-k", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--wallclock-s", type=float, default=None)
     ap.add_argument("--dispatch-backend", default="inline",
                     choices=DISPATCH_BACKENDS,
                     help="inline: fitness evaluated on the device in the "
                          "GA's stream (the only backend ported so far)")
+    ap.add_argument("--num-workers", type=int, default=None,
+                    help="broker dispatch lanes (default: 1)")
     ap.add_argument("--sync-every", type=int, default=1,
                     help="drain metrics every N epochs")
     ap.add_argument("--pipeline-depth", type=int, default=1,
@@ -74,20 +104,22 @@ def main(argv=None):
     if args.fitness in NOT_PORTED_FITNESS:
         ap.error(f"--fitness {args.fitness} is not yet ported to "
                  f"repro_torch")
-    if args.fitness not in BENCHMARKS:
+    if args.fitness not in BENCHMARKS + ("hvdc",):
         ap.error(f"unknown --fitness {args.fitness!r}")
     if args.dispatch_backend != "inline":
         ap.error(f"--dispatch-backend {args.dispatch_backend} is not yet "
                  f"ported to repro_torch")
     device = resolve_device(args.device)
 
-    cfg, fitness_fn = build(args.fitness, args)
+    cfg, fitness_fn, cost_fn = build(args.fitness, args, device)
     plan = plan_scaling(torch.cuda.device_count() if device.type == "cuda"
-                        else 1, pop_total=cfg.global_pop, sim_parallelism=1)
+                        else 1, pop_total=cfg.global_pop,
+                        sim_parallelism=max(args.contingencies, 1))
     print(f"scaling plan: horizontal={plan.horizontal} "
           f"vertical={plan.vertical}")
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
-    eng = GAEngine(cfg, fitness_fn, checkpointer=ckpt,
+    eng = GAEngine(cfg, fitness_fn, cost_fn=cost_fn,
+                   num_workers=args.num_workers, checkpointer=ckpt,
                    checkpoint_every=2 if ckpt else 0,
                    sync_every=args.sync_every,
                    pipeline_depth=args.pipeline_depth,

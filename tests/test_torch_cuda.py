@@ -1,7 +1,8 @@
 """Tests that need an NVIDIA GPU: each CUDA kernel against its plain
 version, the wrappers' refusals, and the port's paths on the card (the GA
 main path; prefill with the kernels against prefill with their plain
-versions; the serving entry point).
+versions; the serving entry point; the HVDC power flow against the same
+code on the CPU).
 They skip without a card. This file imports no JAX, so it runs on a
 machine that has PyTorch for CUDA and no JAX:
 
@@ -25,6 +26,10 @@ from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 from repro_torch.launch import ga_run, serve
 from repro_torch.models.convert import cache_to_numpy
 from repro_torch.models.model import Model
+from repro_torch.powerflow.contingency import contingency_loadings
+from repro_torch.powerflow.grid import make_german_grid, make_synthetic_grid
+from repro_torch.powerflow.hvdc import apply_hvdc
+from repro_torch.powerflow.newton import newton_powerflow
 from torch_parity import (ATTN_BF16_TOL, ATTN_CASES, ATTN_TOL,  # noqa: F401
                           GA_RUN_HP, MASKED_CASE, MODEL_TOL, SSD_CASES,
                           SSD_CHUNK256_CASES, SSD_MIN_DECAY, SSD_TOL, TOL,
@@ -396,3 +401,41 @@ def test_serve_on_card_launches_the_kernels(cuda_device):
         assert (attn_ops.launches, ssd_ops.launches) == expect
         assert out.shape == (2, 4)
         assert stats["prefill_ms"] > 0 and stats["decode_ms_per_token"] > 0
+
+
+def test_hvdc_newton_german_grid_card_matches_cpu(cuda_device):
+    """The German-size base case (2715 buses, 18 HVDC lines) for a zero and
+    an alternating +-pmax dispatch: cuSOLVER's LU on the card against
+    LAPACK's on the CPU, vm and va atol 1e-4, iters and converged exact."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    grid = make_german_grid(0)
+    genomes = torch.stack([torch.zeros(18), torch.tensor([1.0, -1.0] * 9)])
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        gridt = grid.to_torch(dev)
+        pe = apply_hvdc(gridt, genomes.to(dev) * gridt["hvdc_pmax"])
+        out.append(newton_powerflow(gridt, p_extra=pe, num_iters=10))
+    card, cpu = out
+    assert bool(cpu.converged.all())
+    for field in ("vm", "va"):
+        np.testing.assert_allclose(to_np(getattr(card, field)),
+                                   to_np(getattr(cpu, field)), rtol=0,
+                                   atol=1e-4)
+    np.testing.assert_array_equal(to_np(card.iters), to_np(cpu.iters))
+    np.testing.assert_array_equal(to_np(card.converged),
+                                  to_np(cpu.converged))
+
+
+def test_hvdc_islanded_outage_reads_overload_on_card(cuda_device):
+    """Line 11 of the 60-bus grid cuts a degree-1 bus loose: its singular
+    Jacobian reads inf/NaN through solve_ex, not an error, and the case
+    reads 10.0 on every line; line 3's case agrees with the CPU."""
+    grid = make_synthetic_grid(n_bus=60, n_line=110, n_gen=15, n_hvdc=4,
+                               seed=1)
+    out = [contingency_loadings(grid.to_torch(dev),
+                                torch.tensor([11, 3], device=dev))
+           for dev in (cuda_device, torch.device("cpu"))]
+    assert bool((out[0][:, 0] == 10.0).all())
+    assert bool((out[0][:, 1] < 10.0).all())
+    np.testing.assert_allclose(to_np(out[0]), to_np(out[1]), rtol=1e-4,
+                               atol=1e-4)

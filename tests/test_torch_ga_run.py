@@ -53,7 +53,8 @@ def test_pipelined_flags_give_identical_best(capsys):
     assert torch.equal(pop1.genomes, pop2.genomes)
 
 
-@pytest.mark.parametrize("extra", [["--fitness", "hvdc"], ["--fitness", "lm"],
+@pytest.mark.parametrize("extra", [["--dispatch-backend", "slurm-mock"],
+                                   ["--fitness", "lm"],
                                    ["--dispatch-backend", "mq-mock"],
                                    ["--dispatch-backend", "host-thread"]])
 def test_not_yet_ported_exits(extra, capsys):
@@ -77,3 +78,25 @@ def test_every_benchmark_fitness_runs(fitness, capsys):
                              "--device", "cpu"])
     assert hist[-1]["best"] <= hist[0]["best"]
     assert "best fitness:" in capsys.readouterr().out
+
+
+def test_hvdc_runs_with_balanced_dispatch(capsys):
+    """--fitness hvdc on the CPU: the reference's log-line forms, Table 3's
+    genome bounds, and the cost model engaging the broker's balanced
+    dispatch over 4 lanes with 3 x 10 % 4 != 0 (padded)."""
+    args = ["--fitness", "hvdc", "--grid-size", "20", "--islands", "3",
+            "--pop", "10", "--epochs", "2", "--gens-per-epoch", "2",
+            "--num-workers", "4"]
+    pop, hist = ga_run.main(args + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert _forms(out)[:3] == ["scaling plan: horizontal=# vertical=#",
+                               "epoch # best # skew #",
+                               "epoch # best # skew #"]
+    assert re.search(r"^best fitness: \d+\.\d{6}$", out, re.M)
+    assert pop.genomes.shape == (3, 10, 4)
+    assert bool((pop.genomes.abs() <= 1.0).all())
+    assert bool(torch.isfinite(pop.fitness).all())
+    assert len(hist) == 2 and all(h["balanced"] == 1.0 for h in hist)
+    skews = re.findall(r"skew (\d+\.\d+)$", out, re.M)
+    assert len(skews) == 2 and all(s != "1.000" for s in skews)
+    assert hist[-1]["best"] <= hist[0]["best"]
