@@ -5,14 +5,17 @@ paths on the card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Three main paths: the GA loop (``repro_torch.launch.ga_run``), LM
-serving (``repro_torch.launch.serve``: prefill + decode) and the paper's
-HVDC dispatch (``ga_run --fitness hvdc``: batched AC Newton power flow on
-the German-size grid). Phases, in order; any failure exits non-zero:
+Four main paths: the GA loop (``repro_torch.launch.ga_run``), LM
+serving (``repro_torch.launch.serve``: prefill + decode), LM training
+(``repro_torch.launch.train``: tinyllama-1.1b at its published widths,
+flash attention forward and backward kernels) and the paper's HVDC
+dispatch (``ga_run --fitness hvdc``: batched AC Newton power flow on the
+German-size grid). Phases, in order; any failure exits non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
-2. build:  every CUDA kernel of the port (fused variation, flash attention,
-           SSD intra-chunk), compiled from this checkout's sources for
+2. build:  every CUDA kernel of the port (fused variation, flash attention
+           forward and backward, SSD intra-chunk), compiled from this
+           checkout's sources for
            sm_90a (one nvcc per source, all started together); ptxas's
            entry, register and spill lines of every compiled kernel;
 3. check:  each kernel against its plain PyTorch version on the card: the
@@ -34,6 +37,13 @@ the German-size grid). Phases, in order; any failure exits non-zero:
            screened lists exact past their islanding head; objectives
            1e-4 on converged lanes), an
            islanding outage that reads 10.0 without raising, and TF32 off;
+           the flash backward kernel (autograd through the wrapper) against
+           its plain version (dq, dk, dv at 1e-3 / 1e-4) at the tests'
+           float32 cases (the bf16 one must be refused), the fully masked
+           rows (zero dq), tinyllama-1.1b's layer shape at batch 1 and 4 and
+           gemma2-2b's (1, 4500, 8, 4, 256) with softcap 50, window 4096
+           and global; one train step of reduced tinyllama-1.1b and
+           gemma2-2b on the card against the CPU;
 4. main:   ``python -m repro_torch.launch.ga_run --fitness rastrigin`` at
            I=32 islands x P=1024 individuals x G=128 genes, 5 generations x
            3 epochs, then again with --sync-every 2 --pipeline-depth 2,
@@ -43,10 +53,15 @@ the German-size grid). Phases, in order; any failure exits non-zero:
            mamba2-780m (batch 4, prompt 4000, 32 tokens): random weights
            from a seed, every logit finite, the flash kernel launched 26
            times (one per layer) in gemma2's prefill and the SSD kernel 48
-           times in mamba2's; ``ga_run --fitness hvdc --grid-size 2715
-           --hvdc-lines 18 --islands 2 --gens-per-epoch 2 --epochs 2
-           --num-workers 4``, horizontal (--pop 16) and vertical (--pop 8
-           --contingencies 8: full AC on 8 outages per genome), each
+           times in mamba2's; ``python -m repro_torch.launch.train
+           --arch tinyllama-1.1b --full --steps 8 --batch 4 --seq 2048``:
+           random weights from a seed, bigram data, exactly 22 x 8 flash
+           forward and 22 x 8 backward launches, every loss and grad norm
+           finite, the last loss below the first; ``ga_run --fitness hvdc
+           --grid-size 2715 --hvdc-lines 18 --islands 2 --gens-per-epoch 2
+           --epochs 2 --num-workers 4``, horizontal (--pop 16) and
+           vertical (--pop 8 --contingencies 8: full AC on 8 outages per
+           genome), each
            launching the fused variation exactly 4 times, with finite
            fitness and genomes in [-1, 1]. Every run has the launch counts
            zeroed just before it and read just after;
@@ -64,17 +79,25 @@ the German-size grid). Phases, in order; any failure exits non-zero:
            backend that computes that function in float32), a yardstick
            the port never calls. Then one GA generation phase by phase,
            GA epochs, and prefill ms, decode ms/token and tokens/s of each
-           served model; one HVDC generation phase by phase, the batched
+           served model; the training run's step ms (median of steps 2-8),
+           tokens/s and peak device memory, the flash backward (its
+           wrapper's row sum and two kernels) at tinyllama-1.1b's training
+           shape and gemma2-2b's beside its bound (10 hd FLOP per visible
+           pair and head), its plain version and, at tinyllama's, the
+           backward of SDPA's fastest float32 backend, and the forward
+           with and without its lse output, in turns; one HVDC generation
+           phase by phase, the batched
            LU (torch.linalg.solve_ex at (B, 5430, 5430), B = 1 and 16)
            beside its float32 bound, one Newton solve per system and its
            LU share, evaluations/s and power-flow solves/s of each HVDC
            run's population, the share of LU work on converged lanes, and
            each HVDC run's peak device memory;
-6. trace:  one prefill and 8 decode steps of each served model under
-           torch.profiler: the device's idle share and the kernels' share
-           of each window, read from the trace;
-7. the ``{"kernels": [...]}`` line, the card line, and last the result line
-   ``{"ok": true, "device": {...}}``.
+6. trace:  one prefill and 8 decode steps of each served model, and one
+           train step of the training path, under torch.profiler: the
+           device's idle share and the kernels' share of each window and
+           the largest device entries, read from the trace;
+7. the ``{"kernels": [...]}`` line (four kernels), the card line, and last
+   the result line ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or outside a checkout, it exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package ``repro``.
@@ -175,6 +198,7 @@ SERVE_BATCH, SERVE_GEN = 4, 32
 # port's kernels, as they appear in a trace
 TRACE_DECODE = 8
 KERNEL_SYMBOLS = ("fused_variation_kernel", "flash_fwd_kernel",
+                  "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
                   "ssd_chunk_kernel")
 # tests/test_kernels.py:53-61: (B, S, H, KV, hd, causal, window, softcap,
 # dtype); then gemma2-2b's layer shapes on the serving path (batch 4,
@@ -203,6 +227,30 @@ SSD_TOL = (1e-4, 1e-4)
 # with Mamba-2's dt and a, some head's chunk decay exp(cum_Q) must exceed
 # this, so the far tiles and the inter-chunk recurrence carry weight
 SSD_MIN_DECAY = 1e-4
+
+# LM training path: ``launch.train --arch tinyllama-1.1b --full`` for 8
+# steps of batch 4 x sequence 2048, TinyLlama's training context; each
+# step launches the flash forward and backward kernels once per layer
+TRAIN_ARCH, TRAIN_LAYERS = "tinyllama-1.1b", 22
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--full", "--steps", str(TRAIN_STEPS),
+              "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+              "--device", "cuda"]
+# the backward kernel's checks beyond ATTN_CASES (its bf16 case must
+# raise): tinyllama-1.1b's layer shape at batch 1 and at the training
+# path's batch 4; gemma2-2b's layer shapes with S > its 4096 window, so
+# the window binds, windowed and global, softcap 50; the fully masked
+# rows of ATTN_MASKED. (B, S, H, KV, hd, causal, window, softcap, dtype)
+BWD_TINYLLAMA = (TRAIN_BATCH, TRAIN_SEQ, 32, 4, 64, True, 0, 0.0, "float32")
+BWD_MAIN = [(1, TRAIN_SEQ, 32, 4, 64, True, 0, 0.0, "float32"),
+            BWD_TINYLLAMA,
+            (1, 4500, 8, 4, 256, True, 4096, 50.0, "float32"),
+            (1, 4500, 8, 4, 256, True, 0, 50.0, "float32")]
+# gradients: tests/test_kernels.py:96-97's tolerance (rtol, atol)
+GRAD_TOL = (1e-3, 1e-4)
+# the backward needs five products of 2 hd FLOP per visible (query, key)
+# pair and query head: Q K^T, dO V^T, P^T dO, dS^T Q, dS K
+BWD_PRODUCTS = 5
 
 # float32 operations of the fused variation, counted from the source with
 # each powf as ONE operation (a lower bound): per gene pair always (mask
@@ -1361,6 +1409,313 @@ def phase_times_lm(device, card, launches, flash_err, ssd_err):
     ]
 
 
+# ---------------------------------------------------------------------------
+# LM training path: flash attention backward, launch.train on tinyllama
+# ---------------------------------------------------------------------------
+
+def grad_tensors(case, device, seed, t=None):
+    """q, k, v (``attn_tensors``) and an output gradient dO."""
+    import torch
+    q, k, v = attn_tensors(case, device, seed, t)
+    gen = torch.Generator(device=device).manual_seed(seed + 1000)
+    return q, k, v, torch.randn(q.shape, generator=gen, device=device)
+
+
+def check_flash_bwd(case, device, seed, t=None, q_offset=0):
+    """Autograd through the wrapper ``ops.flash_attention`` (forward kernel
+    with its lse, backward kernel) against the plain forward and backward
+    (``flash_attention_fwd_plain``, ``flash_attention_bwd_plain``) on the
+    same q, k, v, dO. The wrapper's output and the forward kernel's lse
+    (``flash_attention_fwd_cuda(with_lse=True)``, what the backward reads)
+    are held at ATTN_TOL, the gradients at GRAD_TOL: (max abs error of dq,
+    dk, dv, (out max abs error, lse max relative error), (dq, dk, dv))."""
+    import torch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.flash import flash_attention_fwd_cuda
+    from repro_torch.kernels.attention.ref import (flash_attention_bwd_plain,
+                                                   flash_attention_fwd_plain)
+    q, k, v, do = grad_tensors(case, device, seed, t)
+    kw = attn_kwargs(case, q_offset)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = attn_ops.flash_attention(qg, kg, vg, **kw)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    _, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    p_out, p_lse = flash_attention_fwd_plain(q, k, v, **kw)
+    ok_out, out_err = close(out.detach(), p_out, *ATTN_TOL[case[8]])
+    ok_lse, _ = close(lse, p_lse, *ATTN_TOL["float32"])
+    lse_err = float(((lse - p_lse).abs() / p_lse.abs().clamp_min(1.0)).max())
+    if not (ok_out and ok_lse):
+        fail(f"flash attention forward kernel's output or lse (training "
+             f"path) disagrees with its plain version at {case} "
+             f"q_offset={q_offset}: out max abs err {out_err}, lse max rel "
+             f"err {lse_err}")
+    ref = flash_attention_bwd_plain(q, k, v, p_out, p_lse, do, **kw)
+    err = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), grads, ref):
+        ok, e = close(a, b, *GRAD_TOL)
+        if not ok or a.dtype != torch.float32:
+            fail(f"flash attention backward kernel's {name} disagrees with "
+                 f"its plain version at {case} q_offset={q_offset}: max abs "
+                 f"err {e}")
+        err = max(err, e)
+    return err, (out_err, lse_err), grads
+
+
+def fwd_errs(fwd):
+    return (f"forward with lse: out max abs err {fwd[0]:.3g}, lse max rel "
+            f"err {fwd[1]:.3g}")
+
+
+def train_step_card_vs_cpu(arch, device):
+    """One train step of reduced ``arch`` on the card (the flash kernels,
+    forward and backward) against the same step on the CPU (their plain
+    versions), from the same parameters and tokens
+    (``train_step.reduced_train_step``): (loss rel err, grad norm rel err,
+    max over leaves of max |dg| / max |g|)."""
+    from repro_torch.train.train_step import reduced_train_step
+    (ggpu, mgpu, _), (gcpu, mcpu, _) = (
+        reduced_train_step(arch, dev, seq=128) for dev in (device, "cpu"))
+    loss_err = abs(mgpu["loss"] - mcpu["loss"]) / abs(mcpu["loss"])
+    norm_err = abs(mgpu["grad_norm"] - mcpu["grad_norm"]) / mcpu["grad_norm"]
+    grad_err = max(float((ggpu[n] - g).abs().max() / g.abs().max())
+                   for n, g in gcpu.items())
+    if not (loss_err < 1e-4 and norm_err < 1e-4 and grad_err < GRAD_TOL[0]):
+        fail(f"a train step of reduced {arch} on the card differs from the "
+             f"CPU's: loss {loss_err}, grad norm {norm_err}, grads "
+             f"{grad_err} (relative)")
+    return loss_err, norm_err, grad_err
+
+
+def phase_check_train(device):
+    """The backward kernel against its plain version, and one train step
+    on the card against the CPU. Returns the largest error at the training
+    path's shape."""
+    import torch
+    for i, case in enumerate(ATTN_CASES):
+        if case[8] != "float32":
+            q, k, v = (x.requires_grad_() for x in
+                       attn_tensors(case, device, seed=i))
+            try:
+                from repro_torch.kernels.attention import ops as attn_ops
+                attn_ops.flash_attention(q, k, v, **attn_kwargs(case))
+            except ValueError as err:
+                say(f"check: flash attention backward {case}: refused as "
+                    f"expected ({err})")
+                continue
+            fail(f"flash attention under autograd took {case[8]}; the "
+                 f"backward kernel is float32 only")
+        err, fwd, _ = check_flash_bwd(case, device, seed=i)
+        say(f"check: flash attention backward {case}: max abs err "
+            f"{err:.3g}; {fwd_errs(fwd)}")
+    m = ATTN_MASKED
+    err, fwd, (dq, dk, dv) = check_flash_bwd(
+        m["case"], device, seed=7, t=m["t"], q_offset=m["q_offset"])
+    if not bool((dq[:, m["first_masked"]:] == 0).all()):
+        fail("flash attention backward: fully masked rows have a nonzero dq")
+    say(f"check: flash attention backward q_offset {m['q_offset']} (rows "
+        f">= {m['first_masked']} fully masked, zero dq): max abs err "
+        f"{err:.3g}; {fwd_errs(fwd)}")
+    main_err = 0.0
+    for i, case in enumerate(BWD_MAIN):
+        err, fwd, _ = check_flash_bwd(case, device, seed=400 + i)
+        if case == BWD_TINYLLAMA:
+            main_err = err
+        say(f"check: flash attention backward {case}: max abs err "
+            f"{err:.3g}; {fwd_errs(fwd)}")
+        torch.cuda.empty_cache()
+    for arch in ("tinyllama-1.1b", "gemma2-2b"):
+        errs = train_step_card_vs_cpu(arch, device)
+        say(f"check: one train step of reduced {arch}, card vs CPU: loss "
+            f"{errs[0]:.3g}, grad norm {errs[1]:.3g} (relative), grads "
+            f"{errs[2]:.3g} of each leaf's largest")
+    return main_err
+
+
+def phase_train():
+    """``launch.train --arch tinyllama-1.1b --full`` for TRAIN_STEPS steps,
+    with every kernel's launch count zeroed just before and read just
+    after. Returns (flash forward launches, backward launches, stats)."""
+    import torch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.genetic import ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import train
+    attn_ops.launches = attn_ops.bwd_launches = 0
+    ssd_ops.launches = ops.launches = 0
+    stats = {}
+    t0 = time.perf_counter()
+    train.main(TRAIN_ARGS, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (attn_ops.launches, attn_ops.bwd_launches, ssd_ops.launches,
+           ops.launches)
+    expect = TRAIN_LAYERS * TRAIN_STEPS
+    say(f"main: train {' '.join(TRAIN_ARGS)}: {wall:.3f} s wall (set-up "
+        f"included), flash forward / backward launches {got[0]} / {got[1]}, "
+        f"ssd {got[2]}, fused variation {got[3]}")
+    if got != (expect, expect, 0, 0):
+        fail(f"train: kernel launches {got}, expected ({expect}, {expect}, "
+             f"0, 0)")
+    losses, norms = stats["loss"], stats["grad_norm"]
+    if len(losses) != TRAIN_STEPS or not all(
+            map(math.isfinite, losses + norms)):
+        fail(f"train: losses {losses}, grad norms {norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the last loss {losses[-1]} is not below the first "
+             f"{losses[0]}")
+    say(f"main: train losses {losses}; grad norms {norms}; peak device "
+        f"memory {stats['peak_bytes']} B")
+    torch.cuda.empty_cache()
+    return got[0], got[1], stats
+
+
+def flash_bwd_bound(case, card):
+    """BWD_PRODUCTS x 2 hd FLOP per visible (query, key) pair and query
+    head; q, k, v, out, dO and lse read once, dq, dk, dv written once
+    (``tensor_bound``)."""
+    b, s, h, kv, hd = case[:5]
+    # flash_bound counts 2 products (4 hd FLOP) per pair and head
+    flops = flash_bound(case, card)["flops"] * BWD_PRODUCTS // 2
+    nbytes = 4 * (3 * b * s * h * hd + 2 * b * s * kv * hd + b * s * h
+                  + b * s * h * hd + 2 * b * s * kv * hd)
+    return tensor_bound(flops, nbytes, card)
+
+
+def sdpa_bwd_yardstick(q, k, v, do, scale, dq):
+    """Autograd backward through the fastest backend of
+    F.scaled_dot_product_attention that computes this float32 GQA case
+    (causal, no softcap, no window) on the same tensors, in SDPA's
+    (B, H, S, hd) layout, K and V repeated to H heads for the backends
+    that refuse enable_gqa (MATH takes GQA as it is). Only the backward is
+    timed (``torch.autograd.grad`` on a kept graph). Each backend's dq is
+    held against the kernel's. (ms, backend). The port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = q.shape[2] // k.shape[2]
+    dot = do.transpose(1, 2).contiguous()
+    tries = [(SDPBackend.EFFICIENT_ATTENTION, False),
+             (SDPBackend.CUDNN_ATTENTION, False), (SDPBackend.MATH, True)]
+    best = None
+    for backend, gqa in tries:
+        qt = q.detach().transpose(1, 2).contiguous().requires_grad_()
+        kt, vt = (x.detach().transpose(1, 2).contiguous() for x in (k, v))
+        if not gqa:
+            kt, vt = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
+        kt, vt = kt.requires_grad_(), vt.requires_grad_()
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")     # the refusal's reasons
+                out = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=gqa, scale=scale)
+                got = torch.autograd.grad(out, (qt, kt, vt), dot,
+                                          retain_graph=True)
+        except RuntimeError as err:
+            say(f"times: scaled_dot_product_attention backward "
+                f"{backend.name}: refused ({str(err).splitlines()[0][:120]})")
+            continue
+        err = float((got[0].transpose(1, 2) - dq).abs().max())
+        del got
+
+        def call(out=out, qt=qt, kt=kt, vt=vt):
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        ms = cuda_ms(call, repeats=5, inner=3)
+        say(f"times: scaled_dot_product_attention backward {backend.name}"
+            f"{'' if gqa else ' (K, V repeated to H heads)'}: {ms:.4f} ms, "
+            f"max abs difference of dq from the kernel's {err:.3g}")
+        del out, call
+        torch.cuda.empty_cache()
+        if best is None or ms < best[0]:
+            best = (ms, backend.name)
+    if best is None:
+        fail("no scaled_dot_product_attention backend takes the backward")
+    return best
+
+
+def phase_times_train(device, card, fwd_launches, bwd_launches, bwd_err,
+                      stats):
+    """Training times: step ms and tokens/s of the main run; the backward
+    kernel at tinyllama-1.1b's training shape and gemma2-2b's shapes
+    beside its bound, its plain version and, at tinyllama's (causal,
+    softcap 0), SDPA's backward; the forward with and without its lse
+    output, in turns."""
+    import torch
+    from repro_torch.kernels.attention.flash import (flash_attention_bwd_cuda,
+                                                     flash_attention_fwd_cuda)
+    from repro_torch.kernels.attention.ref import (flash_attention_bwd_plain,
+                                                   flash_attention_fwd_plain)
+    steady = stats["step_ms"][1:]
+    step_ms = statistics.median(steady)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    say(f"times: train {TRAIN_ARCH} --full batch {TRAIN_BATCH} seq "
+        f"{TRAIN_SEQ}: step {step_ms:.3f} ms (median of steps 2-"
+        f"{TRAIN_STEPS}; step 1 {stats['step_ms'][0]:.3f} ms with set-up), "
+        f"{tok_s:.1f} tokens/s, peak device memory {stats['peak_bytes']} B")
+    rows = {}
+    for i, case in enumerate([BWD_TINYLLAMA] + BWD_MAIN[2:]):
+        q, k, v, do = grad_tensors(case, device, seed=500 + i)
+        kw = attn_kwargs(case)
+        out, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+        ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                      **kw),
+                     repeats=5, inner=3)
+        plain = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, lse,
+                                                          do, **kw),
+                        repeats=3, inner=1)
+        bnd = flash_bwd_bound(case, card)
+        say_kernel_time(f"flash attention backward {case}", ms, plain, bnd)
+        # the forward with and without its lse output, in turns
+        fwd = {False: [], True: []}
+        for with_lse in (False, True, True, False):
+            fwd[with_lse].append(cuda_ms(
+                lambda: flash_attention_fwd_cuda(q, k, v, with_lse=with_lse,
+                                                 **kw), repeats=5, inner=3))
+        fwd = {k_: statistics.mean(v_) for k_, v_ in fwd.items()}
+        say(f"times: flash attention forward {case}: {fwd[False]:.4f} ms "
+            f"without the lse output, {fwd[True]:.4f} ms with it (each the "
+            f"mean of two turns)")
+        rows[case] = dict(ms=ms, plain_ms=plain, bound=bnd,
+                          fwd_ms=fwd[False], fwd_lse_ms=fwd[True])
+        if case == BWD_TINYLLAMA:
+            dq = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)[0]
+            sdpa_ms, backend = sdpa_bwd_yardstick(q, k, v, do, kw["scale"],
+                                                  dq)
+            say(f"times: like for like at {case}: backward kernel "
+                f"{ms:.4f} ms, scaled_dot_product_attention's backward "
+                f"({backend}, the fastest backend that computes it in "
+                f"float32) {sdpa_ms:.4f} ms")
+            del dq
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    main = rows[BWD_TINYLLAMA]
+    share = bwd_launches / TRAIN_STEPS * main["ms"] / step_ms
+    fshare = fwd_launches / TRAIN_STEPS * main["fwd_lse_ms"] / step_ms
+    say(f"times: kernels' share of a train step (kernel ms x launches per "
+        f"step / step ms): flash backward {share:.4f}, flash forward "
+        f"{fshare:.4f}")
+    say("times: " + json.dumps({
+        "card": card, "train_step_ms": step_ms,
+        "train_step_ms_all": stats["step_ms"], "train_tokens_per_s": tok_s,
+        "train_peak_bytes": stats["peak_bytes"], "losses": stats["loss"],
+        "bwd_step_share": share, "fwd_step_share": fshare,
+        "sdpa_bwd_ms": sdpa_ms, "sdpa_bwd_backend": backend,
+        "flash_bwd": {str(c): {k_: (v_ if k_ != "bound" else
+                                    v_["bound_ms"]) for k_, v_ in r.items()}
+                      for c, r in rows.items()}}))
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/attention/csrc/"
+                      "flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/attention/ops.py:37",
+            "launches": bwd_launches, "max_abs_err": bwd_err,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound"]["bound_ms"],
+            "bound_by": main["bound"]["bound_by"], "library_ms": sdpa_ms,
+            "library_backend": backend,
+            "shape": list(BWD_TINYLLAMA[:8])}
+
+
 def profiled(fn):
     """Run ``fn`` once under torch.profiler (CPU and CUDA activity), then
     synchronise. Returns (window ms from the first to the last traced
@@ -1468,6 +1823,64 @@ def phase_trace(device, card):
     return out
 
 
+def phase_trace_train(device, card):
+    """One train step of the training path (tinyllama-1.1b, published
+    widths, batch TRAIN_BATCH x TRAIN_SEQ, kernels on) under
+    torch.profiler, after a warm-up step and one unprofiled step: the
+    device's idle share, the flash kernels' share and the largest device
+    entries, read from the trace."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import optimizer_for_arch
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    model = Model(cfg, device=device, attn_impl="kernel",
+                  max_seq=TRAIN_SEQ + 8)
+    state = {"s": init_train_state(
+        model, torch.Generator(device=device).manual_seed(0))}
+    step = make_train_step(model, optimizer_for_arch(
+        TRAIN_ARCH, lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS))
+    data = SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch(0).items()}
+
+    def run():
+        state["s"], _ = step(state["s"], batch)
+
+    run()                                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    span, busy, by_name = profiled(run)
+    flash = {k: sum(v for name, v in by_name.items() if k in name)
+             for k in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+                       "flash_bwd_dq_kernel")}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    row = {"host_ms": host_ms, "traced_ms": span, "device_busy_ms": busy,
+           "idle_share": None if busy is None else 1 - busy / span,
+           "flash_ms": flash, "flash_share": sum(flash.values()) / span,
+           "top_device_ms": {k[:90]: v for k, v in top}}
+    del state, model
+    torch.cuda.empty_cache()
+    if busy is None:
+        say("trace: train step: the profiler recorded no device activity; "
+            "idle share not measured")
+    else:
+        say(f"trace: {TRAIN_ARCH} train step (batch {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ}): host {host_ms:.3f} ms unprofiled, {span:.3f} ms "
+            f"traced; device busy {busy:.3f} ms, idle share "
+            f"{row['idle_share']:.4f} of the traced window, "
+            f"{1 - busy / host_ms:.4f} of the unprofiled one; flash "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in flash.items())
+            + f" = {row['flash_share']:.4f} of the traced window")
+    say("trace: " + json.dumps({"card": card, "train_step": row}))
+    return row
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -1506,18 +1919,26 @@ def main():
 
     main_err = phase_check(device)
     flash_err, ssd_err = phase_check_lm(device)
+    bwd_err = phase_check_train(device)
     phase_check_hvdc(device)
     launches, pop = phase_main()
     lm_launches = phase_serve()
+    train_fwd, train_bwd, train_stats = phase_train()
     hvdc_runs = phase_main_hvdc()
     kernels = [phase_times(pop, main_err, launches, device, card)]
     kernels[0]["launches_by_path"] = dict(
         {"ga_run rastrigin": launches},
         **{f"ga_run hvdc {k}": v["launches"] for k, v in hvdc_runs.items()})
     kernels += phase_times_lm(device, card, lm_launches, flash_err, ssd_err)
+    kernels[1]["launches_by_path"] = {
+        "serve gemma2-2b prefill": lm_launches["flash_attention"],
+        f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_fwd}
+    kernels.append(phase_times_train(device, card, train_fwd, train_bwd,
+                                     bwd_err, train_stats))
     phase_times_hvdc(hvdc_runs, device, card)
     del hvdc_runs
     phase_trace(device, card)
+    phase_trace_train(device, card)
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

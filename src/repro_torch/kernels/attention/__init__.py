@@ -1,3 +1,4 @@
-"""Flash attention forward: the CUDA kernel (``csrc/flash_attention.cu``),
-its launcher (``flash.py``), its plain versions (``ref.py``) and the
-public wrapper (``ops.py``)."""
+"""Flash attention, forward and backward: the CUDA kernels
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``), their
+launchers (``flash.py``), their plain versions (``ref.py``) and the public
+wrapper with its ``autograd.Function`` (``ops.py``)."""

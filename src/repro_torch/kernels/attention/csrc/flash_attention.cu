@@ -55,6 +55,10 @@
 //    gives p = 0 and output 0, l == 0 treated as 1. expf and tanhf are the
 //    accurate versions (no --use_fast_math). bf16 inputs are widened to
 //    float32 on load and take the same path.
+//  * optional output (the training path's, for flash_attention_bwd.cu):
+//    each row's log-sum-exp in float32, written as max(m, MIN_CLAMP) +
+//    log(l), so a fully masked row gets the finite clamped max and its
+//    recomputed p is 0. A null pointer writes nothing.
 // Flags: default nvcc contraction (-fmad=true); the float32 tolerance of
 // the tests (3e-5) covers the split products and the summation order.
 #include <cuda_runtime.h>
@@ -103,6 +107,7 @@ flash_fwd_kernel(const T* __restrict__ q,      // (B, Sq, H, HD)
                  const T* __restrict__ k,      // (B, Tk, KV, HD)
                  const T* __restrict__ v,      // (B, Tk, KV, HD)
                  T* __restrict__ out,          // (B, Sq, H, HD)
+                 float* __restrict__ lse,      // (B, Sq, H) or null
                  int sq, int tk, int h, int kvh, float scale, int causal,
                  int window, float cap, int64_t q_offset) {
     extern __shared__ float4 smem4[];
@@ -120,11 +125,15 @@ flash_fwd_kernel(const T* __restrict__ q,      // (B, Sq, H, HD)
     const int64_t rows_total = (int64_t)sq * G;
     const int64_t r0 = (int64_t)(gridDim.x - 1 - blockIdx.x) * R;
 
-    // offset of row r's first element in q / out
-    auto row_offset = [&](int64_t rg) -> int64_t {
+    // index of row r in a (B, Sq, H) array (lse), and of its first
+    // element in q / out
+    auto row_index = [&](int64_t rg) -> int64_t {
         const int64_t s = rg / G;
         const int gi = (int)(rg - s * G);
-        return (((int64_t)b * sq + s) * h + (int64_t)kh * G + gi) * HD;
+        return ((int64_t)b * sq + s) * h + (int64_t)kh * G + gi;
+    };
+    auto row_offset = [&](int64_t rg) -> int64_t {
+        return row_index(rg) * HD;
     };
 
     for (int idx = tid; idx < R * HD / 4; idx += THREADS) {
@@ -310,6 +319,12 @@ flash_fwd_kernel(const T* __restrict__ q,      // (B, Sq, H, HD)
     if (l0 == 0.0f) l0 = 1.0f;
     if (l1 == 0.0f) l1 = 1.0f;
     const int64_t rg0 = w_r0 + g, rg1 = w_r0 + g + 8;
+    if (lse != nullptr && t == 0) {          // one lane of the quad
+        if (rg0 < rows_total)
+            lse[row_index(rg0)] = fmaxf(m0, MIN_CLAMP) + logf(l0);
+        if (rg1 < rows_total)
+            lse[row_index(rg1)] = fmaxf(m1, MIN_CLAMP) + logf(l1);
+    }
     if (rg0 < rows_total) {
         T* o = out + row_offset(rg0) + 2 * t;
 #pragma unroll
@@ -325,9 +340,10 @@ flash_fwd_kernel(const T* __restrict__ q,      // (B, Sq, H, HD)
 }
 
 template <int HD, typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int tk, int h, int kvh, float scale, int causal,
-           int window, float cap, int64_t q_offset, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b, int sq, int tk, int h, int kvh, float scale,
+           int causal, int window, float cap, int64_t q_offset,
+           cudaStream_t stream) {
     const size_t bytes = smem_bytes<HD>();
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -336,25 +352,27 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
     const int64_t rows = (int64_t)sq * (h / kvh);
     const dim3 grid((unsigned)((rows + R - 1) / R), (unsigned)(b * kvh));
     flash_fwd_kernel<HD, T><<<grid, THREADS, bytes, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)out, sq, tk, h, kvh,
+        (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, sq, tk, h, kvh,
         scale, causal, window, cap, q_offset);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v,
-              void* out, int b, int sq, int tk, int h, int kvh, float scale,
-              int causal, int window, float cap, int64_t q_offset,
-              cudaStream_t stream) {
+              void* out, float* lse, int b, int sq, int tk, int h, int kvh,
+              float scale, int causal, int window, float cap,
+              int64_t q_offset, cudaStream_t stream) {
     switch (hd) {
-        case 32: return launch<32, T>(q, k, v, out, b, sq, tk, h, kvh, scale,
-                                      causal, window, cap, q_offset, stream);
-        case 64: return launch<64, T>(q, k, v, out, b, sq, tk, h, kvh, scale,
-                                      causal, window, cap, q_offset, stream);
-        case 128: return launch<128, T>(q, k, v, out, b, sq, tk, h, kvh,
+        case 32: return launch<32, T>(q, k, v, out, lse, b, sq, tk, h, kvh,
+                                      scale, causal, window, cap, q_offset,
+                                      stream);
+        case 64: return launch<64, T>(q, k, v, out, lse, b, sq, tk, h, kvh,
+                                      scale, causal, window, cap, q_offset,
+                                      stream);
+        case 128: return launch<128, T>(q, k, v, out, lse, b, sq, tk, h, kvh,
                                         scale, causal, window, cap, q_offset,
                                         stream);
-        case 256: return launch<256, T>(q, k, v, out, b, sq, tk, h, kvh,
+        case 256: return launch<256, T>(q, k, v, out, lse, b, sq, tk, h, kvh,
                                         scale, causal, window, cap, q_offset,
                                         stream);
         default: return (int)cudaErrorInvalidValue;
@@ -366,17 +384,21 @@ int launch_hd(int hd, const void* q, const void* k, const void* v,
 // Plain C entry point (loaded with ctypes). q (B, Sq, H, hd), k/v
 // (B, Tk, KV, hd), out (B, Sq, H, hd), all contiguous and 16-byte aligned,
 // float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); hd in {32, 64, 128,
-// 256}; H % KV == 0. Launches on `stream`; returns 0 or the CUDA error.
+// 256}; H % KV == 0. lse: null, or a float32 (B, Sq, H) array that receives
+// each row's log-sum-exp. Launches on `stream`; returns 0 or the CUDA
+// error.
 extern "C" int flash_attention_fwd_launch(
-        const void* q, const void* k, const void* v, void* out, int b,
-        int sq, int tk, int h, int kvh, int hd, int is_bf16, float scale,
-        int causal, int window, float cap, int64_t q_offset, void* stream) {
+        const void* q, const void* k, const void* v, void* out, void* lse,
+        int b, int sq, int tk, int h, int kvh, int hd, int is_bf16,
+        float scale, int causal, int window, float cap, int64_t q_offset,
+        void* stream) {
     if (b <= 0 || sq <= 0) return (int)cudaGetLastError();
     if (kvh <= 0 || h % kvh != 0) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
+    float* fl = (float*)lse;
     return is_bf16
-        ? launch_hd<__nv_bfloat16>(hd, q, k, v, out, b, sq, tk, h, kvh,
+        ? launch_hd<__nv_bfloat16>(hd, q, k, v, out, fl, b, sq, tk, h, kvh,
                                    scale, causal, window, cap, q_offset, st)
-        : launch_hd<float>(hd, q, k, v, out, b, sq, tk, h, kvh, scale,
+        : launch_hd<float>(hd, q, k, v, out, fl, b, sq, tk, h, kvh, scale,
                            causal, window, cap, q_offset, st);
 }

@@ -1,33 +1,46 @@
-"""Public wrapper for the flash attention forward kernel.
+"""Public wrapper for the flash attention kernels, forward and backward.
 
 ``flash_attention(q, k, v, *, scale, causal, window, attn_softcap,
 q_offset)`` takes q (B, Sq, H, hd) and k/v (B, T, KV, hd) and returns
 (B, Sq, H, hd) in q's dtype.
 
-* On CPU tensors it runs the plain version (``ref.flash_attention_blocked``).
+* On CPU tensors it runs the plain versions (``ref.py``).
 * On CUDA tensors it checks dtype (float32 or bfloat16, the same for all
   three), shapes (hd in 32/64/128/256, H a multiple of KV), contiguity and
-  16-byte alignment,
-  then launches the CUDA kernel or raises. Nothing falls back.
+  16-byte alignment, then launches the CUDA kernel or raises. Nothing
+  falls back.
 
-Forward only: the kernel has no backward yet, so the wrapper refuses
-tensors that require a gradient while autograd records (the training
-path, with a backward kernel, is a later port).
+Where autograd records (grad enabled and q, k or v requiring a gradient)
+the call goes through ``_FlashAttention``, an ``autograd.Function`` (the
+reference wraps its kernel in ``jax.custom_vjp``, ``ops.py:25-46``): its
+forward launches the forward kernel with the per-row log-sum-exp output
+and saves q, k, v, out and lse; its backward launches the backward kernel
+(``csrc/flash_attention_bwd.cu``), float32 only. On CPU tensors both
+directions run the plain versions (``flash_attention_fwd_plain``,
+``flash_attention_bwd_plain``). Otherwise the plain launch runs, with no
+lse.
 
-``launches`` counts the kernel launches of this process; it grows only
-where the kernel is launched.
+``launches`` counts the forward kernel's launches of this process and
+``bwd_launches`` the backward's; each grows only where its kernel is
+launched.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.attention.flash import flash_attention_fwd_cuda
-from repro_torch.kernels.attention.ref import flash_attention_blocked
+from repro_torch.kernels.attention.flash import (flash_attention_bwd_cuda,
+                                                 flash_attention_fwd_cuda)
+from repro_torch.kernels.attention.ref import (flash_attention_blocked,
+                                               flash_attention_bwd_plain,
+                                               flash_attention_fwd_plain)
 
 launches = 0
+bwd_launches = 0
 
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
+#: what the backward kernel takes (bf16 training: ROADMAP)
+BWD_DTYPES = (torch.float32,)
 
 
 #: The plain PyTorch version, on any device: what the wrapper runs on the
@@ -55,28 +68,81 @@ def _check(q, k, v):
                              f"{t.device}; the kernel takes float32 or "
                              f"bfloat16, the same for q, k, v, on "
                              f"{q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} is not contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} is not 16-byte "
-                             f"aligned (the kernel copies 16-byte rows)")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention: the kernel is forward only; "
-                           "run it under torch.no_grad() or "
-                           "torch.inference_mode()")
+        _check_layout(name, t)
+
+
+def _check_layout(name, t):
+    if not t.is_contiguous():
+        raise ValueError(f"flash_attention: {name} is not contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: {name} is not 16-byte "
+                         f"aligned (the kernel copies 16-byte rows)")
+
+
+def _check_bwd(q):
+    if q.dtype not in BWD_DTYPES:
+        raise ValueError(f"flash_attention: the backward kernel takes "
+                         f"float32, not {q.dtype} (bf16 training through "
+                         f"flash attention is not ported)")
+
+
+def _on_cuda(q):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
+                         f"not {q.device}")
+    return q.device.type == "cuda"
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, attn_softcap,
+                q_offset):
+        global launches
+        kw = dict(scale=scale, causal=causal, window=window,
+                  attn_softcap=attn_softcap, q_offset=q_offset)
+        if _on_cuda(q):
+            _check(q, k, v)
+            _check_bwd(q)
+            out, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+            launches += 1
+        else:
+            out, lse = flash_attention_fwd_plain(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        global bwd_launches
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        if q.device.type == "cuda":
+            if dout.dtype != q.dtype:
+                raise ValueError(f"flash_attention: the output gradient is "
+                                 f"{dout.dtype}, the kernel takes {q.dtype}")
+            _check_layout("the output gradient", dout)
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                                  **ctx.kw)
+            bwd_launches += 1
+        else:
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                   **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, scale, causal=True, window=0,
                     attn_softcap=0.0, q_offset=0):
     global launches
-    if q.device.type == "cpu":
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, scale, causal, window,
+                                     attn_softcap, q_offset)
+    if not _on_cuda(q):
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
                                      window=window,
                                      attn_softcap=attn_softcap,
                                      q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
-                         f"not {q.device}")
     _check(q, k, v)
     out = flash_attention_fwd_cuda(q, k, v, scale=scale, causal=causal,
                                    window=window, attn_softcap=attn_softcap,

@@ -14,6 +14,11 @@ on CPU tensors. On CUDA tensors it checks dtype (float32 only), shapes
 (P in 32/64/128, N in 16/64/128, L a multiple of the chunk),
 contiguity and 16-byte alignment, then launches the CUDA kernel or raises. Nothing falls back.
 
+Forward only: the kernel has no backward (training mamba2 on the card
+needs one, ROADMAP), and its outputs would carry no gradient history, so
+on CUDA tensors the wrapper refuses inputs that require a gradient while
+autograd records. On CPU tensors the plain version is differentiable.
+
 ``launches`` counts the kernel launches of this process; it grows only
 where the kernel is launched.
 """
@@ -71,6 +76,11 @@ def ssd_intra_chunk(x, dt, a, b_mat, c_mat, *, chunk: int):
         raise ValueError(f"ssd_intra_chunk runs on cuda or cpu tensors, "
                          f"not {x.device}")
     _check(x, dt, a, b_mat, c_mat, chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, b_mat, c_mat)):
+        raise RuntimeError("ssd_intra_chunk: the kernel is forward only; "
+                           "run it under torch.no_grad() or "
+                           "torch.inference_mode()")
     out = ssd_intra_chunk_cuda(x, dt, a, b_mat, c_mat, chunk=chunk)
     launches += 1
     return out

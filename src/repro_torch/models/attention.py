@@ -26,12 +26,15 @@ def flash_attention_blocked(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, scale: float,
                             causal: bool = True, window: int = 0,
                             attn_softcap: float = 0.0, q_offset: int = 0,
-                            block: int = 1024) -> torch.Tensor:
+                            block: int = 1024, return_lse: bool = False):
     """q: (B, Sq, H, hd); k/v: (B, T, KV, hd) -> (B, Sq, H, hd), q's dtype.
 
     The reference's ``flash_attention_xla``, with the KV blocks walked by a
     Python loop (the last block may be shorter; the reference pads it with
-    masked keys, which contribute nothing)."""
+    masked keys, which contribute nothing). With ``return_lse`` it returns
+    (out, lse): lse (B, Sq, H) float32 is each row's log-sum-exp,
+    max(m, clamp) + log(l), the clamped max for a fully masked row (what
+    the flash kernel's optional lse output holds)."""
     b, sq, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -66,8 +69,11 @@ def flash_attention_blocked(q: torch.Tensor, k: torch.Tensor,
         m = m_new
     l_safe = torch.where(l == 0.0, 1.0, l)
     out = acc / l_safe[..., None]
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
-    return out.to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = m.clamp_min(_MIN) + torch.log(l_safe)
+    return out, lse.permute(0, 3, 1, 2).reshape(b, sq, h)
 
 
 def attend(q, k, v, *, scale, causal=True, window=0, attn_softcap=0.0,
@@ -77,8 +83,10 @@ def attend(q, k, v, *, scale, causal=True, window=0, attn_softcap=0.0,
 
     impl: "auto" (blocked when T > 2*block, else dense), "dense",
     "blocked", "kernel" (``kernels.attention.ops.flash_attention``: the
-    CUDA kernel on CUDA tensors, its plain version on CPU tensors). An
-    error of the kernel reaches the caller; nothing falls back.
+    CUDA kernel on CUDA tensors, its plain version on CPU tensors; under
+    autograd its gradient is the backward kernel, or on the CPU that
+    kernel's plain version). An error of the kernel reaches the caller;
+    nothing falls back.
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; use one of "

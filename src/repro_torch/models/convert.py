@@ -9,6 +9,10 @@ its slice ``[period]``. The port keeps one module per layer.
 * ``params_from_numpy(cfg, params_np)`` turns that tree (numpy arrays)
   into a state dict for the port's ``Model``:
   ``model.load_state_dict(params_from_numpy(cfg, tree))``.
+* ``params_to_numpy(cfg, state_dict)`` is its inverse: the reference's
+  tree of numpy arrays, per-layer tensors restacked over periods (for
+  comparing trained parameters, and for checkpoints in the reference's
+  layout).
 * ``cache_to_numpy(cache)`` stacks the port's per-layer cache lists back
   into the reference's layout, leaf by leaf.
 """
@@ -54,6 +58,35 @@ def params_from_numpy(cfg: ModelConfig, params_np: dict) -> dict:
                 sd[f"layers.{layer}.{name}"] = torch.from_numpy(
                     np.array(arr[period]))
     return sd
+
+
+def _put(tree: dict, dotted: str, value) -> None:
+    *path, leaf = dotted.split(".")
+    for key in path:
+        tree = tree.setdefault(key, {})
+    tree[leaf] = value
+
+
+def params_to_numpy(cfg: ModelConfig, state_dict) -> dict:
+    """The reference's parameter tree (nested dicts of numpy arrays, layer
+    leaves stacked over periods under ``stack.sub{s}``) from a state dict
+    of ``Model(cfg)`` (name -> tensor on any device)."""
+    tree: dict = {"stack": {}}
+    per_layer: dict = {}
+    for name, val in state_dict.items():
+        if name.startswith("layers."):
+            layer, leaf = name.removeprefix("layers.").split(".", 1)
+            period, s = divmod(int(layer), cfg.scan_period)
+            per_layer.setdefault(f"sub{s}.{leaf}", {})[period] = _to_np(val)
+        else:
+            _put(tree, name, _to_np(val))
+    for name, periods in per_layer.items():
+        if sorted(periods) != list(range(cfg.num_periods)):
+            raise ValueError(f"{name}: periods {sorted(periods)}, expected "
+                             f"{cfg.num_periods}")
+        _put(tree["stack"], name, np.stack(
+            [periods[p] for p in range(cfg.num_periods)]))
+    return tree
 
 
 def _to_np(x):

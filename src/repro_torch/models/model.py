@@ -21,6 +21,13 @@ The cache mirrors the reference's tree, with the period axis as a list:
 or ``{"ssm": {conv, state}}``. ``models.convert.cache_to_numpy`` stacks it
 back into the reference's layout.
 
+Parameters are created with ``requires_grad=False``, which serving wants;
+training turns them on with ``model.requires_grad_(True)``
+(``train.train_step.init_train_state``), and ``forward`` then runs under
+autograd (with ``attn_impl="kernel"`` the flash kernel's backward is a
+kernel too). The last component of every parameter name is the
+reference's leaf name, which the optimizer's weight-decay mask reads.
+
 The MoE, hybrid, VLM and audio families are not ported yet and raise at
 construction.
 """

@@ -1,1 +1,1 @@
-"""Serving steps of the port (training is not ported yet)."""
+"""Training (loss, optimizer, train step) and serving steps of the port."""

@@ -1,0 +1,164 @@
+"""Training step: loss + grads (with microbatch accumulation), AdamW update
+(port of ``repro/train/train_step.py``).
+
+The reference's step is a pure function of (state, batch) under ``jit``;
+here the parameters are the model's own (``Model.requires_grad_(True)``,
+done by ``init_train_state``), the gradients come from
+``torch.autograd.grad`` and ``adamw_update`` writes the new parameters in
+place. ``state`` is {"params": {name: the model's parameter},
+"opt": {"m", "v", "step"}}, the reference's keys without its "rng" (which
+only the multi-device compressed reduce reads). Microbatches are a Python
+loop where the reference has ``lax.scan``; the activation peak is one
+microbatch's either way, and the gradients are summed in float32.
+
+``compress_pod_reduce`` and ``shard_grads`` are multi-device (ROADMAP
+queue 1 item 6) and raise ``NotImplementedError``. ``reduced_train_step``
+runs one step from a fixed start, so that two devices can be compared.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.models.model import Model
+from repro_torch.train.loss import lm_loss
+from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
+                                         init_opt_state, optimizer_for_arch)
+
+_METRIC_KEYS = ("loss", "ppl_log", "tokens", "accuracy", "aux")
+
+
+def frontend_len(cfg, batch=None) -> int:
+    """Frontend prefix length inside the decoder stream (VLM patches)."""
+    if cfg.frontend != "vision_patches":
+        return 0
+    if batch is not None and "frontend_embeds" in batch:
+        return batch["frontend_embeds"].shape[1]
+    return 576
+
+
+def make_loss_fn(model: Model):
+    """``loss_fn(batch) -> (total, metrics)`` with the model's current
+    parameters: the LM loss of tokens[:, 1:] given tokens[:, :-1], plus
+    ``router_aux_weight`` x aux; metrics loss, ppl_log, tokens, accuracy,
+    aux (detached 0-d tensors)."""
+    cfg = model.cfg
+
+    def loss_fn(batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        fl = frontend_len(cfg, batch)
+        tokens = batch["tokens"]
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        fwd = {"tokens": inputs}
+        if "frontend_embeds" in batch:
+            fwd["frontend_embeds"] = batch["frontend_embeds"]
+        logits, aux = model.forward(fwd)
+        if fl:
+            logits = logits[:, fl:]
+        loss, metrics = lm_loss(cfg, logits, labels.to(logits.device),
+                                batch.get("loss_mask"))
+        total = loss + cfg.router_aux_weight * aux
+        metrics = {**metrics, "aux": aux.detach()}
+        return total, {k: metrics[k] for k in _METRIC_KEYS}
+
+    return loss_fn
+
+
+def make_compute_grads(model: Model, microbatches: int = 1):
+    """``compute_grads(params, batch) -> (grads, metrics)``: the gradients
+    of the loss with respect to ``params`` (the model's parameters, by
+    name), averaged over ``microbatches`` equal slices of the batch and
+    summed in float32, and the metrics averaged likewise."""
+    loss_fn = make_loss_fn(model)
+
+    def compute_grads(params, batch):
+        names, leaves = list(params), list(params.values())
+        if microbatches == 1:
+            total, metrics = loss_fn(batch)
+            grads = torch.autograd.grad(total, leaves)
+            return dict(zip(names, grads)), metrics
+        size = next(iter(batch.values())).shape[0]
+        if size % microbatches:
+            raise ValueError(f"batch of {size} does not split into "
+                             f"{microbatches} microbatches")
+        per = size // microbatches
+        gacc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for p in leaves]
+        macc = {}
+        for i in range(microbatches):
+            mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+            total, metrics = loss_fn(mb)
+            grads = torch.autograd.grad(total, leaves)
+            for acc, g in zip(gacc, grads):
+                acc += g.float()
+            macc = {k: macc.get(k, 0.0) + metrics[k] for k in _METRIC_KEYS}
+            del total, grads
+        grads = {n: g / microbatches for n, g in zip(names, gacc)}
+        return grads, {k: v / microbatches for k, v in macc.items()}
+
+    return compute_grads
+
+
+def make_train_step(model: Model, opt_cfg: OptimizerConfig, *,
+                    microbatches: int = 1,
+                    compress_pod_reduce: bool = False,
+                    shard_grads: bool = False):
+    """``train_step(state, batch) -> (state, metrics)``: gradients, then
+    one AdamW update of the parameters in place. metrics: the loss metrics
+    and ``lr`` and ``grad_norm`` (pre-clip)."""
+    if compress_pod_reduce or shard_grads:
+        raise NotImplementedError(
+            "compress_pod_reduce and shard_grads are multi-device, not "
+            "ported yet (ROADMAP queue 1 item 6)")
+    compute_grads = make_compute_grads(model, microbatches)
+
+    def train_step(state, batch):
+        params = state["params"]
+        grads, metrics = compute_grads(params, batch)
+        params, new_opt, stats = adamw_update(opt_cfg, params, grads,
+                                              state["opt"])
+        del grads
+        return {"params": params, "opt": new_opt}, {**metrics, **stats}
+
+    return train_step
+
+
+def init_train_state(model: Model, generator: torch.Generator,
+                     moment_dtype: str = "float32") -> dict:
+    """Random parameters from ``generator`` (``Model.init_params``), made
+    trainable, and zero AdamW moments."""
+    model.init_params(generator)
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    return {"params": params, "opt": init_opt_state(params, moment_dtype)}
+
+
+def reduced_train_step(arch: str, device, *, microbatches: int = 1,
+                       batch: int = 4, seq: int = 64):
+    """One gradient evaluation and one train step of ``arch``'s reduced
+    config on ``device``, attention through the flash kernels
+    (``attn_impl="kernel"``), from parameters drawn on the CPU from seed 0
+    and tokens (batch, seq + 1) from seed 3, so every device starts from
+    the same state: (step-1 grads, metrics as floats, parameters after the
+    step), all on the CPU."""
+    cfg = get_config(arch).reduced()
+    init = Model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    model = Model(cfg, device=device, attn_impl="kernel", max_seq=seq + 8)
+    model.load_state_dict(init.state_dict())
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    state = {"params": params, "opt": init_opt_state(params)}
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                         generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32)
+    data = {"tokens": toks.to(model.device)}
+    grads, _ = make_compute_grads(model, microbatches)(params, data)
+    grads = {n: g.cpu() for n, g in grads.items()}
+    step = make_train_step(model, optimizer_for_arch(
+        arch, lr=1e-3, warmup_steps=1, total_steps=10),
+        microbatches=microbatches)
+    _, metrics = step(state, data)
+    return (grads, {k: float(v) for k, v in metrics.items()},
+            {n: p.detach().cpu() for n, p in params.items()})

@@ -49,6 +49,8 @@ def test_every_kernel_source_resolves_its_headers(name):
 
 @pytest.mark.parametrize("name,symbol", [
     ("flash_attention", "flash_fwd_kernel"),
+    ("flash_attention_bwd", "flash_bwd_dkdv_kernel"),
+    ("flash_attention_bwd", "flash_bwd_dq_kernel"),
     ("ssd_chunk", "ssd_chunk_kernel"),
     ("fused_variation", "fused_variation_kernel")])
 def test_device_symbols_the_trace_reads_are_defined(name, symbol):

@@ -20,21 +20,25 @@ from repro_torch.core.uniforms import ArrayUniforms
 from repro_torch.fitness import rastrigin
 from repro_torch.configs import get_config
 from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.kernels.attention.ref import (flash_attention_blocked,
+                                               flash_attention_bwd_plain,
+                                               flash_attention_fwd_plain)
 from repro_torch.kernels.genetic import fused_variation, ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref
-from repro_torch.launch import ga_run, serve
+from repro_torch.launch import ga_run, serve, train
 from repro_torch.models.convert import cache_to_numpy
 from repro_torch.models.model import Model
 from repro_torch.powerflow.contingency import contingency_loadings
 from repro_torch.powerflow.grid import make_german_grid, make_synthetic_grid
 from repro_torch.powerflow.hvdc import apply_hvdc
 from repro_torch.powerflow.newton import newton_powerflow
+from repro_torch.train.train_step import reduced_train_step
 from torch_parity import (ATTN_BF16_TOL, ATTN_CASES, ATTN_TOL,  # noqa: F401
-                          GA_RUN_HP, MASKED_CASE, MODEL_TOL, SSD_CASES,
-                          SSD_CHUNK256_CASES, SSD_MIN_DECAY, SSD_TOL, TOL,
-                          attn_inputs, cuda_device, kernel_args,
-                          ssd_inputs, to_np)
+                          GA_RUN_HP, GRAD_TOL, MASKED_CASE, MODEL_TOL,
+                          SSD_CASES, SSD_CHUNK256_CASES, SSD_MIN_DECAY,
+                          SSD_TOL, TOL, attn_grad_inputs, attn_inputs,
+                          cuda_device, kernel_args, ssd_inputs, to_np)
 
 pytestmark = pytest.mark.cuda
 
@@ -250,9 +254,93 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     shifted = k.new_empty(k.numel() + 1)[1:].view(k.shape).copy_(k)
     with pytest.raises(ValueError, match="aligned"):
         attn_ops.flash_attention(q, shifted, v, **kw)
-    with pytest.raises(RuntimeError, match="forward only"):
-        attn_ops.flash_attention(q.requires_grad_(), k, v, **kw)
+    with pytest.raises(ValueError, match="backward kernel takes float32"):
+        attn_ops.flash_attention(q.bfloat16().requires_grad_(), k.bfloat16(),
+                                 v.bfloat16(), **kw)
     assert attn_ops.launches == before
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward
+# ---------------------------------------------------------------------------
+
+def _grad_case(shape_args, device, seed=0, t=None):
+    return [torch.from_numpy(a).to(device)
+            for a in attn_grad_inputs(*shape_args, seed=seed, t=t)]
+
+
+FLOAT32_ATTN = [c for c in ATTN_CASES if c[-1] == "float32"]
+BWD_EDGE_CASES = [c for c in FLASH_EDGE_CASES if c[-1] == "float32"]
+
+
+def _check_backward(q, k, v, do, kw):
+    """The forward kernel's out and lse, then the backward kernel against
+    flash_attention_bwd_plain on the same tensors."""
+    from repro_torch.kernels.attention.flash import (
+        flash_attention_bwd_cuda, flash_attention_fwd_cuda)
+    out, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+    plain_out, plain_lse = flash_attention_fwd_plain(q, k, v, **kw)
+    np.testing.assert_allclose(to_np(out), to_np(plain_out), **ATTN_TOL)
+    np.testing.assert_allclose(to_np(lse), to_np(plain_lse), **ATTN_TOL)
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        np.testing.assert_allclose(to_np(a), to_np(b), **GRAD_TOL,
+                                   err_msg=name)
+    return got
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,win,cap,dtype", FLOAT32_ATTN)
+def test_flash_backward_kernel_matches_plain_version(cuda_device, b, s, h,
+                                                     kv, hd, causal, win,
+                                                     cap, dtype):
+    q, k, v, do = _grad_case((b, s, h, kv, hd), cuda_device, seed=s)
+    _check_backward(q, k, v, do, dict(scale=hd ** -0.5, causal=causal,
+                                      window=win, attn_softcap=cap,
+                                      q_offset=0))
+
+
+@pytest.mark.parametrize("b,sq,t,h,kv,hd,causal,win,cap,q_offset,dtype",
+                         BWD_EDGE_CASES)
+def test_flash_backward_kernel_tiling_edges(cuda_device, b, sq, t, h, kv,
+                                            hd, causal, win, cap, q_offset,
+                                            dtype):
+    q, k, v, do = _grad_case((b, sq, h, kv, hd), cuda_device, seed=sq + t,
+                             t=t)
+    _check_backward(q, k, v, do, dict(scale=hd ** -0.5, causal=causal,
+                                      window=win, attn_softcap=cap,
+                                      q_offset=q_offset))
+
+
+def test_flash_backward_kernel_fully_masked_rows(cuda_device):
+    c = MASKED_CASE
+    q, k, v, do = _grad_case((c["b"], c["sq"], c["h"], c["kv"], c["hd"]),
+                             cuda_device, seed=5, t=c["t"])
+    dq, dk, dv = _check_backward(q, k, v, do, dict(
+        scale=c["hd"] ** -0.5, causal=True, window=c["window"],
+        attn_softcap=0.0, q_offset=c["q_offset"]))
+    first_masked = c["t"] + c["window"] - 1 - c["q_offset"]
+    assert bool((dq[:, first_masked:] == 0).all())
+    assert bool(torch.isfinite(dk).all() and torch.isfinite(dv).all())
+
+
+def test_flash_attention_autograd_launches_both_kernels(cuda_device):
+    q, k, v, do = _grad_case((2, 96, 8, 2, 64), cuda_device, seed=3)
+    kw = dict(scale=0.125, causal=True, window=40, attn_softcap=30.0)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = (attn_ops.launches, attn_ops.bwd_launches)
+    out = attn_ops.flash_attention(q, k, v, **kw)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (attn_ops.launches, attn_ops.bwd_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    ref_out = flash_attention_blocked(q, k, v, **kw)
+    ref = torch.autograd.grad(ref_out, (q, k, v), do)
+    np.testing.assert_allclose(to_np(out), to_np(ref_out), **ATTN_TOL)
+    for a, b in zip(grads, ref):
+        np.testing.assert_allclose(to_np(a), to_np(b), **GRAD_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +445,19 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     assert ssd_ops.launches == before
 
 
+def test_ssd_wrapper_refuses_inputs_that_need_a_gradient(cuda_device):
+    """The kernel has no backward: under autograd its outputs would drop
+    the gradient silently, so the wrapper raises instead."""
+    x, dt, a, bm, cm = (torch.from_numpy(arr).to(cuda_device)
+                        for arr in ssd_inputs(1, 64, 4, 32, 16, seed=2))
+    before = ssd_ops.launches
+    with pytest.raises(RuntimeError, match="forward only"):
+        ssd_ops.ssd_intra_chunk(x.requires_grad_(), dt, a, bm, cm, chunk=32)
+    with torch.no_grad():
+        ssd_ops.ssd_intra_chunk(x, dt, a, bm, cm, chunk=32)
+    assert ssd_ops.launches == before + 1
+
+
 # ---------------------------------------------------------------------------
 # the model and the serving entry point on the card
 # ---------------------------------------------------------------------------
@@ -401,6 +502,48 @@ def test_serve_on_card_launches_the_kernels(cuda_device):
         assert (attn_ops.launches, ssd_ops.launches) == expect
         assert out.shape == (2, 4)
         assert stats["prefill_ms"] > 0 and stats["decode_ms_per_token"] > 0
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-2b"])
+def test_train_step_on_card_matches_cpu(cuda_device, arch):
+    """One train step of a reduced config, the flash kernels forward and
+    backward on the card against their plain versions on the CPU; float32
+    GEMMs on both (TF32 off). Gradients at GRAD_TOL scaled to each leaf's
+    largest |g|, loss and grad norm at 1e-4; the parameters where the
+    CPU's gradient is at least 1e-3 of its leaf's largest (AdamW's first
+    step is lr x sign(g) there)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    layers = get_config(arch).reduced().num_layers
+    before = (attn_ops.launches, attn_ops.bwd_launches)
+    gpu = reduced_train_step(arch, cuda_device)
+    torch.cuda.synchronize()
+    assert (attn_ops.launches - before[0],
+            attn_ops.bwd_launches - before[1]) == (2 * layers, 2 * layers)
+    cpu = reduced_train_step(arch, "cpu")
+    for name, g in cpu[0].items():
+        np.testing.assert_allclose(
+            to_np(gpu[0][name]), to_np(g), rtol=GRAD_TOL["rtol"],
+            atol=GRAD_TOL["atol"] * float(g.abs().max()), err_msg=name)
+    for key in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(gpu[1][key], cpu[1][key], rtol=1e-4,
+                                   err_msg=key)
+    for name, p in cpu[2].items():
+        g = cpu[0][name].abs()
+        sure = g >= 1e-3 * g.max()
+        np.testing.assert_allclose(to_np(gpu[2][name][sure]),
+                                   to_np(p[sure]), rtol=1e-4, atol=2e-6,
+                                   err_msg=name)
+
+
+def test_train_on_card_launches_both_kernels(cuda_device):
+    n = get_config("tinyllama-1.1b").reduced().num_layers
+    attn_ops.launches = attn_ops.bwd_launches = 0
+    stats = {}
+    train.train("tinyllama-1.1b", steps=3, batch=2, seq=64,
+                log_fn=lambda s: None, stats=stats)
+    assert (attn_ops.launches, attn_ops.bwd_launches) == (3 * n, 3 * n)
+    assert np.all(np.isfinite(stats["loss"] + stats["grad_norm"]))
+    assert stats["peak_bytes"] > 0 and len(stats["step_ms"]) == 3
 
 
 def test_hvdc_newton_german_grid_card_matches_cpu(cuda_device):

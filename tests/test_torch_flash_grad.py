@@ -1,0 +1,147 @@
+"""Gradients of the port's flash attention on the CPU, against the JAX
+reference. The port's ``kernels.attention.ops.flash_attention`` under
+autograd runs ``_FlashAttention``: on CPU tensors its forward is
+``flash_attention_fwd_plain`` and its backward ``flash_attention_bwd_plain``,
+the backward kernel's arithmetic in torch ops. The reference's
+``repro.kernels.attention.ops.flash_attention`` is differentiated with
+``jax.vjp`` (Pallas in interpret mode forward, its custom VJP backward), as
+tests/test_kernels.py:81 runs it. Inputs and the output gradient are
+numpy draws from a seed. Tolerance: tests/test_kernels.py:96-97's
+gradient tolerance, rtol 1e-3 / atol 1e-4 (``GRAD_TOL``). The bfloat16
+case of ``ATTN_CASES`` is left out: the backward kernel takes float32
+only (bf16 training is in the ROADMAP)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.attention import ops as jattn_ops
+from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.kernels.attention.ref import (flash_attention_blocked,
+                                               flash_attention_bwd_plain,
+                                               flash_attention_fwd_plain)
+from torch_parity import (ATTN_CASES, ATTN_TOL, GRAD_TOL, MASKED_CASE,
+                          attn_grad_inputs, to_np)
+
+FLOAT32_CASES = [c for c in ATTN_CASES if c[-1] == "float32"]
+
+
+def _port_grads(q, k, v, do, kw):
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    before = (attn_ops.launches, attn_ops.bwd_launches)
+    out = attn_ops.flash_attention(q, k, v, **kw)
+    grads = torch.autograd.grad(out, (q, k, v), torch.from_numpy(do))
+    assert (attn_ops.launches, attn_ops.bwd_launches) == before   # CPU
+    return to_np(out), [to_np(g) for g in grads]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,win,cap,dtype", FLOAT32_CASES)
+def test_flash_grads_match_jax_reference(b, s, h, kv, hd, causal, win, cap,
+                                         dtype):
+    q, k, v, do = attn_grad_inputs(b, s, h, kv, hd, seed=s)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=win, attn_softcap=cap)
+    ref_out, vjp = jax.vjp(
+        lambda q, k, v: jattn_ops.flash_attention(q, k, v, **kw),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp(jnp.asarray(do))
+    out, grads = _port_grads(q, k, v, do, kw)
+    np.testing.assert_allclose(out, np.asarray(ref_out), **ATTN_TOL)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        np.testing.assert_allclose(got, np.asarray(want), **GRAD_TOL,
+                                   err_msg=name)
+
+
+# the backward's plain version against autograd through the blocked
+# forward, which it must equal up to float32 summation order: GQA 4:1 and
+# MQA, softcap, windows shorter and longer than a block, q_offset, keys
+# not a multiple of the block; (B, Sq, T, H, KV, hd, causal, window,
+# softcap, q_offset, block)
+PLAIN_CASES = [
+    (2, 48, 48, 8, 2, 16, True, 0, 0.0, 0, 16),
+    (1, 40, 40, 4, 1, 32, True, 12, 30.0, 0, 16),
+    (2, 33, 33, 6, 3, 16, False, 0, 50.0, 0, 8),
+    (1, 20, 50, 4, 2, 16, True, 0, 0.0, 30, 16),
+    (1, 24, 70, 4, 4, 8, True, 9, 20.0, 46, 32),
+]
+
+
+@pytest.mark.parametrize("b,sq,t,h,kv,hd,causal,win,cap,q_offset,block",
+                         PLAIN_CASES)
+def test_bwd_plain_matches_autograd_of_blocked(b, sq, t, h, kv, hd, causal,
+                                               win, cap, q_offset, block):
+    q, k, v, do = (torch.from_numpy(a) for a in attn_grad_inputs(
+        b, sq, h, kv, hd, seed=sq + t, t=t))
+    kw = dict(scale=hd ** -0.5, causal=causal, window=win, attn_softcap=cap,
+              q_offset=q_offset)
+    out, lse = flash_attention_fwd_plain(q, k, v, block=block, **kw)
+    got = flash_attention_bwd_plain(q, k, v, out, lse, do, block=block, **kw)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    ref_out = flash_attention_blocked(qg, kg, vg, block=block, **kw)
+    want = torch.autograd.grad(ref_out, (qg, kg, vg), do)
+    np.testing.assert_allclose(to_np(out), to_np(ref_out), rtol=0, atol=0)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        np.testing.assert_allclose(to_np(a), to_np(w), **GRAD_TOL,
+                                   err_msg=name)
+
+
+def test_lse_is_the_log_sum_exp_of_the_masked_scores():
+    """lse against a dense log-sum-exp of the capped, masked scores; a
+    fully masked row holds the clamped max, -0.7 * FLT_MAX."""
+    c = MASKED_CASE
+    q, k, v = (torch.from_numpy(a) for a in attn_grad_inputs(
+        c["b"], c["sq"], c["h"], c["kv"], c["hd"], seed=5, t=c["t"])[:3])
+    scale = c["hd"] ** -0.5
+    _, lse = flash_attention_fwd_plain(q, k, v, scale=scale, causal=True,
+                                       window=c["window"], attn_softcap=30.0,
+                                       q_offset=c["q_offset"], block=16)
+    g = c["h"] // c["kv"]
+    kr = k.repeat_interleave(g, dim=2)
+    s = 30.0 * torch.tanh(torch.einsum("bshd,bthd->bhst", q, kr) * scale
+                          / 30.0)
+    qpos = c["q_offset"] + torch.arange(c["sq"])[:, None]
+    rel = qpos - torch.arange(c["t"])[None, :]
+    s = torch.where((rel >= 0) & (rel < c["window"]), s, -torch.inf)
+    dense = torch.logsumexp(s, -1).permute(0, 2, 1)          # (B, Sq, H)
+    first_masked = c["t"] + c["window"] - 1 - c["q_offset"]
+    np.testing.assert_allclose(to_np(lse[:, :first_masked]),
+                               to_np(dense[:, :first_masked]), **ATTN_TOL)
+    clamp = -0.7 * torch.finfo(torch.float32).max
+    assert bool((lse[:, first_masked:] == torch.tensor(clamp)).all())
+
+
+def test_fully_masked_rows_get_zero_grads():
+    """Rows that see no key: zero dq, and no contribution to dk and dv.
+    Compared against autograd through the blocked version only (the dense
+    reference averages such rows uniformly, ROADMAP)."""
+    c = MASKED_CASE
+    q, k, v, do = attn_grad_inputs(c["b"], c["sq"], c["h"], c["kv"],
+                                   c["hd"], seed=5, t=c["t"])
+    kw = dict(scale=c["hd"] ** -0.5, causal=True, window=c["window"],
+              q_offset=c["q_offset"])
+    _, (dq, dk, dv) = _port_grads(q, k, v, do, kw)
+    qg, kg, vg = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    want = torch.autograd.grad(flash_attention_blocked(qg, kg, vg, **kw),
+                               (qg, kg, vg), torch.from_numpy(do))
+    for got, w in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(got, to_np(w), **GRAD_TOL)
+    first_masked = c["t"] + c["window"] - 1 - c["q_offset"]
+    assert np.all(dq[:, first_masked:] == 0.0)
+    assert np.all(np.abs(dq[:, :first_masked]).sum(-1) > 0)
+    # the masked rows' dO does not reach dk, dv
+    do2 = do.copy()
+    do2[:, first_masked:] = 123.0
+    _, (dq2, dk2, dv2) = _port_grads(q, k, v, do2, kw)
+    np.testing.assert_array_equal(dk2, dk)
+    np.testing.assert_array_equal(dv2, dv)
+
+
+def test_plain_launch_without_autograd_runs_no_function():
+    q, k, v, _ = attn_grad_inputs(1, 32, 4, 2, 16, seed=1)
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+    out = attn_ops.flash_attention(q.requires_grad_(), k, v, scale=0.25)
+    assert out.grad_fn is not None
+    with torch.no_grad():
+        out = attn_ops.flash_attention(q, k, v, scale=0.25)
+    assert out.grad_fn is None

@@ -18,6 +18,9 @@ SWEEP_TOL = dict(rtol=1e-4, atol=1e-5)
 # flash attention (tests/test_kernels.py:75): float32 3e-5, bfloat16 2e-2
 ATTN_TOL = dict(rtol=3e-5, atol=3e-5)
 ATTN_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# flash attention gradients (tests/test_kernels.py:96-97, the reference's
+# kernel gradient against the dense one): dq, dk, dv
+GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 # SSD chunked scan (tests/test_kernels.py:122-125)
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
 # whole model (tests/test_models_smoke.py:74-99): logits and caches 2e-4,
@@ -129,6 +132,14 @@ def attn_inputs(b, sq, h, kv, hd, seed=0, t=None):
     t = sq if t is None else t
     return tuple(rs.standard_normal(shape).astype(np.float32) for shape in
                  ((b, sq, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+
+
+def attn_grad_inputs(b, sq, h, kv, hd, seed=0, t=None):
+    """float32 numpy q, k, v (``attn_inputs``) and an output gradient dO
+    (B, Sq, H, hd)."""
+    q, k, v = attn_inputs(b, sq, h, kv, hd, seed=seed, t=t)
+    rs = np.random.default_rng(seed + 1000)
+    return q, k, v, rs.standard_normal(q.shape).astype(np.float32)
 
 
 def ssd_inputs(b, l, h, p, n, seed=0, mamba2=False):
