@@ -40,9 +40,13 @@ German-size grid). Phases, in order; any failure exits non-zero:
            the flash backward kernel (autograd through the wrapper) against
            its plain version (dq, dk, dv at 1e-3 / 1e-4) at the tests'
            float32 cases (the bf16 one must be refused), the fully masked
-           rows (zero dq), tinyllama-1.1b's layer shape at batch 1 and 4 and
-           gemma2-2b's (1, 4500, 8, 4, 256) with softcap 50, window 4096
-           and global; one train step of reduced tinyllama-1.1b and
+           rows (zero dq), tinyllama-1.1b's layer shape at batch 1 and 4
+           (at batch 4 two more calls, and one in one-key-tile chunks,
+           must give the same bits) and gemma2-2b's (1, 4500, 8, 4, 256)
+           with softcap 50, window 4096 and global; tinyllama-1.1b's
+           layer at (1, 16384) within the scratch budget, bit-equal to one
+           launch with none and its peak memory under the budget plus its
+           outputs; one train step of reduced tinyllama-1.1b and
            gemma2-2b on the card against the CPU;
 4. main:   ``python -m repro_torch.launch.ga_run --fitness rastrigin`` at
            I=32 islands x P=1024 individuals x G=128 genes, 5 generations x
@@ -81,7 +85,7 @@ German-size grid). Phases, in order; any failure exits non-zero:
            GA epochs, and prefill ms, decode ms/token and tokens/s of each
            served model; the training run's step ms (median of steps 2-8),
            tokens/s and peak device memory, the flash backward (its
-           wrapper's row sum and two kernels) at tinyllama-1.1b's training
+           wrapper's row sum and its two kernels) at tinyllama-1.1b's training
            shape and gemma2-2b's beside its bound (10 hd FLOP per visible
            pair and head), its plain version and, at tinyllama's, the
            backward of SDPA's fastest float32 backend, and the forward
@@ -95,13 +99,16 @@ German-size grid). Phases, in order; any failure exits non-zero:
 6. trace:  one prefill and 8 decode steps of each served model, and one
            train step of the training path, under torch.profiler: the
            device's idle share and the kernels' share of each window and
-           the largest device entries, read from the trace;
+           the largest device entries, read from the trace; in the train
+           step each flash kernel's ms per launch (a flash kernel missing
+           from FLASH_SYMBOLS fails the run);
 7. the ``{"kernels": [...]}`` line (four kernels), the card line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or outside a checkout, it exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package ``repro``.
 """
+import contextlib
 import json
 import math
 import statistics
@@ -195,10 +202,13 @@ SERVE_RUNS = [("gemma2-2b", 4500, {"flash_attention": 26}),
               ("mamba2-780m", 4000, {"ssd_chunk": 48})]
 SERVE_BATCH, SERVE_GEN = 4, 32
 # decode steps in each traced decode window; the device symbols of the
-# port's kernels, as they appear in a trace
+# port's kernels, as they appear in a trace: the flash forward, then the
+# backward's two kernels (flash_attention_bwd.cu: dk, dv and dq partials;
+# the partials' sum)
 TRACE_DECODE = 8
-KERNEL_SYMBOLS = ("fused_variation_kernel", "flash_fwd_kernel",
-                  "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+FLASH_SYMBOLS = ("flash_fwd_kernel", "flash_bwd_kernel",
+                 "flash_bwd_dq_reduce_kernel")
+KERNEL_SYMBOLS = ("fused_variation_kernel", *FLASH_SYMBOLS,
                   "ssd_chunk_kernel")
 # tests/test_kernels.py:53-61: (B, S, H, KV, hd, causal, window, softcap,
 # dtype); then gemma2-2b's layer shapes on the serving path (batch 4,
@@ -246,6 +256,11 @@ BWD_MAIN = [(1, TRAIN_SEQ, 32, 4, 64, True, 0, 0.0, "float32"),
             BWD_TINYLLAMA,
             (1, 4500, 8, 4, 256, True, 4096, 50.0, "float32"),
             (1, 4500, 8, 4, 256, True, 0, 50.0, "float32")]
+# tinyllama-1.1b's layer at one sequence of 16384: every key tile's dq
+# partials at once would take 17,179,869,184 bytes of scratch
+BWD_LONG = (1, 16384, 32, 4, 64, True, 0, 0.0, "float32")
+# a scratch budget that every shape's dq partials fit
+NO_BUDGET = 1 << 62
 # gradients: tests/test_kernels.py:96-97's tolerance (rtol, atol)
 GRAD_TOL = (1e-3, 1e-4)
 # the backward needs five products of 2 hd FLOP per visible (query, key)
@@ -1262,7 +1277,8 @@ def ssd_bound(case, card):
 
 
 def say_kernel_time(label, ms, plain, bnd):
-    say(f"times: {label}: kernel {ms:.4f} ms, plain version {plain:.4f} ms, "
+    plain = "" if plain is None else f", plain version {plain:.4f} ms"
+    say(f"times: {label}: kernel {ms:.4f} ms{plain}, "
         f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; "
         f"{bnd['rates']}): {bnd['bound_ms'] / ms:.3f} of the 3xTF32 bound, "
         f"{bnd['simt_bound_ms'] / ms:.3f} of the float32 SIMT bound "
@@ -1462,6 +1478,98 @@ def check_flash_bwd(case, device, seed, t=None, q_offset=0):
     return err, (out_err, lse_err), grads
 
 
+@contextlib.contextmanager
+def scratch_budget(nbytes):
+    """The flash backward's scratch budget (``flash.BWD_SCRATCH_BYTES``)
+    set to ``nbytes`` inside the block: 0 runs its key tiles in chunks of
+    one, NO_BUDGET all in one launch."""
+    from repro_torch.kernels.attention import flash
+    default = flash.BWD_SCRATCH_BYTES
+    flash.BWD_SCRATCH_BYTES = nbytes
+    try:
+        yield
+    finally:
+        flash.BWD_SCRATCH_BYTES = default
+
+
+def check_bwd_deterministic(case, device, seed, grads):
+    """Two more backward calls through the wrapper on the tensors that gave
+    ``grads`` (``check_flash_bwd``, same seed), and one call of the kernel
+    with no scratch budget (its key tiles in chunks of one): dq, dk, dv
+    must equal ``grads`` bit for bit, or fail."""
+    import torch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.flash import (flash_attention_bwd_cuda,
+                                                     flash_attention_fwd_cuda)
+    q, k, v, do = grad_tensors(case, device, seed)
+    kw = attn_kwargs(case)
+    for call in (1, 2):
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        out = attn_ops.flash_attention(qg, kg, vg, **kw)
+        again = torch.autograd.grad(out, (qg, kg, vg), do)
+        same = [bool(torch.equal(a, b)) for a, b in zip(again, grads)]
+        if not all(same):
+            fail(f"flash attention backward is not deterministic at {case}: "
+                 f"call {call + 1} equals call 1 bit for bit in (dq, dk, dv) "
+                 f"{same}")
+    out, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+    with scratch_budget(0):
+        chunked = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    same = [bool(torch.equal(a, b)) for a, b in zip(chunked, grads)]
+    if not all(same):
+        fail(f"flash attention backward in one-key-tile chunks differs from "
+             f"one launch at {case}: bit-equal (dq, dk, dv) {same}")
+    say(f"check: flash attention backward {case}: three calls, and a call "
+        f"in one-key-tile chunks, give the same dq, dk, dv bit for bit")
+
+
+def check_bwd_long(device):
+    """The backward at BWD_LONG within the default scratch budget (key
+    tiles in chunks) and with no budget (one launch of every key tile):
+    the same bits, finite; each call's device ms and its peak device memory
+    beyond its inputs. Fails if the budgeted call's peak passes the budget
+    plus its outputs and D."""
+    import torch
+    from repro_torch.kernels.attention import flash
+    case = BWD_LONG
+    q, k, v, do = grad_tensors(case, device, seed=600)
+    kw = attn_kwargs(case)
+    out, lse = flash.flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+    runs = {}
+    for name, budget in (("budget", flash.BWD_SCRATCH_BYTES),
+                         ("one launch", NO_BUDGET)):
+        with scratch_budget(budget):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            grads = flash.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                   **kw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device) - base
+            ms = cuda_ms(lambda: flash.flash_attention_bwd_cuda(
+                q, k, v, out, lse, do, **kw), repeats=3, inner=1)
+        runs[name] = (grads, peak, ms)
+        torch.cuda.empty_cache()
+    (g0, peak0, _), (g1, _, _) = runs["budget"], runs["one launch"]
+    same = [bool(torch.equal(a, b)) for a, b in zip(g0, g1)]
+    finite = all(bool(torch.isfinite(a).all()) for a in g0)
+    outputs = 4 * (2 * q.numel() + 2 * k.numel() + lse.numel())
+    if not (all(same) and finite):
+        fail(f"flash attention backward at {case}: within the scratch budget "
+             f"bit-equal to one launch {same}, finite {finite}")
+    if peak0 > flash.BWD_SCRATCH_BYTES + outputs:
+        fail(f"flash attention backward at {case} took {peak0} B beyond its "
+             f"inputs, past the budget {flash.BWD_SCRATCH_BYTES} B + outputs "
+             f"{outputs} B")
+    say(f"check: flash attention backward {case}: within the "
+        f"{flash.BWD_SCRATCH_BYTES} B scratch budget bit-equal to one launch "
+        f"and finite; " + "; ".join(
+            f"{name} {ms:.4f} ms, peak {peak} B beyond the inputs"
+            for name, (_, peak, ms) in runs.items()))
+    del runs, g0, g1, q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+
+
 def fwd_errs(fwd):
     return (f"forward with lse: out max abs err {fwd[0]:.3g}, lse max rel "
             f"err {fwd[1]:.3g}")
@@ -1488,9 +1596,10 @@ def train_step_card_vs_cpu(arch, device):
 
 
 def phase_check_train(device):
-    """The backward kernel against its plain version, and one train step
-    on the card against the CPU. Returns the largest error at the training
-    path's shape."""
+    """The backward kernel against its plain version, its bits over calls
+    and chunkings, its memory at a long sequence, and one train step on the
+    card against the CPU. Returns the largest error at the training path's
+    shape."""
     import torch
     for i, case in enumerate(ATTN_CASES):
         if case[8] != "float32":
@@ -1518,12 +1627,15 @@ def phase_check_train(device):
         f"{err:.3g}; {fwd_errs(fwd)}")
     main_err = 0.0
     for i, case in enumerate(BWD_MAIN):
-        err, fwd, _ = check_flash_bwd(case, device, seed=400 + i)
+        err, fwd, grads = check_flash_bwd(case, device, seed=400 + i)
         if case == BWD_TINYLLAMA:
             main_err = err
+            check_bwd_deterministic(case, device, seed=400 + i, grads=grads)
         say(f"check: flash attention backward {case}: max abs err "
             f"{err:.3g}; {fwd_errs(fwd)}")
+        del grads
         torch.cuda.empty_cache()
+    check_bwd_long(device)
     for arch in ("tinyllama-1.1b", "gemma2-2b"):
         errs = train_step_card_vs_cpu(arch, device)
         say(f"check: one train step of reduced {arch}, card vs CPU: loss "
@@ -1640,7 +1752,9 @@ def phase_times_train(device, card, fwd_launches, bwd_launches, bwd_err,
     kernel at tinyllama-1.1b's training shape and gemma2-2b's shapes
     beside its bound, its plain version and, at tinyllama's (causal,
     softcap 0), SDPA's backward; the forward with and without its lse
-    output, in turns."""
+    output, in turns, and at tinyllama's shape beside its bound and SDPA's
+    forward. Returns (the forward's numbers at tinyllama's shape, the
+    backward's kernels entry)."""
     import torch
     from repro_torch.kernels.attention.flash import (flash_attention_bwd_cuda,
                                                      flash_attention_fwd_cuda)
@@ -1666,6 +1780,13 @@ def phase_times_train(device, card, fwd_launches, bwd_launches, bwd_err,
                         repeats=3, inner=1)
         bnd = flash_bwd_bound(case, card)
         say_kernel_time(f"flash attention backward {case}", ms, plain, bnd)
+        # every key tile in one launch, with no scratch budget
+        with scratch_budget(NO_BUDGET):
+            one_ms = cuda_ms(lambda: flash_attention_bwd_cuda(
+                q, k, v, out, lse, do, **kw), repeats=5, inner=3)
+        say(f"times: flash attention backward {case}: {ms:.4f} ms within "
+            f"the scratch budget, {one_ms:.4f} ms in one launch with none")
+        torch.cuda.empty_cache()
         # the forward with and without its lse output, in turns
         fwd = {False: [], True: []}
         for with_lse in (False, True, True, False):
@@ -1677,7 +1798,8 @@ def phase_times_train(device, card, fwd_launches, bwd_launches, bwd_err,
             f"without the lse output, {fwd[True]:.4f} ms with it (each the "
             f"mean of two turns)")
         rows[case] = dict(ms=ms, plain_ms=plain, bound=bnd,
-                          fwd_ms=fwd[False], fwd_lse_ms=fwd[True])
+                          one_launch_ms=one_ms, fwd_ms=fwd[False],
+                          fwd_lse_ms=fwd[True])
         if case == BWD_TINYLLAMA:
             dq = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)[0]
             sdpa_ms, backend = sdpa_bwd_yardstick(q, k, v, do, kw["scale"],
@@ -1687,6 +1809,19 @@ def phase_times_train(device, card, fwd_launches, bwd_launches, bwd_err,
                 f"({backend}, the fastest backend that computes it in "
                 f"float32) {sdpa_ms:.4f} ms")
             del dq
+            # the forward at the training shape: its bound, and SDPA's
+            # forward like for like (causal, global, softcap 0)
+            fbnd = flash_bound(case, card)
+            sdpa_fwd_ms, fwd_backend = sdpa_yardstick(q, k, v, kw["scale"],
+                                                      out)
+            say_kernel_time(f"flash attention forward with lse {case}",
+                            fwd[True], None, fbnd)
+            say(f"times: like for like at {case}: forward kernel "
+                f"{fwd[False]:.4f} ms ({fwd[True]:.4f} with lse), "
+                f"scaled_dot_product_attention ({fwd_backend}) "
+                f"{sdpa_fwd_ms:.4f} ms")
+            rows[case].update(fwd_bound=fbnd["bound_ms"],
+                              sdpa_fwd_ms=sdpa_fwd_ms)
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
     main = rows[BWD_TINYLLAMA]
@@ -1704,7 +1839,12 @@ def phase_times_train(device, card, fwd_launches, bwd_launches, bwd_err,
         "flash_bwd": {str(c): {k_: (v_ if k_ != "bound" else
                                     v_["bound_ms"]) for k_, v_ in r.items()}
                       for c, r in rows.items()}}))
-    return {"name": "flash_attention_bwd", "route": "cuda",
+    # the forward's numbers at the training shape, for its kernels entry
+    fwd_train = {"shape": list(BWD_TINYLLAMA[:8]), "ms": main["fwd_lse_ms"],
+                 "bound_ms": main["fwd_bound"],
+                 "library_ms": main["sdpa_fwd_ms"],
+                 "ms_without_lse": main["fwd_ms"]}
+    return fwd_train, {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/attention/csrc/"
                       "flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/attention/ops.py:37",
@@ -1857,8 +1997,12 @@ def phase_trace_train(device, card):
     host_ms = (time.perf_counter() - t0) * 1e3
     span, busy, by_name = profiled(run)
     flash = {k: sum(v for name, v in by_name.items() if k in name)
-             for k in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
-                       "flash_bwd_dq_kernel")}
+             for k in FLASH_SYMBOLS}
+    unlisted = [name for name in by_name if "flash" in name
+                and not any(k in name for k in FLASH_SYMBOLS)]
+    if unlisted or (busy is not None and not all(flash.values())):
+        fail(f"train trace: flash kernels {unlisted} are not in "
+             f"FLASH_SYMBOLS, or a listed one did not run: {flash}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     row = {"host_ms": host_ms, "traced_ms": span, "device_busy_ms": busy,
            "idle_share": None if busy is None else 1 - busy / span,
@@ -1877,6 +2021,9 @@ def phase_trace_train(device, card):
             f"{1 - busy / host_ms:.4f} of the unprofiled one; flash "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in flash.items())
             + f" = {row['flash_share']:.4f} of the traced window")
+        say("trace: per launch (" + str(TRAIN_LAYERS) + " a step): "
+            + ", ".join(f"{k} {v / TRAIN_LAYERS:.4f} ms"
+                        for k, v in flash.items()))
     say("trace: " + json.dumps({"card": card, "train_step": row}))
     return row
 
@@ -1933,8 +2080,10 @@ def main():
     kernels[1]["launches_by_path"] = {
         "serve gemma2-2b prefill": lm_launches["flash_attention"],
         f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_fwd}
-    kernels.append(phase_times_train(device, card, train_fwd, train_bwd,
-                                     bwd_err, train_stats))
+    fwd_train, bwd_entry = phase_times_train(device, card, train_fwd,
+                                             train_bwd, bwd_err, train_stats)
+    kernels[1]["train_shape"] = fwd_train
+    kernels.append(bwd_entry)
     phase_times_hvdc(hvdc_runs, device, card)
     del hvdc_runs
     phase_trace(device, card)

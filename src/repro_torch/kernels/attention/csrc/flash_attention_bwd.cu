@@ -22,40 +22,83 @@
 //
 // Bound: operations. The function needs five products of 2 * hd FLOP per
 // visible (query, key) pair and query head (Q K^T, dO V^T, P^T dO, dS^T Q,
-// dS K): 10 * hd FLOP. At tinyllama-1.1b's training shape (B, S, H, KV,
-// hd) = (4, 2048, 32, 4, 64), causal, that is ~1.7e11 FLOP per launch: on
-// an NVIDIA H100 (700 W) ~1.0 ms as three TF32 products each at the 495
-// TFLOP/s data-sheet peak, ~2.6 ms at the 67 TFLOP/s of float32 outside
-// the tensor cores, against ~0.1 ms of memory traffic (q, k, v, out, dO,
-// lse in, dq, dk, dv out, once each) at 3.35 TB/s.
+// dS K): 10 * hd FLOP, and this kernel does exactly those five. At
+// tinyllama-1.1b's training shape (B, S, H, KV, hd) = (4, 2048, 32, 4, 64),
+// causal, that is ~1.7e11 FLOP per call: on an NVIDIA H100 (700 W) ~1.0 ms
+// as three TF32 products each at the 495 TFLOP/s data-sheet peak, against
+// ~0.1 ms for q, k, v, out, dO, lse in and dq, dk, dv out at 3.35 TB/s (the
+// dq partials below add 570,425,344 bytes written and read back there,
+// ~0.34 ms; 2.6 GB at gemma2-2b's hd-256 shapes, ~1.6 ms).
+// With mma.sync at hd 64 a 3xTF32 product is cheap next to what feeds it,
+// so the design is about issue slots and shared-memory bandwidth per mma.
 //
-// Design (simple and deterministic, no atomics): two kernels, launched
-// back to back on one stream.
-//  * dkdv: one block of 8 warps per (batch x KV head, tile of BKV keys). K
-//    and V of the tile stay in shared memory; a loop walks the tiles of BR
+// Design (deterministic: no atomics, every sum in a fixed order):
+//  * one block of 8 warps per (batch x KV head, tile of BKV keys); K and V
+//    of the tile stay in shared memory, and a loop walks the tiles of BR
 //    rows that the causal and window limits let see the tile. Per row tile
-//    (phase A) each warp recomputes a 16-key x (BR / WPM)-row piece of S^T
-//    = K Q^T and dP^T = V dO^T, turns it into P^T and dS^T in registers and
-//    stores both in shared memory; then (phase B) each warp accumulates a
-//    16-key x (HD / WPM)-column piece of dV += P^T dO and dK += dS^T Q in
-//    registers (16 to 64 floats a lane). Tiles: BKV x BR = 64 x 64 at hd 32
-//    and 64, 64 x 32 at hd 128, 32 x 32 at hd 256 (shared memory: K, V, Q,
-//    dO rows padded to hd + 4 floats, P^T and dS^T rows to BR + 8, so
-//    every fragment access hits 32 distinct banks; 143,872 bytes at hd 256,
-//    107,520 at hd 64, under the 232,448 a block may use);
-//  * dq: one block per (batch x KV head, tile of 16 x W rows), the
-//    forward's layout: Q and dO rows stay in shared memory, a loop walks
-//    the visible tiles of 32 keys (each warp skips those its 16 rows
-//    cannot see) and each warp accumulates its 16 x hd piece of dq in
-//    registers. W = 8 warps, or 4 at hd 256 (shared memory 199,680 bytes);
-//  * products: m16n8k8 mma.sync in 3xTF32, P^T / dS^T / dS feed the next
-//    product as its A operand through mma_tf32.cuh's k-permutation; loads
-//    are 16-byte cp.async, not overlapped with compute (a later redesign);
-//  * q is not pre-scaled (cp.async copies it as it is): scores are scale *
-//    (q . k), and dk, dq are scaled once when written;
-//  * numerics as the forward: softcap before the masks, accurate expf and
-//    tanhf (no --use_fast_math), float32 throughout.
+//    (phase A) the block computes S^T = K Q^T and dP^T = V dO^T, turns them
+//    into P^T and dS^T in registers and stores both in shared memory; then
+//    (phase C) dV += P^T dO and dK += dS^T Q accumulate in registers, and
+//    dQ_part = dS K, with dS read back from the dS^T tile as the A operand,
+//    goes to a float32 scratch, one slice per key tile. So each product
+//    runs once per visible pair: five, not the seven of a separate dq pass
+//    that recomputes S and dP;
+//  * a second kernel sums each row's dq partials over its key tiles in
+//    ascending key-tile order and scales them: two calls on the same
+//    tensors give the same bits. The scratch holds, per (batch x KV head,
+//    key tile), the rows that can see that tile, at a stride of the longest
+//    such range: B * KV * ceil(T / BKV) rows x hd floats for causal global
+//    attention, less with a window. At (4, 2048, 32, 4, 64) causal:
+//    1,073,741,824 bytes; at gemma2-2b's (1, 4500, 8, 4, 256), window 4096
+//    / global: 4,766,982,144 / 5,197,824,000 bytes. As that grows with S^2,
+//    the wrapper allocates (torch.empty) at most a budget, or one key
+//    tile's partials where they take more (scratch_floats), and the
+//    launcher runs the key tiles in chunks that fit it, each at the stride
+//    of its own longest range (chunk): per chunk the main kernel, then the
+//    reduction, which adds the chunk's partials to the rows' sums, kept
+//    unscaled in dq between chunks. Every chunking gives the same bits;
+//  * operands split once: Q and dO of a row tile are split into TF32
+//    hi / lo planes in shared memory once, by the threads that copy them,
+//    so every product reads them split (FragB::load). K and V (their planes
+//    would need 69,632 bytes more at hd 64, past the limit) and P^T / dS^T
+//    are split where a warp reads them, each split feeding the warp's whole
+//    tile: at hd 64 the tiles are BKV x BR = 128 x 64 and each warp holds
+//    32 x 32 of S^T / dP^T and of dK / dV (an A fragment feeds four
+//    n-tiles, a B fragment two m-tiles) and 16 x 32 of dQ_part. Splitting
+//    Q and dO at every use instead (from a cp.async ring, same tiles)
+//    timed the same within 0.2% on an H100 (PERF.md): the planes trade
+//    the splits' issue slots for twice the shared-memory reads;
+//  * loads overlap compute: Q and dO of row tile r + 1 are loaded into
+//    registers while tile r's dQ_part, dK and dV products run and split
+//    into the planes after them; lse, D and the rows' positions of tile
+//    r + 1 go through a two-stage cp.async ring. Per row tile one wait and
+//    three barriers;
+//  * masks only where they apply: a row tile wholly inside the causal and
+//    window limits (and the keys) skips the per-element test; elsewhere the
+//    test is int32 (each row's position relative to the tile's first key,
+//    clamped to int32, computed once per row tile in the copy step);
+//  * P = 2^((s - lse) log2 e) by ex2.approx.ftz in place of expf(s - lse):
+//    the two roundings before it add a relative error of at most 2^-23
+//    |s - lse| to P (under 2e-6 for every P above 2^-20), beside ex2's
+//    2 ulp (as exp2f's, CUDA math documentation); a P below 2^-126 flushes
+//    to 0, where it adds nothing at float32 precision to sums over a row
+//    whose P add up to 1. Within the tests' float32 gradient tolerance
+//    (rtol 1e-3, atol 1e-4). Softcap before the masks, accurate tanhf,
+//    no --use_fast_math, float32 throughout, as the forward;
+//  * bank-conflict-free shared memory: K, V rows and the Q, dO planes'
+//    rows padded to hd + 4 floats, P^T and dS^T rows to BR + 8, and dS^T's
+//    columns XOR-swizzled by bit 2 of the key (swz) so that both its
+//    row-wise (dK) and its column-wise (dQ) fragment reads hit 32
+//    distinct banks;
+//  * tiles per head dim (Tile): 128 x 64 at hd 32 and 64, 64 x 32 at
+//    hd 128, 32 x 32 at hd 256; shared memory 148,992 / 214,528 / 156,416
+//    / 210,688 bytes, under the 232,448 a block may use: one block per SM.
+//    Key tiles go to blockIdx.y, so the first blocks to start are those of
+//    the first key tile, which causal rows see most.
+// Row math is int32 within one (batch, KV head): Sq * H must stay below
+// 2^31 (the launcher refuses more).
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -65,98 +108,78 @@ namespace {
 
 using tf32x3::FragA;
 
-constexpr int WARPS = 8;                 // dkdv kernel
+constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
-constexpr int BK = 32;                   // keys per tile of the dq kernel
-constexpr int64_t NO_ROW = INT64_MIN;    // position of a padding row
+constexpr float LOG2E = 1.4426950408889634f;
+// a padding row's position relative to a key: no key is causally visible
+constexpr int NO_ROW = INT_MIN + 256;
 
-// dkdv tiles: BKV keys per block, BR rows per step
-template <int HD> struct KV;
-template <> struct KV<32> { static constexpr int BKV = 64, BR = 64; };
-template <> struct KV<64> { static constexpr int BKV = 64, BR = 64; };
-template <> struct KV<128> { static constexpr int BKV = 64, BR = 32; };
-template <> struct KV<256> { static constexpr int BKV = 32, BR = 32; };
-
-// warps (16 rows each) of a dq block
-template <int HD> struct QW {
-    static constexpr int value = HD == 256 ? 4 : 8;
+// Tiles per head dim: BKV keys per block, BR rows per step, and the warp
+// grids (8 warps) of phase A (AK warps along keys x 8 / AK along rows), of
+// dK / dV (CK along keys x 8 / CK along columns) and of dQ_part (QR along
+// rows x 8 / QR along columns)
+template <int HD> struct Tile;
+template <> struct Tile<32> {
+    static constexpr int BKV = 128, BR = 64, AK = 4, CK = 4, QR = 2;
+};
+template <> struct Tile<64> {
+    static constexpr int BKV = 128, BR = 64, AK = 4, CK = 4, QR = 4;
+};
+template <> struct Tile<128> {
+    static constexpr int BKV = 64, BR = 32, AK = 4, CK = 2, QR = 1;
+};
+template <> struct Tile<256> {
+    static constexpr int BKV = 32, BR = 32, AK = 2, CK = 1, QR = 1;
 };
 
 template <int HD>
-constexpr size_t dkdv_smem() {
-    constexpr int BKV = KV<HD>::BKV, BR = KV<HD>::BR;
-    return sizeof(float) * ((size_t)2 * BKV * (HD + 4)
-                            + (size_t)2 * BR * (HD + 4)
-                            + (size_t)2 * BKV * (BR + 8) + 2 * BR)
-           + sizeof(int64_t) * BR;
+constexpr size_t smem_bytes() {
+    constexpr int BKV = Tile<HD>::BKV, BR = Tile<HD>::BR;
+    return sizeof(float) * ((size_t)2 * BKV * (HD + 4)     // K, V
+                            + (size_t)4 * BR * (HD + 4)    // Q, dO planes
+                            + (size_t)2 * BKV * (BR + 8)   // P^T, dS^T
+                            + (size_t)6 * BR);             // lse, D, rel x 2
 }
 
-template <int HD>
-constexpr size_t dq_smem() {
-    return sizeof(float) * (size_t)(2 * 16 * QW<HD>::value + 2 * BK)
-           * (HD + 4);
-}
-
-__device__ __forceinline__ bool visible(int64_t qp, int64_t kp, int64_t tk,
-                                        int causal, int window) {
-    bool ok = qp != NO_ROW && kp < tk;
-    if (causal) ok = ok && qp >= kp;
-    if (window > 0) ok = ok && (qp - kp) < window;
-    return ok;
-}
-
-// softcap, and the factor it puts on the gradient of the raw score
-__device__ __forceinline__ float capped(float raw, float cap) {
-    return cap != 0.0f ? cap * tanhf(raw / cap) : raw;
-}
-__device__ __forceinline__ float cap_grad(float s, float cap) {
-    if (cap == 0.0f) return 1.0f;
-    const float u = s / cap;
-    return 1.0f - u * u;
-}
-
-struct Rows {             // the flattened rows of one (batch, KV head)
-    int64_t sq, total;
-    int b, kh, h, G;
-    // index of row r in a (B, Sq, H) array (times HD: its first element)
-    __device__ __forceinline__ int64_t index(int64_t r) const {
-        const int64_t s = r / G;
-        return ((int64_t)b * sq + s) * h + (int64_t)kh * G + (r - s * G);
+// B operand of one m16n8k8 step, split once for every m-tile it feeds
+// (set), or read split from hi / lo planes at offsets o0, o1 (load)
+struct FragB {
+    uint32_t hi[2], lo[2];
+    __device__ __forceinline__ void set(float b0, float b1) {
+        tf32x3::split(b0, hi[0], lo[0]);
+        tf32x3::split(b1, hi[1], lo[1]);
+    }
+    __device__ __forceinline__ void load(const uint32_t* h, const uint32_t* l,
+                                         int o0, int o1) {
+        hi[0] = h[o0];
+        hi[1] = h[o1];
+        lo[0] = l[o0];
+        lo[1] = l[o1];
     }
 };
 
-// rows r0 .. r0 + n - 1 of q or dO (rows past the end: zeros) into dst
-template <int HD>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          const Rows& rows, int64_t r0,
-                                          int n, int tid, int nthreads) {
-    constexpr int S = HD + 4;
-    for (int idx = tid; idx < n * HD / 4; idx += nthreads) {
-        const int r = idx / (HD / 4), d = (idx % (HD / 4)) * 4;
-        const int64_t rg = r0 + r;
-        const bool ok = rg < rows.total;
-        tf32x3::cp_async16(dst + r * S + d,
-                           src + (ok ? rows.index(rg) * HD + d : 0),
-                           ok ? 16 : 0);
-    }
+// d += a * b in float32 accuracy, both operands split: small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+    tf32x3::mma(d, a.lo, b.hi[0], b.hi[1]);
+    tf32x3::mma(d, a.hi, b.lo[0], b.lo[1]);
+    tf32x3::mma(d, a.hi, b.hi[0], b.hi[1]);
 }
 
-// keys k0 .. k0 + n - 1 of k or v of KV head kh (keys past tk: zeros)
-template <int HD>
-__device__ __forceinline__ void load_keys(float* dst, const float* src,
-                                          int b, int kh, int kvh, int64_t tk,
-                                          int64_t k0, int n, int tid,
-                                          int nthreads) {
-    constexpr int S = HD + 4;
-    for (int idx = tid; idx < n * HD / 4; idx += nthreads) {
-        const int j = idx / (HD / 4), d = (idx % (HD / 4)) * 4;
-        const int64_t kp = k0 + j;
-        const bool ok = kp < tk;
-        tf32x3::cp_async16(
-            dst + j * S + d,
-            src + (ok ? (((int64_t)b * tk + kp) * kvh + kh) * HD + d : 0),
-            ok ? 16 : 0);
-    }
+// 4-byte asynchronous copy global -> shared; copies `valid` bytes (0 or 4)
+// and fills the rest with zeros
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int valid) {
+    const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                 :: "r"(s), "l"(gmem), "r"(valid) : "memory");
+}
+
+// 2^x (ex2.approx.ftz: 2 ulp as exp2f, a result below 2^-126 flushed to 0)
+__device__ __forceinline__ float exp2_ftz(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -166,400 +189,617 @@ __device__ __forceinline__ float2 load2(const float* p) {
     return *reinterpret_cast<const float2*>(p);
 }
 
+// key kl of a tile against a row at position key0 + rel (rel: the row's
+// position relative to the tile's first key); kmax = keys in the tile
+__device__ __forceinline__ bool visible(int rel, int kl, int kmax,
+                                        int causal, int window) {
+    bool ok = kl < kmax;
+    if (causal) ok = ok && rel >= kl;
+    if (window > 0) ok = ok && rel - kl < window;
+    return ok;
+}
+
+// a position difference clamped to int32: visible() stays exact, since a
+// key index in a tile is below 256 and a window below INT_MAX - 256
+__device__ __forceinline__ int rel32(int64_t d) {
+    return d > INT_MAX ? INT_MAX : (d < NO_ROW ? NO_ROW : (int)d);
+}
+
+// the query positions [s_begin, s_end) that see a key of the tile
+// [k0, k_last]
+__host__ __device__ __forceinline__ void key_tile_rows(
+        int64_t k0, int64_t k_last, int sq, int causal, int window,
+        int64_t q_offset, int64_t& s_begin, int64_t& s_end) {
+    s_begin = 0;
+    s_end = sq;
+    if (causal && k0 - q_offset > s_begin) s_begin = k0 - q_offset;
+    if (window > 0 && k_last + window - q_offset < s_end)
+        s_end = k_last + window - q_offset;
+    if (s_end < s_begin) s_end = s_begin;
+}
+
+// x = hi + lo per component (tf32x3::split), into 16-byte hi and lo
+__device__ __forceinline__ void split4(float4 x, uint32_t* hi, uint32_t* lo) {
+    uint4 h, l;
+    tf32x3::split(x.x, h.x, l.x);
+    tf32x3::split(x.y, h.y, l.y);
+    tf32x3::split(x.z, h.z, l.z);
+    tf32x3::split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi) = h;
+    *reinterpret_cast<uint4*>(lo) = l;
+}
+
+// XOR swizzle of a P^T / dS^T column (row of the row tile) by bit 2 of
+// the key: keeps the float2 pairs (2t, 2t + 1) together
+__device__ __forceinline__ int swz(int key, int row) {
+    return row ^ (((key >> 2) & 1) << 3);
+}
+
+// P^T and dS^T of one warp's phase-A tile (MA x 16 keys from kw0, NA x 8
+// rows from rw0; element e of a fragment: key + 8 for e >= 2, row + 1 for
+// odd e) into Ps and Ds (row stride PS). CAP: softcap on; MASK: test each
+// element (a row tile that straddles a limit). lse, dsum, rel: this row
+// tile's stage.
+template <bool CAP, bool MASK, int MA, int NA>
+__device__ __forceinline__ void p_ds(
+        const float (&sc)[MA][NA][4], const float (&dp)[MA][NA][4],
+        float* Ps, float* Ds, int PS, const float* lse, const float* dsum,
+        const int* rel, int kw0, int rw0, int g, int t, float scale,
+        float cap, int kmax, int causal, int window) {
+#pragma unroll
+    for (int ni = 0; ni < NA; ++ni) {
+        const int rl = rw0 + 8 * ni + 2 * t;
+        const float2 l2 = load2(lse + rl), d2 = load2(dsum + rl);
+        const int2 r2 = *reinterpret_cast<const int2*>(rel + rl);
+#pragma unroll
+        for (int mi = 0; mi < MA; ++mi) {
+            float p[4], ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const bool odd = e & 1;
+                float s = sc[mi][ni][e] * scale;
+                if (CAP) s = cap * tanhf(s / cap);
+                p[e] = exp2_ftz((s - (odd ? l2.y : l2.x)) * LOG2E);
+                ds[e] = p[e] * (dp[mi][ni][e] - (odd ? d2.y : d2.x));
+                if (CAP) {
+                    const float u = s / cap;
+                    ds[e] *= 1.0f - u * u;
+                }
+                if (MASK && !visible(odd ? r2.y : r2.x,
+                                     kw0 + 16 * mi + g + 8 * (e >> 1), kmax,
+                                     causal, window))
+                    p[e] = ds[e] = 0.0f;
+            }
+            const int ka = kw0 + 16 * mi + g;
+            store2(Ps + ka * PS + swz(ka, rl), p[0], p[1]);
+            store2(Ps + (ka + 8) * PS + swz(ka + 8, rl), p[2], p[3]);
+            store2(Ds + ka * PS + swz(ka, rl), ds[0], ds[1]);
+            store2(Ds + (ka + 8) * PS + swz(ka + 8, rl), ds[2], ds[3]);
+        }
+    }
+}
+
+struct Rows {             // the flattened rows of one (batch, KV head)
+    int total, G, h;
+    int64_t base;         // index of row 0 in a (B, Sq, H) array
+    // index of row r in a (B, Sq, H) array (times HD: its first element)
+    __device__ __forceinline__ int64_t index(int r) const {
+        const int s = r / G;
+        return base + (int64_t)s * h + (r - s * G);
+    }
+};
+
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dkdv_kernel(const float* __restrict__ q,      // (B, Sq, H, HD)
-                      const float* __restrict__ k,      // (B, Tk, KV, HD)
-                      const float* __restrict__ v,      // (B, Tk, KV, HD)
-                      const float* __restrict__ dout,   // (B, Sq, H, HD)
-                      const float* __restrict__ lse,    // (B, Sq, H)
-                      const float* __restrict__ dsum,   // (B, Sq, H)
-                      float* __restrict__ dk,           // (B, Tk, KV, HD)
-                      float* __restrict__ dv,           // (B, Tk, KV, HD)
-                      int sq, int tk, int h, int kvh, float scale,
-                      int causal, int window, float cap, int64_t q_offset) {
-    constexpr int BKV = KV<HD>::BKV, BR = KV<HD>::BR;
+flash_bwd_kernel(const float* __restrict__ q,       // (B, Sq, H, HD)
+                 const float* __restrict__ k,       // (B, Tk, KV, HD)
+                 const float* __restrict__ v,       // (B, Tk, KV, HD)
+                 const float* __restrict__ dout,    // (B, Sq, H, HD)
+                 const float* __restrict__ lse,     // (B, Sq, H)
+                 const float* __restrict__ dsum,    // (B, Sq, H)
+                 float* __restrict__ dk,            // (B, Tk, KV, HD)
+                 float* __restrict__ dv,            // (B, Tk, KV, HD)
+                 float* __restrict__ dq_part,       // scratch, see top
+                 int sq, int tk, int h, int kvh, float scale, int causal,
+                 int window, float cap, int64_t q_offset, int kt0,
+                 int64_t seg_rows) {
+    using T = Tile<HD>;
+    constexpr int BKV = T::BKV, BR = T::BR;
     constexpr int S = HD + 4, PS = BR + 8;
-    constexpr int MT = BKV / 16;         // 16-key m-tiles
-    constexpr int WPM = WARPS / MT;      // warps per m-tile
-    constexpr int NA = BR / 8 / WPM;     // score n-tiles per warp (phase A)
-    constexpr int CW = HD / WPM;         // output columns per warp (phase B)
-    constexpr int NB = CW / 8;
+    constexpr int AR = WARPS / T::AK, CH = WARPS / T::CK, QH = WARPS / T::QR;
+    constexpr int MA = BKV / 16 / T::AK, NA = BR / 8 / AR;
+    constexpr int MC = BKV / 16 / T::CK, NC = HD / 8 / CH;
+    constexpr int MQ = BR / 16 / T::QR, NQ = HD / 8 / QH;
+    static_assert(MA * 16 * T::AK == BKV && NA * 8 * AR == BR, "phase A");
+    static_assert(MC * 16 * T::CK == BKV && NC * 8 * CH == HD, "dK, dV");
+    static_assert(MQ * 16 * T::QR == BR && NQ * 8 * QH == HD, "dQ");
+    static_assert(BR <= THREADS && BR % 16 == 0, "row tile");
     extern __shared__ float4 smem4[];
     float* Ks = reinterpret_cast<float*>(smem4);   // BKV x S
     float* Vs = Ks + BKV * S;                      // BKV x S
-    float* Qs = Vs + BKV * S;                      // BR x S
-    float* Os = Qs + BR * S;                       // BR x S (dO)
-    float* Ps = Os + BR * S;                       // BKV x PS (P^T)
+    // Q and dO of the row tile as TF32 hi / lo planes, BR x S each
+    uint32_t* Qhi = reinterpret_cast<uint32_t*>(Vs + BKV * S);
+    uint32_t* Qlo = Qhi + BR * S;
+    uint32_t* Ohi = Qlo + BR * S;
+    uint32_t* Olo = Ohi + BR * S;
+    float* Ps = reinterpret_cast<float*>(Olo + BR * S);   // BKV x PS (P^T)
     float* Ds = Ps + BKV * PS;                     // BKV x PS (dS^T)
-    float* lse_s = Ds + BKV * PS;                  // BR
-    float* dsum_s = lse_s + BR;                    // BR
-    int64_t* qpos_s = reinterpret_cast<int64_t*>(dsum_s + BR);   // BR
+    float* lse_s = Ds + BKV * PS;                  // 2 x BR
+    float* dsum_s = lse_s + 2 * BR;                // 2 x BR
+    int* rel_s = reinterpret_cast<int*>(dsum_s + 2 * BR);   // 2 x BR
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
     const int G = h / kvh;
-    const Rows rows{sq, (int64_t)sq * G, (int)(blockIdx.y / kvh),
-                    (int)(blockIdx.y % kvh), h, G};
-    const int64_t k0 = (int64_t)blockIdx.x * BKV;
+    const int bh = blockIdx.x, kt = kt0 + (int)blockIdx.y;
+    const int b = bh / kvh, kh = bh % kvh;
+    const Rows rows{sq * G, G, h, (int64_t)b * sq * h + (int64_t)kh * G};
+    const int k0 = kt * BKV;
+    const int kmax = tk - k0 < BKV ? tk - k0 : BKV;   // keys in the tile
 
-    load_keys<HD>(Ks, k, rows.b, rows.kh, kvh, tk, k0, BKV, tid, THREADS);
-    load_keys<HD>(Vs, v, rows.b, rows.kh, kvh, tk, k0, BKV, tid, THREADS);
+    for (int idx = tid; idx < BKV * HD / 4; idx += THREADS) {
+        const int j = idx / (HD / 4), d = (idx % (HD / 4)) * 4;
+        const bool ok = j < kmax;
+        const int64_t off = ok ? (((int64_t)b * tk + k0 + j) * kvh + kh) * HD
+                                 + d : 0;
+        tf32x3::cp_async16(Ks + j * S + d, k + off, ok ? 16 : 0);
+        tf32x3::cp_async16(Vs + j * S + d, v + off, ok ? 16 : 0);
+    }
     tf32x3::cp_async_commit();
 
-    // the rows that can see a key of this tile
-    const int64_t k_last = (k0 + BKV < tk ? k0 + BKV : (int64_t)tk) - 1;
-    int64_t s_begin = 0, s_end = sq;
-    if (causal && k0 - q_offset > s_begin) s_begin = k0 - q_offset;
-    if (window > 0 && k_last + window - q_offset < s_end)
-        s_end = k_last + window - q_offset;
-    const int64_t r_begin = s_begin * G;
-    const int64_t r_end = s_end > s_begin ? s_end * G : r_begin;
+    int64_t s_begin, s_end;
+    key_tile_rows(k0, k0 + kmax - 1, sq, causal, window, q_offset, s_begin,
+                  s_end);
+    const int r_begin = (int)(s_begin * G), r_end = (int)(s_end * G);
+    const int nsteps = (r_end - r_begin + BR - 1) / BR;
+    // this key tile's slice of the dq partials: row r at (r - r_begin) * HD
+    float* part = dq_part + ((int64_t)bh * gridDim.y + blockIdx.y) * seg_rows
+                            * HD;
 
-    const int m = warp % MT;                 // this warp's 16 keys
-    const int nbase = (warp / MT) * NA;      // its score n-tiles
-    const int col0 = (warp / MT) * CW;       // its output columns
-    float dka[NB][4], dva[NB][4];
-#pragma unroll
-    for (int c = 0; c < NB; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dka[c][e] = dva[c][e] = 0.0f;
-
-    for (int64_t r0 = r_begin; r0 < r_end; r0 += BR) {
-        __syncthreads();                     // the last step's reads done
-        load_rows<HD>(Qs, q, rows, r0, BR, tid, THREADS);
-        load_rows<HD>(Os, dout, rows, r0, BR, tid, THREADS);
-        tf32x3::cp_async_commit();
-        for (int i = tid; i < BR; i += THREADS) {
-            const int64_t rg = r0 + i;
-            if (rg < rows.total) {
-                const int64_t idx = rows.index(rg);
-                lse_s[i] = lse[idx];
-                dsum_s[i] = dsum[idx];
-                qpos_s[i] = q_offset + rg / G;
-            } else {
-                lse_s[i] = 0.0f;
-                dsum_s[i] = 0.0f;
-                qpos_s[i] = NO_ROW;
-            }
+    // lse, D and each row's position relative to k0 of row tile r0 into
+    // stage st (cp.async, one commit group)
+    auto issue = [&](int r0, int st) {
+        if (tid < BR) {
+            const int r = r0 + tid;
+            const bool ok = r < rows.total;
+            const int64_t idx = ok ? rows.index(r) : 0;
+            cp_async4(lse_s + st * BR + tid, lse + idx, ok ? 4 : 0);
+            cp_async4(dsum_s + st * BR + tid, dsum + idx, ok ? 4 : 0);
+            rel_s[st * BR + tid] = ok ? rel32(q_offset + r / G - k0) : NO_ROW;
         }
-        tf32x3::cp_async_wait<0>();
-        __syncthreads();
+        tf32x3::cp_async_commit();
+    };
+    // Q and dO of row tile r0 into registers (fetch: in flight while the
+    // block computes), then split once into the planes (planes)
+    constexpr int NLD = BR * HD / 4 / THREADS;      // float4s per thread
+    static_assert(NLD * 4 * THREADS == BR * HD, "row tile copy");
+    float4 rq[NLD], ro[NLD];
+    auto fetch = [&](int r0) {
+#pragma unroll
+        for (int j = 0; j < NLD; ++j) {
+            const int idx = tid + j * THREADS;
+            const int i = idx / (HD / 4), d = (idx % (HD / 4)) * 4;
+            const bool ok = r0 + i < rows.total;
+            const int64_t off = ok ? rows.index(r0 + i) * HD + d : 0;
+            const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            rq[j] = ok ? *reinterpret_cast<const float4*>(q + off) : zero;
+            ro[j] = ok ? *reinterpret_cast<const float4*>(dout + off) : zero;
+        }
+    };
+    auto planes = [&]() {
+#pragma unroll
+        for (int j = 0; j < NLD; ++j) {
+            const int idx = tid + j * THREADS;
+            const int o = idx / (HD / 4) * S + (idx % (HD / 4)) * 4;
+            split4(rq[j], Qhi + o, Qlo + o);
+            split4(ro[j], Ohi + o, Olo + o);
+        }
+    };
 
-        // phase A: S^T and dP^T for keys 16m .. 16m + 15 x this warp's rows
+    float dka[MC][NC][4], dva[MC][NC][4];
+#pragma unroll
+    for (int mi = 0; mi < MC; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NC; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dka[mi][ni][e] = dva[mi][ni][e] = 0.0f;
+
+    if (nsteps > 0) {
+        issue(r_begin, 0);
+        fetch(r_begin);
+        planes();
+    }
+    // per row tile: one wait and three barriers (the last step: two)
+    for (int it = 0; it < nsteps; ++it) {
+        const int r0 = r_begin + it * BR, st = it & 1;
+        tf32x3::cp_async_wait<0>();    // stage st (and K, V) landed
+        __syncthreads();               // ... and the planes written, for
+                                       // every thread
+        if (it + 1 < nsteps) issue(r0 + BR, st ^ 1);
+
+        // phase A: S^T, dP^T for this warp's MA x 16 keys x NA x 8 rows
         {
-            float sc[NA][4], dp[NA][4];
+            const int kw0 = (warp % T::AK) * MA * 16;
+            const int rw0 = (warp / T::AK) * NA * 8;
+            float sc[MA][NA][4], dp[MA][NA][4];
 #pragma unroll
-            for (int n = 0; n < NA; ++n)
+            for (int mi = 0; mi < MA; ++mi)
 #pragma unroll
-                for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.0f;
-            const float* Kw = Ks + (16 * m + g) * S + t;
-            const float* Vw = Vs + (16 * m + g) * S + t;
-#pragma unroll 2
+                for (int ni = 0; ni < NA; ++ni)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        sc[mi][ni][e] = dp[mi][ni][e] = 0.0f;
+#pragma unroll
             for (int kk = 0; kk < HD / 8; ++kk) {
-                FragA ak, av;
-                ak.set(Kw[kk * 8], Kw[8 * S + kk * 8], Kw[kk * 8 + 4],
-                       Kw[8 * S + kk * 8 + 4]);
-                av.set(Vw[kk * 8], Vw[8 * S + kk * 8], Vw[kk * 8 + 4],
-                       Vw[8 * S + kk * 8 + 4]);
+                FragA ak[MA], av[MA];
 #pragma unroll
-                for (int n = 0; n < NA; ++n) {
-                    const int row = (nbase + n) * 8 + g;
-                    const float* qr = Qs + row * S + kk * 8 + t;
-                    const float* orr = Os + row * S + kk * 8 + t;
-                    tf32x3::mma3(sc[n], ak, qr[0], qr[4]);
-                    tf32x3::mma3(dp[n], av, orr[0], orr[4]);
+                for (int mi = 0; mi < MA; ++mi) {
+                    const int o = (kw0 + 16 * mi + g) * S + kk * 8 + t;
+                    const float* kr = Ks + o;
+                    const float* vr = Vs + o;
+                    ak[mi].set(kr[0], kr[8 * S], kr[4], kr[8 * S + 4]);
+                    av[mi].set(vr[0], vr[8 * S], vr[4], vr[8 * S + 4]);
                 }
-            }
-            // element e: key 16m + g (+ 8 for e >= 2), row 2t (+ 1 for odd e)
 #pragma unroll
-            for (int n = 0; n < NA; ++n) {
-                float p[4], ds[4];
+                for (int ni = 0; ni < NA; ++ni) {
+                    const int o = (rw0 + 8 * ni + g) * S + kk * 8 + t;
+                    FragB bq, bo;
+                    bq.load(Qhi, Qlo, o, o + 4);
+                    bo.load(Ohi, Olo, o, o + 4);
 #pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int kl = 16 * m + g + 8 * (e >> 1);
-                    const int rl = (nbase + n) * 8 + 2 * t + (e & 1);
-                    const float s = capped(sc[n][e] * scale, cap);
-                    p[e] = ds[e] = 0.0f;
-                    if (visible(qpos_s[rl], k0 + kl, tk, causal, window)) {
-                        p[e] = expf(s - lse_s[rl]);
-                        ds[e] = p[e] * (dp[n][e] - dsum_s[rl])
-                                * cap_grad(s, cap);
+                    for (int mi = 0; mi < MA; ++mi) {
+                        mma3(sc[mi][ni], ak[mi], bq);
+                        mma3(dp[mi][ni], av[mi], bo);
                     }
                 }
-                const int off = (16 * m + g) * PS + (nbase + n) * 8 + 2 * t;
-                store2(Ps + off, p[0], p[1]);
-                store2(Ps + off + 8 * PS, p[2], p[3]);
-                store2(Ds + off, ds[0], ds[1]);
-                store2(Ds + off + 8 * PS, ds[2], ds[3]);
             }
+            // P^T and dS^T: the mask test only where the row tile
+            // straddles a limit (or the keys end inside the tile)
+            const int r_last = (r0 + BR < rows.total ? r0 + BR
+                                                     : rows.total) - 1;
+            const int64_t q_lo = q_offset + r0 / G;
+            const int64_t q_hi = q_offset + r_last / G;
+            const bool full = kmax == BKV &&
+                              (!causal || k0 + BKV - 1 <= q_lo) &&
+                              (window <= 0 || q_hi - k0 < window);
+#define P_DS(CAP, MASK)                                                    \
+    p_ds<CAP, MASK>(sc, dp, Ps, Ds, PS, lse_s + st * BR, dsum_s + st * BR, \
+                    rel_s + st * BR, kw0, rw0, g, t, scale, cap, kmax,     \
+                    causal, window)
+            if (cap != 0.0f) {
+                if (full) P_DS(true, false);
+                else P_DS(true, true);
+            } else {
+                if (full) P_DS(false, false);
+                else P_DS(false, true);
+            }
+#undef P_DS
         }
         __syncthreads();
+        if (it + 1 < nsteps) fetch(r0 + BR);   // in flight through phase C
 
-        // phase B: dV += P^T dO, dK += dS^T Q over this step's rows; the k
-        // index of step kk is permuted (slot t: row 2t, slot t + 4: 2t + 1)
+        // dQ_part = dS K for this warp's MQ x 16 rows x NQ x 8 columns; the
+        // k index of step kk is permuted (slot t: key 2t, slot t + 4: key
+        // 2t + 1), dS read from the dS^T tile
         {
-            const float* Pw = Ps + (16 * m + g) * PS + 2 * t;
-            const float* Dw = Ds + (16 * m + g) * PS + 2 * t;
+            const int rq0 = (warp % T::QR) * MQ * 16;
+            const int hq0 = (warp / T::QR) * NQ * 8;
+            float acc[MQ][NQ][4];
 #pragma unroll
-            for (int kk = 0; kk < BR / 8; ++kk) {
-                const float2 p0 = load2(Pw + kk * 8);
-                const float2 p1 = load2(Pw + 8 * PS + kk * 8);
-                const float2 d0 = load2(Dw + kk * 8);
-                const float2 d1 = load2(Dw + 8 * PS + kk * 8);
-                FragA ap, ad;
-                ap.set(p0.x, p1.x, p0.y, p1.y);
-                ad.set(d0.x, d1.x, d0.y, d1.y);
-                const float* orr = Os + (kk * 8 + 2 * t) * S + col0 + g;
-                const float* qr = Qs + (kk * 8 + 2 * t) * S + col0 + g;
+            for (int mi = 0; mi < MQ; ++mi)
 #pragma unroll
-                for (int c = 0; c < NB; ++c) {
-                    tf32x3::mma3(dva[c], ap, orr[c * 8], orr[S + c * 8]);
-                    tf32x3::mma3(dka[c], ad, qr[c * 8], qr[S + c * 8]);
+                for (int ni = 0; ni < NQ; ++ni)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+#pragma unroll
+            for (int kk = 0; kk < BKV / 8; ++kk) {
+                const int ka = kk * 8 + 2 * t;
+                const float* d0 = Ds + ka * PS;
+                const float* d1 = d0 + PS;
+                FragA a[MQ];
+#pragma unroll
+                for (int mi = 0; mi < MQ; ++mi) {
+                    const int m = rq0 + 16 * mi + g;
+                    a[mi].set(d0[swz(ka, m)], d0[swz(ka, m + 8)],
+                              d1[swz(ka, m)], d1[swz(ka, m + 8)]);
+                }
+#pragma unroll
+                for (int ni = 0; ni < NQ; ++ni) {
+                    const float* kr = Ks + ka * S + hq0 + 8 * ni + g;
+                    FragB bk;
+                    bk.set(kr[0], kr[S]);
+#pragma unroll
+                    for (int mi = 0; mi < MQ; ++mi)
+                        mma3(acc[mi][ni], a[mi], bk);
                 }
             }
+#pragma unroll
+            for (int mi = 0; mi < MQ; ++mi) {
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const int r = r0 + rq0 + 16 * mi + g + 8 * half;
+                    if (r >= r_end) continue;
+                    float* o = part + (int64_t)(r - r_begin) * HD + hq0
+                               + 2 * t;
+#pragma unroll
+                    for (int ni = 0; ni < NQ; ++ni)
+                        store2(o + 8 * ni, acc[mi][ni][2 * half],
+                               acc[mi][ni][2 * half + 1]);
+                }
+            }
+        }
+
+        // dV += P^T dO, dK += dS^T Q over this step's rows for this warp's
+        // MC x 16 keys x NC x 8 columns; the k index of step kk is permuted
+        // (slot t: row 2t, slot t + 4: row 2t + 1)
+        {
+            const int kc0 = (warp % T::CK) * MC * 16;
+            const int hc0 = (warp / T::CK) * NC * 8;
+#pragma unroll
+            for (int kk = 0; kk < BR / 8; ++kk) {
+                const int rr = kk * 8 + 2 * t;
+                FragA ap[MC], ad[MC];
+#pragma unroll
+                for (int mi = 0; mi < MC; ++mi) {
+                    const int ka = kc0 + 16 * mi + g;
+                    const int o0 = ka * PS + swz(ka, rr);
+                    const int o1 = (ka + 8) * PS + swz(ka + 8, rr);
+                    const float2 p0 = load2(Ps + o0), p1 = load2(Ps + o1);
+                    const float2 d0 = load2(Ds + o0), d1 = load2(Ds + o1);
+                    ap[mi].set(p0.x, p1.x, p0.y, p1.y);
+                    ad[mi].set(d0.x, d1.x, d0.y, d1.y);
+                }
+#pragma unroll
+                for (int ni = 0; ni < NC; ++ni) {
+                    const int o = rr * S + hc0 + 8 * ni + g;
+                    FragB bo, bq;
+                    bo.load(Ohi, Olo, o, o + S);
+                    bq.load(Qhi, Qlo, o, o + S);
+#pragma unroll
+                    for (int mi = 0; mi < MC; ++mi) {
+                        mma3(dva[mi][ni], ap[mi], bo);
+                        mma3(dka[mi][ni], ad[mi], bq);
+                    }
+                }
+            }
+        }
+        if (it + 1 < nsteps) {
+            __syncthreads();           // every read of this tile's planes done
+            planes();
         }
     }
     tf32x3::cp_async_wait<0>();        // the K, V copies of an idle block
 
-    const int64_t key0 = k0 + 16 * m + g, key1 = key0 + 8;
-    if (key0 < tk) {
-        const int64_t off = (((int64_t)rows.b * tk + key0) * kvh + rows.kh)
-                            * HD + col0 + 2 * t;
+    const int kc0 = (warp % T::CK) * MC * 16;
+    const int hc0 = (warp / T::CK) * NC * 8;
 #pragma unroll
-        for (int c = 0; c < NB; ++c) {
-            store2(dk + off + c * 8, dka[c][0] * scale, dka[c][1] * scale);
-            store2(dv + off + c * 8, dva[c][0], dva[c][1]);
-        }
-    }
-    if (key1 < tk) {
-        const int64_t off = (((int64_t)rows.b * tk + key1) * kvh + rows.kh)
-                            * HD + col0 + 2 * t;
+    for (int mi = 0; mi < MC; ++mi) {
 #pragma unroll
-        for (int c = 0; c < NB; ++c) {
-            store2(dk + off + c * 8, dka[c][2] * scale, dka[c][3] * scale);
-            store2(dv + off + c * 8, dva[c][2], dva[c][3]);
+        for (int half = 0; half < 2; ++half) {
+            const int kl = kc0 + 16 * mi + g + 8 * half;
+            if (kl >= kmax) continue;
+            const int64_t off = (((int64_t)b * tk + k0 + kl) * kvh + kh) * HD
+                                + hc0 + 2 * t;
+#pragma unroll
+            for (int ni = 0; ni < NC; ++ni) {
+                store2(dk + off + 8 * ni, dka[mi][ni][2 * half] * scale,
+                       dka[mi][ni][2 * half + 1] * scale);
+                store2(dv + off + 8 * ni, dva[mi][ni][2 * half],
+                       dva[mi][ni][2 * half + 1]);
+            }
         }
     }
 }
 
+// dq = scale * sum over the key tiles that row r sees of its partials, in
+// ascending key-tile order, one launch per chunk of key tiles [kt0, kt1)
+// (see launch): the running sum is kept unscaled in dq between chunks, so
+// every chunking gives the same bits. One float4 of a row per thread
 template <int HD>
-__global__ void __launch_bounds__(32 * QW<HD>::value, 1)
-flash_bwd_dq_kernel(const float* __restrict__ q,        // (B, Sq, H, HD)
-                    const float* __restrict__ k,        // (B, Tk, KV, HD)
-                    const float* __restrict__ v,        // (B, Tk, KV, HD)
-                    const float* __restrict__ dout,     // (B, Sq, H, HD)
-                    const float* __restrict__ lse,      // (B, Sq, H)
-                    const float* __restrict__ dsum,     // (B, Sq, H)
-                    float* __restrict__ dq,             // (B, Sq, H, HD)
-                    int sq, int tk, int h, int kvh, float scale, int causal,
-                    int window, float cap, int64_t q_offset) {
-    constexpr int W = QW<HD>::value;
-    constexpr int NTH = 32 * W, R = 16 * W;
-    constexpr int S = HD + 4, NT = HD / 8;
-    extern __shared__ float4 smem4[];
-    float* Qs = reinterpret_cast<float*>(smem4);   // R x S
-    float* Os = Qs + R * S;                        // R x S (dO)
-    float* Ks = Os + R * S;                        // BK x S
-    float* Vs = Ks + BK * S;                       // BK x S
-
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_reduce_kernel(const float* __restrict__ dq_part,
+                           float* __restrict__ dq,  // (B, Sq, H, HD)
+                           int sq, int tk, int h, int kvh, float scale,
+                           int causal, int window, int64_t q_offset, int kt0,
+                           int kt1, int64_t seg_rows) {
+    constexpr int BKV = Tile<HD>::BKV, C4 = HD / 4;
     const int G = h / kvh;
-    const Rows rows{sq, (int64_t)sq * G, (int)(blockIdx.y / kvh),
-                    (int)(blockIdx.y % kvh), h, G};
-    const int64_t r0 = (int64_t)(gridDim.x - 1 - blockIdx.x) * R;
-
-    load_rows<HD>(Qs, q, rows, r0, R, tid, NTH);
-    load_rows<HD>(Os, dout, rows, r0, R, tid, NTH);
-    tf32x3::cp_async_commit();
-
-    // the keys this block's rows can see (as the forward)
-    const int64_t last = (r0 + R - 1 < rows.total ? r0 + R - 1
-                                                   : rows.total - 1);
-    const int64_t qpos_lo = q_offset + r0 / G, qpos_hi = q_offset + last / G;
-    int64_t k_begin = 0, k_end = tk;
-    if (causal && qpos_hi + 1 < k_end) k_end = qpos_hi + 1;
-    if (window > 0 && qpos_lo - window + 1 > k_begin)
-        k_begin = qpos_lo - window + 1;
-    const int ntiles = k_end > k_begin ? (int)((k_end - k_begin + BK - 1) / BK)
-                                       : 0;
-
-    // the keys this warp's 16 rows can see
-    const int64_t w_r0 = r0 + 16 * warp;
-    const bool active = w_r0 < rows.total;
-    const int64_t w_last = (w_r0 + 15 < rows.total ? w_r0 + 15
-                                                    : rows.total - 1);
-    const int64_t wq_lo = q_offset + w_r0 / G, wq_hi = q_offset + w_last / G;
-    int64_t wk_begin = 0, wk_end = tk;
-    if (causal && wq_hi + 1 < wk_end) wk_end = wq_hi + 1;
-    if (window > 0 && wq_lo - window + 1 > wk_begin)
-        wk_begin = wq_lo - window + 1;
-
-    // this lane's two rows (g and g + 8)
-    const int64_t rg0 = w_r0 + g, rg1 = w_r0 + g + 8;
-    const bool ok0 = rg0 < rows.total, ok1 = rg1 < rows.total;
-    const int64_t qpos0 = ok0 ? q_offset + rg0 / G : NO_ROW;
-    const int64_t qpos1 = ok1 ? q_offset + rg1 / G : NO_ROW;
-    const float lse0 = ok0 ? lse[rows.index(rg0)] : 0.0f;
-    const float lse1 = ok1 ? lse[rows.index(rg1)] : 0.0f;
-    const float dsum0 = ok0 ? dsum[rows.index(rg0)] : 0.0f;
-    const float dsum1 = ok1 ? dsum[rows.index(rg1)] : 0.0f;
-
-    float acc[NT][4];
-#pragma unroll
-    for (int c = 0; c < NT; ++c)
-        acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.0f;
-    const float* Qw = Qs + (16 * warp + g) * S + t;
-    const float* Ow = Os + (16 * warp + g) * S + t;
-
-    for (int it = 0; it < ntiles; ++it) {
-        __syncthreads();                     // the last tile's reads done
-        const int64_t kt0 = k_begin + (int64_t)it * BK;
-        load_keys<HD>(Ks, k, rows.b, rows.kh, kvh, tk, kt0, BK, tid, NTH);
-        load_keys<HD>(Vs, v, rows.b, rows.kh, kvh, tk, kt0, BK, tid, NTH);
-        tf32x3::cp_async_commit();
-        tf32x3::cp_async_wait<0>();
-        __syncthreads();
-        if (!(active && kt0 < wk_end && kt0 + BK > wk_begin)) continue;
-
-        // S and dP, 16 rows x BK keys: n-tile n holds keys 8n .. 8n + 7
-        float sc[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-        for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.0f;
-#pragma unroll 2
-        for (int kk = 0; kk < HD / 8; ++kk) {
-            FragA aq, ao;
-            aq.set(Qw[kk * 8], Qw[8 * S + kk * 8], Qw[kk * 8 + 4],
-                   Qw[8 * S + kk * 8 + 4]);
-            ao.set(Ow[kk * 8], Ow[8 * S + kk * 8], Ow[kk * 8 + 4],
-                   Ow[8 * S + kk * 8 + 4]);
-#pragma unroll
-            for (int n = 0; n < BK / 8; ++n) {
-                const float* kr = Ks + (n * 8 + g) * S + kk * 8 + t;
-                const float* vr = Vs + (n * 8 + g) * S + kk * 8 + t;
-                tf32x3::mma3(sc[n], aq, kr[0], kr[4]);
-                tf32x3::mma3(dp[n], ao, vr[0], vr[4]);
-            }
-        }
-        // dS in place of the scores; element e: row g (+ 8 for e >= 2),
-        // key 8n + 2t (+ 1 for odd e)
-#pragma unroll
-        for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int64_t kp = kt0 + n * 8 + 2 * t + (e & 1);
-                const bool lo = e < 2;
-                const float s = capped(sc[n][e] * scale, cap);
-                float ds = 0.0f;
-                if (visible(lo ? qpos0 : qpos1, kp, tk, causal, window)) {
-                    const float p = expf(s - (lo ? lse0 : lse1));
-                    ds = p * (dp[n][e] - (lo ? dsum0 : dsum1))
-                         * cap_grad(s, cap);
-                }
-                sc[n][e] = ds;
-            }
-        }
-        // acc += dS K; the k index of step n is permuted: slot t is key
-        // 8n + 2t, slot t + 4 key 8n + 2t + 1 (mma_tf32.cuh)
-#pragma unroll
-        for (int n = 0; n < BK / 8; ++n) {
-            FragA a;
-            a.set(sc[n][0], sc[n][2], sc[n][1], sc[n][3]);
-            const float* kr = Ks + (n * 8 + 2 * t) * S + g;
-#pragma unroll
-            for (int c = 0; c < NT; ++c)
-                tf32x3::mma3(acc[c], a, kr[c * 8], kr[S + c * 8]);
+    const int bh = blockIdx.y, b = bh / kvh, kh = bh % kvh;
+    const Rows rows{sq * G, G, h, (int64_t)b * sq * h + (int64_t)kh * G};
+    const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (idx >= (int64_t)rows.total * C4) return;
+    const int r = (int)(idx / C4), c = (int)(idx % C4) * 4;
+    const int64_t qpos = q_offset + r / G;
+    float4* out = reinterpret_cast<float4*>(dq + rows.index(r) * HD + c);
+    // the key tiles of this chunk that row r sees
+    int64_t k_lo = 0, k_hi = (int64_t)tk - 1;
+    if (causal && qpos < k_hi) k_hi = qpos;
+    if (window > 0 && qpos - window + 1 > k_lo) k_lo = qpos - window + 1;
+    const int kt_lo = k_lo / BKV > kt0 ? (int)(k_lo / BKV) : kt0;
+    const int kt_hi = k_hi < 0 ? -1
+                      : (k_hi / BKV < kt1 - 1 ? (int)(k_hi / BKV) : kt1 - 1);
+    float4 acc = kt0 == 0 ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : *out;
+    if (k_lo <= k_hi) {
+#pragma unroll 4
+        for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+            int64_t s_begin, s_end;
+            const int64_t k0 = (int64_t)kt * BKV;
+            const int64_t k_last = k0 + BKV < tk ? k0 + BKV - 1 : tk - 1;
+            key_tile_rows(k0, k_last, sq, causal, window, q_offset, s_begin,
+                          s_end);
+            const float4 p = *reinterpret_cast<const float4*>(
+                dq_part + (((int64_t)bh * (kt1 - kt0) + kt - kt0) * seg_rows
+                           + (r - s_begin * G)) * HD + c);
+            acc.x += p.x;
+            acc.y += p.y;
+            acc.z += p.z;
+            acc.w += p.w;
         }
     }
-    tf32x3::cp_async_wait<0>();        // the Q, dO copies of an idle block
+    if ((int64_t)kt1 * BKV >= tk)   // the last chunk
+        acc = make_float4(acc.x * scale, acc.y * scale, acc.z * scale,
+                          acc.w * scale);
+    *out = acc;
+}
 
-    if (ok0) {
-        float* o = dq + rows.index(rg0) * HD + 2 * t;
-#pragma unroll
-        for (int c = 0; c < NT; ++c)
-            store2(o + c * 8, acc[c][0] * scale, acc[c][1] * scale);
-    }
-    if (ok1) {
-        float* o = dq + rows.index(rg1) * HD + 2 * t;
-#pragma unroll
-        for (int c = 0; c < NT; ++c)
-            store2(o + c * 8, acc[c][2] * scale, acc[c][3] * scale);
+// rows (query position x query head of one KV head) that see key tile kt
+template <int HD>
+int64_t tile_rows(int kt, int sq, int tk, int G, int causal, int window,
+                  int64_t q_offset) {
+    constexpr int BKV = Tile<HD>::BKV;
+    const int64_t k0 = (int64_t)kt * BKV;
+    const int64_t k_last = k0 + BKV < tk ? k0 + BKV - 1 : tk - 1;
+    int64_t s_begin, s_end;
+    key_tile_rows(k0, k_last, sq, causal, window, q_offset, s_begin, s_end);
+    return (s_end - s_begin) * G;
+}
+
+// The key tiles [kt0, kt1) of one launch and its scratch rows per key tile
+// (seg_rows, the longest of their row ranges): as many tiles from kt0 as
+// fit in part_floats floats, and at least one
+template <int HD>
+void chunk(int b, int sq, int tk, int h, int kvh, int causal, int window,
+           int64_t q_offset, int kt0, int64_t part_floats, int& kt1,
+           int64_t& seg_rows) {
+    const int nkt = (tk + Tile<HD>::BKV - 1) / Tile<HD>::BKV;
+    const int64_t per_tile_row = (int64_t)b * kvh * HD;
+    seg_rows = 0;
+    for (kt1 = kt0; kt1 < nkt; ++kt1) {
+        int64_t n = tile_rows<HD>(kt1, sq, tk, h / kvh, causal, window,
+                                  q_offset);
+        if (n < seg_rows) n = seg_rows;
+        if (kt1 > kt0 && (kt1 - kt0 + 1) * n > part_floats / per_tile_row)
+            break;
+        seg_rows = n;
     }
 }
 
+// Floats of scratch for a budget of `budget` floats: all key tiles' partials
+// at the stride of the longest row range, where that fits the budget; else
+// the budget, but never less than the largest single key tile needs
+template <int HD>
+int64_t scratch_floats(int b, int sq, int tk, int h, int kvh, int causal,
+                       int window, int64_t q_offset, int64_t budget) {
+    const int nkt = (tk + Tile<HD>::BKV - 1) / Tile<HD>::BKV;
+    int64_t longest = 0;
+    for (int kt = 0; kt < nkt; ++kt) {
+        const int64_t n = tile_rows<HD>(kt, sq, tk, h / kvh, causal, window,
+                                        q_offset);
+        if (n > longest) longest = n;
+    }
+    const int64_t one = (int64_t)b * kvh * longest * HD;
+    const int64_t all = one * nkt;
+    return all <= budget ? all : (one > budget ? one : budget);
+}
+
+// Key tiles in chunks that fit the scratch (one chunk where it holds all):
+// per chunk, the main kernel writes the chunk's dq partials and the reduce
+// kernel adds them to the rows' running sums
 template <int HD>
 int launch(const float* q, const float* k, const float* v, const float* dout,
            const float* lse, const float* dsum, float* dq, float* dk,
-           float* dv, int b, int sq, int tk, int h, int kvh, float scale,
-           int causal, int window, float cap, int64_t q_offset,
-           cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)dkdv_smem<HD>());
+           float* dv, float* dq_part, int64_t part_floats, int b, int sq,
+           int tk, int h, int kvh, float scale, int causal, int window,
+           float cap, int64_t q_offset, cudaStream_t stream) {
+    const int nkt = (tk + Tile<HD>::BKV - 1) / Tile<HD>::BKV;
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes<HD>());
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)dq_smem<HD>());
-    if (err != cudaSuccess) return (int)err;
-    if (tk > 0) {
-        const dim3 grid((unsigned)((tk + KV<HD>::BKV - 1) / KV<HD>::BKV),
-                        (unsigned)(b * kvh));
-        flash_bwd_dkdv_kernel<HD><<<grid, THREADS, dkdv_smem<HD>(), stream>>>(
-            q, k, v, dout, lse, dsum, dk, dv, sq, tk, h, kvh, scale, causal,
-            window, cap, q_offset);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
-    if (sq > 0) {
-        constexpr int R = 16 * QW<HD>::value;
-        const int64_t rows = (int64_t)sq * (h / kvh);
-        const dim3 grid((unsigned)((rows + R - 1) / R), (unsigned)(b * kvh));
-        flash_bwd_dq_kernel<HD><<<grid, 32 * QW<HD>::value, dq_smem<HD>(),
-                                  stream>>>(
-            q, k, v, dout, lse, dsum, dq, sq, tk, h, kvh, scale, causal,
-            window, cap, q_offset);
-    }
-    return (int)cudaGetLastError();
+    int kt0 = 0;
+    do {
+        int kt1;
+        int64_t seg_rows;
+        chunk<HD>(b, sq, tk, h, kvh, causal, window, q_offset, kt0,
+                  part_floats, kt1, seg_rows);
+        if ((int64_t)b * kvh * (kt1 - kt0) * seg_rows * HD > part_floats)
+            return (int)cudaErrorInvalidValue;   // scratch below one tile's
+        if (kt1 > kt0) {
+            const dim3 grid((unsigned)(b * kvh), (unsigned)(kt1 - kt0));
+            flash_bwd_kernel<HD><<<grid, THREADS, smem_bytes<HD>(), stream>>>(
+                q, k, v, dout, lse, dsum, dk, dv, dq_part, sq, tk, h, kvh,
+                scale, causal, window, cap, q_offset, kt0, seg_rows);
+            const cudaError_t e = cudaGetLastError();
+            if (e != cudaSuccess) return (int)e;
+        }
+        if (sq > 0) {
+            const int64_t n4 = (int64_t)sq * (h / kvh) * (HD / 4);
+            const dim3 grid((unsigned)((n4 + 255) / 256), (unsigned)(b * kvh));
+            flash_bwd_dq_reduce_kernel<HD><<<grid, 256, 0, stream>>>(
+                dq_part, dq, sq, tk, h, kvh, scale, causal, window, q_offset,
+                kt0, kt1, seg_rows);
+            const cudaError_t e = cudaGetLastError();
+            if (e != cudaSuccess) return (int)e;
+        }
+        kt0 = kt1;
+    } while (kt0 < nkt);
+    return 0;
+}
+
+bool takes(int sq, int tk, int h, int kvh) {
+    return kvh > 0 && h % kvh == 0 && sq >= 0 && tk >= 0 &&
+           (int64_t)sq * h < INT_MAX;
 }
 
 }  // namespace
 
+// Float32 count of the dq partials' scratch for flash_attention_bwd_launch
+// at these arguments and a budget of `budget` floats (see scratch_floats;
+// 0 where there is no key), or -1 where it does not take them.
+extern "C" int64_t flash_attention_bwd_scratch_floats(
+        int b, int sq, int tk, int h, int kvh, int hd, int causal, int window,
+        int64_t q_offset, int64_t budget) {
+    if (b < 0 || !takes(sq, tk, h, kvh)) return -1;
+    switch (hd) {
+        case 32: return scratch_floats<32>(b, sq, tk, h, kvh, causal, window,
+                                           q_offset, budget);
+        case 64: return scratch_floats<64>(b, sq, tk, h, kvh, causal, window,
+                                           q_offset, budget);
+        case 128: return scratch_floats<128>(b, sq, tk, h, kvh, causal,
+                                             window, q_offset, budget);
+        case 256: return scratch_floats<256>(b, sq, tk, h, kvh, causal,
+                                             window, q_offset, budget);
+        default: return -1;
+    }
+}
+
 // Plain C entry point (loaded with ctypes). q, dout, dq (B, Sq, H, hd);
 // k, v, dk, dv (B, Tk, KV, hd); lse, dsum (B, Sq, H); all float32,
-// contiguous and 16-byte aligned; hd in {32, 64, 128, 256}; H % KV == 0.
-// lse is the forward's (flash_attention_fwd_launch's lse output), dsum
-// rowsum(dout * out). Launches two kernels on `stream`; returns 0 or the
-// CUDA error.
+// contiguous and 16-byte aligned; hd in {32, 64, 128, 256}; H % KV == 0;
+// Sq * H below 2^31. lse is the forward's (flash_attention_fwd_launch's lse
+// output), dsum rowsum(dout * out); dq_part a float32 scratch of
+// part_floats floats, 16-byte aligned, at least what
+// flash_attention_bwd_scratch_floats gives for a budget of 0. Launches two
+// kernels on `stream` per chunk of key tiles that fits the scratch; returns
+// 0 or the CUDA error.
 extern "C" int flash_attention_bwd_launch(
         const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* dsum, void* dq, void* dk, void* dv,
-        int b, int sq, int tk, int h, int kvh, int hd, float scale,
-        int causal, int window, float cap, int64_t q_offset, void* stream) {
+        void* dq_part, int64_t part_floats, int b, int sq, int tk, int h,
+        int kvh, int hd, float scale, int causal, int window, float cap,
+        int64_t q_offset, void* stream) {
     if (b <= 0) return (int)cudaGetLastError();
-    if (kvh <= 0 || h % kvh != 0) return (int)cudaErrorInvalidValue;
+    if (!takes(sq, tk, h, kvh)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const float *fq = (const float*)q, *fk = (const float*)k,
                 *fv = (const float*)v, *fo = (const float*)dout,
                 *fl = (const float*)lse, *fd = (const float*)dsum;
-    float *gq = (float*)dq, *gk = (float*)dk, *gv = (float*)dv;
+    float *gq = (float*)dq, *gk = (float*)dk, *gv = (float*)dv,
+          *gp = (float*)dq_part;
     switch (hd) {
-        case 32: return launch<32>(fq, fk, fv, fo, fl, fd, gq, gk, gv, b, sq,
-                                   tk, h, kvh, scale, causal, window, cap,
-                                   q_offset, st);
-        case 64: return launch<64>(fq, fk, fv, fo, fl, fd, gq, gk, gv, b, sq,
-                                   tk, h, kvh, scale, causal, window, cap,
-                                   q_offset, st);
-        case 128: return launch<128>(fq, fk, fv, fo, fl, fd, gq, gk, gv, b,
-                                     sq, tk, h, kvh, scale, causal, window,
-                                     cap, q_offset, st);
-        case 256: return launch<256>(fq, fk, fv, fo, fl, fd, gq, gk, gv, b,
-                                     sq, tk, h, kvh, scale, causal, window,
-                                     cap, q_offset, st);
+        case 32: return launch<32>(fq, fk, fv, fo, fl, fd, gq, gk, gv, gp,
+                                   part_floats, b, sq, tk, h, kvh, scale,
+                                   causal, window, cap, q_offset, st);
+        case 64: return launch<64>(fq, fk, fv, fo, fl, fd, gq, gk, gv, gp,
+                                   part_floats, b, sq, tk, h, kvh, scale,
+                                   causal, window, cap, q_offset, st);
+        case 128: return launch<128>(fq, fk, fv, fo, fl, fd, gq, gk, gv, gp,
+                                     part_floats, b, sq, tk, h, kvh, scale,
+                                     causal, window, cap, q_offset, st);
+        case 256: return launch<256>(fq, fk, fv, fo, fl, fd, gq, gk, gv, gp,
+                                     part_floats, b, sq, tk, h, kvh, scale,
+                                     causal, window, cap, q_offset, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -24,15 +24,22 @@ BWD_KERNEL = "flash_attention_bwd"
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_int64, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int64]
+                 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_float, ctypes.c_int64, ctypes.c_void_p])
+_SCRATCH_ARGTYPES = [ctypes.c_int] * 8 + [ctypes.c_int64] * 2
+#: bytes the backward's dq partials may take: above them it runs its key
+#: tiles in chunks that fit (the same bits), but never in less than one key
+#: tile needs. tinyllama-1.1b's training shape needs 1 GiB, one launch;
+#: longer sequences trade time for the bound (PERF.md)
+BWD_SCRATCH_BYTES = 2 << 30
 
 
-def _launcher(kernel: str, symbol: str, argtypes):
+def _launcher(kernel: str, symbol: str, argtypes, restype=ctypes.c_int):
     fn = getattr(_build.load(kernel), symbol)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 
@@ -75,22 +82,33 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              attn_softcap: float, q_offset: int):
     """dq, dk, dv (float32, the shapes of q, k, v) of the forward that gave
     ``out`` and ``lse``, for the output gradient ``dout``: a row sum
-    D = rowsum(dout * out) in torch, then the backward's two kernels (dk
-    and dv per key tile, dq per row tile) on the current stream. Arguments
-    checked by the caller."""
+    D = rowsum(dout * out) in torch, then the backward's two kernels on the
+    current stream (dk, dv and per-key-tile dq partials per key tile; the
+    partials summed in a fixed order). The partials' float32 scratch, of
+    the size the library asks for within BWD_SCRATCH_BYTES, is allocated
+    here. Arguments checked by the caller."""
     b, sq, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
+    masks = (int(bool(causal)), int(window))
+    floats = _launcher(BWD_KERNEL, "flash_attention_bwd_scratch_floats",
+                       _SCRATCH_ARGTYPES, ctypes.c_int64)(
+        b, sq, t, h, kvh, hd, *masks, int(q_offset),
+        BWD_SCRATCH_BYTES // 4)
+    if floats < 0:
+        raise RuntimeError(f"{BWD_KERNEL} does not take q {tuple(q.shape)}, "
+                           f"k {tuple(k.shape)}")
     dsum = (dout * out).sum(-1)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dq_part = torch.empty(floats, dtype=torch.float32, device=q.device)
     launch = _launcher(BWD_KERNEL, "flash_attention_bwd_launch",
                        _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
-                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, t,
-                     h, kvh, hd, float(scale), int(bool(causal)),
-                     int(window), float(attn_softcap), int(q_offset),
-                     stream)
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     dq_part.data_ptr(), floats, b, sq, t, h, kvh, hd,
+                     float(scale), *masks, float(attn_softcap),
+                     int(q_offset), stream)
     _raise_on(err, BWD_KERNEL, q, k)
     return dq, dk, dv

@@ -270,7 +270,26 @@ def _grad_case(shape_args, device, seed=0, t=None):
 
 
 FLOAT32_ATTN = [c for c in ATTN_CASES if c[-1] == "float32"]
-BWD_EDGE_CASES = [c for c in FLASH_EDGE_CASES if c[-1] == "float32"]
+# the forward's float32 edges, then the backward kernel's own tiles
+# (flash_attention_bwd.cu: BKV keys x BR rows, 128 x 64 at hd 32 and 64,
+# 64 x 32 at hd 128, 32 x 32 at hd 256; dq partials per key tile)
+BWD_EDGE_CASES = [c for c in FLASH_EDGE_CASES if c[-1] == "float32"] + [
+    # Sq and T straddling a key tile (128) and a row tile (64)
+    (1, 130, 130, 8, 1, 64, True, 0, 0.0, 0, "float32"),
+    (2, 65, 129, 4, 4, 32, False, 0, 30.0, 0, "float32"),
+    (1, 33, 97, 4, 2, 128, True, 0, 0.0, 64, "float32"),
+    (1, 47, 47, 8, 4, 256, True, 0, 50.0, 0, "float32"),
+    # one position's G = 3 rows split across two row tiles
+    (1, 100, 100, 6, 2, 64, True, 0, 0.0, 0, "float32"),
+    (1, 70, 70, 6, 2, 128, True, 0, 30.0, 0, "float32"),
+    # q_offset > 0 with a window, Sq < Tk
+    (1, 90, 200, 8, 2, 64, True, 50, 0.0, 110, "float32"),
+    (1, 40, 150, 4, 2, 256, True, 33, 50.0, 110, "float32"),
+    # row tiles wholly inside the causal limit beside diagonal ones
+    (1, 320, 320, 2, 2, 64, True, 0, 0.0, 0, "float32"),
+    (1, 300, 300, 4, 1, 32, True, 0, 0.0, 0, "float32"),
+    (2, 200, 200, 4, 2, 128, True, 150, 0.0, 0, "float32"),
+]
 
 
 def _check_backward(q, k, v, do, kw):
@@ -324,6 +343,92 @@ def test_flash_backward_kernel_fully_masked_rows(cuda_device):
     first_masked = c["t"] + c["window"] - 1 - c["q_offset"]
     assert bool((dq[:, first_masked:] == 0).all())
     assert bool(torch.isfinite(dk).all() and torch.isfinite(dv).all())
+
+
+# (B, S, H, KV, hd, causal, window, softcap): tinyllama-1.1b's G = 8 at a
+# reduced size, and hd 256 with a window and softcap 50 (gemma2-2b's)
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,win,cap", [
+    (2, 384, 32, 4, 64, True, 0, 0.0),
+    (1, 300, 8, 4, 256, True, 128, 50.0),
+])
+def test_flash_backward_kernel_is_deterministic(cuda_device, b, s, h, kv, hd,
+                                                causal, win, cap):
+    """Two backward calls on the same tensors give the same bits: the dq
+    partials are summed in a fixed order and nothing is atomic."""
+    from repro_torch.kernels.attention.flash import (
+        flash_attention_bwd_cuda, flash_attention_fwd_cuda)
+    q, k, v, do = _grad_case((b, s, h, kv, hd), cuda_device, seed=s)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=win, attn_softcap=cap,
+              q_offset=0)
+    out, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+    first = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    second = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b_), name
+
+
+# (B, Sq, T, H, KV, hd, causal, window, softcap, q_offset): causal with
+# tinyllama-1.1b's G = 8, hd 256 with a window and softcap, q_offset > 0
+# with a window, and no mask (every key tile seen by every row)
+@pytest.mark.parametrize("b,sq,t,h,kv,hd,causal,win,cap,q_offset", [
+    (2, 384, 384, 32, 4, 64, True, 0, 0.0, 0),
+    (1, 300, 300, 8, 4, 256, True, 128, 50.0, 0),
+    (1, 90, 200, 8, 2, 64, True, 50, 0.0, 110),
+    (2, 200, 300, 4, 2, 32, False, 0, 30.0, 0),
+])
+@pytest.mark.parametrize("budget", ["one_tile", "two_tiles"])
+def test_flash_backward_kernel_in_key_tile_chunks(cuda_device, monkeypatch,
+                                                  b, sq, t, h, kv, hd, causal,
+                                                  win, cap, q_offset, budget):
+    """Where the dq partials of all key tiles would pass the scratch
+    budget, the backward runs its key tiles in chunks that fit: the same
+    bits as one launch, which holds against the plain version. A budget of
+    0 gives chunks of one key tile, ``two_tiles`` of about two."""
+    from repro_torch.kernels.attention import flash
+    q, k, v, do = _grad_case((b, sq, h, kv, hd), cuda_device, seed=sq + t,
+                             t=t)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=win, attn_softcap=cap,
+              q_offset=q_offset)
+    whole = _check_backward(q, k, v, do, kw)
+    out, lse = flash.flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+    monkeypatch.setattr(flash, "BWD_SCRATCH_BYTES",
+                        0 if budget == "one_tile" else 2 * q.numel() * 4)
+    chunked = flash.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), whole, chunked):
+        assert torch.equal(a, b_), name
+
+
+def test_flash_backward_long_sequence_scratch_is_bounded(cuda_device,
+                                                         monkeypatch):
+    """tinyllama-1.1b's attention at (1, 16384): the dq partials of all key
+    tiles would take 17,179,869,184 bytes. Within the default budget the
+    backward's device memory beyond its inputs stays under the budget plus
+    its outputs and D, and it gives the bits of one launch with no
+    budget."""
+    from repro_torch.kernels.attention import flash
+    q, k, v, do = _grad_case((1, 16384, 32, 4, 64), cuda_device, seed=16)
+    kw = dict(scale=0.125, causal=True, window=0, attn_softcap=0.0,
+              q_offset=0)
+    out, lse = flash.flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+    grads, peaks = [], []
+    default = flash.BWD_SCRATCH_BYTES
+    for budget in (default, 1 << 62):
+        monkeypatch.setattr(flash, "BWD_SCRATCH_BYTES", budget)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(cuda_device)
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        grads.append(flash.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                    **kw))
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated(cuda_device) - base)
+    outputs = 4 * (2 * q.numel() + 2 * k.numel() + lse.numel())
+    assert peaks[0] <= default + outputs, peaks
+    assert peaks[1] >= 17_179_869_184, peaks
+    for name, a, b_ in zip(("dq", "dk", "dv"), *grads):
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, b_), name
 
 
 def test_flash_attention_autograd_launches_both_kernels(cuda_device):
