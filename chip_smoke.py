@@ -5,16 +5,21 @@ paths on the card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Four main paths: the GA loop (``repro_torch.launch.ga_run``), LM
+Five main paths: the GA loop (``repro_torch.launch.ga_run``), LM
 serving (``repro_torch.launch.serve``: prefill + decode), LM training
 (``repro_torch.launch.train``: tinyllama-1.1b at its published widths,
-flash attention forward and backward kernels) and the paper's HVDC
+flash attention forward and backward kernels), the paper's HVDC
 dispatch (``ga_run --fitness hvdc``: batched AC Newton power flow on the
-German-size grid). Phases, in order; any failure exits non-zero:
+German-size grid) and the paper's decoupled simulation backend
+(``ga_run --dispatch-backend host-thread|host-process``: fitness on a
+host pool, the learned cost model) with its §4.1 overhead study (rho,
+``delay_proxy`` through the delay chain kernel). Phases, in order; any
+failure exits non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
 2. build:  every CUDA kernel of the port (fused variation, flash attention
-           forward and backward, SSD intra-chunk), compiled from this
+           forward and backward, SSD intra-chunk, delay chain), compiled
+           from this
            checkout's sources for
            sm_90a (one nvcc per source, all started together); ptxas's
            entry, register and spill lines of every compiled kernel;
@@ -47,7 +52,13 @@ German-size grid). Phases, in order; any failure exits non-zero:
            layer at (1, 16384) within the scratch budget, bit-equal to one
            launch with none and its peak memory under the budget plus its
            outputs; one train step of reduced tinyllama-1.1b and
-           gemma2-2b on the card against the CPU;
+           gemma2-2b on the card against the CPU; the delay chain kernel
+           against its plain version (rtol 1e-6) at N = 1, 33, 32768
+           lanes with 0, 1, 1000 and [0, 20000] steps and at (32768,
+           20000), delay_proxy(sphere) bit-equal to sphere; the host pool
+           on a main-shape population on the card, bit-equal to
+           fitness.hostsim.rastrigin in row order (identity, padded
+           balanced dispatch, CostEMA);
 4. main:   ``python -m repro_torch.launch.ga_run --fitness rastrigin`` at
            I=32 islands x P=1024 individuals x G=128 genes, 5 generations x
            3 epochs, then again with --sync-every 2 --pipeline-depth 2,
@@ -67,8 +78,16 @@ German-size grid). Phases, in order; any failure exits non-zero:
            vertical (--pop 8 --contingencies 8: full AC on 8 outages per
            genome), each
            launching the fused variation exactly 4 times, with finite
-           fitness and genomes in [-1, 1]. Every run has the launch counts
-           zeroed just before it and read just after;
+           fitness and genomes in [-1, 1]; ``ga_run --fitness rastrigin``
+           at the main shape under --dispatch-backend host-thread,
+           host-process and host-thread --sync-every 2 --pipeline-depth 2
+           (4 workers; 15 launches each, a ``dispatch stats: retries=0``
+           line, fitness bit-equal to hostsim.rastrigin, the same best
+           genome in all three) and ``ga_run --fitness hvdc`` on the
+           German-size grid under host-thread --cost-ema (one epoch of 2
+           generations: 2 launches, retries=0, CostEMA updates > 0).
+           Every run has the launch counts zeroed just before it and read
+           just after;
 5. times:  with CUDA events, medians of repeats: each kernel beside its
            bound and its plain version. The fused variation at the main
            shape at three points (no crossover or mutation, so no powf
@@ -95,14 +114,24 @@ German-size grid). Phases, in order; any failure exits non-zero:
            beside its float32 bound, one Newton solve per system and its
            LU share, evaluations/s and power-flow solves/s of each HVDC
            run's population, the share of LU work on converged lanes, and
-           each HVDC run's peak device memory;
+           each HVDC run's peak device memory; rho (paper eq. 1,
+           T_eval / T_epoch, as benchmarks/efficiency.py measures it) at
+           Fig. 4's six (workers, iters) points and at the main shape
+           (20k steps, 4 workers; the delay kernel's launches there
+           counted from zero); the delay kernel at (32768, 20000) beside
+           its operations bound and the latency floor of its dependent
+           chain, read from its SASS; one main-shape generation phase by
+           phase under inline, host-thread and host-process, the host
+           backends' fitness split into device->host copy, host
+           evaluation and host->device copy; CostEMA's first vs learned
+           dispatch (n 64, w 8, delay_sphere);
 6. trace:  one prefill and 8 decode steps of each served model, and one
            train step of the training path, under torch.profiler: the
            device's idle share and the kernels' share of each window and
            the largest device entries, read from the trace; in the train
            step each flash kernel's ms per launch (a flash kernel missing
            from FLASH_SYMBOLS fails the run);
-7. the ``{"kernels": [...]}`` line (four kernels), the card line, and last
+7. the ``{"kernels": [...]}`` line (five kernels), the card line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or outside a checkout, it exits non-zero and prints no
@@ -181,6 +210,47 @@ HVDC_ARGS = ["--fitness", "hvdc", "--grid-size", str(HVDC_BUSES),
 HVDC_RUNS = {"horizontal": ["--pop", "16"],
              "vertical": ["--pop", "8", "--contingencies", "8"]}
 HVDC_SOLVE_BATCHES = (1, 16)
+# the decoupled host backend: the GA main path under host-thread,
+# host-process and host-thread pipelined (fitness.hostsim's numpy
+# rastrigin on HOST_WORKERS workers; the three must give the same best
+# genome), and HVDC on the German-size grid under host-thread with the
+# learned cost model (one epoch of two generations); the host pool's
+# padded dispatch check runs over HOST_PAD_WORKERS (32768 % 6 != 0)
+HOST_WORKERS, HOST_PAD_WORKERS = 4, 6
+HOST_ARGS = ["--num-workers", str(HOST_WORKERS)]
+HOST_RUNS = {
+    "host-thread": ["--dispatch-backend", "host-thread"] + HOST_ARGS,
+    "host-process": ["--dispatch-backend", "host-process"] + HOST_ARGS,
+    "host-thread pipelined": ["--dispatch-backend", "host-thread"] + HOST_ARGS
+    + ["--sync-every", "2", "--pipeline-depth", "2"]}
+HVDC_HOST_GENS = 2
+HVDC_HOST_ARGS = ["--fitness", "hvdc", "--grid-size", str(HVDC_BUSES),
+                  "--hvdc-lines", str(HVDC_GENES), "--islands", "2",
+                  "--pop", "16", "--gens-per-epoch", str(HVDC_HOST_GENS),
+                  "--epochs", "1", "--dispatch-backend", "host-thread",
+                  "--cost-ema", "--device", "cuda"] + HOST_ARGS
+# the §4.1 delay chain kernel: checked at N lanes x fixed counts, and at
+# counts drawn in [0, DELAY_HETERO_MAX]; timed at DELAY_MAIN (lanes,
+# steps), the main shape's population at Fig. 4's 20k steps. A step is
+# sinf, a multiply and an add: 3 float32 operations, sinf counted as one
+# (as kernel 1's powf); the latency floor charges each dependent SASS
+# instruction of a step DEP_CYCLES, the fixed latency of Hopper's
+# arithmetic pipes
+DELAY_NS, DELAY_ITERS, DELAY_HETERO_MAX = (1, 33, 32768), (0, 1, 1000), 20000
+DELAY_MAIN = (MAIN["islands"] * MAIN["pop"], 20000)
+DELAY_RTOL = 1e-6
+DELAY_OPS_PER_STEP, DEP_CYCLES = 3, 4
+# rho (paper eq. 1) as benchmarks/efficiency.py measures it: Fig. 4's
+# (workers, iters) at the reference's GA, and the main shape at 20k steps
+# over 4 workers (the main path's GA, 2 epochs of 5 generations)
+FIG4_POINTS = [(1, 20000), (4, 20000), (16, 20000), (16, 100000),
+               (16, 400000), (64, 20000)]
+FIG4_GA = dict(islands=4, pop=32, genes=4, generations=3, epochs=2,
+               fused=False)
+RHO_MAIN, RHO_MAIN_EPOCHS = (4, 20000), 2
+# the learned cost model's first vs learned dispatch
+# (benchmarks/broker_overhead.py:150-180)
+EMA_DISPATCH = dict(n=64, w=8, slow_s=0.002, genes=6)
 # host time of a wrapper call: mean over this many calls, one sync at the
 # end, at the main shape and at a small one where the device keeps up
 HOST_CALLS = 1000
@@ -209,7 +279,7 @@ TRACE_DECODE = 8
 FLASH_SYMBOLS = ("flash_fwd_kernel", "flash_bwd_kernel",
                  "flash_bwd_dq_reduce_kernel")
 KERNEL_SYMBOLS = ("fused_variation_kernel", *FLASH_SYMBOLS,
-                  "ssd_chunk_kernel")
+                  "ssd_chunk_kernel", "delay_chain_kernel")
 # tests/test_kernels.py:53-61: (B, S, H, KV, hd, causal, window, softcap,
 # dtype); then gemma2-2b's layer shapes on the serving path (batch 4,
 # prompt 4500): its windowed and its global layers
@@ -1053,6 +1123,530 @@ def phase_times_hvdc(runs, device, card):
                if c else ""))
     say("times: hvdc " + json.dumps(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Decoupled host backend (ga_run --dispatch-backend host-*) and the §4.1
+# delay chain kernel
+# ---------------------------------------------------------------------------
+
+def delay_inputs(n, iters, device, seed):
+    """(acc0, iters) on ``device``: start values as delay_proxy seeds them
+    (1 + a genome sum x 1e-6) and int32 counts, all ``iters`` or, for
+    "hetero", drawn in [0, DELAY_HETERO_MAX] (numpy seed)."""
+    import numpy as np
+    import torch
+    rs = np.random.default_rng(seed)
+    acc0 = torch.tensor(1.0 + rs.uniform(-64, 64, n) * 1e-6,
+                        dtype=torch.float32, device=device)
+    counts = (rs.integers(0, DELAY_HETERO_MAX + 1, n) if iters == "hetero"
+              else np.full(n, iters))
+    return acc0, torch.tensor(counts, dtype=torch.int32, device=device)
+
+
+def check_delay(n, iters, device):
+    """The delay kernel against its plain version at rtol DELAY_RTOL; a
+    lane with no steps must come back untouched. Returns the max abs
+    error."""
+    import torch
+    from repro_torch.kernels.delay import ops
+    from repro_torch.kernels.delay.ref import delay_chain_ref
+    acc0, counts = delay_inputs(n, iters, device, seed=n)
+    out = ops.delay_chain(acc0, counts)
+    ref = delay_chain_ref(acc0, counts)
+    ok, err = close(out, ref, DELAY_RTOL, 0.0)
+    idle = counts <= 0
+    if not ok or not torch.equal(out[idle], acc0[idle]):
+        fail(f"delay_chain kernel disagrees with its plain version at N={n}, "
+             f"iters {iters}: max abs err {err}")
+    return err
+
+
+def host_eval_checks(device):
+    """One host-pool evaluation of a main-shape population on the card,
+    bit-equal in row order to fitness.hostsim.rastrigin on the genomes
+    copied to the host: identity dispatch over HOST_WORKERS, padded
+    balanced dispatch (N % HOST_PAD_WORKERS != 0) under a static cost
+    model, and under CostEMA (two rounds: cold, then learned)."""
+    import torch
+    from repro_torch.core.broker import Broker, CostEMA, HostPoolBackend
+    from repro_torch.fitness import hostsim
+    n, g = MAIN["islands"] * MAIN["pop"], MAIN["genes"]
+    gen = torch.Generator(device=device).manual_seed(5)
+    genomes = (torch.rand((n, g), generator=gen, device=device) * 2 - 1) \
+        * BOUND
+    expect = hostsim.rastrigin(genomes.cpu().numpy())
+    ema = CostEMA()
+    cases = [("identity", None, HOST_WORKERS),
+             ("padded, static cost", lambda x: torch.sum(torch.abs(x), -1),
+              HOST_PAD_WORKERS),
+             ("padded, CostEMA", ema, HOST_PAD_WORKERS)]
+    for name, cost_fn, w in cases:
+        with HostPoolBackend(hostsim.rastrigin, num_workers=w) as backend:
+            broker = Broker(cost_fn=cost_fn, num_workers=w, backend=backend)
+            for _ in range(2 if cost_fn is ema else 1):
+                fit, stats = broker.evaluate(genomes)
+                if fit.device != genomes.device or \
+                        not (fit.cpu().numpy() == expect).all():
+                    fail(f"host pool ({name}, {w} workers) on ({n}, {g}) "
+                         f"genomes on the card: fitness on {fit.device} not "
+                         f"bit-equal to hostsim.rastrigin in row order")
+        say(f"check: host pool, ({n}, {g}) genomes on the card, {name}, {w} "
+            f"workers (padded {int(stats['padded'])}): fitness bit-equal to "
+            f"hostsim.rastrigin in row order")
+    if ema.updates != 2:
+        fail(f"CostEMA took {ema.updates} updates in two rounds, expected 2")
+
+
+def phase_check_host(device):
+    """The delay chain kernel against its plain version (DELAY_NS x
+    DELAY_ITERS, and heterogeneous counts); delay_proxy(sphere) bit-equal
+    to sphere; the host pool on main-shape genomes on the card. Returns
+    the kernel's max abs error at the timed shape (DELAY_MAIN)."""
+    import torch
+    from repro_torch.fitness import delay_proxy, sphere
+    from repro_torch.kernels.delay import ops
+    for n in DELAY_NS:
+        for iters in DELAY_ITERS + ("hetero",):
+            err = check_delay(n, iters, device)
+            say(f"check: delay_chain N={n} iters {iters}: max abs err "
+                f"{err:.3g} (rtol {DELAY_RTOL})")
+    main_err = check_delay(*DELAY_MAIN, device)
+    say(f"check: delay_chain {DELAY_MAIN}: max abs err {main_err:.3g}")
+    gen = torch.Generator(device=device).manual_seed(3)
+    genomes = torch.rand((MAIN["islands"] * MAIN["pop"], MAIN["genes"]),
+                         generator=gen, device=device) * 2 - 1
+    before = ops.launches
+    out = delay_proxy(sphere, flop_iters=DELAY_MAIN[1])(genomes)
+    if ops.launches != before + 1 or not torch.equal(out, sphere(genomes)):
+        fail("delay_proxy(sphere) did not launch the delay kernel once, or "
+             "is not bit-equal to sphere")
+    say(f"check: delay_proxy(sphere, flop_iters={DELAY_MAIN[1]}) on "
+        f"{tuple(genomes.shape)}: bit-equal to sphere, one kernel launch")
+    host_eval_checks(device)
+    return main_err
+
+
+def run_captured(argv):
+    """``ga_run.main(argv)`` with its standard output captured and echoed
+    line by line. Returns (pop, hist, printed lines)."""
+    import io
+    from repro_torch.launch import ga_run
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        pop, hist = ga_run.main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        say(f"main:   | {line}")
+    return pop, hist, lines
+
+
+def check_dispatch_line(lines, label):
+    stats = [ln for ln in lines if ln.startswith("dispatch stats: ")]
+    if stats != ["dispatch stats: retries=0"]:
+        fail(f"{label}: dispatch stats line(s) {stats}, expected "
+             f"'dispatch stats: retries=0'")
+
+
+def phase_main_host():
+    """``ga_run --fitness rastrigin`` at the main shape under host-thread,
+    host-process and host-thread pipelined, and ``ga_run --fitness hvdc``
+    on the German-size grid under host-thread with --cost-ema; each with
+    the launch counts zeroed just before and read just after. Returns
+    {run: {launches, wall_s, best genome, ...}}."""
+    import torch
+    from unittest import mock
+    from repro_torch.core import broker as broker_mod
+    from repro_torch.fitness import hostsim
+    from repro_torch.kernels.delay import ops as delay_ops
+    from repro_torch.kernels.genetic import ops
+    expect = MAIN["gens_per_epoch"] * MAIN["epochs"]
+    runs = {}
+    for name, extra in HOST_RUNS.items():
+        ops.launches = delay_ops.launches = 0
+        t0 = time.perf_counter()
+        pop, hist, lines = run_captured(MAIN_ARGS + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launches
+        say(f"main: ga_run rastrigin {' '.join(extra)}: {wall:.3f} s wall, "
+            f"fused_variation launches {launches}, delay_chain launches "
+            f"{delay_ops.launches}")
+        if launches != expect:
+            fail(f"fused_variation launched {launches} times in ga_run "
+                 f"{name}, expected {expect}")
+        check_dispatch_line(lines, f"ga_run {name}")
+        g = pop.genomes.reshape(-1, MAIN["genes"])
+        fit = pop.fitness.reshape(-1, 1)
+        if not bool(torch.isfinite(fit).all()) or \
+                not all(math.isfinite(h["best"]) for h in hist):
+            fail(f"ga_run {name}: fitness not finite")
+        if not (fit.cpu().numpy() == hostsim.rastrigin(g.cpu().numpy())).all():
+            fail(f"ga_run {name}: stored fitness is not hostsim.rastrigin of "
+                 f"the genomes bit for bit")
+        best = g[int(torch.argmin(fit[:, 0]))].clone()
+        runs[name] = dict(launches=launches, wall_s=wall, best=best,
+                          best_fitness=hist[-1]["best"])
+    names = list(HOST_RUNS)
+    for other in names[1:]:
+        if not torch.equal(runs[names[0]]["best"], runs[other]["best"]):
+            fail(f"ga_run {other} changed the best genome of {names[0]}")
+    say(f"main: best fitness {runs[names[0]]['best_fitness']!r}, "
+        f"bit-identical best genome under {', '.join(names)}")
+
+    # HVDC on the host pool, the learned cost model primed by the static
+    # one; the CostEMA the run makes is recorded to read its updates
+    made = []
+    init = broker_mod.CostEMA.__init__
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    torch.cuda.empty_cache()
+    ops.launches = delay_ops.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(broker_mod.CostEMA, "__init__", recording_init):
+        pop, hist, lines = run_captured(HVDC_HOST_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches
+    updates = [e.updates for e in made]
+    say(f"main: ga_run hvdc host-thread --cost-ema: {wall:.3f} s wall (set-up "
+        f"included), fused_variation launches {launches}, CostEMA updates "
+        f"{updates}")
+    if launches != HVDC_HOST_GENS:
+        fail(f"fused_variation launched {launches} times in ga_run hvdc "
+             f"host-thread, expected {HVDC_HOST_GENS}")
+    check_dispatch_line(lines, "ga_run hvdc host-thread")
+    if len(updates) != 1 or updates[0] <= 0:
+        fail(f"ga_run hvdc --cost-ema: CostEMA updates {updates}")
+    if not bool(torch.isfinite(pop.fitness).all()) or \
+            not bool((pop.genomes.abs() <= 1.0).all()):
+        fail("ga_run hvdc host-thread: fitness not finite or genomes outside "
+             "[-1, 1]")
+    runs["hvdc host-thread --cost-ema"] = dict(
+        launches=launches, wall_s=wall, ema_updates=updates[0],
+        skew=[h["skew"] for h in hist], best_fitness=hist[-1]["best"])
+    return runs
+
+
+def sass_chain(sass):
+    """The dependent chain of one step of the delay kernel's loop, read
+    from its SASS (``cuobjdump -sass``): (chain length in instructions,
+    instructions executed per step). The loop is the body of the
+    outermost backward branch. The executed path is sinf's fast path
+    (|a| < 105615, every value the chain takes): a forward branch whose
+    skipped range holds a backward branch (the slow path's reduction
+    loop) is taken, every other instruction runs. The chain is the longest
+    run of instructions on that path each reading a register (R or P) the
+    one before wrote, ending in a register the loop carries to the next
+    step."""
+    import re
+    inst = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?(P\d|PT)\s+)?([A-Z][A-Z0-9_.]*)"
+                      r"([^;]*);")
+    rows = [(int(m.group(1), 16), m.group(3), m.group(4), m.group(5))
+            for m in inst.finditer(sass)]
+    branches = [(addr, int(t.group(1), 16)) for addr, _, op, rest in rows
+                if op == "BRA" and (t := re.search(r"0x([0-9a-f]+)", rest))]
+    back = [(a, t) for a, t in branches if t < a]
+    if not back:
+        fail("delay_chain SASS: no loop (backward branch) found")
+    end, start = max(back, key=lambda b: b[0] - b[1])
+    skip = [(a, t) for a, t in branches if start <= a < t <= end
+            and any(a < b < t and bt < b for b, bt in back)]
+    path = [r for r in rows if start <= r[0] <= end
+            and not any(a < r[0] < t for a, t in skip)
+            and r[2] not in ("BRA", "BSSY", "BSYNC")]
+    reg = re.compile(r"^!?(R\d+|P\d)(\.reuse)?$")
+    depth, read_first, written = {}, set(), set()
+    for _, guard, op, rest in path:
+        args = [a.strip() for a in rest.split(",")]
+        ndest = 1
+        if op.split(".")[0] in ("ISETP", "FSETP", "DSETP") or (
+                len(args) > 1 and args[0].startswith("P")
+                and args[1].startswith("R")) or (
+                len(args) > 1 and args[1].startswith("P")
+                and op.startswith("IADD3")):
+            ndest = 2
+        srcs = [reg.match(a).group(1) for a in args[ndest:] if reg.match(a)]
+        if guard:
+            srcs.append(guard)
+        read_first.update(r for r in srcs if r not in written)
+        d = 1 + max((depth.get(r, 0) for r in srcs), default=0)
+        for a in args[:ndest]:
+            if reg.match(a):
+                depth[reg.match(a).group(1)] = d
+                written.add(reg.match(a).group(1))
+    carried = read_first & written
+    return max(depth[r] for r in carried), len(path)
+
+
+def sass_loop(card):
+    """``sass_chain`` of the delay kernel's library, as built."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    return sass_chain(subprocess.run(
+        [str(tool), "-sass", str(_build.library_path("delay_chain"))],
+        capture_output=True, text=True, check=True, timeout=120).stdout)
+
+
+def delay_times(device, card, launches, main_err):
+    """The delay kernel at DELAY_MAIN by device_ms beside its bounds: the
+    operations (sinf, multiply, add a step; sinf one operation, as powf is
+    for the fused variation) at the float32 SIMT rate, the bytes at the
+    memory rate, and the dependent chain's latency floor (iters x the
+    step's chain of dependent SASS instructions x DEP_CYCLES, at the card's
+    highest SM clock); its plain version, one call. Returns the
+    kernels-line entry."""
+    from repro_torch.kernels.delay import ops
+    from repro_torch.kernels.delay.ref import delay_chain_ref
+    n, iters = DELAY_MAIN
+    acc0, counts = delay_inputs(n, iters, device, seed=1)
+    ms = device_ms(lambda: ops.delay_chain(acc0, counts), launches=5,
+                   repeats=5)
+    plain_ms = once_ms(lambda: delay_chain_ref(acc0, counts))
+    mem_rate, f32_rate, _ = peaks(card)
+    nops = DELAY_OPS_PER_STEP * n * iters
+    nbytes = 12 * n
+    ops_ms, bytes_ms = nops / f32_rate * 1e3, nbytes / mem_rate * 1e3
+    chain, path = sass_loop(card)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    floor_ms = iters * chain * DEP_CYCLES / (mhz * 1e6) * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    cycles = ms * 1e-3 * mhz * 1e6 / iters
+    say(f"times: delay_chain SASS: {path} instructions a step on sinf's fast "
+        f"path, a dependent chain of {chain}")
+    say(f"times: delay_chain ({n} lanes, {iters} steps): kernel {ms:.5f} ms "
+        f"({cycles:.1f} cycles a step at {mhz:.0f} MHz); bound "
+        f"{bound_ms:.5f} ms ({nops} ops at {f32_rate:.3g} op/s; {nbytes} B "
+        f"at {mem_rate:.3g} B/s: {bytes_ms:.6f} ms), {bound_ms / ms:.4f} of "
+        f"it; latency floor {floor_ms:.5f} ms ({iters} x {chain} x "
+        f"{DEP_CYCLES} cycles), {floor_ms / ms:.3f} of it; plain version "
+        f"{plain_ms:.3f} ms")
+    return {"name": "delay_chain", "route": "cuda",
+            "source": "src/repro_torch/kernels/delay/csrc/delay_chain.cu",
+            "replaces": "src/repro/fitness/benchmarks.py:76",
+            "launches": launches, "max_abs_err": main_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None, "latency_floor_ms": floor_ms,
+            "sass_chain": chain, "sass_step_instructions": path,
+            "sm_clock_mhz": mhz}
+
+
+def measure_rho(device, *, workers, iters, islands, pop, genes,
+                generations, epochs, fused, hp=None):
+    """Paper eq. 1, as ``benchmarks/efficiency.py:30-87`` measures it:
+    rho = T_eval / T_epoch. T_eval: ``epochs`` x ``generations`` broker
+    evaluations of the full population under delay_proxy(sphere,
+    flop_iters=iters), each fed by the last through a data dependency;
+    T_epoch: the same epochs of the full GA (selection, variation,
+    survivors, dispatch, migration and the same evaluations). Both after a
+    warm-up, host clock around work that ends in a synchronize. Returns
+    (rho, T_eval s, T_epoch s)."""
+    import torch
+    from repro_torch.configs.base import GAConfig
+    from repro_torch.core.broker import Broker
+    from repro_torch.core.island import evaluate_population, make_epoch_step
+    from repro_torch.core.population import init_population
+    from repro_torch.fitness import delay_proxy, sphere
+    hp = hp or {}
+    cfg = GAConfig(num_genes=genes, pop_per_island=pop, num_islands=islands,
+                   generations_per_epoch=generations, num_epochs=epochs,
+                   lower=-1.0, upper=1.0, fused_operators=fused, seed=0,
+                   **hp)
+    broker = Broker(delay_proxy(sphere, flop_iters=iters),
+                    num_workers=workers)
+    epoch = make_epoch_step(cfg, broker, device)
+    flat = cfg.global_pop
+
+    def eval_epoch(genomes):
+        c = genomes
+        for _ in range(generations):
+            f, _ = broker.evaluate(c.reshape(flat, genes))
+            c = c + 0.0 * f.reshape(islands, pop, -1)[..., :1] * 0.0
+        return c
+
+    p = evaluate_population(cfg, broker, init_population(cfg, 0, device))
+    epoch(p)
+    eval_epoch(p.genomes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        out = eval_epoch(p.genomes)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    del out
+    p2 = p
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        p2, _ = epoch(p2)
+    torch.cuda.synchronize()
+    t_epoch = time.perf_counter() - t0
+    return t_eval / t_epoch, t_eval, t_epoch
+
+
+def rho_times(device, card):
+    """rho at Fig. 4's (workers, iters) points at the reference's GA, and
+    at the main shape with the main path's GA; the delay kernel's launches
+    over the main-shape measurement (counted from zero, which must equal
+    the evaluations it ran). Returns (rows, main-shape launches, launches
+    over the Fig. 4 points)."""
+    from repro_torch.kernels.delay import ops
+    rows = []
+    ops.launches = 0
+    for workers, iters in FIG4_POINTS:
+        rho, t_eval, t_epoch = measure_rho(device, workers=workers,
+                                           iters=iters, **FIG4_GA)
+        rows.append(dict(point="fig4", workers=workers, iters=iters, rho=rho,
+                         t_eval_s=t_eval, t_epoch_s=t_epoch))
+        say(f"times: rho fig4 workers={workers} iters={iters}: {rho:.6f} "
+            f"(T_eval {t_eval:.6f} s, T_epoch {t_epoch:.6f} s; GA "
+            f"{FIG4_GA})")
+    fig4_launches = ops.launches
+    workers, iters = RHO_MAIN
+    ops.launches = 0
+    rho, t_eval, t_epoch = measure_rho(
+        device, workers=workers, iters=iters, islands=MAIN["islands"],
+        pop=MAIN["pop"], genes=MAIN["genes"],
+        generations=MAIN["gens_per_epoch"], epochs=RHO_MAIN_EPOCHS,
+        fused=True, hp=dict(mutation_prob=HP["prob_mut"],
+                            mutation_eta=HP["eta_mut"],
+                            crossover_prob=HP["prob_cx"],
+                            crossover_eta=HP["eta_cx"]))
+    launches = ops.launches
+    gens = MAIN["gens_per_epoch"]
+    expect = 1 + 2 * gens + 2 * RHO_MAIN_EPOCHS * gens
+    say(f"times: rho main shape ({MAIN['islands']}, {MAIN['pop']}, "
+        f"{MAIN['genes']}) workers={workers} iters={iters}: {rho:.6f} "
+        f"(T_eval {t_eval:.6f} s, T_epoch {t_epoch:.6f} s over "
+        f"{RHO_MAIN_EPOCHS} epochs of {gens} generations); delay_chain "
+        f"launches {launches}")
+    if launches != expect:
+        fail(f"delay_chain launched {launches} times over the main-shape rho "
+             f"measurement, expected {expect}")
+    rows.append(dict(point="main", workers=workers, iters=iters, rho=rho,
+                     t_eval_s=t_eval, t_epoch_s=t_epoch))
+    say("times: rho " + json.dumps({"card": card, "rows": rows}))
+    return rows, launches, fig4_launches
+
+
+def host_generation_times(pop, device, card):
+    """One main-shape generation phase by phase under inline, host-thread
+    and host-process (generation_phases, CUDA events), and for the host
+    backends the fitness split into its device->host copy, host
+    evaluation and host->device copy (cuda_ms, median of 3)."""
+    import torch
+    from repro_torch.core.broker import Broker, HostPoolBackend
+    from repro_torch.fitness import hostsim, rastrigin
+    from repro_torch.kernels.genetic import ops
+    i, p, g = pop.genomes.shape
+    scalars = ops.pack_scalars(HP["eta_cx"], HP["prob_cx"], HP["eta_mut"],
+                               HP["prob_mut"], 1.0 / g, device=device)
+    offspring = pop.genomes.reshape(i * p, g).contiguous()
+    out = {"card": card}
+    for name in ("inline", "host-thread", "host-process"):
+        with contextlib.ExitStack() as stack:
+            if name == "inline":
+                broker = Broker(rastrigin)
+            else:
+                backend = stack.enter_context(HostPoolBackend(
+                    hostsim.rastrigin, num_workers=HOST_WORKERS,
+                    executor=name.split("-")[1]))
+                broker = Broker(num_workers=HOST_WORKERS, backend=backend)
+            phases = generation_phases(pop, broker, scalars, BOUND, device)
+            row = dict(phase_ms=phases,
+                       generation_ms=sum(phases.values()))
+            if name != "inline":
+                state = {}
+                for key, fn in (
+                        ("d2h_ms", lambda: state.update(
+                            host=offspring.cpu().numpy())),
+                        ("host_eval_ms", lambda: state.update(
+                            fit=backend._host_eval(state["host"]))),
+                        ("h2d_ms", lambda: torch.from_numpy(
+                            state["fit"]).to(device))):
+                    row[key] = cuda_ms(fn, repeats=3, inner=1)
+        out[name] = row
+        say(f"times: one generation at ({i}, {p}, {g}) under {name}, ms per "
+            f"phase: " + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
+            + f"; total {row['generation_ms']:.4f}"
+            + ("" if name == "inline" else
+               f"; fitness split: device->host {row['d2h_ms']:.4f}, host "
+               f"evaluation {row['host_eval_ms']:.4f}, host->device "
+               f"{row['h2d_ms']:.4f}"))
+    return out
+
+
+def ema_dispatch_times(device, card):
+    """The learned cost model's first vs learned dispatch, set up as
+    ``benchmarks/broker_overhead.py:150-180``: N genomes whose hot rows are
+    exactly one lane of the uniform balanced assignment, delay_sphere
+    sleeping slow_s a hot row, a host thread pool of W; round 1 after a
+    reset (unlearned; once_ms), then one warm round and the mean of 3
+    (learned; cuda_ms). ms per evaluate, and the skew vs naive skew the
+    broker reports."""
+    import functools
+    import numpy as np
+    import torch
+    from repro_torch.core.broker import (Broker, CostEMA, HostPoolBackend,
+                                         balanced_permutation)
+    from repro_torch.fitness import hostsim
+    n, w, slow_s, genes = (EMA_DISPATCH[k] for k in ("n", "w", "slow_s",
+                                                     "genes"))
+    perm0 = balanced_permutation(torch.ones(n), w).numpy()
+    hot = np.zeros(n, bool)
+    hot[perm0[:n // w]] = True
+    het = np.random.default_rng(0).uniform(-1, 1, (n, genes)).astype(
+        np.float32)
+    het[:, 0] = np.where(hot, 1.0, -1.0)
+    fast = het.copy()
+    fast[:, 0] = -1.0
+    het_g, fast_g = (torch.tensor(a, device=device) for a in (het, fast))
+    ema = CostEMA(alpha=0.6)
+    fn = functools.partial(hostsim.delay_sphere, slow_s=slow_s)
+    with HostPoolBackend(fn, num_workers=w) as backend:
+        broker = Broker(cost_fn=ema, num_workers=w, backend=backend)
+        broker.evaluate(fast_g)
+        ema.reset()
+        res = {}
+        first_ms = once_ms(lambda: res.update(r1=broker.evaluate(het_g)))
+        learned_ms = cuda_ms(lambda: res.update(r=broker.evaluate(het_g)),
+                             repeats=1, inner=3)
+    rows = {}
+    for name, ms, key in (("first", first_ms, "r1"),
+                          ("learned", learned_ms, "r")):
+        stats = res[key][1]
+        rows[name] = dict(ms_per_evaluate=ms, skew=float(stats["skew"]),
+                          naive_skew=float(stats["naive_skew"]))
+        say(f"times: CostEMA {name} dispatch (n {n}, w {w}, delay_sphere "
+            f"slow_s {slow_s}): {ms:.3f} ms per evaluate, skew "
+            f"{rows[name]['skew']:.4f} vs naive skew "
+            f"{rows[name]['naive_skew']:.4f}")
+    return {"card": card, **rows}
+
+
+def phase_times_host(pop, device, card, host_runs, delay_err):
+    """Times of this path: rho (Fig. 4 and the main shape), the delay
+    kernel beside its bounds, one generation per dispatch backend, the
+    CostEMA's first vs learned dispatch. Returns the delay kernel's
+    kernels-line entry."""
+    rows, launches, fig4_launches = rho_times(device, card)
+    entry = delay_times(device, card, launches, delay_err)
+    entry["launches_by_path"] = {"rho main shape": launches,
+                                 "rho fig4 points": fig4_launches}
+    gens = host_generation_times(pop, device, card)
+    ema = ema_dispatch_times(device, card)
+    say("times: host " + json.dumps({
+        "card": card, "rho": rows, "generation": gens, "cost_ema": ema,
+        "runs_wall_s": {k: v["wall_s"] for k, v in host_runs.items()},
+        "delay_chain": {k: v for k, v in entry.items()
+                        if k not in ("source", "replaces")}}))
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -2068,14 +2662,20 @@ def main():
     flash_err, ssd_err = phase_check_lm(device)
     bwd_err = phase_check_train(device)
     phase_check_hvdc(device)
+    delay_err = phase_check_host(device)
     launches, pop = phase_main()
     lm_launches = phase_serve()
     train_fwd, train_bwd, train_stats = phase_train()
     hvdc_runs = phase_main_hvdc()
+    host_runs = phase_main_host()
     kernels = [phase_times(pop, main_err, launches, device, card)]
     kernels[0]["launches_by_path"] = dict(
         {"ga_run rastrigin": launches},
-        **{f"ga_run hvdc {k}": v["launches"] for k, v in hvdc_runs.items()})
+        **{f"ga_run rastrigin {k}": v["launches"]
+           for k, v in host_runs.items() if not k.startswith("hvdc")},
+        **{f"ga_run hvdc {k}": v["launches"] for k, v in hvdc_runs.items()},
+        **{f"ga_run {k}": v["launches"] for k, v in host_runs.items()
+           if k.startswith("hvdc")})
     kernels += phase_times_lm(device, card, lm_launches, flash_err, ssd_err)
     kernels[1]["launches_by_path"] = {
         "serve gemma2-2b prefill": lm_launches["flash_attention"],
@@ -2086,6 +2686,7 @@ def main():
     kernels.append(bwd_entry)
     phase_times_hvdc(hvdc_runs, device, card)
     del hvdc_runs
+    kernels.append(phase_times_host(pop, device, card, host_runs, delay_err))
     phase_trace(device, card)
     phase_trace_train(device, card)
     say(json.dumps({"kernels": kernels}))

@@ -13,6 +13,13 @@ have been enqueued (``sync_every`` batches how often the queue is
 drained). The GA's results do not depend on when metrics are read: a run
 gives the same population for any ``sync_every`` / ``pipeline_depth``.
 
+With a host backend (``backend=HostPoolBackend(...)``) every generation
+copies its offspring to the host and waits for their fitness, so the
+device is idle while the host evaluates and pipelined metric reads
+overlap nothing there. The engine keeps the one loop for both: the host
+backend's call is synchronous and in order, so the results stay the same
+for any ``sync_every`` / ``pipeline_depth`` there too.
+
 Not ported yet: the elastic ``resize`` (it needs ``runtime/elastic``).
 """
 from __future__ import annotations
@@ -24,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import GAConfig
-from repro_torch.core.broker import Broker
+from repro_torch.core.broker import Broker, DispatchBackend
 from repro_torch.core.device import resolve_device
 from repro_torch.core.island import evaluate_population, make_epoch_step
 from repro_torch.core.population import (Population, best_of,
@@ -36,6 +43,7 @@ from repro_torch.core.population import (Population, best_of,
 class GAEngine:
     def __init__(self, cfg: GAConfig, fitness_fn: Optional[Callable] = None,
                  *, cost_fn: Optional[Callable] = None,
+                 backend: Optional[DispatchBackend] = None,
                  num_workers: Optional[int] = None,
                  checkpointer=None, checkpoint_every: int = 0,
                  log_fn: Optional[Callable] = None,
@@ -45,7 +53,7 @@ class GAEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.broker = Broker(fitness_fn, cost_fn,
-                             num_workers=num_workers or 1)
+                             num_workers=num_workers or 1, backend=backend)
         self.checkpointer = checkpointer
         self.checkpoint_every = checkpoint_every
         self.log_fn = log_fn

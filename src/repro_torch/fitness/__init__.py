@@ -1,18 +1,20 @@
 """Pluggable fitness backends: ``(N, G) -> (N, O)`` batched evaluation on
-the genomes' device.
+the genomes' device, and ``hostsim``'s numpy simulators for the host pool.
 
-``HVDCDispatchFitness`` resolves lazily (PEP 562): importing this package
-does not import the powerflow stack.
+Every torch module resolves lazily (PEP 562): importing this package
+imports no torch, so a spawned host-pool worker that unpickles
+``repro_torch.fitness.hostsim.rastrigin`` stays numpy-only, and
+``HVDCDispatchFitness`` does not pull in the powerflow stack until asked.
 """
 import importlib
 
-from repro_torch.fitness.benchmarks import (ackley, griewank, rastrigin,
-                                            rosenbrock, sphere, get_benchmark)
+_BENCHMARKS = "repro_torch.fitness.benchmarks"
+_LAZY = {**{name: _BENCHMARKS for name in (
+    "ackley", "griewank", "rastrigin", "rosenbrock", "sphere",
+    "get_benchmark", "delay_proxy")},
+    "HVDCDispatchFitness": "repro_torch.fitness.powerflow"}
 
-_LAZY = {"HVDCDispatchFitness": "repro_torch.fitness.powerflow"}
-
-__all__ = ["ackley", "griewank", "rastrigin", "rosenbrock", "sphere",
-           "get_benchmark", *_LAZY]
+__all__ = list(_LAZY)
 
 
 def __getattr__(name):

@@ -1,8 +1,10 @@
 """Standard continuous benchmark functions.
 
 All functions take genomes (N, G) and return (N, 1) (minimization, global
-optimum 0 at the stated point), on the genomes' device. The reference's
-``delay_proxy`` (the paper's sleep-proxy load) is not ported yet.
+optimum 0 at the stated point), on the genomes' device. ``delay_proxy``
+reproduces the paper §4.1 overhead study: a calibrated on-device compute
+chain standing in for ``sleep(s)``, run by the delay chain kernel
+(``kernels/delay``) on the card.
 """
 from __future__ import annotations
 
@@ -10,6 +12,8 @@ import math
 from typing import Callable
 
 import torch
+
+from repro_torch.kernels.delay.ops import delay_chain
 
 
 def sphere(x: torch.Tensor) -> torch.Tensor:
@@ -49,3 +53,36 @@ _BENCH = {"sphere": sphere, "rastrigin": rastrigin,
 
 def get_benchmark(name: str) -> Callable:
     return _BENCH[name]
+
+
+def delay_proxy(base_fn: Callable | None = None, *,
+                flop_iters: int = 0,
+                iters_fn: Callable | None = None) -> Callable:
+    """Wrap a fitness with a calibrated compute delay (the paper's sleep s).
+
+    flop_iters: fixed per-individual step count, or ``iters_fn(genomes) ->
+    (N,) int`` for *heterogeneous* evaluation times (exercises the
+    broker's balanced dispatch). Each lane runs a data-dependent chain of
+    ``a = a + sin(a) * 1e-6`` steps seeded from its genome, which no
+    compiler can elide; on the card one thread of the delay chain kernel
+    runs it in registers, where a loop of torch ops would cost several
+    launches a step.
+    """
+    inner = base_fn or sphere
+
+    def fn(genomes: torch.Tensor) -> torch.Tensor:
+        out = inner(genomes)
+        if flop_iters or iters_fn is not None:
+            n = genomes.shape[0]
+            iters = (iters_fn(genomes) if iters_fn is not None
+                     else torch.full((n,), flop_iters, dtype=torch.int32,
+                                     device=genomes.device))
+            # seed the chain from the genomes so it must re-run per batch
+            acc0 = 1.0 + torch.sum(genomes.to(torch.float32), -1) * 1e-6
+            acc = delay_chain(acc0, iters.to(torch.int32).contiguous())
+            # 1e-30 * acc underflows against out in float32 (no fitness
+            # change) but keeps a true data dependency on the chain
+            out = out + (acc[:, None] * 1e-30)
+        return out
+
+    return fn

@@ -11,9 +11,18 @@ are flattened into one batch of systems on the device.
 ``screen_top_k > 0`` (with ``contingencies > 0``) enables the LODF
 screening: DC-rank all single-line outages per genome, full-AC only the
 top-K.
+
+For the host pool (``ga_run --dispatch-backend host-*``) two numpy
+adapters wrap the fitness: :class:`LockedHostFitness` runs it on its own
+device behind one lock (threads), :class:`SpawnedHostFitness` ships the
+grid's numpy arrays and the fitness's arguments to a spawned worker, which
+rebuilds the fitness on the CPU (processes).
 """
 from __future__ import annotations
 
+import threading
+
+import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
@@ -39,6 +48,7 @@ class HVDCDispatchFitness:
         self.newton_iters = newton_iters
         self.num_contingencies = contingencies
         self.screen_top_k = screen_top_k
+        self.seed = seed
         if contingencies:
             self.outages = torch.as_tensor(
                 select_contingency_lines(grid, contingencies, seed),
@@ -83,3 +93,39 @@ class HVDCDispatchFitness:
             return 4.0 + stress / torch.clamp_min(torch.sum(pmax), 1e-9) * 6.0
 
         return cost
+
+
+class LockedHostFitness:
+    """numpy (N, H) -> (N, 1) float32 through ``fit`` on its own device,
+    one call at a time. Host-pool threads share the one card: each Newton
+    solve sizes its chunks from the device's free memory
+    (``powerflow/newton.py``), so concurrent calls would over-commit it,
+    and one card runs them one after another anyway."""
+
+    def __init__(self, fit: HVDCDispatchFitness):
+        self.fit = fit
+        self._lock = threading.Lock()
+
+    def __call__(self, genomes) -> np.ndarray:
+        g = torch.as_tensor(np.asarray(genomes, np.float32),
+                            device=self.fit.device)
+        with self._lock:
+            return self.fit(g).cpu().numpy()
+
+
+class SpawnedHostFitness:
+    """numpy (N, H) -> (N, 1) float32, picklable for a spawned process
+    pool: it carries the grid's numpy arrays and the fitness's arguments,
+    and each call rebuilds ``HVDCDispatchFitness`` on the CPU of the
+    process that runs it (a card-resident fitness cannot be shipped to
+    spawned processes, and a host pool is host cores by design)."""
+
+    def __init__(self, fit: HVDCDispatchFitness):
+        self.grid = fit.grid
+        self.kwargs = dict(contingencies=fit.num_contingencies,
+                           newton_iters=fit.newton_iters,
+                           screen_top_k=fit.screen_top_k, seed=fit.seed)
+
+    def __call__(self, genomes) -> np.ndarray:
+        fit = HVDCDispatchFitness(self.grid, device="cpu", **self.kwargs)
+        return fit(torch.as_tensor(np.asarray(genomes, np.float32))).numpy()

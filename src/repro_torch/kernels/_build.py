@@ -35,6 +35,7 @@ SOURCES = {
     "flash_attention_bwd": (KERNELS_DIR / "attention" / "csrc"
                             / "flash_attention_bwd.cu"),
     "ssd_chunk": KERNELS_DIR / "ssd" / "csrc" / "ssd_chunk.cu",
+    "delay_chain": KERNELS_DIR / "delay" / "csrc" / "delay_chain.cu",
 }
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")

@@ -2,9 +2,9 @@
 in PyTorch.
 
 Builds the GA configuration for a benchmark fitness, prints the scaling
-plan and runs the island-model engine with the inline dispatch backend and
-optional checkpointing. Runs on the GPU unless ``--device cpu`` is given;
-without a GPU and without ``--device cpu`` it fails.
+plan and runs the island-model engine with optional checkpointing. Runs on
+the GPU unless ``--device cpu`` is given; without a GPU and without
+``--device cpu`` it fails.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.ga_run --fitness rastrigin \
@@ -14,16 +14,21 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.ga_run --fitness hvdc \
       --grid-size 2715 --hvdc-lines 18 --islands 2 --pop 16 --epochs 2 \
       --gens-per-epoch 2 --num-workers 4
+  # the paper's decoupled simulation backend: fitness on a host pool
+  PYTHONPATH=src python -m repro_torch.launch.ga_run --fitness rastrigin \
+      --genes 128 --islands 32 --pop 1024 --epochs 3 \
+      --dispatch-backend host-thread --num-workers 4 --cost-ema
 
 ``--fitness hvdc`` is the paper's §4.2 HVDC dispatch (batched AC Newton
 power flow on a synthetic grid of ``--grid-size`` buses), with its cost
 model driving the broker's balanced dispatch over ``--num-workers`` lanes.
-Not ported yet: ``--fitness lm`` and every ``--dispatch-backend`` other
-than ``inline``.
+Not ported yet: ``--fitness lm`` and the ``slurm*``, ``k8s*`` and ``mq*``
+dispatch backends.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import numpy as np
 import torch
@@ -37,9 +42,9 @@ from repro_torch.fitness import get_benchmark
 
 BENCHMARKS = ("rastrigin", "sphere", "rosenbrock", "ackley", "griewank")
 NOT_PORTED_FITNESS = ("lm",)
-DISPATCH_BACKENDS = ("inline", "host-thread", "host-process", "slurm",
-                     "slurm-mock", "k8s", "k8s-mock", "mq", "mq-mock",
-                     "mq-net")
+PORTED_BACKENDS = ("inline", "host-thread", "host-process")
+DISPATCH_BACKENDS = PORTED_BACKENDS + ("slurm", "slurm-mock", "k8s",
+                                       "k8s-mock", "mq", "mq-mock", "mq-net")
 
 
 def build(fitness_name: str, args, device):
@@ -72,6 +77,22 @@ def build(fitness_name: str, args, device):
     return cfg, get_benchmark(fitness_name), None
 
 
+def host_fitness(fitness_name: str, fitness_fn, executor: str):
+    """What the host pool evaluates: a named benchmark's numpy simulator
+    (``fitness.hostsim``, on the host's cores: the decoupled container),
+    or for ``hvdc`` a numpy adapter over the fitness — on its own device
+    behind one lock under threads, rebuilt on the CPU of each spawned
+    worker under processes."""
+    if fitness_name in BENCHMARKS:
+        from repro_torch.fitness import hostsim
+        return getattr(hostsim, fitness_name)
+    from repro_torch.fitness.powerflow import (LockedHostFitness,
+                                               SpawnedHostFitness)
+    if executor == "thread":
+        return LockedHostFitness(fitness_fn)
+    return SpawnedHostFitness(fitness_fn)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fitness", default="rastrigin")
@@ -90,9 +111,28 @@ def main(argv=None):
     ap.add_argument("--dispatch-backend", default="inline",
                     choices=DISPATCH_BACKENDS,
                     help="inline: fitness evaluated on the device in the "
-                         "GA's stream (the only backend ported so far)")
+                         "GA's stream; host-*: decoupled simulation "
+                         "backend on a host thread or process pool (named "
+                         "benchmarks run fitness.hostsim's numpy "
+                         "simulators; hvdc runs on its device behind one "
+                         "lock under host-thread, and on the CPU of each "
+                         "spawned worker under host-process, since a "
+                         "card-resident fitness cannot be shipped to "
+                         "spawned processes); slurm*, k8s*, mq*: not yet "
+                         "ported")
     ap.add_argument("--num-workers", type=int, default=None,
-                    help="broker dispatch lanes (default: 1)")
+                    help="broker dispatch lanes (default: 1 inline, 4 for "
+                         "host-*)")
+    ap.add_argument("--chunk-timeout-s", type=float, default=None,
+                    help="per-chunk straggler timeout for host-*, clocked "
+                         "on execution time (re-queued up to 2 times); 0 "
+                         "disables, default: none")
+    ap.add_argument("--cost-ema", action="store_true",
+                    help="learn the dispatch cost model online from "
+                         "measured per-lane wall times (needs a "
+                         "decoupled backend)")
+    ap.add_argument("--ema-alpha", type=float, default=0.25,
+                    help="EMA smoothing factor for --cost-ema")
     ap.add_argument("--sync-every", type=int, default=1,
                     help="drain metrics every N epochs")
     ap.add_argument("--pipeline-depth", type=int, default=1,
@@ -106,31 +146,66 @@ def main(argv=None):
                  f"repro_torch")
     if args.fitness not in BENCHMARKS + ("hvdc",):
         ap.error(f"unknown --fitness {args.fitness!r}")
-    if args.dispatch_backend != "inline":
+    if args.dispatch_backend not in PORTED_BACKENDS:
         ap.error(f"--dispatch-backend {args.dispatch_backend} is not yet "
                  f"ported to repro_torch")
     device = resolve_device(args.device)
 
     cfg, fitness_fn, cost_fn = build(args.fitness, args, device)
-    plan = plan_scaling(torch.cuda.device_count() if device.type == "cuda"
-                        else 1, pop_total=cfg.global_pop,
-                        sim_parallelism=max(args.contingencies, 1))
-    print(f"scaling plan: horizontal={plan.horizontal} "
-          f"vertical={plan.vertical}")
-    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
-    eng = GAEngine(cfg, fitness_fn, cost_fn=cost_fn,
-                   num_workers=args.num_workers, checkpointer=ckpt,
-                   checkpoint_every=2 if ckpt else 0,
-                   sync_every=args.sync_every,
-                   pipeline_depth=args.pipeline_depth,
-                   device=device,
-                   log_fn=lambda r: print(
-                       f"epoch {r['epoch']:4d} best {r['best']:.5f} "
-                       f"skew {r['skew']:.3f}"))
-    pop, hist = eng.run(wallclock_s=args.wallclock_s)
-    if ckpt is not None:
-        ckpt.wait()
-    g, f = eng.best(pop)
+    if args.cost_ema:
+        if args.dispatch_backend == "inline":
+            ap.error("--cost-ema needs measured per-lane wall times — "
+                     "use a decoupled backend (host-*, slurm*, k8s* "
+                     "or mq*)")
+        from repro_torch.core.broker import CostEMA
+        # a fitness with a static cost model (HVDC) primes the EMA's slot
+        # table, so even the first dispatch of a skewed workload is
+        # balanced; wall times refine it online
+        cost_fn = CostEMA(alpha=args.ema_alpha, prime_fn=cost_fn)
+    backend = None
+    # decoupled backends default to 4 workers; the broker's lane count
+    # must match them (1 lane would take the identity path and never
+    # engage the cost model)
+    workers = args.num_workers
+    if args.dispatch_backend != "inline":
+        workers = args.num_workers or 4
+        from repro_torch.core.broker import HostPoolBackend
+        executor = args.dispatch_backend.split("-")[1]
+        backend = HostPoolBackend(
+            host_fitness(args.fitness, fitness_fn, executor),
+            num_objectives=cfg.num_objectives, num_workers=workers,
+            executor=executor,
+            # 0 disables the timeout
+            chunk_timeout_s=args.chunk_timeout_s or None)
+    # context-managed teardown: a crash anywhere past this point must
+    # still drain in-flight host evaluations and free the pool
+    with contextlib.ExitStack() as stack:
+        if backend is not None:
+            stack.enter_context(backend)
+        plan = plan_scaling(torch.cuda.device_count()
+                            if device.type == "cuda" else 1,
+                            pop_total=cfg.global_pop,
+                            sim_parallelism=max(args.contingencies, 1))
+        print(f"scaling plan: horizontal={plan.horizontal} "
+              f"vertical={plan.vertical}")
+        ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+        eng = GAEngine(cfg, fitness_fn, cost_fn=cost_fn, backend=backend,
+                       num_workers=workers, checkpointer=ckpt,
+                       checkpoint_every=2 if ckpt else 0,
+                       sync_every=args.sync_every,
+                       pipeline_depth=args.pipeline_depth,
+                       device=device,
+                       log_fn=lambda r: print(
+                           f"epoch {r['epoch']:4d} best {r['best']:.5f} "
+                           f"skew {r['skew']:.3f}"))
+        pop, hist = eng.run(wallclock_s=args.wallclock_s)
+        if ckpt is not None:
+            ckpt.wait()
+        g, f = eng.best(pop)
+        stats = eng.broker.backend_stats()
+        if stats:
+            print("dispatch stats: " + " ".join(
+                f"{k}={v}" for k, v in sorted(stats.items())))
     print(f"best fitness: {f[0]:.6f}")
     print(f"best genome:  {np.round(g, 4)}")
     return pop, hist

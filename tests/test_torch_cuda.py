@@ -1,6 +1,6 @@
 """Tests that need an NVIDIA GPU: each CUDA kernel against its plain
 version, the wrappers' refusals, and the port's paths on the card (the GA
-main path; prefill with the kernels against prefill with their plain
+main path; the host pool on CUDA genomes; prefill with the kernels against prefill with their plain
 versions; the serving entry point; the HVDC power flow against the same
 code on the CPU).
 They skip without a card. This file imports no JAX, so it runs on a
@@ -14,12 +14,14 @@ import torch
 
 from repro_torch.configs.base import GAConfig
 from repro_torch.core import island, nsga2
-from repro_torch.core.broker import Broker
+from repro_torch.core.broker import Broker, CostEMA, HostPoolBackend
 from repro_torch.core.population import init_population
 from repro_torch.core.uniforms import ArrayUniforms
-from repro_torch.fitness import rastrigin
+from repro_torch.fitness import delay_proxy, hostsim, rastrigin, sphere
 from repro_torch.configs import get_config
 from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.kernels.delay import ops as delay_ops
+from repro_torch.kernels.delay.ref import delay_chain_ref
 from repro_torch.kernels.attention.ref import (flash_attention_blocked,
                                                flash_attention_bwd_plain,
                                                flash_attention_fwd_plain)
@@ -687,3 +689,74 @@ def test_hvdc_islanded_outage_reads_overload_on_card(cuda_device):
     assert bool((out[0][:, 1] < 10.0).all())
     np.testing.assert_allclose(to_np(out[0]), to_np(out[1]), rtol=1e-4,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# delay chain kernel and the host pool on the card
+# ---------------------------------------------------------------------------
+
+def _delay_inputs(n, iters, device, seed=0):
+    rs = np.random.default_rng(seed)
+    acc0 = torch.tensor(1.0 + rs.uniform(-1, 1, n) * 1e-3,
+                        dtype=torch.float32, device=device)
+    counts = (rs.integers(0, 2001, n) if iters == "hetero"
+              else np.full(n, int(iters)))
+    return acc0, torch.tensor(counts, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("n", [1, 33, 32768])
+@pytest.mark.parametrize("iters", ["0", "1", "1000", "hetero"])
+def test_delay_kernel_matches_plain_version(cuda_device, n, iters):
+    """rtol 1e-6: both sides run CUDA's sinf and round the product, then
+    the sum, step by step."""
+    acc0, counts = _delay_inputs(n, iters, cuda_device, seed=n)
+    out = delay_ops.delay_chain(acc0, counts)
+    torch.cuda.synchronize()
+    ref = delay_chain_ref(acc0, counts)
+    np.testing.assert_allclose(to_np(out), to_np(ref), rtol=1e-6, atol=0)
+    if iters == "0":
+        assert torch.equal(out, acc0)
+
+
+def test_delay_wrapper_counts_launches_and_refuses(cuda_device):
+    acc0, counts = _delay_inputs(64, "hetero", cuda_device)
+    before = delay_ops.launches
+    delay_ops.delay_chain(acc0, counts)
+    delay_ops.delay_chain(acc0, counts)
+    assert delay_ops.launches == before + 2
+    for bad in (counts.to(torch.int64), counts.cpu(), counts[:10],
+                counts.repeat(2)[::2]):
+        with pytest.raises(ValueError, match="delay_chain"):
+            delay_ops.delay_chain(acc0, bad)
+    assert delay_ops.launches == before + 2
+
+
+def test_delay_proxy_on_card_keeps_the_fitness(cuda_device):
+    g = torch.tensor(np.random.default_rng(1).uniform(-1, 1, (96, 8)),
+                     dtype=torch.float32, device=cuda_device)
+    before = delay_ops.launches
+    out = delay_proxy(sphere, flop_iters=500)(g)
+    assert delay_ops.launches == before + 1
+    assert torch.equal(out, sphere(g))
+
+
+@pytest.mark.parametrize("cost", ["none", "static", "ema"])
+def test_host_pool_evaluates_cuda_genomes_in_row_order(cuda_device, cost):
+    """Genomes on the card, fitness on the host's cores: the result comes
+    back on the card, in row order, bit-equal to the simulator on the
+    genomes copied to the host (29 rows over 4 workers: padded)."""
+    g = torch.tensor(np.random.default_rng(2).uniform(-5, 5, (29, 16)),
+                     dtype=torch.float32, device=cuda_device)
+    cost_fn = {"none": None,
+               "static": lambda x: torch.sum(torch.abs(x), -1),
+               "ema": CostEMA(prime_fn=lambda x: torch.sum(torch.abs(x),
+                                                           -1))}[cost]
+    with HostPoolBackend(hostsim.rastrigin, num_workers=4) as backend:
+        broker = Broker(cost_fn=cost_fn, num_workers=4, backend=backend)
+        for _ in range(2):
+            fit, stats = broker.evaluate(g)
+            assert fit.device == g.device and fit.dtype == torch.float32
+            np.testing.assert_array_equal(
+                to_np(fit), hostsim.rastrigin(g.cpu().numpy()))
+    if cost == "ema":
+        assert cost_fn.updates == 2

@@ -1,5 +1,6 @@
 """The port's GA driver on the CPU: the reference's log-line forms, its
-flags, checkpoint resume, and the refusals (GPU absent, not yet ported)."""
+flags, checkpoint resume, the host-pool dispatch backends, and the
+refusals (GPU absent, not yet ported)."""
 import re
 
 import pytest
@@ -56,7 +57,7 @@ def test_pipelined_flags_give_identical_best(capsys):
 @pytest.mark.parametrize("extra", [["--dispatch-backend", "slurm-mock"],
                                    ["--fitness", "lm"],
                                    ["--dispatch-backend", "mq-mock"],
-                                   ["--dispatch-backend", "host-thread"]])
+                                   ["--dispatch-backend", "k8s-mock"]])
 def test_not_yet_ported_exits(extra, capsys):
     with pytest.raises(SystemExit) as exc:
         ga_run.main(ARGS + ["--device", "cpu"] + extra)
@@ -95,6 +96,69 @@ def test_hvdc_runs_with_balanced_dispatch(capsys):
     assert re.search(r"^best fitness: \d+\.\d{6}$", out, re.M)
     assert pop.genomes.shape == (3, 10, 4)
     assert bool((pop.genomes.abs() <= 1.0).all())
+    assert bool(torch.isfinite(pop.fitness).all())
+    assert len(hist) == 2 and all(h["balanced"] == 1.0 for h in hist)
+    skews = re.findall(r"skew (\d+\.\d+)$", out, re.M)
+    assert len(skews) == 2 and all(s != "1.000" for s in skews)
+    assert hist[-1]["best"] <= hist[0]["best"]
+
+
+HOST = ["--dispatch-backend", "host-thread", "--num-workers", "3",
+        "--islands", "3", "--pop", "11"]
+
+
+def test_host_thread_log_lines_have_the_reference_forms(capsys):
+    """The decoupled backend's run log, ``dispatch stats:`` included, as
+    the reference prints it (3 x 11 genomes over 3 workers)."""
+    jax_ga_run.main(ARGS + HOST)
+    ref = capsys.readouterr().out
+    pop, hist = ga_run.main(ARGS + HOST + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert _forms(out) == _forms(ref)
+    assert re.search(r"^dispatch stats: retries=0$", out, re.M)
+    assert len(hist) == 3 and pop.genomes.shape == (3, 11, 4)
+
+
+def test_host_thread_and_host_process_give_the_same_best(capsys):
+    """Both executors evaluate with fitness.hostsim's numpy rastrigin on
+    the same chunks: the same run, bit for bit; and pipelined metric
+    reads change nothing under a host backend either."""
+    pops = [ga_run.main(ARGS + HOST + ["--device", "cpu"] + extra)[0]
+            for extra in ([], ["--dispatch-backend", "host-process"],
+                          ["--sync-every", "2", "--pipeline-depth", "2"])]
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith(("best genome", "dispatch stats"))]
+    assert lines[0::2] == [lines[0]] * 3 and lines[1::2] == [lines[1]] * 3
+    for pop in pops[1:]:
+        assert torch.equal(pop.genomes, pops[0].genomes)
+        assert torch.equal(pop.fitness, pops[0].fitness)
+
+
+def test_cost_ema_with_inline_exits_as_the_reference(capsys):
+    errs = []
+    for main in (jax_ga_run.main, lambda a: ga_run.main(a + ["--device",
+                                                             "cpu"])):
+        with pytest.raises(SystemExit) as exc:
+            main(ARGS + ["--cost-ema"])
+        assert exc.value.code == 2
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errs[0].split(": ", 1)[1] == errs[1].split(": ", 1)[1]
+    assert "--cost-ema needs measured per-lane wall times" in errs[1]
+
+
+def test_hvdc_host_thread_with_cost_ema_runs(capsys):
+    """--fitness hvdc on the host pool with the learned cost model, primed
+    by the fitness's static one: balanced dispatch engages (skew != 1) and
+    the run log ends with the dispatch stats."""
+    args = ["--fitness", "hvdc", "--grid-size", "20", "--islands", "3",
+            "--pop", "10", "--epochs", "2", "--gens-per-epoch", "2",
+            "--dispatch-backend", "host-thread", "--cost-ema",
+            "--device", "cpu"]
+    pop, hist = ga_run.main(args)
+    out = capsys.readouterr().out
+    assert _forms(out)[-4:-2] == ["epoch # best # skew #",
+                                  "dispatch stats: retries=#"]
+    assert "dispatch stats: retries=0" in out
     assert bool(torch.isfinite(pop.fitness).all())
     assert len(hist) == 2 and all(h["balanced"] == 1.0 for h in hist)
     skews = re.findall(r"skew (\d+\.\d+)$", out, re.M)
