@@ -5,7 +5,7 @@ paths on the card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Five main paths: the GA loop (``repro_torch.launch.ga_run``), LM
+Six main paths: the GA loop (``repro_torch.launch.ga_run``), LM
 serving (``repro_torch.launch.serve``: prefill + decode), LM training
 (``repro_torch.launch.train``: tinyllama-1.1b at its published widths,
 flash attention forward and backward kernels), the paper's HVDC
@@ -13,7 +13,9 @@ dispatch (``ga_run --fitness hvdc``: batched AC Newton power flow on the
 German-size grid) and the paper's decoupled simulation backend
 (``ga_run --dispatch-backend host-thread|host-process``: fitness on a
 host pool, the learned cost model) with its §4.1 overhead study (rho,
-``delay_proxy`` through the delay chain kernel). Phases, in order; any
+``delay_proxy`` through the delay chain kernel), and the paper's central
+message broker (``ga_run --dispatch-backend mq|mq-mock|mq-net|slurm-mock|
+k8s-mock``: the port's queue runtime and workers). Phases, in order; any
 failure exits non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
@@ -58,7 +60,13 @@ failure exits non-zero:
            20000), delay_proxy(sphere) bit-equal to sphere; the host pool
            on a main-shape population on the card, bit-equal to
            fitness.hostsim.rastrigin in row order (identity, padded
-           balanced dispatch, CostEMA);
+           balanced dispatch, CostEMA); the broker's padded dispatch
+           (cost model, 4 lanes) through each queue backend (slurm-mock,
+           k8s-mock, mq on threads and on subprocesses, self-contained
+           mq-net) on card genomes of (29, 5) and (32768, 128), bit-equal
+           to hostsim.sphere / hostsim.rastrigin, padding and balance as
+           the broker reports them, and the spawned workers' command
+           lines naming the port's modules;
 4. main:   ``python -m repro_torch.launch.ga_run --fitness rastrigin`` at
            I=32 islands x P=1024 individuals x G=128 genes, 5 generations x
            3 epochs, then again with --sync-every 2 --pipeline-depth 2,
@@ -85,9 +93,18 @@ failure exits non-zero:
            line, fitness bit-equal to hostsim.rastrigin, the same best
            genome in all three) and ``ga_run --fitness hvdc`` on the
            German-size grid under host-thread --cost-ema (one epoch of 2
-           generations: 2 launches, retries=0, CostEMA updates > 0).
-           Every run has the launch counts zeroed just before it and read
-           just after;
+           generations: 2 launches, retries=0, CostEMA updates > 0);
+           ``ga_run --fitness rastrigin`` at the main shape under
+           --dispatch-backend mq --mq-fleet local, mq-mock (with
+           --cost-ema --metrics-dir --events-log), mq-net, slurm-mock and
+           k8s-mock (4 workers; 15 launches each, retries=0, fitness
+           bit-equal to hostsim.rastrigin, the best genome bit-identical
+           to host-thread's; the broker's tasks/, claimed/ and runs/
+           empty after, the spool pruned to --keep-jobs; the mq-mock
+           run's chambga.prom parsed, its
+           dispatch_chunk_duration_seconds count equal to the chunks
+           dispatched). Every run has the launch counts zeroed just
+           before it and read just after;
 5. times:  with CUDA events, medians of repeats: each kernel beside its
            bound and its plain version. The fused variation at the main
            shape at three points (no crossover or mutation, so no powf
@@ -124,7 +141,12 @@ failure exits non-zero:
            phase under inline, host-thread and host-process, the host
            backends' fitness split into device->host copy, host
            evaluation and host->device copy; CostEMA's first vs learned
-           dispatch (n 64, w 8, delay_sphere);
+           dispatch (n 64, w 8, delay_sphere); one main-shape generation
+           under each queue backend phase by phase, its fitness split
+           into device->host, enqueue or spool write, wait, collect and
+           host->device; one task's round trip over the file and the
+           socket broker (median of 30); an mq dispatch with the metrics
+           bus off and on;
 6. trace:  one prefill and 8 decode steps of each served model, and one
            train step of the training path, under torch.profiler: the
            device's idle share and the kernels' share of each window and
@@ -251,6 +273,31 @@ RHO_MAIN, RHO_MAIN_EPOCHS = (4, 20000), 2
 # the learned cost model's first vs learned dispatch
 # (benchmarks/broker_overhead.py:150-180)
 EMA_DISPATCH = dict(n=64, w=8, slow_s=0.002, genes=6)
+# the paper's central message broker: the queue backends. check: the
+# broker's padded dispatch over QUEUE_WORKERS on card genomes of
+# QUEUE_CHECK_SHAPES (rows, genes, hostsim simulator) through each of
+# QUEUE_KINDS; main: ga_run rastrigin at the main shape under each of
+# QUEUE_RUNS (the same depth as HOST_RUNS, so its best genome is held
+# bit for bit against host-thread's), QUEUE_METRICS_RUN with the metrics
+# bus on; times: one main-shape generation per kind, and the transport
+# round trip (enqueue -> claim -> lease -> publish -> fetched, median of
+# QUEUE_LATENCY_REPS, as benchmarks/broker_overhead.py's
+# *_result_latency rows) of the file and socket brokers
+QUEUE_WORKERS = 4
+QUEUE_KINDS = ("slurm-mock", "k8s-mock", "mq thread", "mq subprocess",
+               "mq-net")
+QUEUE_CHECK_SHAPES = ((29, 5, "sphere"),
+                      (MAIN["islands"] * MAIN["pop"], MAIN["genes"],
+                       "rastrigin"))
+QUEUE_RUNS = {
+    "mq --mq-fleet local": ["--dispatch-backend", "mq", "--mq-fleet",
+                            "local"],
+    "mq-mock": ["--dispatch-backend", "mq-mock"],
+    "mq-net": ["--dispatch-backend", "mq-net"],
+    "slurm-mock": ["--dispatch-backend", "slurm-mock"],
+    "k8s-mock": ["--dispatch-backend", "k8s-mock"]}
+QUEUE_METRICS_RUN = "mq-mock"
+QUEUE_LATENCY_REPS, QUEUE_METRICS_REPS = 30, 5
 # host time of a wrapper call: mean over this many calls, one sync at the
 # end, at the main shape and at a small one where the device keeps up
 HOST_CALLS = 1000
@@ -1650,6 +1697,402 @@ def phase_times_host(pop, device, card, host_runs, delay_err):
 
 
 # ---------------------------------------------------------------------------
+# The paper's central message broker: the queue backends
+# ---------------------------------------------------------------------------
+
+def queue_backend(kind, simulator, root):
+    """One queue backend of ``kind`` over QUEUE_WORKERS workers, its
+    fitness the ``fitness.hostsim`` simulator named, resolved by the
+    workers from its import spec; spool and broker directories under
+    ``root``. Built as ``ga_run`` builds them (slurm-mock spawns a numpy
+    subprocess per chunk, k8s-mock runs threads behind an in-process
+    kubectl, mq-net boots its own server)."""
+    from repro_torch.runtime import batchq, mq, netbroker
+    common = dict(fn_spec=f"repro_torch.fitness.hostsim:{simulator}",
+                  num_workers=QUEUE_WORKERS, chunk_timeout_s=300.0)
+    if kind in ("slurm-mock", "k8s-mock"):
+        scheduler = (batchq.LocalMockScheduler() if kind == "slurm-mock"
+                     else batchq.KubernetesScheduler(
+                         runner=batchq.MockKubectl()))
+        return batchq.SlurmArrayBackend(
+            scheduler=scheduler, spool_dir=str(Path(root) / "spool"),
+            **common)
+    if kind.startswith("mq "):
+        pool = mq.LocalWorkerPool(QUEUE_WORKERS, kind.split()[1])
+        return mq.QueueBackend(mq_dir=str(Path(root) / "mq"),
+                               worker_pool=pool, **common)
+    return netbroker.SocketQueueBackend(
+        worker_pool=netbroker.NetWorkerPool(QUEUE_WORKERS, "thread"),
+        **common)
+
+
+def worker_commands(kind, backend):
+    """The command lines of a kind's spawned workers: the pool's members
+    (read back from /proc) or the mock scheduler's per-chunk
+    subprocesses; [] for kinds whose workers are threads."""
+    if kind == "mq subprocess":
+        return [Path(f"/proc/{m.pid}/cmdline").read_bytes()
+                .replace(b"\0", b" ").decode()
+                for m in backend.worker_pool._members]
+    if kind == "slurm-mock":
+        return [" ".join(task.args)
+                for task in backend.scheduler._tasks.values()
+                if hasattr(task, "args")]
+    return []
+
+
+def phase_check_queue(device):
+    """The broker's padded cost-balanced dispatch through each queue
+    backend, on card genomes: fitness on the card, bit-equal in row order
+    to the hostsim simulator of the genomes copied to the host, padding
+    padded_size(n, W) - n, balanced 1; the spawned workers are the
+    port's."""
+    import tempfile
+    import torch
+    from repro_torch.core.broker import Broker, padded_size
+    from repro_torch.fitness import hostsim
+    gen = torch.Generator(device=device).manual_seed(11)
+    for kind in QUEUE_KINDS:
+        for n, g, simulator in QUEUE_CHECK_SHAPES:
+            genomes = (torch.rand((n, g), generator=gen, device=device)
+                       * 2 - 1) * BOUND
+            expect = getattr(hostsim, simulator)(genomes.cpu().numpy())
+            with tempfile.TemporaryDirectory() as root, \
+                    queue_backend(kind, simulator, root) as backend:
+                broker = Broker(
+                    cost_fn=lambda x: torch.sum(torch.abs(x), -1) + 0.1,
+                    num_workers=QUEUE_WORKERS, backend=backend)
+                fit, stats = broker.evaluate(genomes)
+                commands = worker_commands(kind, backend)
+            if fit.device != genomes.device or \
+                    not (fit.cpu().numpy() == expect).all():
+                fail(f"{kind} on ({n}, {g}) genomes on the card: fitness on "
+                     f"{fit.device} not bit-equal to hostsim.{simulator}")
+            pad = padded_size(n, QUEUE_WORKERS) - n
+            if int(stats["padded"]) != pad or float(stats["balanced"]) != 1:
+                fail(f"{kind} on ({n}, {g}): padded {int(stats['padded'])} "
+                     f"(expected {pad}), balanced {float(stats['balanced'])}")
+            worker = {"mq subprocess": "repro_torch.runtime.mq",
+                      "slurm-mock": "repro_torch.runtime.batchq"}.get(kind)
+            if worker is not None and (
+                    not commands
+                    or not all(f"-m {worker} --worker" in c
+                               for c in commands)):
+                fail(f"{kind}: spawned workers {commands} are not "
+                     f"python -m {worker} --worker")
+            say(f"check: {kind}, ({n}, {g}) genomes on the card, padded "
+                f"{pad}, balanced: fitness bit-equal to hostsim.{simulator}"
+                + (f"; {len(commands)} spawned worker(s) ran -m {worker}"
+                   if worker else ""))
+
+
+def queue_dirs_clean(name, root, listing=None):
+    """After a queue run: the broker's tasks/, claimed/ and runs/ empty (the
+    file broker's directory, or the socket server's listing taken before
+    it stopped), or no more than the kept job directories left in the
+    spool and no *.tmp anywhere."""
+    root = Path(root)
+    if listing is not None:
+        left = {d: listing[d] for d in ("tasks", "claimed", "runs")}
+    elif (root / "mq").is_dir():
+        left = {d: sorted(p.name for p in (root / "mq" / d).iterdir())
+                for d in ("tasks", "claimed", "runs")}
+    else:
+        jobs = sorted(p.name for p in (root / "spool").glob("job_*"))
+        left = {"job dirs past --keep-jobs": jobs[:-4] if len(jobs) > 4
+                else []}
+    left["tmp"] = sorted(str(p) for p in root.rglob("*.tmp"))
+    if any(left.values()):
+        fail(f"ga_run {name}: left behind {left}")
+
+
+def phase_main_queue(host_runs):
+    """``ga_run --fitness rastrigin`` at the main shape under each queue
+    backend (QUEUE_RUNS; QUEUE_METRICS_RUN also with --cost-ema,
+    --metrics-dir and --events-log), each with the launch counts zeroed
+    just before and read just after: one fused variation launch a
+    generation, the stored fitness hostsim.rastrigin of the genomes bit
+    for bit, the best genome bit-identical to host-thread's, the broker
+    clean after. Returns {run: {launches, wall_s, ...}}."""
+    import tempfile
+    import torch
+    from unittest import mock
+    from repro_torch.fitness import hostsim
+    from repro_torch.kernels.genetic import ops
+    from repro_torch.obs import parse_prometheus_text
+    from repro_torch.runtime import netbroker
+    expect = MAIN["gens_per_epoch"] * MAIN["epochs"]
+    evaluations = expect + 1                 # the initial population too
+    runs = {}
+    for name, extra in QUEUE_RUNS.items():
+        with tempfile.TemporaryDirectory() as root:
+            argv = MAIN_ARGS + HOST_ARGS + extra
+            if name.startswith("mq") and name != "mq-net":
+                argv += ["--mq-dir", str(Path(root) / "mq")]
+            elif name != "mq-net":
+                argv += ["--spool-dir", str(Path(root) / "spool")]
+            metrics = name == QUEUE_METRICS_RUN
+            if metrics:
+                argv += ["--cost-ema", "--metrics-dir",
+                         str(Path(root) / "metrics"), "--events-log",
+                         str(Path(root) / "events.jsonl")]
+            listing = {}
+            teardown = netbroker.SocketQueueBackend._t_teardown
+
+            def listed_teardown(self, remove_dir):
+                listing.update(self.client.listdir())
+                teardown(self, remove_dir)
+
+            ops.launches = 0
+            t0 = time.perf_counter()
+            with mock.patch.object(netbroker.SocketQueueBackend,
+                                   "_t_teardown", listed_teardown):
+                pop, hist, lines = run_captured(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launches
+            say(f"main: ga_run rastrigin {' '.join(extra)}"
+                f"{' --cost-ema --metrics-dir --events-log' if metrics else ''}"
+                f": {wall:.3f} s wall, fused_variation launches {launches}")
+            if launches != expect:
+                fail(f"fused_variation launched {launches} times in ga_run "
+                     f"{name}, expected {expect}")
+            stats = [ln for ln in lines if ln.startswith("dispatch stats: ")]
+            if len(stats) != 1 or "retries=0" not in stats[0].split():
+                fail(f"ga_run {name}: dispatch stats {stats}")
+            g = pop.genomes.reshape(-1, MAIN["genes"])
+            fit = pop.fitness.reshape(-1, 1)
+            if not (fit.cpu().numpy()
+                    == hostsim.rastrigin(g.cpu().numpy())).all():
+                fail(f"ga_run {name}: stored fitness is not "
+                     f"hostsim.rastrigin of the genomes bit for bit")
+            best = g[int(torch.argmin(fit[:, 0]))]
+            if not torch.equal(best, host_runs["host-thread"]["best"]):
+                fail(f"ga_run {name}: best genome differs from host-thread's")
+            queue_dirs_clean(name, root,
+                             listing if name == "mq-net" else None)
+            row = dict(launches=launches, wall_s=wall,
+                       best_fitness=hist[-1]["best"], stats=stats[0])
+            if metrics:
+                prom = parse_prometheus_text(
+                    (Path(root) / "metrics" / "chambga.prom").read_text())
+                total = {}
+                for (key, _labels), v in prom.items():
+                    total[key] = total.get(key, 0.0) + v
+                chunks = total.get("mq_chunks_enqueued_total")
+                durations = total.get("dispatch_chunk_duration_seconds_count")
+                if total.get("mq_jobs_total") != evaluations or \
+                        chunks != evaluations * QUEUE_WORKERS or \
+                        durations != chunks or \
+                        total.get("cost_ema_updates_total") != chunks:
+                    fail(f"ga_run {name}: chambga.prom jobs "
+                         f"{total.get('mq_jobs_total')}, chunks {chunks}, "
+                         f"dispatch_chunk_duration_seconds count "
+                         f"{durations}, cost_ema updates "
+                         f"{total.get('cost_ema_updates_total')} (expected "
+                         f"{evaluations} jobs of {QUEUE_WORKERS} chunks)")
+                events = (Path(root) / "events.jsonl").read_text().splitlines()
+                row.update(prom_chunks=chunks, events=len(events),
+                           chunk_seconds=total.get(
+                               "dispatch_chunk_duration_seconds_sum"))
+                say(f"main: ga_run {name} metrics: chambga.prom parses, "
+                    f"{int(chunks)} chunks dispatched = "
+                    f"dispatch_chunk_duration_seconds count = CostEMA "
+                    f"updates; {len(events)} events")
+        runs[name] = row
+    say(f"main: best genome under {', '.join(QUEUE_RUNS)} bit-identical to "
+        f"host-thread's; stored fitness hostsim.rastrigin bit for bit; "
+        f"brokers clean")
+    return runs
+
+
+def queue_generation_phases(backend, host_genomes):
+    """One ``_host_eval`` of the host genomes, split by the host clock
+    into the enqueue or spool write (task publication and, for the batch
+    backends, the scheduler submission), the collect (concatenation and
+    scatter of the chunk results) and the wait for results (the rest).
+    Counts only the calling thread's publications: thread workers publish
+    their results through the same functions. Returns ms per phase."""
+    import threading
+    from unittest import mock
+    from repro_torch.runtime import batchq, mq
+    me = threading.get_ident()
+    spent = {"enqueue": 0.0, "collect": 0.0}
+
+    def timed(fn, key):
+        def wrapped(*args, **kwargs):
+            if threading.get_ident() != me:
+                return fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return wrapped
+
+    module = batchq if isinstance(backend, batchq.SlurmArrayBackend) else mq
+    with contextlib.ExitStack() as stack:
+        for fn_name in ("collect_chunk_results", "scatter_chunk_results"):
+            stack.enter_context(mock.patch.object(
+                module, fn_name, timed(getattr(module, fn_name), "collect")))
+        if module is batchq:
+            stack.enter_context(mock.patch.object(
+                batchq, "atomic_savez", timed(batchq.atomic_savez,
+                                              "enqueue")))
+            stack.enter_context(mock.patch.object(
+                backend.scheduler, "submit",
+                timed(backend.scheduler.submit, "enqueue")))
+        else:
+            stack.enter_context(mock.patch.object(
+                backend, "_t_enqueue", timed(backend._t_enqueue,
+                                             "enqueue")))
+        t0 = time.perf_counter()
+        backend._host_eval(host_genomes)
+        total = time.perf_counter() - t0
+    return {"enqueue_ms": spent["enqueue"] * 1e3,
+            "wait_ms": (total - spent["enqueue"] - spent["collect"]) * 1e3,
+            "collect_ms": spent["collect"] * 1e3, "host_eval_ms": total * 1e3}
+
+
+def queue_generation_times(pop, device, card):
+    """One main-shape generation under each queue backend, phase by phase
+    (generation_phases, CUDA events, median of 3), and its fitness split
+    into device->host copy, enqueue or spool write, wait for results,
+    collect and host->device copy (median of 3)."""
+    import tempfile
+    import torch
+    from repro_torch.core.broker import Broker
+    from repro_torch.kernels.genetic import ops
+    i, p, g = pop.genomes.shape
+    scalars = ops.pack_scalars(HP["eta_cx"], HP["prob_cx"], HP["eta_mut"],
+                               HP["prob_mut"], 1.0 / g, device=device)
+    offspring = pop.genomes.reshape(i * p, g).contiguous()
+    state = {"host": offspring.cpu().numpy()}
+    out = {"card": card}
+    for kind in QUEUE_KINDS:
+        with tempfile.TemporaryDirectory() as root, \
+                queue_backend(kind, "rastrigin", root) as backend:
+            broker = Broker(num_workers=QUEUE_WORKERS, backend=backend)
+            phases = generation_phases(pop, broker, scalars, BOUND, device)
+            row = dict(phase_ms=phases, generation_ms=sum(phases.values()))
+            row["d2h_ms"] = cuda_ms(lambda: state.update(
+                host=offspring.cpu().numpy()), repeats=3, inner=1)
+            split = [queue_generation_phases(backend, state["host"])
+                     for _ in range(3)]
+            for key in split[0]:
+                row[key] = statistics.median(s[key] for s in split)
+            fit = backend._host_eval(state["host"])
+            row["h2d_ms"] = cuda_ms(lambda: torch.from_numpy(fit).to(device),
+                                    repeats=3, inner=1)
+        out[kind] = row
+        say(f"times: one generation at ({i}, {p}, {g}) under {kind}, ms per "
+            f"phase: " + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
+            + f"; total {row['generation_ms']:.4f}; fitness split: "
+            f"device->host {row['d2h_ms']:.4f}, enqueue {row['enqueue_ms']:.4f}"
+            f" ({offspring.numel() * 4} B in {QUEUE_WORKERS} chunks), wait "
+            f"{row['wait_ms']:.4f}, collect {row['collect_ms']:.4f}, "
+            f"host->device {row['h2d_ms']:.4f}")
+    return out
+
+
+def transport_latency(card):
+    """One task's round trip, enqueue -> claim -> lease -> publish ->
+    fetched, median of QUEUE_LATENCY_REPS, over the file broker (the
+    protocol functions on a directory) and the socket broker (the same
+    steps as frames to a BrokerServer), as
+    ``benchmarks/broker_overhead.py``'s ``*_result_latency`` rows (8 x 4
+    genomes)."""
+    import os
+    import tempfile
+    import numpy as np
+    from repro_torch.fitness import hostsim
+    from repro_torch.runtime import mq
+    from repro_torch.runtime.fsatomic import atomic_savez
+    from repro_torch.runtime.netbroker import BrokerClient, BrokerServer
+    g = np.random.default_rng(7).uniform(-1, 1, (8, 4)).astype(np.float32)
+    fit = hostsim.sphere(g)
+    spec = "repro_torch.fitness.hostsim:sphere"
+    lats = {"file": [], "socket": []}
+    with tempfile.TemporaryDirectory() as d:
+        mq.make_broker_dirs(d)
+        mq.register_run(d, "a", fn_spec=spec)
+        for i in range(QUEUE_LATENCY_REPS):
+            name = mq.task_name("a", 1, i, 0, 0)
+            t0 = time.perf_counter()
+            atomic_savez(os.path.join(d, mq.TASKS_DIR, name), genomes=g)
+            got = mq.claim_next(d)
+            mq.write_lease(d, got)
+            mq.publish_result(d, got, fit, 0.01)
+            with np.load(mq.mq_result_path(d, got)) as z:
+                z["fitness"]
+            lats["file"].append(time.perf_counter() - t0)
+            mq.release_claim(d, got)
+            os.remove(mq.mq_result_path(d, got))
+    with BrokerServer() as server, BrokerClient(server.addr) as client:
+        client.register_run("a", fn_spec=spec)
+        for i in range(QUEUE_LATENCY_REPS):
+            name = mq.task_name("a", 1, i, 0, 0)
+            t0 = time.perf_counter()
+            client.enqueue(name, g)
+            reply, _ = client.claim()
+            got = reply["name"]
+            client.lease(got)
+            client.result(got, fit, 0.01)
+            if client.result_fetch(got) is None:
+                fail("socket broker: a published result was not fetched")
+            lats["socket"].append(time.perf_counter() - t0)
+            client.release(got)
+    row = {k: statistics.median(v) * 1e6 for k, v in lats.items()}
+    say(f"times: transport round trip (enqueue -> claim -> lease -> publish "
+        f"-> fetched, median of {QUEUE_LATENCY_REPS}, µs): file broker "
+        f"{row['file']:.1f}, socket broker {row['socket']:.1f}")
+    return {"card": card, "us": row}
+
+
+def metrics_cost(pop, card):
+    """One main-shape dispatch through the mq thread pool with the metrics
+    bus off and on (a MetricsRegistry and a JSONL event log), ms per
+    ``_host_eval``, median of QUEUE_METRICS_REPS after one warm-up, in
+    turns off, on, on, off."""
+    import tempfile
+    from repro_torch.obs import EventLog, MetricsRegistry
+    from repro_torch.runtime import metrics as runtime_metrics
+    genomes = pop.genomes.reshape(-1, MAIN["genes"]).cpu().numpy()
+    times = {"off": [], "on": []}
+    with tempfile.TemporaryDirectory() as root, \
+            queue_backend("mq thread", "rastrigin", root) as backend:
+        backend._host_eval(genomes)
+        for turn in ("off", "on", "on", "off"):
+            log = None
+            if turn == "on":
+                log = EventLog(str(Path(root) / "events.jsonl"))
+                runtime_metrics.set_registry(MetricsRegistry(events=log))
+            try:
+                for _ in range(QUEUE_METRICS_REPS):
+                    t0 = time.perf_counter()
+                    backend._host_eval(genomes)
+                    times[turn].append((time.perf_counter() - t0) * 1e3)
+            finally:
+                runtime_metrics.set_registry(None)
+                if log is not None:
+                    log.close()
+    row = {k: statistics.median(v) for k, v in times.items()}
+    say(f"times: mq thread dispatch of ({len(genomes)}, {MAIN['genes']}) "
+        f"genomes, metrics bus off {row['off']:.4f} ms, on {row['on']:.4f} "
+        f"ms (median of {2 * QUEUE_METRICS_REPS} each, in turns)")
+    return {"card": card, "ms": row}
+
+
+def phase_times_queue(pop, device, card, queue_runs):
+    say("times: queue " + json.dumps({
+        "card": card,
+        "generation": queue_generation_times(pop, device, card),
+        "transport": transport_latency(card),
+        "metrics": metrics_cost(pop, card),
+        "runs_wall_s": {k: v["wall_s"] for k, v in queue_runs.items()}}))
+
+
+# ---------------------------------------------------------------------------
 # LM serving path: flash attention and SSD kernels, prefill + decode
 # ---------------------------------------------------------------------------
 
@@ -2663,16 +3106,20 @@ def main():
     bwd_err = phase_check_train(device)
     phase_check_hvdc(device)
     delay_err = phase_check_host(device)
+    phase_check_queue(device)
     launches, pop = phase_main()
     lm_launches = phase_serve()
     train_fwd, train_bwd, train_stats = phase_train()
     hvdc_runs = phase_main_hvdc()
     host_runs = phase_main_host()
+    queue_runs = phase_main_queue(host_runs)
     kernels = [phase_times(pop, main_err, launches, device, card)]
     kernels[0]["launches_by_path"] = dict(
         {"ga_run rastrigin": launches},
         **{f"ga_run rastrigin {k}": v["launches"]
            for k, v in host_runs.items() if not k.startswith("hvdc")},
+        **{f"ga_run rastrigin {k}": v["launches"]
+           for k, v in queue_runs.items()},
         **{f"ga_run hvdc {k}": v["launches"] for k, v in hvdc_runs.items()},
         **{f"ga_run {k}": v["launches"] for k, v in host_runs.items()
            if k.startswith("hvdc")})
@@ -2687,6 +3134,7 @@ def main():
     phase_times_hvdc(hvdc_runs, device, card)
     del hvdc_runs
     kernels.append(phase_times_host(pop, device, card, host_runs, delay_err))
+    phase_times_queue(pop, device, card, queue_runs)
     phase_trace(device, card)
     phase_trace_train(device, card)
     say(json.dumps({"kernels": kernels}))

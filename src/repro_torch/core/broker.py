@@ -27,9 +27,13 @@ Cost-model learning: :class:`CostEMA` is a drop-in ``cost_fn`` that learns
 an online EMA of measured per-lane wall times (reported by the host pool)
 and feeds them back into :func:`balanced_permutation`.
 
-Not ported yet: the batch-scheduler and message-queue backends
-(``runtime/batchq``, ``runtime/mq``, ``runtime/netbroker``) and the metrics
-bus.
+The batch-scheduler and message-queue backends implement the same
+``DispatchBackend`` protocol in ``repro_torch.runtime``: ``batchq``
+(``SlurmArrayBackend`` over SLURM arrays or Kubernetes indexed Jobs),
+``mq`` (``QueueBackend``, the persistent-worker file broker) and
+``netbroker`` (``SocketQueueBackend``, the same queue over TCP). They
+import no torch at module scope and reach ``ChunkFailure`` and
+``run_chunks_retry`` from here inside their functions.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ import torch
 
 from repro_torch.core.hostbridge import (PureCallbackBridge, _timed_eval,
                                          collect_chunk_results)
+from repro_torch.runtime import metrics as _metrics
 
 
 def padded_size(n: int, num_workers: int) -> int:
@@ -232,6 +237,15 @@ class CostEMA:
                     self._est[idx] = ((1.0 - a) * self._est[idx]
                                       + a * per_item)
             self.updates += 1
+            est = self._est
+        m = _metrics.get_registry()
+        if m.enabled:
+            # per-slot costs, summarized: per-slot labels would blow the
+            # registry's series cap on any real population
+            m.inc("cost_ema_updates_total")
+            m.set_gauge("cost_ema_mean_seconds", float(est.mean()))
+            m.set_gauge("cost_ema_max_seconds", float(est.max()))
+            m.set_gauge("cost_ema_min_seconds", float(est.min()))
 
     def reset(self) -> None:
         """Drop learned state (e.g. after a resize re-keys slots)."""
@@ -427,12 +441,19 @@ class Broker:
 
     def backend_stats(self) -> dict:
         """Snapshot of the dispatch backend's host-side counters (retries
-        for the host pool; empty for backends that keep none, e.g.
+        for the host pool; jobs, retries, timeouts, lease re-queues for
+        the queue backends; empty for backends that keep none, e.g.
         inline). Returns a copy, read through the backend's locked
-        ``stats_snapshot`` where it has one."""
+        ``stats_snapshot`` where it has one. A fleet autoscaled by the mq
+        backend adds its own snapshot under ``autoscaler_*`` keys."""
         snap = getattr(self.backend, "stats_snapshot", None)
-        return snap() if snap is not None \
+        stats = snap() if snap is not None \
             else dict(getattr(self.backend, "stats", None) or {})
+        scaler = getattr(self.backend, "autoscaler", None)
+        if scaler is not None:
+            for k, v in scaler.stats_snapshot().items():
+                stats[f"autoscaler_{k}"] = v
+        return stats
 
     @staticmethod
     def _identity_stats(device) -> dict:

@@ -1,7 +1,8 @@
 """Shared plumbing for decoupled (host-side) dispatch backends: the port of
 ``repro.core.hostbridge``.
 
-``broker.HostPoolBackend`` bridges out of the device program through a
+``broker.HostPoolBackend``, ``runtime.batchq.SlurmArrayBackend`` and
+``runtime.mq.QueueBackend`` (with its socket twin) bridge out of the device program through a
 host-side ``_host_eval(genomes, perm=None, cost=None)`` that chunks the
 batch (equally, or by the predicted per-slot ``cost`` when the dispatching
 broker supplies one — sentinel pad slots arrive marked ``-inf``), executes
@@ -10,12 +11,14 @@ optional ``CostEMA``. This module holds that common surface once.
 
 Import discipline: NO torch at module scope. A spawned process-pool
 worker unpickles :func:`_timed_eval` from here and a fitness from
-``repro_torch.fitness.hostsim``, and stays numpy-only; torch is imported
-inside the bridged calls, which only ever run on the submitting host.
+``repro_torch.fitness.hostsim``, and the queue workers
+(``runtime.batchq``, ``runtime.mq``) import this module at startup; all
+stay numpy-only. torch is imported inside the bridged calls, which only
+ever run on the submitting host.
 
-Not ported yet: the metrics bus that ``collect_chunk_results`` publishes
-chunk durations to in the reference (``runtime/metrics`` comes with the
-queue runtime).
+Multi-tenancy: every run owns its own ``CostEMA``, and the message-queue
+backend carries the run id in its task names, so measured durations are
+never attributed across runs that share one fleet.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import time
 from typing import Callable, List, Optional
 
 import numpy as np
+
+from repro_torch.runtime import metrics as _metrics
 
 
 class PureCallbackBridge:
@@ -211,7 +216,12 @@ def collect_chunk_results(outs: List[tuple], cost_ema,
                           chunk_sizes: List[int]) -> np.ndarray:
     """Common epilogue of a chunked host evaluation: feed measured
     per-chunk durations to the EMA cost model (when dispatch supplied a
-    permutation) and concatenate the fitness chunks."""
+    permutation), publish the durations to the metrics bus, and
+    concatenate the fitness chunks."""
+    m = _metrics.get_registry()
+    if m.enabled:
+        for _, d in outs:
+            m.observe("dispatch_chunk_duration_seconds", d)
     if cost_ema is not None and perm is not None:
         cost_ema.observe(perm, chunk_sizes, [d for _, d in outs])
     out = np.concatenate([o for o, _ in outs], axis=0)

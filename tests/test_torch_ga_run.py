@@ -1,6 +1,6 @@
 """The port's GA driver on the CPU: the reference's log-line forms, its
 flags, checkpoint resume, the host-pool dispatch backends, and the
-refusals (GPU absent, not yet ported)."""
+refusals (GPU absent, ``--fitness lm`` not yet ported)."""
 import re
 
 import pytest
@@ -54,11 +54,16 @@ def test_pipelined_flags_give_identical_best(capsys):
     assert torch.equal(pop1.genomes, pop2.genomes)
 
 
-@pytest.mark.parametrize("extra", [["--dispatch-backend", "slurm-mock"],
+@pytest.mark.parametrize("extra", [["--fitness", "lm", "--dispatch-backend",
+                                    "slurm-mock"],
                                    ["--fitness", "lm"],
-                                   ["--dispatch-backend", "mq-mock"],
-                                   ["--dispatch-backend", "k8s-mock"]])
+                                   ["--fitness", "lm", "--dispatch-backend",
+                                    "mq-mock"],
+                                   ["--fitness", "lm", "--dispatch-backend",
+                                    "k8s-mock"]])
 def test_not_yet_ported_exits(extra, capsys):
+    """``--fitness lm`` is refused under every dispatch backend (the
+    queue backends themselves are ported)."""
     with pytest.raises(SystemExit) as exc:
         ga_run.main(ARGS + ["--device", "cpu"] + extra)
     assert exc.value.code != 0
