@@ -5,7 +5,7 @@ paths on the card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Six main paths: the GA loop (``repro_torch.launch.ga_run``), LM
+Seven main paths: the GA loop (``repro_torch.launch.ga_run``), LM
 serving (``repro_torch.launch.serve``: prefill + decode), LM training
 (``repro_torch.launch.train``: tinyllama-1.1b at its published widths,
 flash attention forward and backward kernels), the paper's HVDC
@@ -15,8 +15,12 @@ German-size grid) and the paper's decoupled simulation backend
 host pool, the learned cost model) with its §4.1 overhead study (rho,
 ``delay_proxy`` through the delay chain kernel), and the paper's central
 message broker (``ga_run --dispatch-backend mq|mq-mock|mq-net|slurm-mock|
-k8s-mock``: the port's queue runtime and workers). Phases, in order; any
-failure exits non-zero:
+k8s-mock``: the port's queue runtime and workers), and the paper's
+hierarchical meta-GA (``GAEngine(meta_ga_config(), make_meta_fitness(...))``:
+the inner GAs batched over individuals x seeds through the fused
+variation kernel with one hyperparameter row per run) with the elastic
+``GAEngine.resize`` and speculative backup dispatch. Phases, in order;
+any failure exits non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
 2. build:  every CUDA kernel of the port (fused variation, flash attention
@@ -66,7 +70,15 @@ failure exits non-zero:
            mq-net) on card genomes of (29, 5) and (32768, 128), bit-equal
            to hostsim.sphere / hostsim.rastrigin, padding and balance as
            the broker reports them, and the spawned workers' command
-           lines naming the port's modules;
+           lines naming the port's modules; the fused variation with one
+           hyperparameter row per run, bit-equal to its plain version at
+           the meta shape (96 x 5 runs, P 500, G 128) and at G = 6, with
+           the uniforms shared across individuals and per run; runs of
+           equal rows, and R = 1, bit-equal to the (5,) form; one
+           full-size meta-fitness call through the kernel bit-equal to
+           the same call on the plain variation (20 launches); and
+           backup_dispatch_eval(rastrigin) on (32768, 128) card genomes
+           over 4 workers, bit-equal to direct evaluation;
 4. main:   ``python -m repro_torch.launch.ga_run --fitness rastrigin`` at
            I=32 islands x P=1024 individuals x G=128 genes, 5 generations x
            3 epochs, then again with --sync-every 2 --pipeline-depth 2,
@@ -103,8 +115,17 @@ failure exits non-zero:
            empty after, the spool pruned to --keep-jobs; the mq-mock
            run's chambga.prom parsed, its
            dispatch_chunk_duration_seconds count equal to the chunks
-           dispatched). Every run has the launch counts zeroed just
-           before it and read just after;
+           dispatched); the meta-GA at Fig. 6's setup (3 islands x 32,
+           4 epochs; 5 seeds x 20 inner generations at p_max 500,
+           rastrigin G 128) through ``GAEngine``: 180 launches, finite
+           fitness, genomes inside Tab. 4's bounds, a non-increasing
+           best, each gene's per-epoch mean, std, min and max; the GA
+           main shape resized 32 -> 16 -> 32 islands between epochs
+           (cost-balanced over 8 lanes rescaled with the islands): the
+           best kept through the shrink, the clones re-evaluated, 15
+           launches, bit-identical to a run that keeps 8 lanes. Every
+           run has the launch counts zeroed just before it and read just
+           after;
 5. times:  with CUDA events, medians of repeats: each kernel beside its
            bound and its plain version. The fused variation at the main
            shape at three points (no crossover or mutation, so no powf
@@ -146,7 +167,11 @@ failure exits non-zero:
            into device->host, enqueue or spool write, wait, collect and
            host->device; one task's round trip over the file and the
            socket broker (median of 30); an mq dispatch with the metrics
-           bus off and on;
+           bus off and on; one meta-fitness call (ms, inner evaluations/s),
+           one inner generation phase by phase, the kernel at the meta
+           shape with the uniforms shared and expanded per run beside
+           each bound, and the plain version, the (5,) form at the main
+           shape, the meta run's wall s and the resize ms;
 6. trace:  one prefill and 8 decode steps of each served model, and one
            train step of the training path, under torch.profiler: the
            device's idle share and the kernels' share of each window and
@@ -298,6 +323,28 @@ QUEUE_RUNS = {
     "k8s-mock": ["--dispatch-backend", "k8s-mock"]}
 QUEUE_METRICS_RUN = "mq-mock"
 QUEUE_LATENCY_REPS, QUEUE_METRICS_REPS = 30, 5
+# the paper's hierarchical meta-GA (§4.2.2, Fig. 6): meta_ga_config() (3
+# islands x 32 meta-individuals, 2 generations an epoch, 4 epochs, the
+# outer GA unfused) over make_meta_fitness (5 seeds, 20 inner generations)
+# at Tab. 4's upper bound on pop_size, p_max = 500, on rastrigin at the
+# GA's G with bounds +-5.12: R = 96 x 5 = 480 inner runs a meta-fitness
+# call, each inner generation one kernel launch; 1 + 4 x 2 calls a run.
+# The kernel's per-run checks: (individuals, seeds, P, G) at the meta
+# shape and at G = 6 (the scalar-load template; the reference examples'
+# inner width), with the uniforms shared across individuals (as the path
+# draws them) and per run
+META = dict(islands=3, pop=32, epochs=4, seeds=5, p_max=500, gens=20,
+            genes=MAIN["genes"], base_seed=17)
+META_CALLS = 1 + 2 * META["epochs"]
+META_N = META["islands"] * META["pop"]
+META_KERNEL_CASES = [(META_N, META["seeds"], META["p_max"], META["genes"]),
+                     (META_N, META["seeds"], META["p_max"], 6)]
+# elastic resize of the GA main shape between epochs (islands per epoch;
+# cost-balanced dispatch over RESIZE_WORKERS lanes, rescaled with the
+# islands, against a run that keeps them fixed); speculative backup
+# dispatch on the main shape's population over BACKUP_WORKERS lanes
+RESIZE_ISLANDS = (32, 16, 32)
+RESIZE_WORKERS, BACKUP_WORKERS = 8, 4
 # host time of a wrapper call: mean over this many calls, one sync at the
 # end, at the main shape and at a small one where the device keeps up
 HOST_CALLS = 1000
@@ -659,24 +706,29 @@ def phase_main():
     return runs[0][2], runs[0][4]
 
 
-def variation_bound(args, card):
+def variation_bound(args, card, label="fused_variation"):
     """(bound ms, "bytes" or "operations") of one fused variation launch
-    on ``args``: every input read once and the offspring written once at
-    the memory rate, or the float32 operations these inputs need (OPS_*,
-    each powf one operation) at the float32 rate, whichever is longer."""
-    parents, rnd, scalars, _, _ = args
+    on ``args``: every input read once (the parents, each uniform array
+    as it is given: shared across runs, read once; the hyperparameter
+    rows, the bounds) and the offspring written once at the memory rate,
+    or the float32 operations these inputs need (OPS_*, each powf one
+    operation; per-run probabilities where the rows are per run) at the
+    float32 rate, whichever is longer."""
+    parents, rnd, scalars, lo, hi = args
     g = parents.shape[-1]
     rows = parents.numel() // g
     mem_rate, f32_rate, _ = peaks(card)
-    nbytes = 4 * (rows * g * 4 + (rows // 2) * g * 2 + rows // 2 + rows
-                  + 2 * g + 5)
-    prob_cx, prob_mut, indpb = (float(scalars[k]) for k in (1, 3, 4))
+    nbytes = 4 * (2 * parents.numel() + sum(v.numel() for v in rnd.values())
+                  + scalars.numel() + lo.numel() + hi.numel())
+    sc = (scalars if scalars.dim() == 1
+          else scalars.reshape(scalars.shape[:-1] + (1, 1, 5)))
+    prob_cx, prob_mut, indpb = (sc[..., k] for k in (1, 3, 4))
     n_cx = int(((rnd["m_pair"] < prob_cx) & (rnd["m_gene"] < 0.5)).sum())
     n_mut = int(((rnd["m_ind"] < prob_mut) & (rnd["m_genem"] < indpb)).sum())
     nops = (OPS_PAIR_GENE * (rows // 2) * g + OPS_CROSSOVER * n_cx
             + OPS_MUTATION * n_mut)
     bytes_ms, ops_ms = nbytes / mem_rate * 1e3, nops / f32_rate * 1e3
-    say(f"times: fused_variation bound: {nbytes} bytes at {mem_rate:.3g} "
+    say(f"times: {label} bound: {nbytes} bytes at {mem_rate:.3g} "
         f"B/s = {bytes_ms:.5f} ms; {nops} ops ({n_cx} crossing pair-genes, "
         f"{n_mut} mutating genes) at {f32_rate:.3g} op/s = {ops_ms:.5f} ms")
     return (max(bytes_ms, ops_ms),
@@ -3065,6 +3117,374 @@ def phase_trace_train(device, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# The paper's hierarchical meta-GA, elastic resize, speculative backups
+# ---------------------------------------------------------------------------
+
+def meta_inner_cfg():
+    from repro_torch.configs.base import GAConfig
+    return GAConfig(num_genes=META["genes"], lower=-BOUND, upper=BOUND)
+
+
+def meta_fitness_fn():
+    from repro_torch.core.meta import make_meta_fitness
+    from repro_torch.fitness import rastrigin
+    return make_meta_fitness(meta_inner_cfg(), rastrigin,
+                             p_max=META["p_max"], generations=META["gens"],
+                             num_seeds=META["seeds"],
+                             base_seed=META["base_seed"])
+
+
+def meta_genomes(n, device, seed):
+    """(n, 5) meta genomes drawn inside Tab. 4's bounds (numpy seed)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.meta import meta_bounds
+    lo, hi = meta_bounds()
+    g = np.random.default_rng(seed).uniform(lo, hi, (n, 5))
+    return torch.tensor(g, dtype=torch.float32, device=device)
+
+
+def meta_kernel_args(n, s, p, g, device, seed, shared=True, rows=None):
+    """Parents (n, s, p, g) in [-BOUND, BOUND], the uniforms of s seeds
+    shared across the n individuals (or drawn per run), and one Tab. 4
+    hyperparameter row per individual for all its seeds (or ``rows``):
+    a meta-fitness call's variation."""
+    import torch
+    from repro_torch.core.meta import decode_meta_genome
+    from repro_torch.kernels.genetic import ops
+    from repro_torch.kernels.genetic.ref import draw_uniforms
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    parents = (torch.rand((n, s, p, g), generator=gen, device=device)
+               * 2 - 1) * BOUND
+    rnd = draw_uniforms(gen, p, g, device,
+                        islands=(s,) if shared else (n, s))
+    if rows is None:
+        hp = decode_meta_genome(meta_genomes(n, device, seed)[:, None, :]
+                                .expand(n, s, 5))
+        rows = ops.pack_scalars(hp["eta_cx"], hp["cx_prob"], hp["eta_mut"],
+                                hp["mut_prob"], torch.tensor(
+                                    1.0 / g, device=device))
+    lo = torch.full((g,), -BOUND, device=device)
+    return parents, rnd, rows, lo, -lo
+
+
+def phase_check_meta(device):
+    """The kernel with one hyperparameter row per run against its plain
+    version, bit for bit; a full-size meta-fitness call through the kernel
+    against the same call on the plain variation; backup dispatch on card
+    genomes against direct evaluation."""
+    import torch
+    from repro_torch.fitness import rastrigin
+    from repro_torch.kernels.genetic import ops
+    from repro_torch.runtime import backup_dispatch_eval
+    for k, case in enumerate(META_KERNEL_CASES):
+        for shared in (True, False):
+            args = meta_kernel_args(*case, device, 400 + k, shared)
+            if not torch.equal(ops.fused_variation(*args),
+                               ops.fused_variation_plain(*args)):
+                fail(f"per-run fused_variation at {case} (uniforms "
+                     f"{'shared' if shared else 'per run'}) differs from "
+                     f"its plain version")
+            say(f"check: kernel per-run rows {case}, uniforms "
+                f"{'shared across individuals' if shared else 'per run'}: "
+                f"bit-equal to the plain version")
+    # equal rows reduce to the (5,) form: R runs of one row, and R = 1
+    n, s, p, g = META_KERNEL_CASES[0]
+    one = ops.pack_scalars(*HP.values(), 1.0 / g, device=device)
+    args = meta_kernel_args(n, s, p, g, device, 410, shared=False,
+                            rows=one.expand(n, s, 5).contiguous())
+    per_run = ops.fused_variation(*args)
+    if not torch.equal(per_run, ops.fused_variation(args[0], args[1], one,
+                                                    *args[3:])):
+        fail("per-run rows all equal to one row differ from the (5,) form")
+    first = {k: v[:1, :1] for k, v in args[1].items()}
+    if not torch.equal(
+            ops.fused_variation(args[0][:1, :1], first, one[None, None],
+                                *args[3:]),
+            ops.fused_variation(args[0][0, 0], {k: v[0, 0] for k, v in
+                                                first.items()},
+                                one, *args[3:])[None, None]):
+        fail("R = 1 per-run row differs from the (5,) form")
+    say(f"check: {n} x {s} equal per-run rows and R = 1 equal the (5,) "
+        f"form bit for bit")
+
+    # one full-size meta-fitness call: kernel vs the plain variation
+    fit = meta_fitness_fn()
+    hg = meta_genomes(META_N, device, 7)
+    ops.launches = 0
+    kernel = fit(hg)
+    launches = ops.launches
+    saved = ops.fused_variation
+    ops.fused_variation = ops.fused_variation_plain
+    try:
+        plain = fit(hg)
+    finally:
+        ops.fused_variation = saved
+    if launches != META["gens"] or not torch.equal(kernel, plain):
+        fail(f"meta fitness through the kernel ({launches} launches) "
+             f"differs from the plain variation's")
+    if not bool(torch.isfinite(kernel).all()):
+        fail("meta fitness not finite")
+    say(f"check: meta fitness ({META_N} individuals x {META['seeds']} seeds, "
+        f"p_max {META['p_max']}, G {META['genes']}, {META['gens']} inner "
+        f"generations) through the kernel ({launches} launches) bit-equal "
+        f"to the plain variation's; best {float(kernel.min())!r}")
+
+    # speculative backups on card genomes
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    rows = MAIN["islands"] * MAIN["pop"]
+    genomes = (torch.rand((rows, MAIN["genes"]), generator=gen,
+                          device=device) * 2 - 1) * BOUND
+    got, stats = backup_dispatch_eval(rastrigin, genomes,
+                                      genomes.abs().sum(-1) + 0.1,
+                                      num_workers=BACKUP_WORKERS)
+    if not torch.equal(got, rastrigin(genomes)):
+        fail("backup_dispatch_eval differs from direct evaluation")
+    say(f"check: backup_dispatch_eval(rastrigin) on ({rows}, "
+        f"{MAIN['genes']}) card genomes, {BACKUP_WORKERS} workers: "
+        f"bit-equal to direct evaluation, stats {stats}")
+
+
+def gene_stats(pop):
+    """{gene: (mean, std, min, max)} over the population (Fig. 6)."""
+    from repro_torch.core.meta import META_GENE_SPEC
+    g = pop.genomes.reshape(-1, 5).double()
+    return {name: (float(g[:, k].mean()), float(g[:, k].std()),
+                   float(g[:, k].min()), float(g[:, k].max()))
+            for k, (name, _, _) in enumerate(META_GENE_SPEC)}
+
+
+def phase_main_meta(device):
+    """The meta-GA at Fig. 6's setup through ``GAEngine`` on the card,
+    epoch by epoch: launches, finite fitness, genomes in Tab. 4's bounds,
+    a non-increasing best, and each gene's trajectory."""
+    import torch
+    from repro_torch.core.engine import GAEngine
+    from repro_torch.core.meta import meta_bounds, meta_ga_config
+    from repro_torch.kernels.genetic import ops
+    cfg = meta_ga_config(num_epochs=META["epochs"], pop_per_island=META["pop"],
+                         num_islands=META["islands"])
+    ops.launches = 0
+    t0 = time.perf_counter()
+    eng = GAEngine(cfg, meta_fitness_fn(), device=device)
+    pop = eng.init()
+    bests, trajectory = [], []
+    for e in range(META["epochs"]):
+        pop, hist = eng.run(pop, epochs=1)
+        bests.append(hist[-1]["best"])
+        trajectory.append(gene_stats(pop))
+        say(f"main: meta-GA epoch {e}: best {bests[-1]!r}; " + ", ".join(
+            f"{k} {v[0]:.4f}+-{v[1]:.4f} [{v[2]:.4f}, {v[3]:.4f}]"
+            for k, v in trajectory[-1].items()))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = ops.launches
+    expect = META_CALLS * META["gens"]
+    say(f"main: meta-GA {META['islands']} x {META['pop']}, {META['epochs']} "
+        f"epochs, {META['seeds']} seeds x {META['gens']} inner generations "
+        f"at p_max {META['p_max']}: {wall_s:.3f} s wall, fused_variation "
+        f"launches {launches}")
+    if launches != expect:
+        fail(f"meta-GA launched the kernel {launches} times, expected "
+             f"{expect}")
+    if not bool(torch.isfinite(pop.fitness).all()):
+        fail("meta-GA fitness not finite")
+    lo, hi = (torch.tensor(b, device=pop.genomes.device)
+              for b in meta_bounds())
+    if not bool(((pop.genomes >= lo) & (pop.genomes <= hi)).all()):
+        fail("meta-GA genomes outside Tab. 4's bounds")
+    if any(b > a for a, b in zip(bests, bests[1:])):
+        fail(f"meta-GA best worsened across epochs: {bests}")
+    g, f = eng.best(pop)
+    say(f"main: meta-GA best hyperparameters {g.tolist()}, best inner "
+        f"fitness {float(f[0])!r}")
+    return {"launches": launches, "wall_s": wall_s, "bests": bests,
+            "trajectory": trajectory}
+
+
+def resize_schedule(fixed_workers, device):
+    """The GA main shape through ``GAEngine`` with a resize between epochs
+    (RESIZE_ISLANDS), cost-balanced dispatch over RESIZE_WORKERS lanes,
+    rescaled with the islands unless ``fixed_workers``. Returns (pop,
+    launches, {resize: ms by host clock, synchronised, the clones'
+    evaluation included}, workers per epoch, (best before, best after)
+    each resize)."""
+    import torch
+    from repro_torch.configs.base import GAConfig
+    from repro_torch.core.engine import GAEngine
+    from repro_torch.fitness import rastrigin
+    from repro_torch.kernels.genetic import ops
+    cfg = GAConfig(num_genes=MAIN["genes"], pop_per_island=MAIN["pop"],
+                   num_islands=RESIZE_ISLANDS[0], lower=-BOUND, upper=BOUND,
+                   generations_per_epoch=MAIN["gens_per_epoch"],
+                   mutation_prob=0.7, mutation_eta=20.0, crossover_prob=0.9,
+                   crossover_eta=15.0, seed=2)
+    eng = GAEngine(cfg, rastrigin, cost_fn=lambda g: g.abs().sum(-1) + 0.1,
+                   num_workers=RESIZE_WORKERS, device=device)
+    ops.launches = 0
+    pop, _ = eng.run(eng.init(), epochs=1)
+    ms, workers, kept = {}, [eng.broker.num_workers], []
+    for old, new in zip(RESIZE_ISLANDS, RESIZE_ISLANDS[1:]):
+        before = float(pop.fitness.min())          # synchronises
+        t0 = time.perf_counter()
+        pop = eng.resize(pop, new, num_workers=fixed_workers)
+        torch.cuda.synchronize()
+        ms[f"{old}->{new}"] = (time.perf_counter() - t0) * 1e3
+        kept.append((before, float(pop.fitness.min())))
+        if not bool(torch.isfinite(pop.fitness).all()):
+            fail(f"resize {old}->{new} left unevaluated (+inf) fitness")
+        workers.append(eng.broker.num_workers)
+        pop, _ = eng.run(pop, epochs=1)
+    return pop, ops.launches, ms, workers, kept
+
+
+def phase_main_resize(device):
+    """The GA main shape resized 32 -> 16 -> 32 islands between epochs:
+    the best kept through the shrink, the clones re-evaluated, 15
+    launches, a re-balanced run bit-identical to a fixed-lane run."""
+    import torch
+    t0 = time.perf_counter()
+    pop, launches, ms, workers, kept = resize_schedule(None, device)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    fixed, fixed_launches, fixed_ms, fixed_workers, _ = resize_schedule(
+        RESIZE_WORKERS, device)
+    expect = MAIN["gens_per_epoch"] * len(RESIZE_ISLANDS)
+    say(f"main: resize {' -> '.join(map(str, RESIZE_ISLANDS))} islands at "
+        f"({MAIN['pop']}, {MAIN['genes']}): workers {workers} (fixed run "
+        f"{fixed_workers}), resize ms {ms} (fixed run {fixed_ms}), "
+        f"{wall_s:.3f} s wall, launches {launches} / {fixed_launches}; "
+        f"best before / after each resize {kept}")
+    if launches != expect or fixed_launches != expect:
+        fail(f"resize runs launched the kernel {launches} / "
+             f"{fixed_launches} times, expected {expect}")
+    if kept[0][1] != kept[0][0]:
+        fail(f"the shrink lost the best: {kept[0]}")
+    if tuple(pop.genomes.shape) != (RESIZE_ISLANDS[-1], MAIN["pop"],
+                                    MAIN["genes"]):
+        fail(f"resized population has shape {tuple(pop.genomes.shape)}")
+    if not torch.equal(pop.genomes, fixed.genomes):
+        fail("the re-balanced run differs from the fixed-lane run")
+    say("main: re-balanced run bit-identical to the fixed-lane run")
+    return {"launches": launches, "resize_ms": ms, "wall_s": wall_s,
+            "workers": workers}
+
+
+def meta_generation_phases(device):
+    """One inner generation of a full-size meta-fitness call, phase by
+    phase (CUDA events, median of 3 single calls): tournament with the
+    parent gather, the variation's uniform draws (per seed), one kernel
+    launch, the fitness over the whole width, the stable sort and the
+    survivors' gather."""
+    import torch
+    from repro_torch.core import operators
+    from repro_torch.core.island import take_rows
+    from repro_torch.core.meta import (active_size, decode_meta_genome,
+                                       seed_generators)
+    from repro_torch.core.uniforms import SeedUniforms
+    from repro_torch.fitness import rastrigin
+    from repro_torch.kernels.genetic import ops
+    from repro_torch.kernels.genetic.ref import draw_uniforms
+    n, s, p, g = META_KERNEL_CASES[0]
+    rand = SeedUniforms(seed_generators(META["base_seed"], s, device),
+                        device)
+    hp = decode_meta_genome(meta_genomes(n, device, 7)[:, None, :]
+                            .expand(n, s, 5))
+    p_act = active_size(hp["pop_size"], p)
+    active = torch.arange(p, device=device) < p_act[..., None]
+    genomes = (rand((n, s, p, g)) * 2 - 1).mul(BOUND).expand(
+        n, s, p, g).contiguous()
+    fit = torch.where(active, rastrigin(genomes.reshape(-1, g))
+                      .reshape(n, s, p), torch.inf)
+    rows = ops.pack_scalars(hp["eta_cx"], hp["cx_prob"], hp["eta_mut"],
+                            hp["mut_prob"], torch.tensor(1.0 / g,
+                                                         device=device))
+    lo = torch.full((g,), -BOUND, device=device)
+    state = {}
+
+    def tournament():
+        state["parents"] = take_rows(genomes, operators.tournament_select(
+            rand, fit, p, active=p_act))
+
+    def draws():
+        state["rnd"] = draw_uniforms(rand, p, g, device, islands=(n, s))
+
+    def variation():
+        state["off"] = ops.fused_variation(state["parents"], state["rnd"],
+                                           rows, lo, -lo)
+
+    def fitness():
+        state["fit"] = torch.where(active, rastrigin(
+            state["off"].reshape(-1, g)).reshape(n, s, p), torch.inf)
+
+    def survivors():
+        cf = torch.cat([fit, state["fit"]], dim=-1)
+        order = torch.argsort(cf, dim=-1, stable=True)[..., :p]
+        take_rows(torch.cat([genomes, state["off"]], dim=-2), order)
+        torch.gather(cf, -1, order)
+
+    steps = [("tournament_gather", tournament), ("uniform_draws", draws),
+             ("variation_kernel", variation), ("fitness", fitness),
+             ("sort_survivors", survivors)]
+    return {name: cuda_ms(fn, repeats=3, inner=1) for name, fn in steps}
+
+
+def phase_times_meta(device, card, main_kernel_ms, meta_run, resize_run):
+    """Times of the meta path: one meta-fitness call, one inner generation
+    phase by phase, the kernel at the meta shape (uniforms shared across
+    individuals, as the path reads them, and expanded per run) beside its
+    bound and its plain version, and the (5,) form's time at the main
+    shape. Returns the kernel's meta entry for the kernels line."""
+    from repro_torch.kernels.genetic import ops
+    n, s, p, g = META_KERNEL_CASES[0]
+    fit = meta_fitness_fn()
+    hg = meta_genomes(META_N, device, 7)
+    call_ms = cuda_ms(lambda: fit(hg), repeats=3, inner=1)
+    evals = META_N * META["seeds"] * p * (META["gens"] + 1)
+    say(f"times: one meta-fitness call ({META_N} x {META['seeds']} runs, "
+        f"p_max {p}, G {g}, {META['gens']} inner generations): "
+        f"{call_ms:.4f} ms, {evals / call_ms * 1e3:.1f} inner "
+        f"evaluations/s ({evals} evaluations)")
+    phases = meta_generation_phases(device)
+    gen_ms = sum(phases.values())
+    say("times: one inner generation at (N, S, P, G) = "
+        f"({n}, {s}, {p}, {g}), ms per phase: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
+        + f"; total {gen_ms:.4f}")
+    kernel = {}
+    for form, shared in (("shared", True), ("per_run", False)):
+        args = meta_kernel_args(n, s, p, g, device, 11, shared)
+        ms = device_ms(lambda: ops.fused_variation(*args))
+        bound_ms, bound_by = variation_bound(
+            args, card, f"fused_variation meta ({form} uniforms)")
+        kernel[form] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+        if shared:
+            kernel[form]["plain_ms"] = cuda_ms(
+                lambda: ops.fused_variation_plain(*args), repeats=5, inner=1)
+        say(f"times: fused_variation ({n}, {s}, {p}, {g}), one row per run, "
+            f"uniforms {form}: kernel {ms:.5f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}), {bound_ms / ms:.3f} of the bound"
+            + (f", plain version {kernel[form]['plain_ms']:.5f} ms"
+               if shared else ""))
+        del args
+    say(f"times: fused_variation (5,) form at the main shape "
+        f"({MAIN['islands']}, {MAIN['pop']}, {MAIN['genes']}): "
+        f"{main_kernel_ms:.5f} ms")
+    say("times: meta " + json.dumps({
+        "card": card, "meta_fitness_call_ms": call_ms,
+        "inner_evaluations_per_s": evals / call_ms * 1e3,
+        "inner_generation_phase_ms": phases, "kernel_meta_shape": kernel,
+        "kernel_main_shape_ms": main_kernel_ms,
+        "meta_run_wall_s": meta_run["wall_s"],
+        "resize_ms": resize_run["resize_ms"],
+        "resize_run_wall_s": resize_run["wall_s"]}))
+    return {"shape": [n, s, p, g], "launches": meta_run["launches"],
+            **kernel["shared"], "per_run_uniforms": kernel["per_run"]}
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3107,12 +3527,15 @@ def main():
     phase_check_hvdc(device)
     delay_err = phase_check_host(device)
     phase_check_queue(device)
+    phase_check_meta(device)
     launches, pop = phase_main()
     lm_launches = phase_serve()
     train_fwd, train_bwd, train_stats = phase_train()
     hvdc_runs = phase_main_hvdc()
     host_runs = phase_main_host()
     queue_runs = phase_main_queue(host_runs)
+    meta_run = phase_main_meta(device)
+    resize_run = phase_main_resize(device)
     kernels = [phase_times(pop, main_err, launches, device, card)]
     kernels[0]["launches_by_path"] = dict(
         {"ga_run rastrigin": launches},
@@ -3122,7 +3545,12 @@ def main():
            for k, v in queue_runs.items()},
         **{f"ga_run hvdc {k}": v["launches"] for k, v in hvdc_runs.items()},
         **{f"ga_run {k}": v["launches"] for k, v in host_runs.items()
-           if k.startswith("hvdc")})
+           if k.startswith("hvdc")},
+        **{"meta-GA (Fig. 6)": meta_run["launches"],
+           "resize " + "->".join(map(str, RESIZE_ISLANDS)):
+           resize_run["launches"]})
+    kernels[0]["meta"] = phase_times_meta(device, card, kernels[0]["ms"],
+                                          meta_run, resize_run)
     kernels += phase_times_lm(device, card, lm_launches, flash_err, ssd_err)
     kernels[1]["launches_by_path"] = {
         "serve gemma2-2b prefill": lm_launches["flash_attention"],

@@ -20,10 +20,13 @@ overlap nothing there. The engine keeps the one loop for both: the host
 backend's call is synchronous and in order, so the results stay the same
 for any ``sync_every`` / ``pipeline_depth`` there too.
 
-Not ported yet: the elastic ``resize`` (it needs ``runtime/elastic``).
+``resize`` repartitions a running population onto another island count
+(``runtime/elastic.repartition_islands``) and re-balances the broker's
+lanes for the resized fleet.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Optional
 
@@ -34,8 +37,8 @@ from repro_torch.configs.base import GAConfig
 from repro_torch.core.broker import Broker, DispatchBackend
 from repro_torch.core.device import resolve_device
 from repro_torch.core.island import evaluate_population, make_epoch_step
-from repro_torch.core.population import (Population, best_of,
-                                         init_population,
+from repro_torch.core.population import (Population, best_of, fold_rng,
+                                         init_population, seed_rng,
                                          population_from_numpy,
                                          population_to_numpy)
 
@@ -62,7 +65,13 @@ class GAEngine:
         # exact host count of fitness evaluations, checkpointed as
         # "evals_host" (the reference's key for its unbounded counter)
         self.evals_host: int = 0
-        self._epoch_step = make_epoch_step(cfg, self.broker, self.device)
+        self._build_steps()
+
+    def _build_steps(self) -> None:
+        """(Re)build the epoch step for the current cfg and broker: at
+        construction and after an elastic :meth:`resize`."""
+        self._epoch_step = make_epoch_step(self.cfg, self.broker,
+                                           self.device)
 
     # ------------------------------------------------------------------
     def init(self, seed: Optional[int] = None) -> Population:
@@ -90,6 +99,45 @@ class GAEngine:
         state = population_to_numpy(pop)
         state["evals_host"] = np.uint64(self.evals_host)
         return state
+
+    # ------------------------------------------------------------------
+    def resize(self, pop: Population, new_islands: int, *, rng=None,
+               num_workers: Optional[int] = None) -> Population:
+        """Elastic lane re-balance: repartition ``pop`` onto
+        ``new_islands`` islands (``runtime/elastic.repartition_islands``;
+        ``rng`` is a stream's key words, by default the seed's folded with
+        1000 + new_islands, as in the reference) and rebuild the broker for
+        the resized fleet: ``num_workers`` scales with the island count
+        unless given, a backend with its own ``num_workers`` follows it,
+        and a cost model with ``reset`` is reset (its slots changed). A
+        grown population (clones at +inf) is evaluated before the engine
+        goes on, and counted. Dispatch permutations never change fitness
+        values, so a re-balanced run tracks a fixed-lane run exactly on a
+        deterministic fitness."""
+        old_islands = pop.genomes.shape[0]
+        if rng is None:
+            rng = fold_rng(seed_rng(self.cfg.seed), 1000 + new_islands)
+        from repro_torch.runtime.elastic import repartition_islands
+        pop = repartition_islands(self.cfg, pop, new_islands, rng)
+        self.cfg = dataclasses.replace(self.cfg, num_islands=new_islands)
+        if num_workers is None:
+            num_workers = max(
+                1, self.broker.num_workers * new_islands // old_islands)
+        self.broker = Broker(self.broker.fitness_fn, self.broker.cost_fn,
+                             num_workers=num_workers,
+                             backend=self.broker.backend)
+        backend = self.broker.backend
+        if hasattr(backend, "num_workers"):
+            # decoupled backends chunk by their own num_workers; keep the
+            # split aligned with the broker's lanes
+            backend.num_workers = num_workers
+        if hasattr(self.broker.cost_fn, "reset"):
+            self.broker.cost_fn.reset()      # slot-keyed EMA: N changed
+        self._build_steps()
+        if bool(torch.isinf(pop.fitness).any()):
+            pop = evaluate_population(self.cfg, self.broker, pop)
+            self.evals_host += self.cfg.global_pop
+        return pop
 
     # ------------------------------------------------------------------
     def _start_host_copy(self, metrics: dict):

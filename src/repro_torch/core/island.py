@@ -11,11 +11,16 @@ islands, from a uniform source; migration draws each shift's victim
 uniforms. ``epoch_step`` seeds a ``torch.Generator`` from ``pop.rng``, runs
 the epoch from it and advances ``pop.rng``.
 
-Not ported yet: the meta-GA's ``hyper`` / ``pop_active`` overrides.
+``hyper`` overrides {eta_cx, prob_cx, eta_mut, prob_mut, pop_active} with
+numbers or 0-d tensors (the reference's meta-GA path): tensors go to the
+operators, and to the fused kernel's (5,) row, where they lie, with no
+host sync; ``pop_active`` masks the selection keys past the active slots
+to 2**30, draws the tournament from [0, pop_active) and masks the
+offspring's fitness there to +inf.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -26,28 +31,32 @@ from repro_torch.core.population import Population, next_rng, rng_seed
 from repro_torch.core.uniforms import GeneratorUniforms, as_source
 
 
-def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x (I, N, D), idx (I, K) -> x[i, idx[i]] (I, K, D)."""
-    return torch.gather(x, 1, idx.unsqueeze(-1).expand(
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (..., N, D), idx (..., K) -> x[..., idx, :] (..., K, D)."""
+    return torch.gather(x, -2, idx.unsqueeze(-1).expand(
         idx.shape + x.shape[-1:]))
 
 
-def make_generation_step(cfg: GAConfig, broker: Broker,
-                         device) -> Callable:
+def make_generation_step(cfg: GAConfig, broker: Broker, device,
+                         hyper: Optional[dict] = None) -> Callable:
     """One NSGA-II generation for all islands (no cross-island traffic):
     ``generation(pop, rng) -> (pop, metrics)``, with ``rng`` a uniform
-    source or a ``torch.Generator``."""
+    source or a ``torch.Generator``. ``hyper`` optionally overrides
+    {eta_cx, prob_cx, eta_mut, prob_mut, pop_active} (meta-GA path)."""
     lo_np, hi_np = cfg.bounds()
     lo = torch.as_tensor(lo_np, device=device)
     hi = torch.as_tensor(hi_np, device=device)
+    h = hyper or {}
     # hyperparameters live on the device once: no host->device copy per
-    # generation
-    hp = {k: torch.tensor(v, dtype=torch.float32, device=device)
+    # generation; tensor overrides are used where they lie
+    hp = {k: torch.as_tensor(h.get(k, v), dtype=torch.float32, device=device)
           for k, v in (("eta_cx", cfg.crossover_eta),
                        ("prob_cx", cfg.crossover_prob),
                        ("eta_mut", cfg.mutation_eta),
                        ("prob_mut", cfg.mutation_prob),
                        ("indpb", cfg.indpb))}
+    pop_active = h.get("pop_active")
+    slot = torch.arange(cfg.pop_per_island, device=device)
 
     def generation(pop: Population, rng) -> Tuple[Population, dict]:
         i, p, g = pop.genomes.shape
@@ -55,10 +64,12 @@ def make_generation_step(cfg: GAConfig, broker: Broker,
 
         # island-local selection keys (rank, crowding)
         _, _, keys = nsga2.nsga2_keys(pop.fitness)             # (I, P)
+        if pop_active is not None:
+            keys = torch.where(slot < pop_active, keys, 2 ** 30)
         parents_idx = operators.tournament_select(
             rand, keys.to(torch.float32), cfg.pop_per_island,
-            tsize=cfg.tournament_size)                         # (I, P)
-        parents = _take_rows(pop.genomes, parents_idx)
+            active=pop_active, tsize=cfg.tournament_size)      # (I, P)
+        parents = take_rows(pop.genomes, parents_idx)
         offspring = operators.variation(
             rand, parents, lower=lo, upper=hi,
             use_kernel=cfg.fused_operators, **hp)
@@ -66,6 +77,9 @@ def make_generation_step(cfg: GAConfig, broker: Broker,
         # shared-pool evaluation (the broker = the paper's queue)
         fit_flat, stats = broker.evaluate(offspring.reshape(i * p, g))
         off_fit = fit_flat.reshape(i, p, -1)
+        if pop_active is not None:
+            off_fit = torch.where((slot < pop_active)[:, None], off_fit,
+                                  torch.inf)
 
         # (mu+lambda) island-local survivor selection
         new_g, new_f = nsga2.survivor_select(
@@ -115,8 +129,8 @@ def migrate_ring(cfg: GAConfig, pop: Population, rng) -> Population:
         _, _, keys = nsga2.nsga2_keys(fitness)
         order = torch.argsort(keys, dim=1, stable=True)    # best first
         best_idx = order[:, :m]                            # (I, m)
-        recv_g = torch.roll(_take_rows(genomes, best_idx), shift, dims=0)
-        recv_f = torch.roll(_take_rows(fitness, best_idx), shift, dims=0)
+        recv_g = torch.roll(take_rows(genomes, best_idx), shift, dims=0)
+        recv_f = torch.roll(take_rows(fitness, best_idx), shift, dims=0)
 
         # random non-elite victims: positions >= m in sorted order
         u = rand((i, m))
@@ -129,10 +143,11 @@ def migrate_ring(cfg: GAConfig, pop: Population, rng) -> Population:
     return pop._replace(genomes=genomes, fitness=fitness, epoch=pop.epoch + 1)
 
 
-def make_epoch_step(cfg: GAConfig, broker: Broker, device) -> Callable:
+def make_epoch_step(cfg: GAConfig, broker: Broker, device,
+                    hyper: Optional[dict] = None) -> Callable:
     """M island-local generations + one migration:
     ``epoch_step(pop) -> (pop, metrics)`` with metrics["best"] (M, I)."""
-    generation = make_generation_step(cfg, broker, device)
+    generation = make_generation_step(cfg, broker, device, hyper)
 
     def epoch_step(pop: Population) -> Tuple[Population, dict]:
         gen = torch.Generator(device=device)

@@ -8,8 +8,13 @@ Every operator acts on (..., N, G) genome blocks: a leading island axis
 takes the place of the reference's ``vmap``. The first argument ``rng`` is
 a uniform source (``repro_torch.core.uniforms``) or a ``torch.Generator``,
 consumed in the reference's draw order, so parity tests can feed the
-reference's own draws. Hyperparameters (eta, probabilities) may be 0-d
-tensors, as the meta-GA needs.
+reference's own draws. Hyperparameters (eta, probabilities, the
+tournament's ``active`` bound) may be 0-d tensors, or per-run tensors with
+the leading dims of the genome block: the meta-GA's inner GAs, one run per
+(individual, seed), each with its own hyperparameters. A per-run tensor is
+reshaped to broadcast over the trailing (N[, G]) axes. A source may return
+draws that broadcast to the requested shape (``SeedUniforms``: one draw
+per seed, shared across individuals).
 
 ``variation`` dispatches to the fused CUDA kernel in
 ``repro_torch.kernels.genetic`` when asked to and P is even; these
@@ -32,21 +37,38 @@ def _f32(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
+def _per_run(v, device, trailing: int) -> torch.Tensor:
+    """``v`` as a float32 tensor; a per-run tensor (the runs' leading dims)
+    gains ``trailing`` unit dims so that it broadcasts over the trailing
+    axes of the genome block."""
+    t = _f32(v, device)
+    return t.reshape(t.shape + (1,) * trailing) if t.dim() else t
+
+
 def tournament_select(rng, key: torch.Tensor, num: int, active=None,
                       tsize: int = 2) -> torch.Tensor:
     """Select ``num`` indices by binary tournament on minimizing ``key``
     (..., P) -> (..., num) int64.
 
-    ``active``: optional bound (number or 0-d tensor) — candidates are drawn
-    from [0, active) (meta-GA variable population size). Ties between
-    candidates go to the first one drawn, as ``jnp.argmin`` does.
+    ``active``: optional bound (number, 0-d tensor, or a tensor with key's
+    leading dims) — candidates are drawn from [0, active) (meta-GA variable
+    population size). Ties between candidates go to the first one drawn,
+    as ``jnp.argmin`` does.
     """
     p = key.shape[-1]
-    hi = float(p) if active is None else _f32(active, key.device)
-    u = as_source(rng, key.device)(tuple(key.shape[:-1]) + (num, tsize))
+    lead = tuple(key.shape[:-1])
+    if active is None:
+        hi = float(p)
+    elif isinstance(active, torch.Tensor):
+        hi = _per_run(active, key.device, 2)
+    else:
+        hi = float(active)
+    u = as_source(rng, key.device)(lead + (num, tsize))
     # gather clamps like the reference's out-of-range index semantics
-    cand = torch.floor(u * hi).to(torch.int64).clamp_(0, p - 1)
-    cand_keys = torch.gather(key, -1, cand.flatten(-2)).view(cand.shape)
+    cand = torch.floor(u * hi).to(torch.int64).clamp_(0, p - 1).expand(
+        lead + (num, tsize))
+    cand_keys = torch.gather(key, -1, cand.reshape(lead + (num * tsize,))
+                             ).view(cand.shape)
     winner = torch.argmin(cand_keys, dim=-1, keepdim=True)
     return torch.gather(cand, -1, winner).squeeze(-1)
 
@@ -55,8 +77,8 @@ def sbx_crossover(rng, x1: torch.Tensor, x2: torch.Tensor, *,
                   eta, prob, lower, upper) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bounded simulated binary crossover. x1/x2: (..., N, G)."""
     rand = as_source(rng, x1.device)
-    eta, prob, lower, upper = (_f32(v, x1.device)
-                               for v in (eta, prob, lower, upper))
+    eta, prob = _per_run(eta, x1.device, 2), _per_run(prob, x1.device, 1)
+    lower, upper = _f32(lower, x1.device), _f32(upper, x1.device)
     do_pair = rand(x1.shape[:-1]) < prob                       # (..., N)
     do_gene = rand(x1.shape) < 0.5                             # per-gene
     u = rand(x1.shape)
@@ -95,9 +117,9 @@ def polynomial_mutation(rng, x: torch.Tensor, *, eta, prob, indpb, lower,
     gates genes within a mutating individual (DEAP's indpb).
     """
     rand = as_source(rng, x.device)
-    eta, prob, indpb, lower, upper = (_f32(v, x.device)
-                                      for v in (eta, prob, indpb, lower,
-                                                upper))
+    eta, indpb = _per_run(eta, x.device, 2), _per_run(indpb, x.device, 2)
+    prob = _per_run(prob, x.device, 1)
+    lower, upper = _f32(lower, x.device), _f32(upper, x.device)
     do_ind = rand(x.shape[:-1]) < prob
     do_gene = rand(x.shape) < indpb
     u = rand(x.shape)
@@ -125,17 +147,19 @@ def variation(rng, parents: torch.Tensor, *, eta_cx, prob_cx, eta_mut,
               use_kernel: bool = False) -> torch.Tensor:
     """SBX over consecutive parent pairs, then polynomial mutation.
 
-    parents: (P, G) or (I, P, G) -> offspring of the same shape. With
-    ``use_kernel`` and P even this is the fused kernel, which runs or
-    raises. With P odd the unpaired last parent skips crossover and goes
-    through mutation only; the kernel pairs parents, so odd P takes the
-    unfused path.
+    parents: (..., P, G) -> offspring of the same shape (a leading island
+    axis, or the meta-GA's (individuals, seeds) runs, whose hyperparameters
+    may be per-run tensors). With ``use_kernel`` and P even this is the
+    fused kernel, which runs or raises: one launch for every leading dim,
+    with one hyperparameter row per run. With P odd the unpaired last
+    parent skips crossover and goes through mutation only; the kernel
+    pairs parents, so odd P takes the unfused path.
     """
     p, g = parents.shape[-2:]
     dev = parents.device
     if use_kernel and p % 2 == 0:
-        islands = parents.shape[0] if parents.dim() == 3 else None
-        rnd = draw_uniforms(rng, p, g, dev, islands=islands)
+        rnd = draw_uniforms(rng, p, g, dev,
+                            islands=tuple(parents.shape[:-2]))
         lo = _f32(lower, dev).expand(g).contiguous()
         hi = _f32(upper, dev).expand(g).contiguous()
         scalars = gk.pack_scalars(eta_cx, prob_cx, eta_mut, prob_mut, indpb,

@@ -52,13 +52,34 @@ def next_rng(rng) -> np.ndarray:
     return seq.generate_state(rng.size, np.uint32).reshape(rng.shape)
 
 
+def seed_rng(seed: int) -> np.ndarray:
+    """The (2,) uint32 key words of seed ``seed``, as ``PRNGKey(seed)``
+    holds them: [0, seed]."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], np.uint32)
+
+
+def fold_rng(rng, data: int) -> np.ndarray:
+    """(2,) uint32 key words derived from ``rng`` and the integer ``data``
+    (the counterpart of ``jax.random.fold_in``): distinct ``data`` give
+    independent streams."""
+    seq = np.random.SeedSequence(_key_words(rng) + [int(data)])
+    return seq.generate_state(2, np.uint32)
+
+
 def init_population(cfg: GAConfig, seed: int, device) -> Population:
     i, p, g = cfg.num_islands, cfg.pop_per_island, cfg.num_genes
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     u = torch.rand((i, p, g), generator=gen, device=device,
                    dtype=torch.float32)
-    genomes = cfg.lower + (cfg.upper - cfg.lower) * u
+    if cfg.gene_lower is None and cfg.gene_upper is None:
+        genomes = cfg.lower + (cfg.upper - cfg.lower) * u
+    else:
+        # per-gene bounds: the reference draws every gene in [lower,
+        # upper] regardless, which starts its meta-GA outside Tab. 4's
+        # bounds (pop_size in [-1, 1]); the port draws inside them
+        lo, hi = (torch.as_tensor(b, device=device) for b in cfg.bounds())
+        genomes = lo + (hi - lo) * u
     fitness = torch.full((i, p, cfg.num_objectives), torch.inf,
                          dtype=torch.float32, device=device)
     rng = np.random.SeedSequence(int(seed)).generate_state(

@@ -7,7 +7,10 @@ draws every random number through a *uniform source*, a callable
 * :class:`GeneratorUniforms` draws from an explicit ``torch.Generator``
   (production);
 * :class:`ArrayUniforms` hands out pre-drawn arrays in order (parity runs
-  replay the reference's draws through it).
+  replay the reference's draws through it);
+* :class:`SeedUniforms` draws one stream per seed, shared across a leading
+  batch dim (the meta-GA's common random numbers: every individual runs
+  seed s on the same draws).
 
 Operators take a source as their first argument, in the place of the
 reference's ``rng`` key, and consume it in the reference's draw order.
@@ -52,6 +55,28 @@ class ArrayUniforms:
 
     def remaining(self) -> int:
         return len(self._queue)
+
+
+class SeedUniforms:
+    """One stream per seed, each from its own ``torch.Generator``, shared
+    across a leading batch dim: a draw of shape (N, S, *rest) returns
+    (S, *rest), row s drawn from seed s's generator as ``GeneratorUniforms``
+    would draw it, which broadcasts against the requested shape. Seed s's
+    draws do not depend on N."""
+
+    def __init__(self, generators, device):
+        self.generators = list(generators)
+        self.device = torch.device(device)
+
+    def __call__(self, shape) -> torch.Tensor:
+        shape = tuple(shape)
+        if len(shape) < 2 or shape[1] != len(self.generators):
+            raise ValueError(f"a draw of shape {shape} has no axis of "
+                             f"{len(self.generators)} seeds after the "
+                             f"batch dim")
+        return torch.stack([
+            torch.rand(shape[2:], generator=gen, device=self.device,
+                       dtype=torch.float32) for gen in self.generators])
 
 
 def as_source(rng, device=None) -> Callable:

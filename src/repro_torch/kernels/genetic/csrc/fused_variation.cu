@@ -50,8 +50,21 @@
 //    lane, and finding the source of a dense slot (the n-th set bit of
 //    four ballots) costs more than one store and one load per operand;
 //  * the five hyperparameters [eta_cx, prob_cx, eta_mut, prob_mut, indpb]
-//    arrive as a (5,) float32 device array: they stay runtime values (the
-//    meta-GA varies them) and never force a host sync;
+//    arrive as a float32 device array: they stay runtime values (the
+//    meta-GA varies them) and never force a host sync. One (5,) row for
+//    the whole launch, read once per thread; or one row per run (the
+//    meta-GA's inner GAs, R = individuals x seeds runs of P/2 pair rows
+//    each), where pair row r reads row r / run_pairs: the masks' three
+//    probabilities per slot at load time, and the exponents per element
+//    inside the compacted rounds, from the run index stored beside the
+//    gene index. The table is R x 20 bytes (9.6 KB at the meta-GA's 480
+//    runs) and stays in L1;
+//  * the uniforms may be shared across runs: pair row r reads uniform row
+//    r % rnd_pairs, so the meta-GA's (seeds, P, G) draws serve every
+//    individual (common random numbers) without being expanded to
+//    (individuals, seeds, P, G). The launcher takes the BATCHED template
+//    for either form, and the one-row, unshared launch keeps the code it
+//    had;
 //  * the uniforms are pre-drawn by the caller, so the kernel is
 //    deterministic and comparable with the plain version.
 // Precision: IEEE powf and division, no fast math, and the build passes
@@ -81,14 +94,22 @@ __device__ __forceinline__ float clipf(float x, float lo, float hi) {
     return fminf(fmaxf(x, lo), hi);
 }
 
-// Exponents shared by every element, formed once per thread with the
-// plain version's float32 operations.
+// Exponents of one hyperparameter row, formed with the plain version's
+// float32 operations: once per thread for a one-row launch, per element
+// inside the compacted rounds for a launch with one row per run.
 struct Exponents {
     float cx_alpha;   // -(eta_cx + 1)
     float cx_root;    // 1 / (eta_cx + 1)
     float mut_pow;    // eta_mut + 1
     float mut_root;   // 1 / (eta_mut + 1)
 };
+
+// The exponents of the row at `row` ([eta_cx, prob_cx, eta_mut, ...]).
+__device__ __forceinline__ Exponents exponents(const float* row) {
+    const float eta_cx = __ldg(row), eta_mut = __ldg(row + 2);
+    return {-(eta_cx + 1.0f), 1.0f / (eta_cx + 1.0f), eta_mut + 1.0f,
+            1.0f / (eta_mut + 1.0f)};
+}
 
 // The reference evaluates powf on both candidate bases and selects; taking
 // the select first and one powf of the chosen base gives the same value
@@ -169,46 +190,52 @@ __device__ __forceinline__ int compact(const bool (&on)[S], int (&pos)[S],
 //   VEC4:  SLOTS l + k  (one float4 of a pair row: G % 4 == 0),
 //   else:  WARP k + l   (scalar loads, each slot coalesced over the warp).
 // The loop runs per warp, so every lane reaches every ballot and
-// __syncwarp; slots past the end are masked off.
-template <bool VEC4, typename Idx>
+// __syncwarp; slots past the end are masked off. BATCHED: one
+// hyperparameter row per run of run_pairs pair rows, and uniforms of
+// rnd_pairs pair rows read at pair row r % rnd_pairs (else one row, and
+// rnd_pairs == run_pairs == pairs).
+template <bool VEC4, bool BATCHED, typename Idx>
 __global__ void __launch_bounds__(THREADS)
 fused_variation_kernel(const float* __restrict__ parents,   // (2*pairs, G)
-                       const float* __restrict__ u_cx,      // (pairs, G)
-                       const float* __restrict__ m_pair,    // (pairs, 1)
-                       const float* __restrict__ m_gene,    // (pairs, G)
-                       const float* __restrict__ u_mut,     // (2*pairs, G)
-                       const float* __restrict__ m_ind,     // (2*pairs, 1)
-                       const float* __restrict__ m_genem,   // (2*pairs, G)
+                       const float* __restrict__ u_cx,      // (rnd_pairs, G)
+                       const float* __restrict__ m_pair,    // (rnd_pairs, 1)
+                       const float* __restrict__ m_gene,    // (rnd_pairs, G)
+                       const float* __restrict__ u_mut,     // (2*rnd_pairs, G)
+                       const float* __restrict__ m_ind,     // (2*rnd_pairs, 1)
+                       const float* __restrict__ m_genem,   // (2*rnd_pairs, G)
                        const float* __restrict__ lower,     // (G,)
                        const float* __restrict__ upper,     // (G,)
-                       const float* __restrict__ scalars,   // (5,)
+                       const float* __restrict__ scalars,   // (runs, 5)
                        float* __restrict__ out,             // (2*pairs, G)
-                       Idx total, int genes) {              // total = pairs*G
-    // per warp: SBX slots (a, b, u, gene) x SPAN, or mutation slots
-    // (off, u2, gene) x 2 SPAN; gene indices are stored as float bits
-    __shared__ float buffer[WARPS][3 * 2 * SPAN];
+                       Idx total, int genes,                // total = pairs*G
+                       Idx rnd_pairs, Idx run_pairs) {
+    // per warp: SBX slots (a, b, u, gene[, run]) x SPAN, or mutation
+    // slots (off, u2, gene[, run]) x 2 SPAN; gene and run indices are
+    // stored as float bits
+    constexpr int FIELDS = BATCHED ? 4 : 3;
+    __shared__ float buffer[WARPS][FIELDS * 2 * SPAN];
     constexpr int CX = SPAN, MUT = 2 * SPAN;
     const unsigned lane = threadIdx.x % WARP;
     const unsigned lanes_below = (1u << lane) - 1u;
     float* const buf = buffer[threadIdx.x / WARP];
 
-    const float eta_cx = scalars[0];
+    // the one-row launch's hyperparameters (unused where BATCHED)
     const float prob_cx = scalars[1];
-    const float eta_mut = scalars[2];
     const float prob_mut = scalars[3];
     const float indpb = scalars[4];
-    const Exponents x = {-(eta_cx + 1.0f), 1.0f / (eta_cx + 1.0f),
-                         eta_mut + 1.0f, 1.0f / (eta_mut + 1.0f)};
+    const Exponents x = exponents(scalars);
     const Idx G = (Idx)genes;
     const Idx stride = (Idx)gridDim.x * WARPS * SPAN;
 
     for (Idx base = ((Idx)blockIdx.x * WARPS + threadIdx.x / WARP) * SPAN;
          base < total; base += stride) {
         // pair-gene el[k] of pair row r[k], gene j[k]; its parents and
-        // children lie at e1[k] = 2 r G + j (row 2r) and e1[k] + G
+        // children lie at e1[k] = 2 r G + j (row 2r) and e1[k] + G; its
+        // uniforms at eu[k] (pair streams) and e1u[k] (child streams) of
+        // uniform pair row ru[k]; its hyperparameters in row run[k]
         bool ok[SLOTS];
-        Idx el[SLOTS], r[SLOTS], e1[SLOTS];
-        int j[SLOTS];
+        Idx el[SLOTS], r[SLOTS], e1[SLOTS], ru[SLOTS], eu[SLOTS], e1u[SLOTS];
+        int j[SLOTS], run[SLOTS];
 #pragma unroll
         for (int k = 0; k < SLOTS; ++k) {
             el[k] = base + (VEC4 ? SLOTS * lane + k : WARP * k + lane);
@@ -216,12 +243,37 @@ fused_variation_kernel(const float* __restrict__ parents,   // (2*pairs, G)
                 ok[k] = ok[0];
                 r[k] = r[0];
                 j[k] = j[0] + k;
+                ru[k] = ru[0];
+                run[k] = run[0];
             } else {
                 ok[k] = el[k] < total;
                 r[k] = ok[k] ? el[k] / G : 0;
                 j[k] = ok[k] ? (int)(el[k] - r[k] * G) : 0;
+                ru[k] = BATCHED ? r[k] % rnd_pairs : r[k];
+                run[k] = BATCHED ? (int)(r[k] / run_pairs) : 0;
             }
             e1[k] = el[k] + r[k] * G;
+            eu[k] = BATCHED ? ru[k] * G + j[k] : el[k];
+            e1u[k] = BATCHED ? eu[k] + ru[k] * G : e1[k];
+        }
+        // the masks' probabilities of each slot's run
+        float pcx[SLOTS], pmut[SLOTS], pgene[SLOTS];
+#pragma unroll
+        for (int k = 0; k < SLOTS; ++k) {
+            if (BATCHED && (!VEC4 || k == 0)) {
+                const float* row = scalars + 5 * (Idx)run[k];
+                pcx[k] = __ldg(row + 1);
+                pmut[k] = __ldg(row + 3);
+                pgene[k] = __ldg(row + 4);
+            } else if (BATCHED) {
+                pcx[k] = pcx[0];
+                pmut[k] = pmut[0];
+                pgene[k] = pgene[0];
+            } else {
+                pcx[k] = prob_cx;
+                pmut[k] = prob_mut;
+                pgene[k] = indpb;
+            }
         }
 
         // every load before any arithmetic
@@ -233,15 +285,15 @@ fused_variation_kernel(const float* __restrict__ parents,   // (2*pairs, G)
             if (ok[0]) {
                 load4<false>(a, parents + e1[0]);
                 load4<false>(b, parents + e1[0] + G);
-                load4<true>(u, u_cx + el[0]);
-                load4<true>(mg, m_gene + el[0]);
-                load4<true>(um1, u_mut + e1[0]);
-                load4<true>(um2, u_mut + e1[0] + G);
-                load4<true>(mm1, m_genem + e1[0]);
-                load4<true>(mm2, m_genem + e1[0] + G);
-                const float mp = __ldg(m_pair + r[0]);
-                const float i1 = __ldg(m_ind + 2 * r[0]);
-                const float i2 = __ldg(m_ind + 2 * r[0] + 1);
+                load4<!BATCHED>(u, u_cx + eu[0]);
+                load4<!BATCHED>(mg, m_gene + eu[0]);
+                load4<!BATCHED>(um1, u_mut + e1u[0]);
+                load4<!BATCHED>(um2, u_mut + e1u[0] + G);
+                load4<!BATCHED>(mm1, m_genem + e1u[0]);
+                load4<!BATCHED>(mm2, m_genem + e1u[0] + G);
+                const float mp = __ldg(m_pair + ru[0]);
+                const float i1 = __ldg(m_ind + 2 * ru[0]);
+                const float i2 = __ldg(m_ind + 2 * ru[0] + 1);
 #pragma unroll
                 for (int k = 0; k < SLOTS; ++k) {
                     mpair[k] = mp;
@@ -255,15 +307,15 @@ fused_variation_kernel(const float* __restrict__ parents,   // (2*pairs, G)
                 if (ok[k]) {
                     a[k] = load1<false>(parents + e1[k]);
                     b[k] = load1<false>(parents + e1[k] + G);
-                    u[k] = load1<true>(u_cx + el[k]);
-                    mg[k] = load1<true>(m_gene + el[k]);
-                    um1[k] = load1<true>(u_mut + e1[k]);
-                    um2[k] = load1<true>(u_mut + e1[k] + G);
-                    mm1[k] = load1<true>(m_genem + e1[k]);
-                    mm2[k] = load1<true>(m_genem + e1[k] + G);
-                    mpair[k] = __ldg(m_pair + r[k]);
-                    mi1[k] = __ldg(m_ind + 2 * r[k]);
-                    mi2[k] = __ldg(m_ind + 2 * r[k] + 1);
+                    u[k] = load1<!BATCHED>(u_cx + eu[k]);
+                    mg[k] = load1<!BATCHED>(m_gene + eu[k]);
+                    um1[k] = load1<!BATCHED>(u_mut + e1u[k]);
+                    um2[k] = load1<!BATCHED>(u_mut + e1u[k] + G);
+                    mm1[k] = load1<!BATCHED>(m_genem + e1u[k]);
+                    mm2[k] = load1<!BATCHED>(m_genem + e1u[k] + G);
+                    mpair[k] = __ldg(m_pair + ru[k]);
+                    mi1[k] = __ldg(m_ind + 2 * ru[k]);
+                    mi2[k] = __ldg(m_ind + 2 * ru[k] + 1);
                 }
             }
         }
@@ -274,7 +326,7 @@ fused_variation_kernel(const float* __restrict__ parents,   // (2*pairs, G)
         float off[2 * SLOTS];                 // children: row 2r, row 2r+1
 #pragma unroll
         for (int k = 0; k < SLOTS; ++k) {
-            cx[k] = ok[k] && mpair[k] < prob_cx && mg[k] < 0.5f;
+            cx[k] = ok[k] && mpair[k] < pcx[k] && mg[k] < 0.5f;
             off[k] = a[k];
             off[SLOTS + k] = b[k];
         }
@@ -284,6 +336,7 @@ fused_variation_kernel(const float* __restrict__ parents,   // (2*pairs, G)
             float* const sb = buf + CX;
             float* const su = buf + 2 * CX;
             float* const sg = buf + 3 * CX;
+            float* const sr = buf + 4 * CX;     // BATCHED only
 #pragma unroll
             for (int k = 0; k < SLOTS; ++k) {
                 if (cx[k]) {
@@ -291,14 +344,18 @@ fused_variation_kernel(const float* __restrict__ parents,   // (2*pairs, G)
                     sb[pos[k]] = b[k];
                     su[pos[k]] = u[k];
                     sg[pos[k]] = __int_as_float(j[k]);
+                    if (BATCHED) sr[pos[k]] = __int_as_float(run[k]);
                 }
             }
             __syncwarp();
             for (int t = lane; t < n; t += WARP) {
                 const int g = __float_as_int(sg[t]);
+                Exponents xr = x;
+                if constexpr (BATCHED)
+                    xr = exponents(scalars + 5 * (Idx)__float_as_int(sr[t]));
                 float c1, c2;
                 sbx(sa[t], sb[t], su[t], __ldg(lower + g), __ldg(upper + g),
-                    x, c1, c2);
+                    xr, c1, c2);
                 sa[t] = c1;
                 sb[t] = c2;
             }
@@ -319,8 +376,8 @@ fused_variation_kernel(const float* __restrict__ parents,   // (2*pairs, G)
         float u2[2 * SLOTS];
 #pragma unroll
         for (int k = 0; k < SLOTS; ++k) {
-            mu[k] = ok[k] && mi1[k] < prob_mut && mm1[k] < indpb;
-            mu[SLOTS + k] = ok[k] && mi2[k] < prob_mut && mm2[k] < indpb;
+            mu[k] = ok[k] && mi1[k] < pmut[k] && mm1[k] < pgene[k];
+            mu[SLOTS + k] = ok[k] && mi2[k] < pmut[k] && mm2[k] < pgene[k];
             u2[k] = um1[k];
             u2[SLOTS + k] = um2[k];
         }
@@ -329,19 +386,24 @@ fused_variation_kernel(const float* __restrict__ parents,   // (2*pairs, G)
             float* const so = buf;
             float* const su = buf + MUT;
             float* const sg = buf + 2 * MUT;
+            float* const sr = buf + 3 * MUT;    // BATCHED only
 #pragma unroll
             for (int s = 0; s < 2 * SLOTS; ++s) {
                 if (mu[s]) {
                     so[mpos[s]] = off[s];
                     su[mpos[s]] = u2[s];
                     sg[mpos[s]] = __int_as_float(j[s % SLOTS]);
+                    if (BATCHED) sr[mpos[s]] = __int_as_float(run[s % SLOTS]);
                 }
             }
             __syncwarp();
             for (int t = lane; t < n; t += WARP) {
                 const int g = __float_as_int(sg[t]);
+                Exponents xr = x;
+                if constexpr (BATCHED)
+                    xr = exponents(scalars + 5 * (Idx)__float_as_int(sr[t]));
                 so[t] = mutate(so[t], su[t], __ldg(lower + g),
-                               __ldg(upper + g), x);
+                               __ldg(upper + g), xr);
             }
             __syncwarp();
 #pragma unroll
@@ -386,20 +448,52 @@ int pick(const float* parents, const float* u_cx, const float* m_gene,
     return (vec ? 1 : 0) | (wide ? 2 : 0);
 }
 
-template <bool VEC4, typename Idx>
+template <bool VEC4, bool BATCHED, typename Idx>
 void launch(const float* parents, const float* u_cx, const float* m_pair,
             const float* m_gene, const float* u_mut, const float* m_ind,
             const float* m_genem, const float* lower, const float* upper,
             const float* scalars, float* out, int64_t pairs, int genes,
-            cudaStream_t stream) {
+            int64_t rnd_pairs, int64_t run_pairs, cudaStream_t stream) {
     const int64_t total = pairs * genes;
     const int64_t per_block = (int64_t)WARPS * SPAN;
     int64_t blocks = (total + per_block - 1) / per_block;
     if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-    fused_variation_kernel<VEC4, Idx><<<(unsigned)blocks, THREADS, 0,
-                                        stream>>>(
+    fused_variation_kernel<VEC4, BATCHED, Idx><<<(unsigned)blocks, THREADS,
+                                                 0, stream>>>(
         parents, u_cx, m_pair, m_gene, u_mut, m_ind, m_genem, lower, upper,
-        scalars, out, (Idx)total, genes);
+        scalars, out, (Idx)total, genes, (Idx)rnd_pairs, (Idx)run_pairs);
+}
+
+template <bool BATCHED>
+void launch_picked(int code, const float* parents, const float* u_cx,
+                   const float* m_pair, const float* m_gene,
+                   const float* u_mut, const float* m_ind,
+                   const float* m_genem, const float* lower,
+                   const float* upper, const float* scalars, float* out,
+                   int64_t pairs, int genes, int64_t rnd_pairs,
+                   int64_t run_pairs, cudaStream_t s) {
+    switch (code) {
+    case 0:
+        launch<false, BATCHED, uint32_t>(
+            parents, u_cx, m_pair, m_gene, u_mut, m_ind, m_genem, lower,
+            upper, scalars, out, pairs, genes, rnd_pairs, run_pairs, s);
+        break;
+    case 1:
+        launch<true, BATCHED, uint32_t>(
+            parents, u_cx, m_pair, m_gene, u_mut, m_ind, m_genem, lower,
+            upper, scalars, out, pairs, genes, rnd_pairs, run_pairs, s);
+        break;
+    case 2:
+        launch<false, BATCHED, uint64_t>(
+            parents, u_cx, m_pair, m_gene, u_mut, m_ind, m_genem, lower,
+            upper, scalars, out, pairs, genes, rnd_pairs, run_pairs, s);
+        break;
+    default:
+        launch<true, BATCHED, uint64_t>(
+            parents, u_cx, m_pair, m_gene, u_mut, m_ind, m_genem, lower,
+            upper, scalars, out, pairs, genes, rnd_pairs, run_pairs, s);
+        break;
+    }
 }
 
 }  // namespace
@@ -417,36 +511,30 @@ extern "C" int fused_variation_template(
 
 // Launches on `stream`, one warp per SPAN pair-genes, and returns
 // cudaGetLastError() as an int: 0 on success, else the launch's error.
+// The uniforms hold rnd_pairs pair rows (a divisor of pairs: they repeat
+// over the leading runs), and each hyperparameter row serves run_pairs
+// pair rows (pairs for a (5,) row); the BATCHED template runs where either
+// differs from pairs.
 extern "C" int fused_variation_launch(
         const float* parents, const float* u_cx, const float* m_pair,
         const float* m_gene, const float* u_mut, const float* m_ind,
         const float* m_genem, const float* lower, const float* upper,
         const float* scalars, float* out, int64_t pairs, int genes,
-        void* stream) {
+        int64_t rnd_pairs, int64_t run_pairs, void* stream) {
     if (pairs <= 0 || genes <= 0) return (int)cudaGetLastError();
+    if (rnd_pairs <= 0 || run_pairs <= 0 || pairs % rnd_pairs ||
+        pairs % run_pairs)
+        return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
-    switch (pick(parents, u_cx, m_gene, u_mut, m_genem, lower, upper, out,
-                 pairs, genes)) {
-    case 0:
-        launch<false, uint32_t>(parents, u_cx, m_pair, m_gene, u_mut, m_ind,
-                                m_genem, lower, upper, scalars, out, pairs,
-                                genes, s);
-        break;
-    case 1:
-        launch<true, uint32_t>(parents, u_cx, m_pair, m_gene, u_mut, m_ind,
-                               m_genem, lower, upper, scalars, out, pairs,
-                               genes, s);
-        break;
-    case 2:
-        launch<false, uint64_t>(parents, u_cx, m_pair, m_gene, u_mut, m_ind,
-                                m_genem, lower, upper, scalars, out, pairs,
-                                genes, s);
-        break;
-    default:
-        launch<true, uint64_t>(parents, u_cx, m_pair, m_gene, u_mut, m_ind,
-                               m_genem, lower, upper, scalars, out, pairs,
-                               genes, s);
-        break;
-    }
+    const int code = pick(parents, u_cx, m_gene, u_mut, m_genem, lower,
+                          upper, out, pairs, genes);
+    if (rnd_pairs == pairs && run_pairs == pairs)
+        launch_picked<false>(code, parents, u_cx, m_pair, m_gene, u_mut,
+                             m_ind, m_genem, lower, upper, scalars, out,
+                             pairs, genes, rnd_pairs, run_pairs, s);
+    else
+        launch_picked<true>(code, parents, u_cx, m_pair, m_gene, u_mut,
+                            m_ind, m_genem, lower, upper, scalars, out,
+                            pairs, genes, rnd_pairs, run_pairs, s);
     return (int)cudaGetLastError();
 }

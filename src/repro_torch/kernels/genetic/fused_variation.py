@@ -5,7 +5,11 @@
 SBX crossover -> polynomial mutation -> bound clip in one pass over
 pre-drawn uniforms. Parents are the (..., P, G) matrix, read as rows of
 the flattened (R, G) matrix, R = I*P even, paired as rows (2r, 2r+1); the
-offspring come back interleaved in the same layout. The C launcher picks
+offspring come back interleaved in the same layout. The hyperparameters
+are one (5,) row, or one row per run ((..., 5) with the parents' leading
+dims); the uniforms may drop leading dims of the parents and are then
+shared across them (pair row r reads uniform row r % rnd_pairs). Either
+form takes the kernel's BATCHED template. The C launcher picks
 the kernel's template: each lane loads a float4 of a pair row where
 G % 4 == 0 and the streams are 16-byte aligned, else four pair-genes 32
 apart with scalar loads; 64-bit index math where pairs * G >= 2^31. The
@@ -26,7 +30,7 @@ KERNEL = "fused_variation"
 _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 #: C entry point -> argtypes; both return an int
 _SIGNATURES = {
-    "fused_variation_launch": [_PTR] * 11 + [_I64, _INT, _PTR],
+    "fused_variation_launch": [_PTR] * 11 + [_I64, _INT, _I64, _I64, _PTR],
     "fused_variation_template": [_PTR] * 8 + [_I64, _INT],
 }
 _entry: dict = {}
@@ -63,11 +67,16 @@ def fused_variation_cuda(parents: torch.Tensor, rnd: dict,
                          upper: torch.Tensor) -> torch.Tensor:
     """parents (..., P, G); rnd: u_cx (..., P/2, G), m_pair (..., P/2, 1),
     m_gene (..., P/2, G), u_mut (..., P, G), m_ind (..., P, 1),
-    m_genem (..., P, G); scalars (5,) = [eta_cx, prob_cx, eta_mut,
-    prob_mut, indpb]; lower/upper (G,). All float32, contiguous, on one
-    CUDA device (checked by the caller). Launches on the current stream
-    and returns the offspring, shaped as ``parents``."""
+    m_genem (..., P, G), where ``...`` may be a suffix of the parents'
+    leading dims; scalars (5,) or (..., 5) with the parents' leading dims
+    = [eta_cx, prob_cx, eta_mut, prob_mut, indpb]; lower/upper (G,). All
+    float32, contiguous, on one CUDA device (checked by the caller).
+    Launches on the current stream and returns the offspring, shaped as
+    ``parents``."""
     genes = parents.shape[-1]
+    pairs = parents.numel() // genes // 2
+    rnd_pairs = rnd["u_cx"].numel() // genes
+    run_pairs = pairs // (scalars.numel() // 5)
     index = parents.device.index
     out = torch.empty_like(parents)
     # the launch goes to the current device: switch only where the tensors
@@ -81,9 +90,8 @@ def fused_variation_cuda(parents: torch.Tensor, rnd: dict,
             rnd["m_pair"].data_ptr(), rnd["m_gene"].data_ptr(),
             rnd["u_mut"].data_ptr(), rnd["m_ind"].data_ptr(),
             rnd["m_genem"].data_ptr(), lower.data_ptr(), upper.data_ptr(),
-            scalars.data_ptr(), out.data_ptr(),
-            parents.numel() // genes // 2, genes,
-            torch._C._cuda_getCurrentRawStream(index))
+            scalars.data_ptr(), out.data_ptr(), pairs, genes, rnd_pairs,
+            run_pairs, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{KERNEL} kernel launch failed with CUDA error "
                            f"{err} (shape={tuple(parents.shape)})")

@@ -2,9 +2,12 @@
 
 ``fused_variation(parents, rnd, scalars, lower, upper)`` takes parents
 (..., P, G) with P even, the pre-drawn uniforms of ``ref.draw_uniforms``
-(same leading dims), the (5,) float32 hyperparameters
-[eta_cx, prob_cx, eta_mut, prob_mut, indpb] and (G,) bounds, and returns the
-offspring (..., P, G).
+(with the parents' leading dims, or a suffix of them: the uniforms are then
+shared across the dims they lack, as the meta-GA's seeds are across its
+individuals), the float32 hyperparameters [eta_cx, prob_cx, eta_mut,
+prob_mut, indpb] as one (5,) row or one row per run ((..., 5) with the
+parents' leading dims), and (G,) bounds, and returns the offspring
+(..., P, G).
 
 * On CPU tensors it runs the plain version (``ref.fused_variation_ref``).
 * On CUDA tensors it checks dtype, contiguity, shapes and even P, then
@@ -25,16 +28,17 @@ launches = 0
 
 def pack_scalars(eta_cx, prob_cx, eta_mut, prob_mut, indpb,
                  device=None) -> torch.Tensor:
-    """The kernel's (5,) float32 hyperparameter tensor. Numbers are copied
-    to ``device`` once; tensors are stacked where they lie, so tensor
-    hyperparameters never force a host sync."""
+    """The kernel's float32 hyperparameter tensor: (5,) from numbers or
+    0-d tensors, (..., 5) from per-run tensors (broadcast against each
+    other). Numbers are copied to ``device`` once; tensors are stacked
+    where they lie, so tensor hyperparameters never force a host sync."""
     vals = (eta_cx, prob_cx, eta_mut, prob_mut, indpb)
     if not any(isinstance(v, torch.Tensor) for v in vals):
         return torch.tensor([float(v) for v in vals], dtype=torch.float32,
                             device=device)
-    return torch.stack([torch.as_tensor(v, dtype=torch.float32,
-                                        device=device).reshape(())
-                        for v in vals])
+    return torch.stack(torch.broadcast_tensors(*(
+        torch.as_tensor(v, dtype=torch.float32, device=device)
+        for v in vals)), dim=-1)
 
 
 def fused_variation_plain(parents: torch.Tensor, rnd: dict,
@@ -42,8 +46,10 @@ def fused_variation_plain(parents: torch.Tensor, rnd: dict,
                           upper: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version under the wrapper's signature, on any
     device: what the wrapper runs on the CPU, and what the kernel is held
-    against on the card."""
-    eta_cx, prob_cx, eta_mut, prob_mut, indpb = scalars.unbind()
+    against on the card. Per-run rows broadcast over (P/2, G)."""
+    eta_cx, prob_cx, eta_mut, prob_mut, indpb = (
+        v.reshape(v.shape + (1, 1)) if v.dim() else v
+        for v in scalars.unbind(-1))
     return fused_variation_ref(
         parents[..., 0::2, :], parents[..., 1::2, :], rnd,
         eta_cx=eta_cx, prob_cx=prob_cx, eta_mut=eta_mut,
@@ -73,10 +79,14 @@ def fused_variation(parents: torch.Tensor, rnd: dict, scalars: torch.Tensor,
 
 
 def _expected(parents, rnd, scalars, lower, upper) -> tuple:
-    """(name, tensor, expected shape) of every argument the kernel reads."""
+    """(name, tensor, expected shape) of every argument the kernel reads.
+    The uniforms' leading dims are the suffix of the parents' that
+    ``u_cx`` has; the scalars' are none or all of them."""
     *lead, p, g = parents.shape
-    half, full = (*lead, p // 2), (*lead, p)
-    return (("parents", parents, parents.shape), ("scalars", scalars, (5,)),
+    drop = min(max(len(lead) + 2 - rnd["u_cx"].dim(), 0), len(lead))
+    half, full = (*lead[drop:], p // 2), (*lead[drop:], p)
+    rows = (5,) if scalars.dim() <= 1 else (*lead, 5)
+    return (("parents", parents, parents.shape), ("scalars", scalars, rows),
             ("lower", lower, (g,)), ("upper", upper, (g,)),
             ("u_cx", rnd["u_cx"], (*half, g)),
             ("m_pair", rnd["m_pair"], (*half, 1)),

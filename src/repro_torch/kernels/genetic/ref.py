@@ -76,12 +76,14 @@ def _clip(x, lower, upper):
 
 
 def draw_uniforms(generator, p: int, g: int, device=None,
-                  islands: int | None = None) -> dict:
+                  islands: int | tuple | None = None) -> dict:
     """The reference's uniform dict (same keys, shapes and draw order), from
-    a ``torch.Generator`` or a uniform source; with ``islands`` every array
-    gains a leading (I,) axis."""
+    a ``torch.Generator`` or a uniform source; with ``islands`` (a count or
+    a tuple of leading dims) every array gains those leading axes. A source
+    may return arrays that broadcast to them (``SeedUniforms``)."""
     rand = as_source(generator, device)
-    lead = () if islands is None else (islands,)
+    lead = (() if islands is None else
+            tuple(islands) if isinstance(islands, tuple) else (islands,))
     p2 = p // 2
     return {
         "u_cx": rand(lead + (p2, g)),

@@ -1,7 +1,8 @@
-"""The dispatch runtime: batch-scheduled (SLURM / Kubernetes array) dispatch
-and the persistent-worker message queue, ported from the reference's
-``runtime`` package. Straggler mitigation and elastic resizing
-(``straggler``, ``elastic``) are not ported yet.
+"""Runtime resilience and dispatch, ported from the reference's ``runtime``
+package: straggler mitigation (``straggler``: speculative backup
+evaluation), elasticity (``elastic``: repartition onto a resized fleet),
+batch-scheduled (SLURM / Kubernetes array) dispatch and the
+persistent-worker message queue.
 
 Exports resolve lazily (PEP 562): the batch-queue worker entrypoint
 (``python -m repro_torch.runtime.batchq --worker …``) imports this package on
@@ -11,6 +12,8 @@ interpreter startup is on the critical path at cluster scale.
 import importlib
 
 _EXPORTS = {
+    "repartition_islands": "repro_torch.runtime.elastic",
+    "backup_dispatch_eval": "repro_torch.runtime.straggler",
     "SlurmArrayBackend": "repro_torch.runtime.batchq",
     "SlurmScheduler": "repro_torch.runtime.batchq",
     "LocalMockScheduler": "repro_torch.runtime.batchq",

@@ -1,6 +1,7 @@
 """Tests that need an NVIDIA GPU: each CUDA kernel against its plain
 version, the wrappers' refusals, and the port's paths on the card (the GA
-main path; the host pool on CUDA genomes; prefill with the kernels against prefill with their plain
+main path; the fused variation with one hyperparameter row per run and a
+meta-fitness call through it; the host pool on CUDA genomes; prefill with the kernels against prefill with their plain
 versions; the serving entry point; the HVDC power flow against the same
 code on the CPU).
 They skip without a card. This file imports no JAX, so it runs on a
@@ -159,6 +160,87 @@ def test_ga_run_on_card_launches_the_kernel(cuda_device, capsys):
     assert torch.equal(pop.genomes, pop2.genomes)
     assert hist[-1]["best"] <= hist[0]["best"]
     assert "best fitness:" in capsys.readouterr().out
+
+
+def _per_run_args(n, s, p, g, device, seed, shared=True):
+    """Parents (n, s, p, g), uniforms per seed (s, ...) or per run, one
+    random Tab. 4 hyperparameter row per run (n, s, 5), bounds +-5.12."""
+    from repro_torch.kernels.genetic.ref import draw_uniforms
+    gen = torch.Generator(device=device).manual_seed(seed)
+    parents = (torch.rand((n, s, p, g), generator=gen, device=device)
+               * 2 - 1) * 5.12
+    rnd = draw_uniforms(gen, p, g, device, islands=(s,) if shared
+                        else (n, s))
+    rs = np.random.default_rng(seed)
+    rows = np.c_[rs.uniform(0.01, 100, n), rs.uniform(0, 1, n),
+                 rs.uniform(0.01, 100, n), rs.uniform(0, 1, n),
+                 np.full(n, 1.0 / g)].astype(np.float32)
+    scalars = torch.from_numpy(rows).to(device)[:, None, :].expand(
+        n, s, 5).contiguous()
+    lo = torch.full((g,), -5.12, device=device)
+    return parents, rnd, scalars, lo, -lo
+
+
+@pytest.mark.parametrize("n,s,p,g,shared", [
+    (96, 5, 500, 128, True), (96, 5, 500, 128, False), (8, 5, 64, 6, True),
+    (8, 5, 64, 6, False), (3, 2, 130, 33, True)])
+def test_kernel_per_run_rows_match_plain_version(cuda_device, n, s, p, g,
+                                                 shared):
+    """One hyperparameter row per run (the meta-GA's inner GAs), uniforms
+    shared across the individuals or per run: bit-equal to the plain
+    version, at the meta-GA's full shape, at G = 6 (scalar loads) and an
+    odd G."""
+    args = _per_run_args(n, s, p, g, cuda_device, p + g, shared)
+    before = ops.launches
+    out = ops.fused_variation(*args)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    assert torch.equal(out, ops.fused_variation_plain(*args))
+
+
+@pytest.mark.parametrize("g", [128, 6])
+def test_kernel_equal_rows_match_one_row_form(cuda_device, g):
+    """Every run's row equal to one (5,) row: the per-run launch gives the
+    (5,) launch's bits, with per-run and shared uniforms alike; (1, 5)
+    rows are the (5,) form."""
+    parents, rnd, _, lo, hi = _per_run_args(4, 3, 64, g, cuda_device, 1,
+                                            shared=False)
+    one = ops.pack_scalars(*GA_RUN_HP, 1.0 / g, device=cuda_device)
+    ref = ops.fused_variation(parents, rnd, one, lo, hi)
+    rows = one.expand(4, 3, 5).contiguous()
+    assert torch.equal(ops.fused_variation(parents, rnd, rows, lo, hi), ref)
+    shared = {k: v[0] for k, v in rnd.items()}
+    expanded = {k: v.expand((4,) + v.shape).contiguous()
+                for k, v in shared.items()}
+    assert torch.equal(ops.fused_variation(parents, shared, rows, lo, hi),
+                       ops.fused_variation(parents, expanded, one, lo, hi))
+    first = {k: v[0, 0] for k, v in rnd.items()}
+    assert torch.equal(
+        ops.fused_variation(parents[:1, 0], {k: v[None] for k, v in
+                                             first.items()},
+                            one[None], lo, hi),
+        ops.fused_variation(parents[0, 0], first, one, lo, hi)[None])
+
+
+def test_meta_fitness_kernel_matches_plain_variation(cuda_device,
+                                                     monkeypatch):
+    """A meta-fitness call through the kernel against the same call with
+    the plain variation in the wrapper's place: the same bits."""
+    from repro_torch.core.meta import make_meta_fitness
+    inner = GAConfig(num_genes=16, lower=-5.12, upper=5.12)
+    fit = make_meta_fitness(inner, rastrigin, p_max=64, generations=4,
+                            num_seeds=3)
+    rs = np.random.default_rng(0)
+    hg = torch.from_numpy(np.c_[rs.uniform(12, 64, 6), rs.uniform(0, 1, 6),
+                                rs.uniform(0, 1, 6), rs.uniform(1, 99, 6),
+                                rs.uniform(1, 99, 6)].astype(np.float32)
+                          ).to(cuda_device)
+    before = ops.launches
+    kernel = fit(hg)
+    assert ops.launches == before + 4
+    monkeypatch.setattr(ops, "fused_variation", ops.fused_variation_plain)
+    assert torch.equal(fit(hg), kernel)
+    assert bool(torch.isfinite(kernel).all())
 
 
 # ---------------------------------------------------------------------------

@@ -272,7 +272,13 @@ def test_subprocess_fleet_runs_the_ports_numpy_workers(tmp_path):
         for proc in members:
             assert proc.args[1:4] == ["-m", "repro_torch.runtime.mq",
                                       "--worker"]
-            cmdline = Path(f"/proc/{proc.pid}/cmdline").read_bytes()
+            # Popen returns once exec has begun; the new image's argument
+            # area (what /proc shows) is set up a moment later, so read
+            # until it appears
+            cmdline, deadline = b"", time.monotonic() + 10.0
+            while not cmdline and time.monotonic() < deadline:
+                cmdline = Path(f"/proc/{proc.pid}/cmdline").read_bytes()
+                time.sleep(0 if cmdline else 0.01)
             assert b"repro_torch.runtime.mq" in cmdline
         g = np.ones((8, 3), np.float32)
         # 1: the worker's main module is the port's, and no torch, jax or
