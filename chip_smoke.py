@@ -19,8 +19,11 @@ k8s-mock``: the port's queue runtime and workers), and the paper's
 hierarchical meta-GA (``GAEngine(meta_ga_config(), make_meta_fitness(...))``:
 the inner GAs batched over individuals x seeds through the fused
 variation kernel with one hyperparameter row per run) with the elastic
-``GAEngine.resize`` and speculative backup dispatch. Phases, in order;
-any failure exits non-zero:
+``GAEngine.resize`` and speculative backup dispatch, and the LM
+hyperparameter search (``ga_run --fitness lm``: every genome's training
+run batched through ``torch.func``, the flash kernels folding the runs
+into their batch axis) with mamba2-780m training on the card. Phases, in
+order; any failure exits non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
 2. build:  every CUDA kernel of the port (fused variation, flash attention
@@ -78,7 +81,15 @@ any failure exits non-zero:
            full-size meta-fitness call through the kernel bit-equal to
            the same call on the plain variation (20 launches); and
            backup_dispatch_eval(rastrigin) on (32768, 128) card genomes
-           over 4 workers, bit-equal to direct evaluation;
+           over 4 workers, bit-equal to direct evaluation; the flash
+           wrapper under vmap(grad) over 8 runs at reduced tinyllama-1.1b's
+           and gemma2-2b's layer shapes (window 16 and global, softcap
+           50): one forward and one backward launch a call, each run's
+           gradients against a separate call's (1e-3 / 1e-4); the LM
+           fitness for 8 genomes (corners included) on the card against
+           the CPU (1e-4 / 2e-6), against one plain run per genome and in
+           two chunks (1e-5), for each of the three archs; one reduced
+           mamba2-780m train step on the card against the CPU;
 4. main:   ``python -m repro_torch.launch.ga_run --fitness rastrigin`` at
            I=32 islands x P=1024 individuals x G=128 genes, 5 generations x
            3 epochs, then again with --sync-every 2 --pipeline-depth 2,
@@ -123,9 +134,19 @@ any failure exits non-zero:
            main shape resized 32 -> 16 -> 32 islands between epochs
            (cost-balanced over 8 lanes rescaled with the islands): the
            best kept through the shrink, the clones re-evaluated, 15
-           launches, bit-identical to a run that keeps 8 lanes. Every
-           run has the launch counts zeroed just before it and read just
-           after;
+           launches, bit-identical to a run that keeps 8 lanes;
+           ``ga_run --fitness lm`` at the reference's defaults (4 islands
+           x 32, 5 generations an epoch, 6 steps) for 2 epochs on
+           tinyllama-1.1b, gemma2-2b and mamba2-780m, and on
+           tinyllama-1.1b under host-thread: flash forward and backward
+           launches exactly attention layers x 6 x fitness calls (none on
+           mamba2, and no SSD or fused variation launch), finite losses,
+           the best no worse than the corner [0, 0, 1, 1] + 1e-3;
+           ``python -m repro_torch.launch.train --arch mamba2-780m --full
+           --steps 8 --batch 2 --seq 1024`` through the plain chunked scan:
+           no kernel launch, finite losses, the last below the first, its
+           peak memory. Every run has the launch counts zeroed just before
+           it and read just after;
 5. times:  with CUDA events, medians of repeats: each kernel beside its
            bound and its plain version. The fused variation at the main
            shape at three points (no crossover or mutation, so no powf
@@ -171,13 +192,19 @@ any failure exits non-zero:
            one inner generation phase by phase, the kernel at the meta
            shape with the uniforms shared and expanded per run beside
            each bound, and the plain version, the (5,) form at the main
-           shape, the meta run's wall s and the resize ms;
+           shape, the meta run's wall s and the resize ms; one LM
+           fitness call at 128 and 1024 genomes (ms, training runs/s,
+           tokens/s, peak memory; one launch of each flash kernel per
+           layer and step at both sizes), the per-genome loop at 128
+           genomes, which the batched call must beat, and the mamba2-780m
+           train step (ms, tokens/s);
 6. trace:  one prefill and 8 decode steps of each served model, and one
            train step of the training path, under torch.profiler: the
            device's idle share and the kernels' share of each window and
            the largest device entries, read from the trace; in the train
            step each flash kernel's ms per launch (a flash kernel missing
-           from FLASH_SYMBOLS fails the run);
+           from FLASH_SYMBOLS fails the run); one batched LM fitness call
+           (128 genomes): idle share, flash share, largest entries;
 7. the ``{"kernels": [...]}`` line (five kernels), the card line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
@@ -345,6 +372,36 @@ META_KERNEL_CASES = [(META_N, META["seeds"], META["p_max"], META["genes"]),
 # dispatch on the main shape's population over BACKUP_WORKERS lanes
 RESIZE_ISLANDS = (32, 16, 32)
 RESIZE_WORKERS, BACKUP_WORKERS = 8, 4
+# the LM hyperparameter search: ``ga_run --fitness lm`` at the reference's
+# defaults (4 islands x 32, 5 generations an epoch, 6 training steps of
+# batch 4 x 32 a genome) for 2 epochs, on each arch, and tinyllama-1.1b
+# under host-thread; a fitness call trains all of its genomes as one
+# vmapped run, so each attention layer launches the flash forward and
+# backward kernels once a step, whatever the population. Checked: the
+# flash wrapper under vmap(grad) over LM_VMAP_RUNS runs at the reduced
+# layers' shapes (a 128-genome call's folded batch) against the plain
+# versions; the fitness for LM_CHECK_N genomes (the corners of
+# tests/test_system.py among them) on the card against the CPU
+# (tests/test_torch_train.py's PARAM_TOL), against one plain run per
+# genome and in two chunks (LM_SELF_RTOL). Timed at LM_TIME_N genomes
+# (the main run's population, and 32 x 32), the per-genome loop at
+# LM_LOOP_N. mamba2-780m trains at its published widths through the plain
+# chunked scan (SSM_TRAIN_ARGS)
+LM_ARCHS = ("tinyllama-1.1b", "gemma2-2b", "mamba2-780m")
+LM = dict(islands=4, pop=32, gens_per_epoch=5, epochs=2, steps=6)
+LM_ARGS = ["--fitness", "lm", "--islands", str(LM["islands"]), "--pop",
+           str(LM["pop"]), "--gens-per-epoch", str(LM["gens_per_epoch"]),
+           "--epochs", str(LM["epochs"]), "--lm-steps", str(LM["steps"]),
+           "--device", "cuda"]
+LM_CORNERS = ([0.0, 0.0, 1.0, 1.0], [1.0, 1.0, 0.0, 0.0])
+LM_CHECK_N = 8
+LM_CPU_TOL, LM_SELF_RTOL = (1e-4, 2e-6), 1e-5
+LM_TIME_N, LM_LOOP_N = (128, 1024), 128
+LM_VMAP_RUNS = LM_TIME_N[0]
+SSM_TRAIN_STEPS, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 24, 2, 1024
+SSM_TRAIN_ARGS = ["--arch", "mamba2-780m", "--full", "--steps",
+                  str(SSM_TRAIN_STEPS), "--batch", str(SSM_TRAIN_BATCH),
+                  "--seq", str(SSM_TRAIN_SEQ), "--device", "cuda"]
 # host time of a wrapper call: mean over this many calls, one sync at the
 # end, at the main shape and at a small one where the device keeps up
 HOST_CALLS = 1000
@@ -3485,6 +3542,377 @@ def phase_times_meta(device, card, main_kernel_ms, meta_run, resize_run):
             **kernel["shared"], "per_run_uniforms": kernel["per_run"]}
 
 
+# ---------------------------------------------------------------------------
+# The LM hyperparameter search (ga_run --fitness lm), mamba2 training
+# ---------------------------------------------------------------------------
+
+def lm_attn_layers(arch):
+    """Attention layers of ``arch``'s reduced config (the LM fitness's
+    model)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    return sum(cfg.mixer_kind(i % cfg.scan_period) == "attn"
+               for i in range(cfg.num_layers))
+
+
+def lm_genomes(n, device, seed):
+    """(n, 4) genomes in [0, 1] drawn on the CPU from ``seed``, the first
+    two LM_CORNERS."""
+    import torch
+    g = torch.rand((n, 4), generator=torch.Generator().manual_seed(seed))
+    g[:2] = torch.tensor(LM_CORNERS)
+    return g.to(device)
+
+
+def lm_counts():
+    """(flash forward, flash backward, SSD, fused variation) launches."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.genetic import ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return (attn_ops.launches, attn_ops.bwd_launches, ssd_ops.launches,
+            ops.launches)
+
+
+def zero_counts():
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.genetic import ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    attn_ops.launches = attn_ops.bwd_launches = 0
+    ssd_ops.launches = ops.launches = 0
+
+
+def check_flash_vmap(arch, device, seed):
+    """The flash wrapper under vmap(grad(...)) over LM_VMAP_RUNS runs at
+    ``arch``'s reduced layer shapes (the LM fitness's batch x sequence, so
+    the runs fold into the batch of a call at LM_TIME_N[0] genomes; each
+    window the config has, its softcap): one forward and one backward
+    launch a call; each run's output against the plain forward
+    (``flash_attention_fwd_plain``) at ATTN_TOL, and its dq, dk, dv
+    against the plain backward (``flash_attention_bwd_plain``) on the same
+    card tensors and against a separate wrapper call's, at GRAD_TOL.
+    Returns the largest gradient error against the plain version."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import (flash_attention_bwd_plain,
+                                                   flash_attention_fwd_plain)
+    cfg = get_config(arch).reduced()
+    r, b, s = LM_VMAP_RUNS, 4, 32
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    worst = 0.0
+    for window in sorted({cfg.sliding_window, 0}):
+        kw = dict(scale=(cfg.query_pre_attn_scalar or hd) ** -0.5,
+                  causal=True, window=window, attn_softcap=cfg.attn_softcap)
+        gen = torch.Generator(device=device).manual_seed(seed + window)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=device)
+                       for shape in ((r, b, s, h, hd), (r, b, s, kv, hd),
+                                     (r, b, s, kv, hd), (r, b, s, h, hd)))
+
+        def loss(q, k, v, do, kw=kw):
+            out = attn_ops.flash_attention(q, k, v, **kw)
+            return (out * do).sum(), out
+
+        before = lm_counts()
+        grads, out = torch.func.vmap(torch.func.grad(
+            loss, argnums=(0, 1, 2), has_aux=True))(q, k, v, do)
+        torch.cuda.synchronize()
+        got = tuple(a - b_ for a, b_ in zip(lm_counts(), before))[:2]
+        if got != (1, 1):
+            fail(f"flash under vmap(grad) at {arch}'s layer (window "
+                 f"{window}): launches {got}, expected one forward and one "
+                 f"backward")
+        out_err = plain_err = self_err = 0.0
+        for i in range(r):
+            p_out, p_lse = flash_attention_fwd_plain(q[i], k[i], v[i], **kw)
+            ok, e = close(out[i], p_out, *ATTN_TOL["float32"])
+            if not ok:
+                fail(f"flash under vmap(grad) at {arch}'s layer (window "
+                     f"{window}), run {i}: the output differs from the plain "
+                     f"forward's by {e}")
+            out_err = max(out_err, e)
+            plain = flash_attention_bwd_plain(q[i], k[i], v[i], p_out, p_lse,
+                                              do[i], **kw)
+            qi, ki, vi = (x[i].clone().requires_grad_() for x in (q, k, v))
+            own = torch.autograd.grad(loss(qi, ki, vi, do[i])[0],
+                                      (qi, ki, vi))
+            for name, a, p_, w in zip(("dq", "dk", "dv"), grads, plain, own):
+                ok, e = close(a[i], p_, *GRAD_TOL)
+                ok_own, e_own = close(a[i], w, *GRAD_TOL)
+                if not (ok and ok_own):
+                    fail(f"flash under vmap(grad) at {arch}'s layer (window "
+                         f"{window}), run {i}: {name} differs from the plain "
+                         f"backward's by {e}, from a separate call's by "
+                         f"{e_own}")
+                plain_err, self_err = max(plain_err, e), max(self_err, e_own)
+        say(f"check: flash attention under vmap(grad), {r} runs at {arch}'s "
+            f"reduced layer ({b}, {s}, {h}, {kv}, {hd}), window {window}, "
+            f"softcap {cfg.attn_softcap}: one forward and one backward "
+            f"launch; max abs err against the plain versions: out "
+            f"{out_err:.3g}, grads {plain_err:.3g}; grads against {r} "
+            f"separate calls {self_err:.3g}")
+        worst = max(worst, plain_err)
+    return worst
+
+
+def check_lm_fitness(arch, device):
+    """LMTrainFitness for LM_CHECK_N genomes on the card against the CPU
+    (LM_CPU_TOL), against one plain run per genome on the card and in two
+    chunks (LM_SELF_RTOL); every loss finite. Returns the errors."""
+    import torch
+    from repro_torch.fitness.lm import LMTrainFitness
+    g = lm_genomes(LM_CHECK_N, "cpu", seed=7)
+    fit = LMTrainFitness(arch, steps=LM["steps"], device=device)
+    got = fit(g.to(device))
+    if not bool(torch.isfinite(got).all()):
+        fail(f"LM fitness {arch}: losses {got.flatten().tolist()}")
+    cpu = LMTrainFitness(arch, steps=LM["steps"], device="cpu")(g)
+    loop = fit.per_genome_loop(g.to(device))
+    fit.chunk_runs = lambda: LM_CHECK_N // 2
+    two = fit(g.to(device))
+    errs = {}
+    for label, a, b, tol in (("card vs CPU", got.cpu(), cpu, LM_CPU_TOL),
+                             ("batched vs per-genome loop", got, loop,
+                              (LM_SELF_RTOL, 0.0)),
+                             ("one chunk vs two", got, two,
+                              (LM_SELF_RTOL, 0.0))):
+        ok, errs[label] = close(a, b, *tol)
+        if not ok:
+            fail(f"LM fitness {arch}, {label}: {a.flatten().tolist()} vs "
+                 f"{b.flatten().tolist()}")
+    say(f"check: LM fitness {arch} ({LM_CHECK_N} genomes, corners "
+        f"included, {LM['steps']} steps): losses "
+        f"{[round(x, 6) for x in got.flatten().tolist()]}; max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return errs
+
+
+def phase_check_lm_fitness(device):
+    """The flash wrapper under vmap(grad), the LM fitness against itself
+    and the CPU, and one reduced mamba2-780m train step on the card
+    against the CPU. Returns the largest vmap(grad) gradient error against
+    the plain backward."""
+    err = max(check_flash_vmap(arch, device, seed=40 + i)
+              for i, arch in enumerate(LM_ARCHS[:2]))
+    for arch in LM_ARCHS:
+        check_lm_fitness(arch, device)
+    errs = train_step_card_vs_cpu("mamba2-780m", device)
+    say(f"check: one train step of reduced mamba2-780m (plain chunked "
+        f"scan), card vs CPU: loss {errs[0]:.3g}, grad norm {errs[1]:.3g} "
+        f"(relative), grads {errs[2]:.3g} of each leaf's largest")
+    return err
+
+
+def lm_run(arch, extra=(), chunks=1):
+    """``ga_run --fitness lm --lm-arch arch`` (LM_ARGS + ``extra``) with
+    the launch counts zeroed just before and read just after: the flash
+    forward and backward exactly attention layers x steps x fitness calls
+    (the engine's evaluations of the population, ``chunks`` calls each),
+    no SSD or fused variation launch; finite losses in [0, 1]-bounded
+    genomes; the best no worse than the corner [0, 0, 1, 1] + 1e-3
+    (tests/test_system.py:40-55)."""
+    import torch
+    from repro_torch.fitness.lm import LMTrainFitness
+    label = f"ga_run lm {arch}{' ' + ' '.join(extra) if extra else ''}"
+    zero_counts()
+    t0 = time.perf_counter()
+    pop, hist, lines = run_captured(LM_ARGS + ["--lm-arch", arch]
+                                    + list(extra))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = lm_counts()
+    per_eval = LM["islands"] * LM["pop"]
+    evaluations = 1 + LM["epochs"] * LM["gens_per_epoch"]
+    if pop.evals != evaluations * per_eval:
+        fail(f"{label}: {pop.evals} evaluations, expected "
+             f"{evaluations} x {per_eval}")
+    calls = evaluations * chunks
+    expect = lm_attn_layers(arch) * LM["steps"] * calls
+    say(f"main: {label}: {wall:.3f} s wall, {calls} fitness calls, flash "
+        f"forward / backward launches {got[0]} / {got[1]}, ssd {got[2]}, "
+        f"fused variation {got[3]}")
+    if got != (expect, expect, 0, 0):
+        fail(f"{label}: kernel launches {got}, expected ({expect}, "
+             f"{expect}, 0, 0)")
+    if extra:
+        check_dispatch_line(lines, label)
+    if not bool(torch.isfinite(pop.fitness).all()) or not bool(
+            ((pop.genomes >= 0) & (pop.genomes <= 1)).all()):
+        fail(f"{label}: fitness not finite or genomes outside [0, 1]")
+    best, device = float(pop.fitness.min()), pop.genomes.device
+    corners = LMTrainFitness(arch, steps=LM["steps"], device=device)(
+        torch.tensor(LM_CORNERS, device=device)).flatten().tolist()
+    if not best <= corners[0] + 1e-3:
+        fail(f"{label}: best {best} worse than the corner [0, 0, 1, 1]'s "
+             f"{corners[0]} + 1e-3")
+    say(f"main: {label}: epoch bests {[h['best'] for h in hist]}, best "
+        f"{best!r} vs the corners' {corners}")
+    return {"launches": got[0], "bwd_launches": got[1], "calls": calls,
+            "wall_s": wall, "best": best, "corners": corners}
+
+
+def phase_main_lm():
+    """``ga_run --fitness lm`` on each arch, and tinyllama-1.1b under
+    host-thread (HOST_WORKERS chunks a generation, each a fitness call on
+    the card behind one lock)."""
+    runs = {arch: lm_run(arch) for arch in LM_ARCHS}
+    runs["tinyllama-1.1b host-thread"] = lm_run(
+        "tinyllama-1.1b", ["--dispatch-backend", "host-thread"] + HOST_ARGS,
+        chunks=HOST_WORKERS)
+    return runs
+
+
+def phase_train_ssm():
+    """``launch.train --arch mamba2-780m --full`` (SSM_TRAIN_ARGS) through
+    the plain chunked scan, with the launch counts zeroed just before and
+    read just after: no kernel launch, finite losses, the last and the mean
+    of the last three below the first. Each step's loss is on its own
+    batch, and the first steps differ by more than they learn (the
+    learning rate warms up over 5 steps), so the run takes
+    SSM_TRAIN_STEPS steps. Returns the run's stats."""
+    import torch
+    from repro_torch.launch import train
+    zero_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    train.main(SSM_TRAIN_ARGS, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = lm_counts()
+    say(f"main: train {' '.join(SSM_TRAIN_ARGS)}: {wall:.3f} s wall (set-up "
+        f"included), launches (flash forward, backward, ssd, fused "
+        f"variation) {got}; peak device memory {stats['peak_bytes']} B")
+    if got != (0, 0, 0, 0):
+        fail(f"train mamba2-780m: kernel launches {got}, expected none")
+    losses, norms = stats["loss"], stats["grad_norm"]
+    if len(losses) != SSM_TRAIN_STEPS or not all(
+            map(math.isfinite, losses + norms)):
+        fail(f"train mamba2-780m: losses {losses}, grad norms {norms}")
+    if not (losses[-1] < losses[0]
+            and statistics.mean(losses[-3:]) < losses[0]):
+        fail(f"train mamba2-780m: the last loss {losses[-1]} or the mean of "
+             f"the last three {statistics.mean(losses[-3:])} is not below "
+             f"the first {losses[0]}")
+    say(f"main: train mamba2-780m losses {losses}; grad norms {norms}")
+    torch.cuda.empty_cache()
+    return dict(stats, wall_s=wall)
+
+
+def phase_times_lm_fitness(device, card, ssm_stats):
+    """One fitness call (tinyllama-1.1b, LM['steps'] steps) at each of
+    LM_TIME_N genomes (CUDA events, median of 3 after a warm-up): ms,
+    training runs/s, tokens/s and peak device memory, which must stay
+    below the chunk sizing's estimate (``run_bytes()`` x genomes), and its
+    launches, which must be one forward and one backward per attention
+    layer and step at every size; the per-genome loop at LM_LOOP_N genomes (one
+    timed call), which the batched call must beat; the mamba2-780m train
+    step at its published widths (host clock, synchronised, median of
+    steps 2-N)."""
+    import torch
+    from repro_torch.fitness.lm import LMTrainFitness
+    fit = LMTrainFitness(steps=LM["steps"], device=device)
+    per_call = lm_attn_layers(fit.arch) * LM["steps"]
+    tokens = LM["steps"] * fit.batch_size * fit.seq_len
+    rows = {}
+    for n in LM_TIME_N:
+        g = lm_genomes(n, device, seed=n)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        before = lm_counts()
+        fit(g)
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip(lm_counts(), before))[:2]
+        if got != (per_call, per_call):
+            fail(f"one LM fitness call at {n} genomes: flash launches "
+                 f"{got}, expected {per_call} each (the count must not "
+                 f"depend on the population)")
+        peak, estimate = torch.cuda.max_memory_allocated(device), \
+            fit.run_bytes() * n
+        if not peak < estimate:
+            fail(f"one LM fitness call at {n} genomes: peak device memory "
+                 f"{peak} B above the chunk sizing's estimate {estimate} B")
+        ms = cuda_ms(lambda: fit(g), repeats=3, inner=1)
+        rows[n] = {"ms": ms, "runs_per_s": n / ms * 1e3,
+                   "tokens_per_s": n * tokens / ms * 1e3,
+                   "peak_bytes": peak, "estimate_bytes": estimate,
+                   "chunk_runs": fit.chunk_runs(), "launches": got}
+        say(f"times: one LM fitness call at {n} genomes ({fit.arch}, "
+            f"{LM['steps']} steps of {fit.batch_size} x {fit.seq_len}): "
+            f"{ms:.3f} ms, {rows[n]['runs_per_s']:.1f} training runs/s, "
+            f"{rows[n]['tokens_per_s']:.0f} tokens/s, peak device memory "
+            f"{peak} B ({peak / estimate:.4f} of the chunk sizing's "
+            f"estimate), flash launches {got}")
+    g = lm_genomes(LM_LOOP_N, device, seed=LM_LOOP_N)
+    fit.per_genome_loop(g[:1])
+    loop_ms = once_ms(lambda: fit.per_genome_loop(g))
+    batched = rows[LM_LOOP_N]["ms"]
+    say(f"times: the per-genome loop at {LM_LOOP_N} genomes: {loop_ms:.3f} "
+        f"ms, against {batched:.3f} ms batched ({loop_ms / batched:.2f}x)")
+    if not batched < loop_ms:
+        fail(f"the batched LM fitness ({batched} ms) does not beat the "
+             f"per-genome loop ({loop_ms} ms)")
+    steady = ssm_stats["step_ms"][1:]
+    ssm_ms = statistics.median(steady)
+    ssm_tok = SSM_TRAIN_BATCH * SSM_TRAIN_SEQ / (ssm_ms / 1e3)
+    say(f"times: train mamba2-780m --full batch {SSM_TRAIN_BATCH} seq "
+        f"{SSM_TRAIN_SEQ} (plain chunked scan): step {ssm_ms:.3f} ms (median "
+        f"of steps 2-{SSM_TRAIN_STEPS}; step 1 {ssm_stats['step_ms'][0]:.3f} "
+        f"ms with set-up), {ssm_tok:.1f} tokens/s, peak device memory "
+        f"{ssm_stats['peak_bytes']} B")
+    out = {"card": card, "lm_fitness": {str(n): r for n, r in rows.items()},
+           "per_genome_loop_ms": loop_ms, "loop_genomes": LM_LOOP_N,
+           "mamba2_train_step_ms": ssm_ms,
+           "mamba2_train_step_ms_all": ssm_stats["step_ms"],
+           "mamba2_train_tokens_per_s": ssm_tok,
+           "mamba2_train_peak_bytes": ssm_stats["peak_bytes"],
+           "mamba2_train_losses": ssm_stats["loss"]}
+    say("times: " + json.dumps(out))
+    return out
+
+
+def phase_trace_lm_fitness(device, card):
+    """One batched LM fitness call (tinyllama-1.1b, LM_TIME_N[0] genomes)
+    under torch.profiler, after a warm-up call and one unprofiled call:
+    the device's idle share, the flash kernels' share and the largest
+    device entries, read from the trace."""
+    import torch
+    from repro_torch.fitness.lm import LMTrainFitness
+    fit = LMTrainFitness(steps=LM["steps"], device=device)
+    g = lm_genomes(LM_TIME_N[0], device, seed=3)
+    fit(g)                                                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit(g)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    span, busy, by_name = profiled(lambda: fit(g))
+    flash = {k: sum(v for name, v in by_name.items() if k in name)
+             for k in FLASH_SYMBOLS}
+    unlisted = [name for name in by_name if "flash" in name
+                and not any(k in name for k in FLASH_SYMBOLS)]
+    if unlisted or (busy is not None and not all(flash.values())):
+        fail(f"LM fitness trace: flash kernels {unlisted} are not in "
+             f"FLASH_SYMBOLS, or a listed one did not run: {flash}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    row = {"genomes": LM_TIME_N[0], "host_ms": host_ms, "traced_ms": span,
+           "device_busy_ms": busy,
+           "idle_share": None if busy is None else 1 - busy / span,
+           "flash_ms": flash, "flash_share": sum(flash.values()) / span,
+           "top_device_ms": {k[:90]: v for k, v in top}}
+    if busy is None:
+        say("trace: LM fitness call: the profiler recorded no device "
+            "activity; idle share not measured")
+    else:
+        say(f"trace: one LM fitness call ({fit.arch}, {LM_TIME_N[0]} "
+            f"genomes, {LM['steps']} steps): host {host_ms:.3f} ms "
+            f"unprofiled, {span:.3f} ms traced; device busy {busy:.3f} ms, "
+            f"idle share {row['idle_share']:.4f} of the traced window, "
+            f"{1 - busy / host_ms:.4f} of the unprofiled one; flash "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in flash.items())
+            + f" = {row['flash_share']:.4f} of the traced window")
+    say("trace: " + json.dumps({"card": card, "lm_fitness_call": row}))
+    return row
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3528,6 +3956,7 @@ def main():
     delay_err = phase_check_host(device)
     phase_check_queue(device)
     phase_check_meta(device)
+    vmap_err = phase_check_lm_fitness(device)
     launches, pop = phase_main()
     lm_launches = phase_serve()
     train_fwd, train_bwd, train_stats = phase_train()
@@ -3536,6 +3965,8 @@ def main():
     queue_runs = phase_main_queue(host_runs)
     meta_run = phase_main_meta(device)
     resize_run = phase_main_resize(device)
+    lm_runs = phase_main_lm()
+    ssm_stats = phase_train_ssm()
     kernels = [phase_times(pop, main_err, launches, device, card)]
     kernels[0]["launches_by_path"] = dict(
         {"ga_run rastrigin": launches},
@@ -3552,19 +3983,32 @@ def main():
     kernels[0]["meta"] = phase_times_meta(device, card, kernels[0]["ms"],
                                           meta_run, resize_run)
     kernels += phase_times_lm(device, card, lm_launches, flash_err, ssd_err)
+    lm_paths = {f"ga_run lm {k}": v for k, v in lm_runs.items()}
     kernels[1]["launches_by_path"] = {
         "serve gemma2-2b prefill": lm_launches["flash_attention"],
-        f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_fwd}
+        f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_fwd,
+        **{k: v["launches"] for k, v in lm_paths.items()}}
     fwd_train, bwd_entry = phase_times_train(device, card, train_fwd,
                                              train_bwd, bwd_err, train_stats)
     kernels[1]["train_shape"] = fwd_train
+    bwd_entry["launches_by_path"] = {
+        f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_bwd,
+        **{k: v["bwd_launches"] for k, v in lm_paths.items()}}
     kernels.append(bwd_entry)
+    lm_times = phase_times_lm_fitness(device, card, ssm_stats)
+    for entry in (kernels[1], bwd_entry):
+        entry["lm_fitness"] = {
+            "fitness_calls": {k: v["calls"] for k, v in lm_paths.items()},
+            "launches_per_call": {n: r["launches"] for n, r in
+                                  lm_times["lm_fitness"].items()},
+            "vmap_grad_max_abs_err_vs_plain": vmap_err}
     phase_times_hvdc(hvdc_runs, device, card)
     del hvdc_runs
     kernels.append(phase_times_host(pop, device, card, host_runs, delay_err))
     phase_times_queue(pop, device, card, queue_runs)
     phase_trace(device, card)
     phase_trace_train(device, card)
+    phase_trace_lm_fitness(device, card)
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

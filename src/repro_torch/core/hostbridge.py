@@ -7,7 +7,9 @@ host-side ``_host_eval(genomes, perm=None, cost=None)`` that chunks the
 batch (equally, or by the predicted per-slot ``cost`` when the dispatching
 broker supplies one — sentinel pad slots arrive marked ``-inf``), executes
 it somewhere, measures per-chunk wall times, and reports them to an
-optional ``CostEMA``. This module holds that common surface once.
+optional ``CostEMA``. This module holds that common surface once, and
+:class:`LockedHostFitness`, the adapter through which host-pool threads
+share a fitness that lives on the card.
 
 Import discipline: NO torch at module scope. A spawned process-pool
 worker unpickles :func:`_timed_eval` from here and a fitness from
@@ -22,6 +24,7 @@ never attributed across runs that share one fleet.
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, List, Optional
 
@@ -71,6 +74,26 @@ class PureCallbackBridge:
     def __exit__(self, *exc_info):
         self.close()
         return False
+
+
+class LockedHostFitness:
+    """numpy (N, G) -> (N, 1) float32 through ``fit`` on its own device
+    (``fit.device``), one call at a time: the HVDC or the LM fitness under
+    host-pool threads, which share the one card. Each call sizes its
+    chunks from the device's free memory (``core.device.available_bytes``),
+    so concurrent calls would over-commit it, and one card runs them one
+    after another anyway."""
+
+    def __init__(self, fit: Callable):
+        self.fit = fit
+        self._lock = threading.Lock()
+
+    def __call__(self, genomes) -> np.ndarray:
+        import torch
+        g = torch.as_tensor(np.asarray(genomes, np.float32),
+                            device=self.fit.device)
+        with self._lock:
+            return self.fit(g).cpu().numpy()
 
 
 def _timed_eval(fn: Callable, chunk: np.ndarray):

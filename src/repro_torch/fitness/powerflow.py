@@ -12,15 +12,13 @@ are flattened into one batch of systems on the device.
 screening: DC-rank all single-line outages per genome, full-AC only the
 top-K.
 
-For the host pool (``ga_run --dispatch-backend host-*``) two numpy
-adapters wrap the fitness: :class:`LockedHostFitness` runs it on its own
-device behind one lock (threads), :class:`SpawnedHostFitness` ships the
-grid's numpy arrays and the fitness's arguments to a spawned worker, which
-rebuilds the fitness on the CPU (processes).
+For a host pool of spawned processes (``ga_run --dispatch-backend
+host-process`` and the queue fleets), :class:`SpawnedHostFitness` ships the
+grid's numpy arrays and the fitness's arguments to the worker, which
+rebuilds the fitness on the CPU. Threads run it on its own device through
+``core.hostbridge.LockedHostFitness``.
 """
 from __future__ import annotations
-
-import threading
 
 import numpy as np
 import torch
@@ -93,24 +91,6 @@ class HVDCDispatchFitness:
             return 4.0 + stress / torch.clamp_min(torch.sum(pmax), 1e-9) * 6.0
 
         return cost
-
-
-class LockedHostFitness:
-    """numpy (N, H) -> (N, 1) float32 through ``fit`` on its own device,
-    one call at a time. Host-pool threads share the one card: each Newton
-    solve sizes its chunks from the device's free memory
-    (``powerflow/newton.py``), so concurrent calls would over-commit it,
-    and one card runs them one after another anyway."""
-
-    def __init__(self, fit: HVDCDispatchFitness):
-        self.fit = fit
-        self._lock = threading.Lock()
-
-    def __call__(self, genomes) -> np.ndarray:
-        g = torch.as_tensor(np.asarray(genomes, np.float32),
-                            device=self.fit.device)
-        with self._lock:
-            return self.fit(g).cpu().numpy()
 
 
 class SpawnedHostFitness:

@@ -14,15 +14,21 @@ Where autograd records (grad enabled and q, k or v requiring a gradient)
 the call goes through ``_FlashAttention``, an ``autograd.Function`` (the
 reference wraps its kernel in ``jax.custom_vjp``, ``ops.py:25-46``): its
 forward launches the forward kernel with the per-row log-sum-exp output
-and saves q, k, v, out and lse; its backward launches the backward kernel
-(``csrc/flash_attention_bwd.cu``), float32 only. On CPU tensors both
-directions run the plain versions (``flash_attention_fwd_plain``,
-``flash_attention_bwd_plain``). Otherwise the plain launch runs, with no
-lse.
+and saves q, k, v, out and lse; its backward runs ``_FlashAttentionBwd``,
+which launches the backward kernel (``csrc/flash_attention_bwd.cu``),
+float32 only. On CPU tensors both directions run the plain versions
+(``flash_attention_fwd_plain``, ``flash_attention_bwd_plain``). Otherwise
+``_FlashAttentionFwd`` launches the forward kernel with no lse.
+
+The three functions work under ``torch.func``: each has a ``vmap`` rule
+that folds the vmapped runs into the kernel's batch axis (an unbatched
+input broadcast to every run) and makes one call, so
+``vmap(grad(loss))`` over R runs launches each kernel once, where the
+reference ``vmap``s its kernel (``repro/fitness/lm.py:106``).
 
 ``launches`` counts the forward kernel's launches of this process and
 ``bwd_launches`` the backward's; each grows only where its kernel is
-launched.
+launched, once per folded call.
 """
 from __future__ import annotations
 
@@ -93,59 +99,142 @@ def _on_cuda(q):
     return q.device.type == "cuda"
 
 
+def _kw(scale, causal, window, attn_softcap, q_offset) -> dict:
+    return dict(scale=scale, causal=causal, window=window,
+                attn_softcap=attn_softcap, q_offset=q_offset)
+
+
+def _fold(info, in_dims, tensors):
+    """The vmap rules' layout: each tensor's vmapped dim moved to the
+    front (an unbatched tensor broadcast to the ``info.batch_size`` runs),
+    then runs x batch folded into the kernel's batch axis as one contiguous
+    tensor, which ``_check_layout`` takes."""
+    r, out = info.batch_size, []
+    for t, d in zip(tensors, in_dims):
+        t = t.expand(r, *t.shape) if d is None else t.movedim(d, 0)
+        out.append(t.reshape(r * t.shape[1], *t.shape[2:]).contiguous())
+    return out
+
+
+def _unfold(r, tensors):
+    """The folded batch axis split back into (runs, batch)."""
+    return tuple(t.reshape(r, -1, *t.shape[1:]) for t in tensors)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Flash attention with the backward kernel as its gradient."""
+    """Flash attention with the backward kernel as its gradient: returns
+    (out, lse), lse not differentiable. Under ``torch.func.vmap`` its rule
+    folds the runs into the batch axis, so a vmapped call is one launch;
+    its backward goes through ``_FlashAttentionBwd``, which folds the same
+    way under ``vmap(grad(...))``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, window, attn_softcap,
-                q_offset):
+    def forward(q, k, v, scale, causal, window, attn_softcap, q_offset):
         global launches
-        kw = dict(scale=scale, causal=causal, window=window,
-                  attn_softcap=attn_softcap, q_offset=q_offset)
+        kw = _kw(scale, causal, window, attn_softcap, q_offset)
         if _on_cuda(q):
             _check(q, k, v)
             _check_bwd(q)
             out, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
             launches += 1
-        else:
-            out, lse = flash_attention_fwd_plain(q, k, v, **kw)
+            return out, lse
+        return flash_attention_fwd_plain(q, k, v, **kw)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, *args = inputs
+        out, lse = output
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kw = kw
+        ctx.mark_non_differentiable(lse)
+        ctx.args = args
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _FlashAttentionBwd.apply(q, k, v, out, lse, dout,
+                                              *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, *args):
+        out = _FlashAttention.apply(*_fold(info, in_dims[:3], (q, k, v)),
+                                    *args)
+        return _unfold(info.batch_size, out), (0, 0)
+
+
+class _FlashAttentionBwd(torch.autograd.Function):
+    """The backward kernel, (q, k, v, out, lse, dout) -> (dq, dk, dv), as a
+    function that ``torch.func`` can batch: ``grad`` inside ``vmap`` runs
+    the backward on batched tensors, and the rule folds them as
+    ``_FlashAttention``'s does. It has no derivative of its own."""
+
+    @staticmethod
+    def forward(q, k, v, out, lse, dout, scale, causal, window, attn_softcap,
+                q_offset):
+        global bwd_launches
+        kw = _kw(scale, causal, window, attn_softcap, q_offset)
+        dout = dout.contiguous()
+        if not _on_cuda(q):
+            return flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+        if dout.dtype != q.dtype:
+            raise ValueError(f"flash_attention: the output gradient is "
+                             f"{dout.dtype}, the kernel takes {q.dtype}")
+        _check_layout("the output gradient", dout)
+        grads = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+        bwd_launches += 1
+        return grads
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("flash_attention has no second derivative "
+                                  "(the backward kernel has no backward)")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, out, lse, dout, *args):
+        grads = _FlashAttentionBwd.apply(
+            *_fold(info, in_dims[:6], (q, k, v, out, lse, dout)), *args)
+        return _unfold(info.batch_size, grads), (0, 0, 0)
+
+
+class _FlashAttentionFwd(torch.autograd.Function):
+    """The forward kernel without lse, where autograd does not record; a
+    function only so that a vmapped evaluation folds into one launch."""
+
+    @staticmethod
+    def forward(q, k, v, scale, causal, window, attn_softcap, q_offset):
+        global launches
+        kw = _kw(scale, causal, window, attn_softcap, q_offset)
+        if not _on_cuda(q):
+            return flash_attention_plain(q, k, v, **kw)
+        _check(q, k, v)
+        out = flash_attention_fwd_cuda(q, k, v, **kw)
+        launches += 1
         return out
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
     def backward(ctx, dout):
-        global bwd_launches
-        q, k, v, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
-        if q.device.type == "cuda":
-            if dout.dtype != q.dtype:
-                raise ValueError(f"flash_attention: the output gradient is "
-                                 f"{dout.dtype}, the kernel takes {q.dtype}")
-            _check_layout("the output gradient", dout)
-            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
-                                                  **ctx.kw)
-            bwd_launches += 1
-        else:
-            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                                   **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None
+        raise NotImplementedError("flash_attention: the lse-free forward "
+                                  "runs only where autograd does not "
+                                  "record")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, *args):
+        out = _FlashAttentionFwd.apply(*_fold(info, in_dims[:3], (q, k, v)),
+                                       *args)
+        return _unfold(info.batch_size, (out,))[0], 0
 
 
 def flash_attention(q, k, v, *, scale, causal=True, window=0,
                     attn_softcap=0.0, q_offset=0):
-    global launches
+    args = (scale, causal, window, attn_softcap, q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, scale, causal, window,
-                                     attn_softcap, q_offset)
-    if not _on_cuda(q):
-        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
-                                     window=window,
-                                     attn_softcap=attn_softcap,
-                                     q_offset=q_offset)
-    _check(q, k, v)
-    out = flash_attention_fwd_cuda(q, k, v, scale=scale, causal=causal,
-                                   window=window, attn_softcap=attn_softcap,
-                                   q_offset=q_offset)
-    launches += 1
-    return out
+        return _FlashAttention.apply(q, k, v, *args)[0]
+    return _FlashAttentionFwd.apply(q, k, v, *args)

@@ -14,6 +14,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.ga_run --fitness hvdc \
       --grid-size 2715 --hvdc-lines 18 --islands 2 --pop 16 --epochs 2 \
       --gens-per-epoch 2 --num-workers 4
+  PYTHONPATH=src python -m repro_torch.launch.ga_run --fitness lm \
+      --lm-arch gemma2-2b --epochs 2
   # the paper's decoupled simulation backend: fitness on a host pool
   PYTHONPATH=src python -m repro_torch.launch.ga_run --fitness rastrigin \
       --genes 128 --islands 32 --pop 1024 --epochs 3 \
@@ -29,7 +31,9 @@ Usage:
 ``--fitness hvdc`` is the paper's §4.2 HVDC dispatch (batched AC Newton
 power flow on a synthetic grid of ``--grid-size`` buses), with its cost
 model driving the broker's balanced dispatch over ``--num-workers`` lanes.
-Not ported yet: ``--fitness lm``.
+``--fitness lm`` is the LM hyperparameter search (``fitness/lm.py``): each
+genome trains the reduced ``--lm-arch`` for ``--lm-steps`` steps, all of a
+generation's genomes batched into one vmapped training run.
 
 The GA runs on the genomes' device; every decoupled backend copies each
 generation's offspring to the host, evaluates them there and copies the
@@ -53,7 +57,6 @@ from repro_torch.core.scaling import plan_scaling
 from repro_torch.fitness import get_benchmark
 
 BENCHMARKS = ("rastrigin", "sphere", "rosenbrock", "ackley", "griewank")
-NOT_PORTED_FITNESS = ("lm",)
 DISPATCH_BACKENDS = ("inline", "host-thread", "host-process", "slurm",
                      "slurm-mock", "k8s", "k8s-mock", "mq", "mq-mock",
                      "mq-net")
@@ -61,6 +64,18 @@ DISPATCH_BACKENDS = ("inline", "host-thread", "host-process", "slurm",
 
 def build(fitness_name: str, args, device):
     """(GAConfig, fitness_fn, cost_fn) for a fitness on ``device``."""
+    if fitness_name == "lm":
+        from repro_torch.fitness.lm import NUM_LM_GENES, LMTrainFitness
+        fit = LMTrainFitness(args.lm_arch, steps=args.lm_steps,
+                             device=device)
+        cfg = GAConfig(num_genes=NUM_LM_GENES, pop_per_island=args.pop,
+                       num_islands=args.islands,
+                       generations_per_epoch=args.gens_per_epoch,
+                       num_epochs=args.epochs, lower=0.0, upper=1.0,
+                       mutation_prob=0.5, mutation_eta=20.0,
+                       crossover_prob=0.9, crossover_eta=15.0,
+                       fused_operators=False, seed=args.seed)
+        return cfg, fit, None
     if fitness_name == "hvdc":
         from repro_torch.fitness.powerflow import HVDCDispatchFitness
         from repro_torch.powerflow.grid import make_synthetic_grid
@@ -131,11 +146,11 @@ Network transport (--dispatch-backend mq-net):
 
 Fitness on the workers:
   Named benchmarks resolve to repro_torch.fitness.hostsim's numpy
-  simulators by import spec. --fitness hvdc is pickled as a CPU rebuild
-  (SpawnedHostFitness) for fleets of processes (mq local/slurm/k8s,
-  slurm*, k8s*, external mq-net workers); in-process thread pools
-  (mq-mock, self-contained mq-net) run it on its own device behind one
-  lock (LockedHostFitness).
+  simulators by import spec. --fitness hvdc and lm are pickled as CPU
+  rebuilds (SpawnedHostFitness, SpawnedLMFitness) for fleets of processes
+  (mq local/slurm/k8s, slurm*, k8s*, external mq-net workers); in-process
+  thread pools (mq-mock, self-contained mq-net) run them on their own
+  device behind one lock (LockedHostFitness).
 
 Observability (--metrics-dir / --metrics-port / --events-log):
   Off by default. Any of the three installs the metrics bus:
@@ -149,16 +164,19 @@ Observability (--metrics-dir / --metrics-port / --events-log):
 def host_fitness(fitness_name: str, fitness_fn, executor: str):
     """What the host pool evaluates: a named benchmark's numpy simulator
     (``fitness.hostsim``, on the host's cores: the decoupled container),
-    or for ``hvdc`` a numpy adapter over the fitness — on its own device
-    behind one lock under threads, rebuilt on the CPU of each spawned
-    worker under processes."""
+    or for ``hvdc`` and ``lm`` a numpy adapter over the fitness — on its
+    own device behind one lock under threads, rebuilt on the CPU of each
+    spawned worker under processes."""
     if fitness_name in BENCHMARKS:
         from repro_torch.fitness import hostsim
         return getattr(hostsim, fitness_name)
-    from repro_torch.fitness.powerflow import (LockedHostFitness,
-                                               SpawnedHostFitness)
+    from repro_torch.core.hostbridge import LockedHostFitness
+    from repro_torch.fitness.powerflow import SpawnedHostFitness
     if executor == "thread":
         return LockedHostFitness(fitness_fn)
+    if fitness_name == "lm":
+        from repro_torch.fitness.lm import SpawnedLMFitness
+        return SpawnedLMFitness(fitness_fn)
     return SpawnedHostFitness(fitness_fn)
 
 
@@ -346,6 +364,8 @@ def main(argv=None):
     ap.add_argument("--hvdc-lines", type=int, default=4)
     ap.add_argument("--contingencies", type=int, default=0)
     ap.add_argument("--screen-top-k", type=int, default=0)
+    ap.add_argument("--lm-arch", default="tinyllama-1.1b")
+    ap.add_argument("--lm-steps", type=int, default=6)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--wallclock-s", type=float, default=None)
     ap.add_argument("--dispatch-backend", default="inline",
@@ -354,8 +374,8 @@ def main(argv=None):
                          "GA's stream; host-*: decoupled simulation "
                          "backend on a host thread or process pool (named "
                          "benchmarks run fitness.hostsim's numpy "
-                         "simulators; hvdc runs on its device behind one "
-                         "lock under host-thread, and on the CPU of each "
+                         "simulators; hvdc and lm run on their device "
+                         "behind one lock under host-thread, and on the CPU of each "
                          "spawned worker under host-process, since a "
                          "card-resident fitness cannot be shipped to "
                          "spawned processes); slurm: array jobs via "
@@ -444,10 +464,7 @@ def main(argv=None):
                     help="run on the GPU (default; fails without one) or "
                          "the CPU")
     args = ap.parse_args(argv)
-    if args.fitness in NOT_PORTED_FITNESS:
-        ap.error(f"--fitness {args.fitness} is not yet ported to "
-                 f"repro_torch")
-    if args.fitness not in BENCHMARKS + ("hvdc",):
+    if args.fitness not in BENCHMARKS + ("hvdc", "lm"):
         ap.error(f"unknown --fitness {args.fitness!r}")
     device = resolve_device(args.device)
 

@@ -9,9 +9,10 @@ kernel``, the default and the only value taken on the GPU: the forward
 kernel and, through autograd, the backward kernel; on the CPU their plain
 versions, or with ``dense`` / ``blocked`` / ``auto`` the plain attention
 of ``models/attention.py``, as the port's ``serve``). ``--full`` runs the
-architecture at its published widths. The SSM family (mamba2) trains on
-the CPU only, through the plain chunked scan: on the card it would need a
-backward for the SSD kernel, which is not written yet.
+architecture at its published widths. The SSM family (mamba2) trains
+through the plain chunked scan on either device, as the reference does
+(``Model(use_ssd_kernel=False)``): the SSD kernel has no backward, and its
+wrapper refuses CUDA inputs that need a gradient.
 
 Checkpoints (``--ckpt-dir``) hold the reference's state keys and layout
 (``params``, ``opt/{m,v,step}``, parameters stacked over periods), and a
@@ -20,6 +21,8 @@ run resumes from the latest one.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --full --steps 8 --batch 4 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \\
+      --full --steps 8 --batch 2 --seq 1024
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
       --steps 20 --batch 4 --seq 64 --device cpu
 """
@@ -87,13 +90,6 @@ def train(arch: str = "tinyllama-1.1b", *, reduced: bool = True,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    if torch.device(device).type == "cuda" and any(
-            cfg.mixer_kind(s) == "ssm" for s in range(cfg.scan_period)):
-        raise NotImplementedError(
-            f"{cfg.name}: training an SSM mixer on the GPU needs a backward "
-            f"kernel for the SSD intra-chunk kernel, which is not ported "
-            f"yet (ROADMAP); train it with device='cpu' (--device cpu), "
-            f"through the plain chunked scan")
     if torch.device(device).type == "cuda" and attn_impl != "kernel":
         raise ValueError(
             f"attn_impl={attn_impl!r} would run plain attention on the GPU; "

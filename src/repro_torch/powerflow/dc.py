@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.powerflow.newton import available_bytes
+from repro_torch.core.device import available_bytes
 
 
 class DCModel(NamedTuple):

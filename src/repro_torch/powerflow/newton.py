@@ -27,6 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.device import available_bytes
+
 
 class PFResult(NamedTuple):
     vm: torch.Tensor          # (B, n) voltage magnitudes
@@ -42,10 +44,6 @@ class PFResult(NamedTuple):
 # temporaries (32), and a contingency case's own complex Ybus (8)
 SYSTEM_BYTES_PER_N2 = 80
 OWN_YBUS_BYTES_PER_N2 = 8
-# share of the device's available memory a chunk may take; on the CPU, the
-# bytes a chunk may take
-MEMORY_SHARE = 0.5
-CPU_CHUNK_BYTES = 4 << 30
 
 
 def system_bytes(n: int, own_ybus: bool) -> int:
@@ -54,19 +52,8 @@ def system_bytes(n: int, own_ybus: bool) -> int:
                                    else 0)) * n * n
 
 
-def available_bytes(device: torch.device) -> float:
-    """Bytes one chunk of work may take: on CUDA, MEMORY_SHARE of the free
-    device memory plus what PyTorch's allocator holds unused; on the CPU,
-    CPU_CHUNK_BYTES."""
-    if device.type != "cuda":
-        return CPU_CHUNK_BYTES
-    free, _ = torch.cuda.mem_get_info(device)
-    return MEMORY_SHARE * (free + torch.cuda.memory_reserved(device)
-                           - torch.cuda.memory_allocated(device))
-
-
 def chunk_size(n: int, own_ybus: bool, device: torch.device) -> int:
-    """Systems evaluated at once: ``available_bytes`` over
+    """Systems evaluated at once: ``core.device.available_bytes`` over
     ``system_bytes``."""
     return max(1, int(available_bytes(device) // system_bytes(n, own_ybus)))
 

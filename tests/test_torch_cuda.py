@@ -3,7 +3,8 @@ version, the wrappers' refusals, and the port's paths on the card (the GA
 main path; the fused variation with one hyperparameter row per run and a
 meta-fitness call through it; the host pool on CUDA genomes; prefill with the kernels against prefill with their plain
 versions; the serving entry point; the HVDC power flow against the same
-code on the CPU).
+code on the CPU; the flash wrapper under vmap(grad); the LM fitness
+against the CPU; mamba2 training through the plain chunked scan).
 They skip without a card. This file imports no JAX, so it runs on a
 machine that has PyTorch for CUDA and no JAX:
 
@@ -842,3 +843,126 @@ def test_host_pool_evaluates_cuda_genomes_in_row_order(cuda_device, cost):
                 to_np(fit), hostsim.rastrigin(g.cpu().numpy()))
     if cost == "ema":
         assert cost_fn.updates == 2
+
+
+# ---------------------------------------------------------------------------
+# torch.func through the flash wrapper; the LM fitness; mamba2 training
+# ---------------------------------------------------------------------------
+
+def _layer_kwargs(cfg, local):
+    return dict(scale=(cfg.query_pre_attn_scalar or cfg.head_dim) ** -0.5,
+                causal=True, window=cfg.sliding_window if local else 0,
+                attn_softcap=cfg.attn_softcap)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-2b"])
+def test_flash_vmap_grad_launches_once_per_folded_call(cuda_device, arch):
+    """vmap(grad(...)) over R = 128 runs at the reduced layer's shape (the
+    LM fitness's, batch 4 x 32, so the folded batch of a 128-genome call;
+    gemma2-2b's local layer: window 16, softcap 50): one forward and one
+    backward launch; each run's output equals the plain forward's at
+    ATTN_TOL, and its gradients the plain backward's and a separate
+    wrapper call's at GRAD_TOL."""
+    cfg = get_config(arch).reduced()
+    kw = _layer_kwargs(cfg, local=bool(cfg.sliding_window))
+    rs = np.random.default_rng(21)
+    r, b, s = 128, 4, 32
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v, do = (torch.from_numpy(rs.standard_normal(shape).astype(
+        np.float32)).to(cuda_device) for shape in (
+        (r, b, s, h, hd), (r, b, s, kv, hd), (r, b, s, kv, hd),
+        (r, b, s, h, hd)))
+
+    def loss(q, k, v, do):
+        out = attn_ops.flash_attention(q, k, v, **kw)
+        return (out * do).sum(), out
+
+    before = (attn_ops.launches, attn_ops.bwd_launches)
+    grads, out = torch.func.vmap(torch.func.grad(
+        loss, argnums=(0, 1, 2), has_aux=True))(q, k, v, do)
+    torch.cuda.synchronize()
+    assert (attn_ops.launches - before[0],
+            attn_ops.bwd_launches - before[1]) == (1, 1)
+    for i in range(r):
+        p_out, p_lse = flash_attention_fwd_plain(q[i], k[i], v[i], **kw)
+        np.testing.assert_allclose(to_np(out[i]), to_np(p_out),
+                                   **ATTN_TOL, err_msg=f"run {i} out")
+        plain = flash_attention_bwd_plain(q[i], k[i], v[i], p_out, p_lse,
+                                          do[i], **kw)
+        qi, ki, vi = (x[i].clone().requires_grad_() for x in (q, k, v))
+        own = torch.autograd.grad(loss(qi, ki, vi, do[i])[0], (qi, ki, vi))
+        for name, got, p_, w in zip(("dq", "dk", "dv"), grads, plain, own):
+            np.testing.assert_allclose(to_np(got[i]), to_np(p_), **GRAD_TOL,
+                                       err_msg=f"run {i} {name} vs plain")
+            np.testing.assert_allclose(to_np(got[i]), to_np(w), **GRAD_TOL,
+                                       err_msg=f"run {i} {name} vs a call")
+
+
+LM_GENOMES = np.concatenate([
+    np.array([[0.0, 0.0, 1.0, 1.0], [1.0, 1.0, 0.0, 0.0]], np.float32),
+    np.random.default_rng(5).random((6, 4), np.float32)])
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-2b",
+                                  "mamba2-780m"])
+def test_lm_fitness_on_card_matches_cpu(cuda_device, arch, monkeypatch):
+    """8 genomes (the corners among them), 6 steps: the card's batched
+    fitness against the same fitness on the CPU at rtol 1e-4 / atol 2e-6
+    (tests/test_torch_train.py's PARAM_TOL), against one plain run per
+    genome on the card at rtol 1e-5, and in two chunks at rtol 1e-5;
+    layers x steps launches of each flash kernel a call (none for
+    mamba2)."""
+    from repro_torch.fitness.lm import LMTrainFitness
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch).reduced()
+    per_call = 0 if cfg.ssm_state else cfg.num_layers * 6
+    g = torch.from_numpy(LM_GENOMES)
+    fit = LMTrainFitness(arch, steps=6, device=cuda_device)
+    before = (attn_ops.launches, attn_ops.bwd_launches, ssd_ops.launches)
+    got = fit(g.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (attn_ops.launches - before[0], attn_ops.bwd_launches - before[1],
+            ssd_ops.launches - before[2]) == (per_call, per_call, 0)
+    assert got.shape == (8, 1) and bool(torch.isfinite(got).all())
+    cpu = LMTrainFitness(arch, steps=6, device="cpu")(g)
+    np.testing.assert_allclose(to_np(got), to_np(cpu), rtol=1e-4, atol=2e-6)
+    loop = fit.per_genome_loop(g.to(cuda_device))
+    np.testing.assert_allclose(to_np(loop), to_np(got), rtol=1e-5)
+    monkeypatch.setattr(fit, "chunk_runs", lambda: 4)
+    np.testing.assert_allclose(to_np(fit(g.to(cuda_device))), to_np(got),
+                               rtol=1e-5)
+
+
+def test_mamba2_train_step_on_card_matches_cpu(cuda_device):
+    """One reduced mamba2-780m train step on the card, through the plain
+    chunked scan, against the CPU (as test_train_step_on_card_matches_cpu),
+    launching no kernel."""
+    before = (attn_ops.launches, attn_ops.bwd_launches, ssd_ops.launches)
+    gpu = reduced_train_step("mamba2-780m", cuda_device)
+    torch.cuda.synchronize()
+    assert (attn_ops.launches, attn_ops.bwd_launches,
+            ssd_ops.launches) == before
+    cpu = reduced_train_step("mamba2-780m", "cpu")
+    for name, g in cpu[0].items():
+        np.testing.assert_allclose(
+            to_np(gpu[0][name]), to_np(g), rtol=GRAD_TOL["rtol"],
+            atol=GRAD_TOL["atol"] * float(g.abs().max()), err_msg=name)
+    for key in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(gpu[1][key], cpu[1][key], rtol=1e-4,
+                                   err_msg=key)
+
+
+def test_train_mamba2_on_card(cuda_device):
+    """``train`` takes mamba2-780m on the card (the plain chunked scan):
+    finite losses and grad norms, and the loss falls. Each step's loss is
+    on its own batch and the learning rate warms up over 5 steps, so a
+    run of a few steps at the default 1e-3 moves less than the batches
+    differ (on the CPU as well); 12 steps of 4 x 64 at 1e-2 learn well
+    beyond that spread."""
+    stats = {}
+    train.train("mamba2-780m", steps=12, batch=4, seq=64, lr=1e-2,
+                log_fn=lambda s: None, stats=stats)
+    losses = stats["loss"]
+    assert np.all(np.isfinite(losses + stats["grad_norm"]))
+    assert stats["peak_bytes"] > 0 and len(stats["step_ms"]) == 12
+    assert losses[-1] < losses[0] and np.mean(losses[-3:]) < losses[0]

@@ -145,3 +145,111 @@ def test_plain_launch_without_autograd_runs_no_function():
     with torch.no_grad():
         out = attn_ops.flash_attention(q, k, v, scale=0.25)
     assert out.grad_fn is None
+
+
+# ---------------------------------------------------------------------------
+# torch.func: vmap(grad(...)) through the wrapper folds the runs into the
+# batch axis
+# ---------------------------------------------------------------------------
+
+# (runs, B, S, H, KV, hd, causal, window, softcap): tinyllama-1.1b's and
+# gemma2-2b's reduced layers (window 16, softcap 50), MQA unmasked
+VMAP_CASES = [(3, 2, 32, 4, 2, 32, True, 0, 0.0),
+              (4, 1, 32, 4, 2, 32, True, 16, 50.0),
+              (2, 2, 24, 4, 1, 16, False, 0, 30.0)]
+
+
+@pytest.fixture
+def opaque(monkeypatch):
+    """The plain versions the wrapper runs on the CPU, made as opaque to
+    torch.func as a kernel launch (they read their inputs through numpy,
+    which a batched or gradient-tracking tensor refuses); returns their
+    call counts."""
+    calls = {"fwd": 0, "bwd": 0, "eval": 0}
+
+    def opaque_fn(key, fn):
+        def run(*tensors, **kw):
+            for t in tensors:
+                t.detach().numpy()
+            calls[key] += 1
+            return fn(*tensors, **kw)
+        return run
+
+    for key, name in (("fwd", "flash_attention_fwd_plain"),
+                      ("bwd", "flash_attention_bwd_plain"),
+                      ("eval", "flash_attention_plain")):
+        monkeypatch.setattr(attn_ops, name,
+                            opaque_fn(key, getattr(attn_ops, name)))
+    return calls
+
+
+def _runs(case, seed):
+    r, b, s, h, kv, hd, causal, win, cap = case
+    q, k, v, do = zip(*(attn_grad_inputs(b, s, h, kv, hd, seed=seed + i)
+                        for i in range(r)))
+    kw = dict(scale=hd ** -0.5, causal=causal, window=win, attn_softcap=cap)
+    return [torch.from_numpy(np.stack(x)) for x in (q, k, v, do)], kw
+
+
+def _loss(kw):
+    return lambda q, k, v, do: (attn_ops.flash_attention(q, k, v, **kw)
+                                * do).sum()
+
+
+@pytest.mark.parametrize("case", VMAP_CASES)
+def test_vmap_grad_folds_and_matches_per_run_grads(case, opaque):
+    (q, k, v, do), kw = _runs(case, seed=case[2])
+    before = (attn_ops.launches, attn_ops.bwd_launches)
+    grads = torch.func.vmap(torch.func.grad(_loss(kw), argnums=(0, 1, 2)))(
+        q, k, v, do)
+    assert opaque == {"fwd": 1, "bwd": 1, "eval": 0}
+    assert (attn_ops.launches, attn_ops.bwd_launches) == before    # CPU
+    for r in range(case[0]):
+        qr, kr, vr = (x[r].clone().requires_grad_() for x in (q, k, v))
+        want = torch.autograd.grad(_loss(kw)(qr, kr, vr, do[r]),
+                                   (qr, kr, vr))
+        for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+            np.testing.assert_allclose(to_np(got[r]), to_np(w), **GRAD_TOL,
+                                       err_msg=f"run {r} {name}")
+
+
+def test_vmap_grad_with_unbatched_kv_and_a_moved_run_dim(opaque):
+    """q's runs on dim 1, k and v shared by every run: the rule moves q's
+    run dim to the front and broadcasts k and v; the gradients of the
+    shared k and v come back per run."""
+    case = VMAP_CASES[1]
+    (q, k, v, do), kw = _runs(case, seed=9)
+    k, v = k[0], v[0]
+    grads = torch.func.vmap(torch.func.grad(_loss(kw), argnums=(0, 1, 2)),
+                            in_dims=(1, None, None, 0))(
+        q.movedim(0, 1), k, v, do)
+    assert opaque == {"fwd": 1, "bwd": 1, "eval": 0}
+    assert [tuple(g.shape) for g in grads] == [
+        tuple(q.shape), (case[0],) + tuple(k.shape),
+        (case[0],) + tuple(v.shape)]
+    for r in range(case[0]):
+        qr, kr, vr = (x.clone().requires_grad_() for x in (q[r], k, v))
+        want = torch.autograd.grad(_loss(kw)(qr, kr, vr, do[r]),
+                                   (qr, kr, vr))
+        for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+            np.testing.assert_allclose(to_np(got[r]), to_np(w), **GRAD_TOL,
+                                       err_msg=f"run {r} {name}")
+
+
+def test_vmapped_evaluation_folds(opaque):
+    """Without autograd a vmapped call runs the lse-free forward once."""
+    (q, k, v, _), kw = _runs(VMAP_CASES[0], seed=3)
+    before = attn_ops.launches
+    fn = torch.func.vmap(lambda q, k, v: attn_ops.flash_attention(
+        q, k, v, **kw))
+    out = fn(q, k, v)
+    with torch.no_grad():
+        again = fn(q, k, v)
+    assert opaque == {"fwd": 0, "bwd": 0, "eval": 2}
+    assert attn_ops.launches == before
+    np.testing.assert_array_equal(to_np(again), to_np(out))
+    for r in range(q.shape[0]):
+        np.testing.assert_allclose(
+            to_np(out[r]), to_np(flash_attention_blocked(q[r], k[r], v[r],
+                                                         **kw)),
+            rtol=0, atol=0)

@@ -1,6 +1,7 @@
 """The port's GA driver on the CPU: the reference's log-line forms, its
-flags, checkpoint resume, the host-pool dispatch backends, and the
-refusals (GPU absent, ``--fitness lm`` not yet ported)."""
+flags, checkpoint resume, the host-pool dispatch backends, ``--fitness
+lm`` under each kind of backend, and the refusal when the GPU is
+absent."""
 import re
 
 import pytest
@@ -62,12 +63,19 @@ def test_pipelined_flags_give_identical_best(capsys):
                                    ["--fitness", "lm", "--dispatch-backend",
                                     "k8s-mock"]])
 def test_not_yet_ported_exits(extra, capsys):
-    """``--fitness lm`` is refused under every dispatch backend (the
-    queue backends themselves are ported)."""
-    with pytest.raises(SystemExit) as exc:
-        ga_run.main(ARGS + ["--device", "cpu"] + extra)
-    assert exc.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+    """``--fitness lm`` was refused under every dispatch backend until
+    ``fitness/lm.py`` was ported; it now runs under each: inline, the CPU
+    rebuild ``SpawnedLMFitness`` per spooled chunk (slurm-mock in a
+    subprocess, k8s-mock on a thread), and the fitness behind one lock on
+    mq-mock's thread workers."""
+    pop, hist = ga_run.main(ARGS + ["--device", "cpu"] + extra + [
+        "--pop", "4", "--epochs", "1", "--gens-per-epoch", "1",
+        "--lm-steps", "2", "--num-workers", "1"])
+    captured = capsys.readouterr()
+    assert "not yet ported" not in captured.err
+    assert "best fitness:" in captured.out and len(hist) == 1
+    assert pop.genomes.shape == (2, 4, 4)
+    assert bool(torch.isfinite(pop.fitness).all())
 
 
 def test_gpu_requested_without_gpu_raises(monkeypatch):

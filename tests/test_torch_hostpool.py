@@ -496,8 +496,8 @@ def test_host_backend_powerflow_simulation(executor):
     solver tolerance, 1e-3)."""
     from repro.fitness.powerflow import HVDCDispatchFitness as JaxHVDC
     from repro.powerflow.grid import make_synthetic_grid as jax_grid
+    from repro_torch.core.hostbridge import LockedHostFitness
     from repro_torch.fitness.powerflow import (HVDCDispatchFitness,
-                                               LockedHostFitness,
                                                SpawnedHostFitness)
     from repro_torch.powerflow.grid import make_synthetic_grid
     kw = dict(n_bus=12, n_line=20, n_gen=4, n_hvdc=2, seed=0)

@@ -42,6 +42,7 @@ from repro.powerflow import grid as jg
 from repro.powerflow import hvdc as jh
 from repro.powerflow import newton as jn
 from repro_torch.configs.base import GAConfig
+from repro_torch.core import device as tdevice
 from repro_torch.core import island
 from repro_torch.core.broker import Broker
 from repro_torch.core.population import population_from_numpy
@@ -209,7 +210,8 @@ def test_newton_base_case_and_chunks(grids, monkeypatch):
     _, disp = dispatches(4, np.asarray(gj["hvdc_pmax"]))
     pe = th.apply_hvdc(gt, torch.from_numpy(disp))
     whole = tn.newton_powerflow(gt, p_extra=pe, num_iters=12)
-    monkeypatch.setattr(tn, "CPU_CHUNK_BYTES", 2 * tn.system_bytes(60, False))
+    monkeypatch.setattr(tdevice, "CPU_CHUNK_BYTES",
+                        2 * tn.system_bytes(60, False))
     assert tn.chunk_size(60, False, torch.device("cpu")) == 2
     parts = tn.newton_powerflow(gt, p_extra=pe, num_iters=12)
     for a, b in zip(whole, parts):

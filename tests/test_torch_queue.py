@@ -403,8 +403,8 @@ def test_ga_run_hvdc_over_mq_mock_matches_host_thread(capsys):
 
 
 def test_queue_fitness_never_pickles_a_card_fitness():
-    from repro_torch.fitness.powerflow import (LockedHostFitness,
-                                               SpawnedHostFitness)
+    from repro_torch.core.hostbridge import LockedHostFitness
+    from repro_torch.fitness.powerflow import SpawnedHostFitness
     assert ga_run.queue_fitness("rastrigin", None) == (None, None)
     assert ga_run.fitness_spec("rastrigin") == \
         "repro_torch.fitness.hostsim:rastrigin"

@@ -301,9 +301,28 @@ def test_train_defaults_to_the_gpu(monkeypatch):
         train_cli.main(["--steps", "1"])
 
 
-def test_ssm_on_the_gpu_raises():
-    with pytest.raises(NotImplementedError, match="SSD intra-chunk"):
+def test_ssm_on_the_gpu_raises(monkeypatch):
+    """Without a GPU, mamba2 on ``cuda`` raises the device error every arch
+    raises; it is no longer refused as an SSM mixer (it trains on the card
+    through the plain chunked scan)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
         train_cli.train("mamba2-780m", steps=1, device="cuda")
+
+
+def test_ssm_on_the_gpu_reaches_the_device(monkeypatch):
+    """``train`` takes mamba2-780m on ``cuda`` as far as resolving the
+    device; here the resolver stops it."""
+    seen = []
+
+    def resolve(device):
+        seen.append(device)
+        raise LookupError("resolved")
+
+    monkeypatch.setattr(train_cli, "resolve_device", resolve)
+    with pytest.raises(LookupError, match="resolved"):
+        train_cli.train("mamba2-780m", steps=1, device="cuda")
+    assert seen == ["cuda"]
 
 
 @pytest.mark.parametrize("impl", ["dense", "blocked", "auto"])
