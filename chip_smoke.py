@@ -22,8 +22,12 @@ variation kernel with one hyperparameter row per run) with the elastic
 ``GAEngine.resize`` and speculative backup dispatch, and the LM
 hyperparameter search (``ga_run --fitness lm``: every genome's training
 run batched through ``torch.func``, the flash kernels folding the runs
-into their batch axis) with mamba2-780m training on the card. Phases, in
-order; any failure exits non-zero:
+into their batch axis) with mamba2-780m training on the card, and LM
+serving of the dense (granite-8b, minicpm-2b) and MoE
+(granite-moe-1b-a400m, qwen2-moe-a2.7b) families at published widths
+with the continuous batcher (``repro_torch.serve.batching``: lanes at
+their own decode positions). Phases, in order; any failure exits
+non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
 2. build:  every CUDA kernel of the port (fused variation, flash attention
@@ -89,7 +93,13 @@ order; any failure exits non-zero:
            fitness for 8 genomes (corners included) on the card against
            the CPU (1e-4 / 2e-6), against one plain run per genome and in
            two chunks (1e-5), for each of the three archs; one reduced
-           mamba2-780m train step on the card against the CPU;
+           mamba2-780m train step on the card against the CPU; flash
+           attention at the new archs' layer shapes (hd 64 and 128, MHA
+           and GQA); one MoE layer of each MoE arch at its published
+           widths, moe_sorted with room for every token against
+           moe_dense (2e-4) and the router's experts equal to the CPU's;
+           each new arch at its published widths cut to 2 layers, prefill
+           on the card (flash kernel) against the CPU (2e-4);
 4. main:   ``python -m repro_torch.launch.ga_run --fitness rastrigin`` at
            I=32 islands x P=1024 individuals x G=128 genes, 5 generations x
            3 epochs, then again with --sync-every 2 --pipeline-depth 2,
@@ -143,10 +153,22 @@ order; any failure exits non-zero:
            mamba2, and no SSD or fused variation launch), finite losses,
            the best no worse than the corner [0, 0, 1, 1] + 1e-3;
            ``python -m repro_torch.launch.train --arch mamba2-780m --full
-           --steps 8 --batch 2 --seq 1024`` through the plain chunked scan:
+           --steps 24 --batch 2 --seq 1024`` through the plain chunked scan:
            no kernel launch, finite losses, the last below the first, its
-           peak memory. Every run has the launch counts zeroed just before
-           it and read just after;
+           peak memory; ``python -m repro_torch.launch.serve --no-reduced``
+           on granite-moe-1b-a400m (batch 4, prompt 4096, 32 tokens),
+           qwen2-moe-a2.7b (batch 4, prompt 2048, 32 tokens; 57.3 GB of
+           float32 weights made on the card), granite-8b and minicpm-2b
+           (batch 4, prompt 2048, 16 tokens): flash launched once per layer
+           (24, 24, 36, 40), finite logits, prefill ms, decode ms/token,
+           tokens/s, peak memory; the ContinuousBatcher on gemma2-2b at
+           published widths (4 lanes, max_cache_len 4608, 12 requests with
+           prompts spread over 256-4500, past the 4096 window, and 8-32 new
+           tokens): 26 x 12 flash launches, ticks, tokens/s, admission
+           prefill and tick ms, then each request against its own batch-1
+           decoding on the card (tokens equal, logits at 2e-4, up to the
+           first step whose top-2 margin is below 1e-3). Every run has the
+           launch counts zeroed just before it and read just after;
 5. times:  with CUDA events, medians of repeats: each kernel beside its
            bound and its plain version. The fused variation at the main
            shape at three points (no crossover or mutation, so no powf
@@ -197,7 +219,8 @@ order; any failure exits non-zero:
            tokens/s, peak memory; one launch of each flash kernel per
            layer and step at both sizes), the per-genome loop at 128
            genomes, which the batched call must beat, and the mamba2-780m
-           train step (ms, tokens/s);
+           train step (ms, tokens/s); the flash kernel at the new archs'
+           layer shapes beside its bound;
 6. trace:  one prefill and 8 decode steps of each served model, and one
            train step of the training path, under torch.profiler: the
            device's idle share and the kernels' share of each window and
@@ -422,6 +445,36 @@ TF32_PRODUCTS = 3
 SERVE_RUNS = [("gemma2-2b", 4500, {"flash_attention": 26}),
               ("mamba2-780m", 4000, {"ssd_chunk": 48})]
 SERVE_BATCH, SERVE_GEN = 4, 32
+# the dense and MoE families at published widths, float32: (arch, prompt
+# length, batch, gen); each prefill launches flash once per layer (24, 24,
+# 36, 40). qwen2-moe-a2.7b's 14.3 B parameters are 57.3 GB of the card's 80
+SERVE_NEW = [("granite-moe-1b-a400m", 4096, 4, 32),
+             ("qwen2-moe-a2.7b", 2048, 4, 32),
+             ("granite-8b", 2048, 4, 16),
+             ("minicpm-2b", 2048, 4, 16)]
+# the flash kernel at their layer shapes, as SERVE_NEW runs them (B, S, H,
+# KV, hd, causal, window, softcap, dtype): granite-moe (GQA 16/8, hd 64),
+# qwen2-moe (MHA 16, hd 128), granite-8b (GQA 32/8, hd 128), minicpm-2b
+# (MHA 36, hd 64)
+ATTN_NEW = [(4, 4096, 16, 8, 64, True, 0, 0.0, "float32"),
+            (4, 2048, 16, 16, 128, True, 0, 0.0, "float32"),
+            (4, 2048, 32, 8, 128, True, 0, 0.0, "float32"),
+            (4, 2048, 36, 36, 64, True, 0, 0.0, "float32")]
+# whole models: tests/torch_parity.py's MODEL_TOL (rtol, atol)
+MODEL_TOL = (2e-4, 2e-4)
+# one published-width MoE layer on (batch, tokens); each new arch at its
+# published widths cut to NEW_ARCH_DEPTH layers, prefill of NEW_ARCH_TOKENS
+# on the card against the CPU
+MOE_LAYER_TOKENS = (2, 256)
+NEW_ARCH_DEPTH, NEW_ARCH_TOKENS = 2, (2, 64)
+# the continuous batcher on gemma2-2b at published widths: BATCH_N requests
+# through BATCH_SLOTS lanes, prompts spread over BATCH_PROMPT (past the
+# 4096 window, so local ring caches wrap per lane), max_new_tokens in
+# BATCH_NEW; each request held against its own batch-1 decoding up to the
+# first step whose top-2 logit margin is below BATCH_MARGIN
+BATCH_ARCH, BATCH_SLOTS, BATCH_CACHE, BATCH_N = "gemma2-2b", 4, 4608, 12
+BATCH_PROMPT, BATCH_NEW, BATCH_SEED = (256, 4500), (8, 32), 65
+BATCH_MARGIN = 1e-3
 # decode steps in each traced decode window; the device symbols of the
 # port's kernels, as they appear in a trace: the flash forward, then the
 # backward's two kernels (flash_attention_bwd.cu: dk, dv and dq partials;
@@ -3913,6 +3966,360 @@ def phase_trace_lm_fitness(device, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# The dense and MoE families served at published widths; the continuous
+# batcher (serve/batching.py) with per-lane decode positions
+# ---------------------------------------------------------------------------
+
+def check_moe_layer(arch, device):
+    """One MoE layer of ``arch`` at its published widths on the card, float32
+    (random weights from a seed): ``moe_sorted`` with room for every token
+    against ``moe_dense`` at MODEL_TOL, and ``router_topk``'s expert
+    indices on the card exactly the CPU's (TF32 off), its weights at
+    MODEL_TOL. Returns the largest error."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import MoE
+    cfg = get_config(arch)
+    layer = MoE(cfg, torch.float32, device, "sorted", 1.25, cfg.num_experts)
+    layer.reset_parameters(torch.Generator(device=device).manual_seed(60))
+    p = dict(layer.named_parameters(recurse=False))
+    gen = torch.Generator(device=device).manual_seed(61)
+    x = layer.ln(torch.randn(MOE_LAYER_TOKENS + (cfg.d_model,),
+                             generator=gen, device=device))
+    with torch.inference_mode():
+        idx, w, _ = moe.router_topk(cfg, p["router"], x)
+        cidx, cw, _ = moe.router_topk(cfg, p["router"].cpu(), x.cpu())
+        factor = cfg.num_experts / cfg.experts_per_token    # capacity = T
+        out, _ = moe.moe_sorted(cfg, p, x, capacity_factor=factor)
+        dense, _ = moe.moe_dense(cfg, p, x)
+    torch.cuda.synchronize()
+    if not torch.equal(idx.cpu(), cidx):
+        fail(f"{arch}: router_topk's experts on the card differ from the "
+             f"CPU's at {int((idx.cpu() != cidx).sum())} choices")
+    ok_w, err_w = close(w.cpu(), cw, *MODEL_TOL)
+    ok, err = close(out, dense, *MODEL_TOL)
+    if not (ok and ok_w and bool(torch.isfinite(out).all())):
+        fail(f"{arch}: moe_sorted vs moe_dense on the card: max abs err "
+             f"{err} (router weights vs the CPU {err_w})")
+    say(f"check: {arch} MoE layer at published widths ({cfg.num_experts} "
+        f"experts of d_ff {cfg.moe_d_ff}, top-{cfg.experts_per_token}"
+        f"{', shared expert' if cfg.num_shared_experts else ''}; "
+        f"{MOE_LAYER_TOKENS} tokens): moe_sorted vs moe_dense max abs err "
+        f"{err:.3g}; router experts equal to the CPU's, weights {err_w:.3g}")
+    return max(err, err_w)
+
+
+def check_arch_card_vs_cpu(arch, device):
+    """``arch`` at its published widths cut to NEW_ARCH_DEPTH periods:
+    prefill on the card (flash kernel, one launch a layer) against the
+    port on the CPU (plain attention) on the same weights and tokens,
+    last logits at MODEL_TOL and finite. Returns the error."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.models.model import Model
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=NEW_ARCH_DEPTH
+                              * full.scan_period)
+    b, s = NEW_ARCH_TOKENS
+    card = Model(cfg, device=device, attn_impl="kernel", max_seq=s)
+    card.init_params(torch.Generator(device=device).manual_seed(62))
+    import numpy as np
+    toks = torch.from_numpy(np.random.default_rng(63).integers(
+        0, cfg.vocab_size, (b, s)))
+    zero_counts()
+    with torch.inference_mode():
+        logits, _ = card.prefill({"tokens": toks.to(device)}, s)
+    torch.cuda.synchronize()
+    launches = attn_ops.launches
+    cpu = Model(cfg, device="cpu", max_seq=s)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    del card
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        ref, _ = cpu.prefill({"tokens": toks}, s)
+    ok, err = close(logits.cpu(), ref, *MODEL_TOL)
+    if launches != cfg.num_layers or not ok or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{arch} ({cfg.num_layers} layers, published widths): prefill "
+             f"on the card vs the CPU max abs err {err}, flash launches "
+             f"{launches} (expected {cfg.num_layers})")
+    say(f"check: {arch} at published widths, {cfg.num_layers} layers, "
+        f"prefill {b} x {s}: card (flash kernel, {launches} launches) vs "
+        f"the CPU, last logits max abs err {err:.3g}")
+    return err
+
+
+def phase_check_serving(device):
+    """The flash kernel at the new archs' layer shapes, one published-width
+    MoE layer of each MoE arch, and each new arch's prefill card vs CPU.
+    Returns the largest flash error."""
+    import torch
+    flash_err = 0.0
+    for i, case in enumerate(ATTN_NEW):
+        err, _ = check_flash(case, device, seed=400 + i)
+        flash_err = max(flash_err, err)
+        say(f"check: flash attention at {case}: max abs err {err:.3g}")
+        torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for float32 matrix products: the router's top-k "
+             "would not be the CPU's")
+    for arch, *_ in SERVE_NEW:
+        if "moe" in arch:
+            check_moe_layer(arch, device)
+            torch.cuda.empty_cache()
+    for arch, *_ in SERVE_NEW:
+        check_arch_card_vs_cpu(arch, device)
+    return flash_err
+
+
+def serve_new_args(arch, prompt, batch, gen):
+    return ["--arch", arch, "--no-reduced", "--device", "cuda", "--batch",
+            str(batch), "--prompt-len", str(prompt), "--gen", str(gen)]
+
+
+def phase_serve_new():
+    """``launch.serve --no-reduced`` on each new arch (SERVE_NEW), the
+    launch counts zeroed just before and read just after: the flash kernel
+    once per layer in the prefill, no SSD launch, finite logits, tokens in
+    the vocabulary; prefill ms, decode ms/token, tokens/s, peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import serve
+    runs = {}
+    for arch, prompt, batch, gen in SERVE_NEW:
+        layers = get_config(arch).num_layers      # one launch a layer
+        zero_counts()
+        stats = {}
+        t0 = time.perf_counter()
+        out = serve.main(serve_new_args(arch, prompt, batch, gen),
+                         stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (attn_ops.launches, ssd_ops.launches)
+        vocab = get_config(arch).vocab_size
+        tok_s = batch * gen / stats["seconds"]
+        say(f"main: serve {arch} --no-reduced batch {batch} prompt {prompt} "
+            f"gen {gen}: {wall:.3f} s wall (set-up included), flash / SSD "
+            f"launches {got}; prefill {stats['prefill_ms']:.3f} ms, decode "
+            f"{stats['decode_ms_per_token']:.4f} ms/token, {tok_s:.2f} "
+            f"tokens/s, peak memory {stats['peak_bytes']} B")
+        if got != (layers, 0):
+            fail(f"serve {arch}: launches {got}, expected ({layers}, 0)")
+        if not stats.get("logits_finite"):
+            fail(f"serve {arch}: a logit is not finite")
+        if tuple(out.shape) != (batch, gen) or int(out.min()) < 0 or \
+                int(out.max()) >= vocab:
+            fail(f"serve {arch}: tokens of shape {tuple(out.shape)} in "
+                 f"[{int(out.min())}, {int(out.max())}]")
+        runs[arch] = dict(stats, launches=got[0], wall_s=wall,
+                          tokens_per_s=tok_s, prompt=prompt, batch=batch,
+                          gen=gen)
+        torch.cuda.empty_cache()
+    return runs
+
+
+def batcher_requests(vocab):
+    """BATCH_N requests drawn from BATCH_SEED: prompt lengths spread evenly
+    over BATCH_PROMPT (shuffled; two pass gemma2's 4096 window), tokens
+    uniform over the vocabulary, max_new_tokens in BATCH_NEW."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rs = np.random.default_rng(BATCH_SEED)
+    lens = rs.permutation(np.linspace(*BATCH_PROMPT, BATCH_N).astype(int))
+    new = rs.integers(BATCH_NEW[0], BATCH_NEW[1] + 1, BATCH_N)
+    return [Request(uid=i, prompt=rs.integers(0, vocab, int(n)),
+                    max_new_tokens=int(m))
+            for i, (n, m) in enumerate(zip(lens, new))]
+
+
+def recording_batcher(model, slots, max_cache_len, reqs):
+    """A ContinuousBatcher with ``reqs`` submitted, whose model calls also
+    keep each request's logits rows over the real vocabulary (its
+    admission prefill's, then its lane's in each tick) and the CUDA events
+    around each prefill and tick. Admissions follow submission order. The
+    recording methods sit on ``model``; ``del model.prefill,
+    model.decode_step`` takes them off (and frees the batcher with the
+    model)."""
+    from repro_torch.serve import ContinuousBatcher
+    import torch
+    b = ContinuousBatcher(model, slots=slots, max_cache_len=max_cache_len)
+    vocab, rows = model.cfg.vocab_size, {}
+    times = {"prefill": [], "tick": []}
+    prefill, decode = model.prefill, model.decode_step
+
+    def timed(kind, fn, *args):
+        start, stop = (torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+        start.record()
+        out = fn(*args)
+        stop.record()
+        times[kind].append((start, stop))
+        return out
+
+    def rec_prefill(batch, max_cache_len):
+        logits, cache = timed("prefill", prefill, batch, max_cache_len)
+        rows[reqs[len(rows)].uid] = [logits[0, -1, :vocab].clone()]
+        return logits, cache
+
+    def rec_decode(cache, tokens, pos):
+        logits, cache = timed("tick", decode, cache, tokens, pos)
+        for slot, req in b.active.items():
+            rows[req.uid].append(logits[slot, -1, :vocab].clone())
+        return logits, cache
+
+    model.prefill, model.decode_step = rec_prefill, rec_decode
+    for req in reqs:
+        b.submit(req)
+    return b, rows, times
+
+
+def request_rows(model, prompt, n, max_cache_len):
+    """One request decoded alone at batch 1 (``make_prefill_step``, then
+    n - 1 ``make_decode_step`` calls, as ``generate`` runs them): each
+    step's logits over the real vocabulary."""
+    import torch
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step)
+    vocab = model.cfg.vocab_size
+    prefill = make_prefill_step(model, max_cache_len)
+    decode = make_decode_step(model)
+    tok, logits, cache = prefill(
+        {"tokens": torch.as_tensor(prompt, device=model.device)[None]})
+    cur, rows = tok[:, None], [logits[0, -1, :vocab]]
+    for i in range(n - 1):
+        cur, logits, cache = decode(cache, cur, len(prompt) + i)
+        rows.append(logits[0, -1, :vocab])
+    return rows
+
+
+def check_request(req, got, want):
+    """A batcher request's logits rows ``got`` against its own batch-1
+    decoding's ``want`` (``request_rows``): every logit finite, and the
+    token equal and the logits within MODEL_TOL at every step up to the
+    first whose top-2 margin at batch 1 is below BATCH_MARGIN. Returns
+    (max abs error, that step or None)."""
+    import torch
+    err = 0.0
+    for j, (g, w) in enumerate(zip(got, want)):
+        if not (bool(torch.isfinite(g).all())
+                and bool(torch.isfinite(w).all())):
+            fail(f"batcher request {req.uid} step {j}: a logit is not "
+                 f"finite")
+    for j, (g, w) in enumerate(zip(got, want)):
+        top = torch.topk(w, 2).values
+        if float(top[0] - top[1]) < BATCH_MARGIN:
+            return err, j
+        ok, e = close(g, w, *MODEL_TOL)
+        if not ok or req.out[j] != int(torch.argmax(w)):
+            fail(f"batcher request {req.uid} step {j}: token {req.out[j]} "
+                 f"vs {int(torch.argmax(w))} at batch 1, logits max abs "
+                 f"err {e}")
+        err = max(err, e)
+    return err, None
+
+
+def phase_batcher(device):
+    """The continuous batcher on gemma2-2b at its published widths
+    (BATCH_SLOTS lanes, max_cache_len BATCH_CACHE, BATCH_N requests): the
+    flash launches counted around its run alone equal 26 x BATCH_N (one
+    prefill a request); then each request against its own decoding at
+    batch 1 on the card: tokens equal and logits at MODEL_TOL up to the
+    first step whose top-2 margin is below BATCH_MARGIN; every logit
+    finite. Ticks, tokens/s, admission prefill ms, decode ms a tick."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models.model import Model
+    cfg = get_config(BATCH_ARCH)
+    model = Model(cfg, device=device, attn_impl="kernel",
+                  max_seq=BATCH_CACHE)
+    model.init_params(torch.Generator(device=device).manual_seed(64))
+    reqs = batcher_requests(cfg.vocab_size)
+    b, rows, times = recording_batcher(model, BATCH_SLOTS, BATCH_CACHE,
+                                       reqs)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = b.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (attn_ops.launches, ssd_ops.launches)
+    del model.prefill, model.decode_step
+    want = (cfg.num_layers * BATCH_N, 0)
+    tokens = sum(len(r.out) for r in done)
+    prefill_ms = [a.elapsed_time(z) for a, z in times["prefill"]]
+    tick_ms = [a.elapsed_time(z) for a, z in times["tick"]]
+    ticks = len(tick_ms)
+    lens = sorted(len(r.prompt) for r in reqs)
+    say(f"main: ContinuousBatcher {BATCH_ARCH} --no-reduced, {BATCH_SLOTS} "
+        f"slots, max_cache_len {BATCH_CACHE}, {BATCH_N} requests (prompts "
+        f"{lens}, max_new_tokens {[r.max_new_tokens for r in reqs]}): "
+        f"{ticks} ticks, {tokens} tokens in {wall:.3f} s "
+        f"({tokens / wall:.2f} tokens/s), admission prefill median "
+        f"{statistics.median(prefill_ms):.3f} ms, decode "
+        f"{statistics.median(tick_ms):.3f} ms a tick (median; CUDA events), "
+        f"flash / SSD launches {got}")
+    if got != want:
+        fail(f"batcher: launches {got}, expected {want}")
+    if sorted(r.uid for r in done) != list(range(BATCH_N)) or any(
+            len(r.out) != r.max_new_tokens for r in done):
+        fail("batcher: a request did not finish with its max_new_tokens")
+    if not sum(n > cfg.sliding_window for n in lens) >= 2:
+        fail(f"batcher: prompts {lens} do not pass the window twice")
+    err, cut = 0.0, {}
+    with torch.inference_mode():
+        for req in sorted(done, key=lambda r: r.uid):
+            e, stop = check_request(req, rows[req.uid], request_rows(
+                model, req.prompt, req.max_new_tokens, BATCH_CACHE))
+            err = max(err, e)
+            if stop is not None:
+                cut[req.uid] = stop
+    compared = sum(cut.get(r.uid, len(r.out)) for r in done)
+    say(f"check: batcher vs each request alone at batch 1 on the card: "
+        f"{compared} of {tokens} steps compared, tokens equal, logits max "
+        f"abs err {err:.3g}; steps where the top-2 margin fell below "
+        f"{BATCH_MARGIN} (comparison stopped there): "
+        f"{cut if cut else 'none'}")
+    del model, b, rows
+    gc.collect()              # the model's 10.5 GB must not reach the
+    torch.cuda.empty_cache()  # next phases' peak memory
+    return {"launches": got[0], "ticks": ticks, "tokens": tokens,
+            "wall_s": wall, "tokens_per_s": tokens / wall,
+            "prefill_ms_median": statistics.median(prefill_ms),
+            "tick_ms_median": statistics.median(tick_ms),
+            "prompt_lens": lens, "logits_max_abs_err": err,
+            "margin_cut": cut}
+
+
+def phase_times_serving(device, card):
+    """The flash kernel at the new archs' layer shapes (ATTN_NEW) beside
+    its bound (CUDA events, median)."""
+    import torch
+    from repro_torch.kernels.attention import ops as attn_ops
+    out = []
+    for i, case in enumerate(ATTN_NEW):
+        q, k, v = attn_tensors(case, device, seed=410 + i)
+        kw = attn_kwargs(case)
+        ms = cuda_ms(lambda: attn_ops.flash_attention(q, k, v, **kw),
+                     repeats=5, inner=3)
+        bnd = flash_bound(case, card)
+        say_kernel_time(f"flash attention {case}", ms, None, bnd)
+        out.append({"shape": list(case), "ms": ms,
+                    "bound_ms": bnd["bound_ms"],
+                    "bound_by": bnd["bound_by"]})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3957,8 +4364,11 @@ def main():
     phase_check_queue(device)
     phase_check_meta(device)
     vmap_err = phase_check_lm_fitness(device)
+    serving_err = phase_check_serving(device)
     launches, pop = phase_main()
     lm_launches = phase_serve()
+    new_runs = phase_serve_new()
+    batch_run = phase_batcher(device)
     train_fwd, train_bwd, train_stats = phase_train()
     hvdc_runs = phase_main_hvdc()
     host_runs = phase_main_host()
@@ -3984,10 +4394,19 @@ def main():
                                           meta_run, resize_run)
     kernels += phase_times_lm(device, card, lm_launches, flash_err, ssd_err)
     lm_paths = {f"ga_run lm {k}": v for k, v in lm_runs.items()}
+    serving = {"serve gemma2-2b prefill": lm_launches["flash_attention"],
+               **{f"serve {k} prefill": v["launches"]
+                  for k, v in new_runs.items()},
+               f"ContinuousBatcher {BATCH_ARCH} ({BATCH_N} admissions)":
+               batch_run["launches"]}
+    kernels[1]["launches"] = sum(serving.values())
+    kernels[1]["max_abs_err"] = max(flash_err, serving_err)
     kernels[1]["launches_by_path"] = {
-        "serve gemma2-2b prefill": lm_launches["flash_attention"],
-        f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_fwd,
+        **serving, f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_fwd,
         **{k: v["launches"] for k, v in lm_paths.items()}}
+    kernels[1]["serving_shapes"] = phase_times_serving(device, card)
+    say("times: serving " + json.dumps({
+        "card": card, "serve": new_runs, "batcher": batch_run}))
     fwd_train, bwd_entry = phase_times_train(device, card, train_fwd,
                                              train_bwd, bwd_err, train_stats)
     kernels[1]["train_shape"] = fwd_train

@@ -1,8 +1,9 @@
 """Config registry: ``get_config(arch_id)`` / ``list_archs()``.
 
 Each architecture the port carries has its own module defining ``CONFIG``,
-a copy of the reference's module of the same name. Only the architectures
-whose families the port runs are registered so far.
+a copy of the reference's module of the same name. Registered: the
+architectures of the families the port runs (dense, MoE, SSM); the
+hybrid (jamba), VLM (llava) and audio (whisper) ones are not ported.
 """
 from __future__ import annotations
 
@@ -13,7 +14,11 @@ from repro_torch.configs.base import GAConfig, ModelConfig
 # arch-id -> module name
 _ARCH_MODULES = {
     "gemma2-2b":            "gemma2_2b",
+    "granite-8b":           "granite_8b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "mamba2-780m":          "mamba2_780m",
+    "minicpm-2b":           "minicpm_2b",
+    "qwen2-moe-a2.7b":      "qwen2_moe_a2_7b",
     "tinyllama-1.1b":       "tinyllama_1_1b",
 }
 

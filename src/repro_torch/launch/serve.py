@@ -8,13 +8,21 @@ default the port runs its kernels: ``--attn-impl kernel`` (the flash
 attention kernel) and ``--ssd-kernel`` (the SSD intra-chunk kernel); on
 the CPU those are their plain versions. ``--no-reduced`` runs the
 architecture at its published widths (the reference's ``--reduced`` flag
-cannot be turned off).
+cannot be turned off). ``--arch`` takes every registered architecture:
+the dense (gemma2-2b, granite-8b, minicpm-2b, tinyllama-1.1b), MoE
+(granite-moe-1b-a400m, qwen2-moe-a2.7b; the sorted capacity dispatch
+above 8 experts) and SSM (mamba2-780m) families. The weights are made in
+place on the device (qwen2-moe-a2.7b at its published widths: 53.3 GiB of
+float32).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --no-reduced --batch 4 --prompt-len 4500 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
       --reduced --batch 4 --prompt-len 32 --gen 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite-moe-1b-a400m --no-reduced --batch 4 \
+      --prompt-len 4096 --gen 32
 """
 from __future__ import annotations
 
@@ -38,8 +46,12 @@ def serve(arch: str = "gemma2-2b", *, reduced: bool = True, batch: int = 4,
     """Generate ``gen`` tokens for a (batch, prompt_len) synthetic prompt.
     Returns the (batch, gen) tokens. ``stats``, where given, receives the
     wall seconds, ``logits_finite`` and, on the GPU, ``prefill_ms`` and
-    ``decode_ms_per_token`` (CUDA events)."""
+    ``decode_ms_per_token`` (CUDA events) and ``peak_bytes``
+    (``torch.cuda.max_memory_allocated`` from the model's construction to
+    the last token)."""
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -68,6 +80,8 @@ def serve(arch: str = "gemma2-2b", *, reduced: bool = True, batch: int = 4,
                f"(CUDA events, {torch.cuda.get_device_name(dev)})")
     if stats is not None:
         stats.update(timings, seconds=dt)
+        if dev.type == "cuda":
+            stats["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     return out
 
 

@@ -82,7 +82,8 @@ def train(arch: str = "tinyllama-1.1b", *, reduced: bool = True,
           stats: Optional[dict] = None):
     """Train ``steps`` steps; returns (state, history of the logged
     steps). ``stats``, where given, receives every step's ``loss``,
-    ``grad_norm`` and ``lr`` (lists of floats, read once after the loop),
+    ``grad_norm``, ``lr`` and MoE load-balance ``aux`` (0 without MoE
+    layers; lists of floats, read once after the loop),
     ``step_ms`` (each step's wall time, the device synchronised at its
     end; the first includes the kernels' build and warm-up) and, on the
     GPU, ``peak_bytes`` (``torch.cuda.max_memory_allocated`` over the
@@ -132,7 +133,7 @@ def train(arch: str = "tinyllama-1.1b", *, reduced: bool = True,
                 torch.cuda.synchronize(dev)
             step_ms.append((time.perf_counter() - ts) * 1e3)
             per_step.append({k: metrics[k] for k in
-                             ("loss", "grad_norm", "lr")})
+                             ("loss", "grad_norm", "lr", "aux")})
         if (i + 1) % log_every == 0 or i == steps - 1:
             rec = {"step": i + 1, "loss": float(metrics["loss"]),
                    "grad_norm": float(metrics["grad_norm"]),
@@ -149,7 +150,7 @@ def train(arch: str = "tinyllama-1.1b", *, reduced: bool = True,
         ckpt.save(_to_checkpoint(cfg, state), step=steps)
         ckpt.wait()
     if stats is not None:
-        for key in ("loss", "grad_norm", "lr"):
+        for key in ("loss", "grad_norm", "lr", "aux"):
             stats[key] = [float(m[key]) for m in per_step]
         stats["step_ms"] = step_ms
         if dev.type == "cuda":

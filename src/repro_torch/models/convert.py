@@ -14,7 +14,14 @@ its slice ``[period]``. The port keeps one module per layer.
   comparing trained parameters, and for checkpoints in the reference's
   layout).
 * ``cache_to_numpy(cache)`` stacks the port's per-layer cache lists back
-  into the reference's layout, leaf by leaf.
+  into the reference's layout, leaf by leaf. A continuous batcher's lane
+  pool (``serve.batching``: ``cache_pos`` (slots, T_cache)) stacks to
+  (periods, slots, ...); the reference's batcher keeps its lane axis
+  first, (slots, periods, 1, ...).
+
+Every leaf of a layer goes across under its own name, the MoE sub-layer's
+(``stack.sub{s}.moe.{ln, router, wi, wg, wo, swi, swg, swo, sgate}``,
+the router float32) as the attention's and FFN's.
 """
 from __future__ import annotations
 

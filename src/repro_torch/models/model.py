@@ -1,9 +1,10 @@
-"""Model assembly for the dense and SSM families (port of
+"""Model assembly for the dense, MoE and SSM families (port of
 ``repro/models/model.py``).
 
 One :class:`Model` (an ``nn.Module``) covers the families ported so far
 through ``ModelConfig`` dispatch: dense llama/gemma-like stacks (attention
-+ dense FFN) and pure Mamba-2 (SSD mixer, no FFN). The reference groups
++ dense FFN), MoE stacks (attention + routed experts, ``models.moe``) and
+pure Mamba-2 (SSD mixer, no FFN). The reference groups
 layers into ``scan_period``-sized periods with stacked parameters under
 ``lax.scan``; here every layer is its own module and the stack is a Python
 loop. The period still decides each layer's kinds: layer ``i`` is
@@ -12,9 +13,20 @@ sub-layer ``s = i % scan_period`` of period ``i // scan_period``, and
 reference.
 
 Modes:
-  * ``forward``  — logits over the full sequence (teacher forcing)
+  * ``forward``  — logits over the full sequence (teacher forcing) and the
+    MoE load-balance aux summed over layers
   * ``prefill``  — last-token logits + populated decode cache
-  * ``decode_step`` — one token against the cache (updated in place)
+  * ``decode_step`` — one token against the cache (updated in place), at
+    one position for the batch or at a position per lane (the continuous
+    batcher's lanes, ``serve.batching``)
+
+MoE: ``moe_impl`` "dense" (every expert on every token) or "sorted"
+(capacity dispatch); "auto" takes "sorted" above 8 experts, as the
+reference does. ``forward`` and ``prefill`` dispatch all tokens as one
+group (the reference's single data shard); ``decode_step`` makes each lane
+its own group, so a lane's capacity and its tokens never depend on the
+other lanes (what the reference's batcher gets from ``vmap``-ing
+single-lane decode steps).
 
 The cache mirrors the reference's tree, with the period axis as a list:
 ``cache["sub{s}"][period]`` is one layer's ``{"attn": {k, v, cache_pos}}``
@@ -28,7 +40,7 @@ autograd (with ``attn_impl="kernel"`` the flash kernel's backward is a
 kernel too). The last component of every parameter name is the
 reference's leaf name, which the optimizer's weight-decay mask reads.
 
-The MoE, hybrid, VLM and audio families are not ported yet and raise at
+The hybrid, VLM and audio families are not ported yet and raise at
 construction.
 """
 from __future__ import annotations
@@ -42,13 +54,15 @@ from torch import nn
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.attention import IMPLS, attend
 from repro_torch.models.layers import (apply_norm, apply_rope,
                                        decode_attention, dense_init_, ffn,
                                        rope_tables, softcap)
 
-NOT_PORTED_FAMILIES = ("moe", "hybrid", "vlm", "audio")
+NOT_PORTED_FAMILIES = ("hybrid", "vlm", "audio")
+MOE_IMPLS = ("auto", "dense", "sorted")
 
 
 def _param(shape, dtype, device, fill=None) -> nn.Parameter:
@@ -118,11 +132,7 @@ class Attention(_Weights):
         window = cfg.sliding_window if self.local else 0
         new_cache = {}
         if mode == "decode":
-            tc = cache["k"].shape[1]
-            slot = pos % tc
-            cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-            cache["cache_pos"][slot] = pos
+            _write_decode_kv(cache, k, v, pos)
             out = decode_attention(q, cache["k"], cache["v"], kv_len=0,
                                    cache_pos=cache["cache_pos"], scale=scale,
                                    attn_softcap=cfg.attn_softcap)
@@ -157,6 +167,45 @@ class FFN(_Weights):
 
     def forward(self, h, cd):
         return ffn(self.cfg, self.weights(cd), self.ln(h))
+
+
+class MoE(_Weights):
+    """MoE FFN sub-layer (``models.moe``): a float32 router, ``e`` routed
+    experts and, where the config has them, the gated shared expert."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, impl: str,
+                 capacity_factor: float, e: int):
+        super().__init__()
+        self.cfg, self.impl = cfg, impl
+        self.capacity_factor = capacity_factor
+        d, f = cfg.d_model, cfg.moe_d_ff
+        self.ln = Norm(cfg, d, device)
+        self.router = _param((d, e), torch.float32, device)
+        self.wi = _param((e, d, f), dtype, device)
+        self.wg = _param((e, d, f), dtype, device)
+        self.wo = _param((e, f, d), dtype, device)
+        if cfg.num_shared_experts:
+            sf = cfg.shared_d_ff or cfg.moe_d_ff * cfg.num_shared_experts
+            self.swi = _param((d, sf), dtype, device)
+            self.swg = _param((d, sf), dtype, device)
+            self.swo = _param((sf, d), dtype, device)
+            self.sgate = _param((d, 1), dtype, device)
+        self.post_ln = Norm(cfg, d, device) if cfg.post_norm else None
+
+    def reset_parameters(self, gen):
+        d = self.cfg.d_model
+        for name, w in self.named_parameters(recurse=False):
+            # fan-in: the model width, or the hidden width into wo / swo
+            dense_init_(w, w.shape[-2] if name in ("wo", "swo") else d, gen)
+
+    def forward(self, h, cd, num_groups: int):
+        """(out, aux). ``num_groups``: the sorted dispatch's groups."""
+        x = self.ln(h)
+        w = self.weights(cd)
+        if self.impl == "dense":
+            return MOE.moe_dense(self.cfg, w, x)
+        return MOE.moe_sorted(self.cfg, w, x, num_groups=num_groups,
+                              capacity_factor=self.capacity_factor)
 
 
 class Mamba2(_Weights):
@@ -208,10 +257,12 @@ class Mamba2(_Weights):
 
 class Block(nn.Module):
     """One layer: a mixer (attention or Mamba-2) and, where the config has
-    one, a dense FFN, each with its residual (and gemma2's post-norms)."""
+    one, a dense or MoE FFN, each with its residual (and gemma2's
+    post-norms)."""
 
     def __init__(self, cfg: ModelConfig, sub: int, dtype, device,
-                 attn_impl: str, use_ssd_kernel: bool):
+                 attn_impl: str, use_ssd_kernel: bool, moe_impl: str,
+                 moe_capacity_factor: float, num_experts: int):
         super().__init__()
         self.cfg = cfg
         mix, f = cfg.mixer_kind(sub), cfg.ffn_kind(sub)
@@ -220,6 +271,8 @@ class Block(nn.Module):
         self.ssm = (Mamba2(cfg, dtype, device, use_ssd_kernel)
                     if mix == "ssm" else None)
         self.ffn = FFN(cfg, dtype, device) if f == "dense" else None
+        self.moe = (MoE(cfg, dtype, device, moe_impl, moe_capacity_factor,
+                        num_experts) if f == "moe" else None)
 
     def _residual(self, h, out, post_ln):
         if post_ln is not None:
@@ -227,6 +280,7 @@ class Block(nn.Module):
         return h + self.cfg.residual_scale * out
 
     def forward(self, h, *, sincos, mode, cache, pos, max_cache_len, cd):
+        """(h, this layer's new cache, MoE aux or None)."""
         nc = {}
         if self.attn is not None:
             out, c = self.attn(h, sincos=sincos, mode=mode,
@@ -244,26 +298,43 @@ class Block(nn.Module):
                     cache["ssm"].update(c)      # decode: in place
                     c = cache["ssm"]
                 nc["ssm"] = c
+        aux = None
         if self.ffn is not None:
             h = self._residual(h, self.ffn(h, cd), self.ffn.post_ln)
-        return h, nc
+        elif self.moe is not None:
+            # decode: each lane is its own dispatch group
+            out, aux = self.moe(h, cd, h.shape[0] if mode == "decode" else 1)
+            h = self._residual(h, out, self.moe.post_ln)
+        return h, nc, aux
 
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig | str, *, device="cuda",
                  compute_dtype: str = "float32", attn_impl: str = "auto",
-                 use_ssd_kernel: bool = False, max_seq: int = 4096):
+                 moe_impl: str = "auto", use_ssd_kernel: bool = False,
+                 max_seq: int = 4096, pad_experts: bool = False,
+                 moe_capacity_factor: float = 1.25):
         super().__init__()
         self.cfg = cfg = get_config(cfg) if isinstance(cfg, str) else cfg
-        if (cfg.family in NOT_PORTED_FAMILIES or cfg.num_experts
-                or cfg.attn_every or cfg.is_encoder_decoder
-                or cfg.frontend != "none" or cfg.pos_embedding == "learned"):
+        if (cfg.family in NOT_PORTED_FAMILIES or cfg.attn_every
+                or cfg.is_encoder_decoder or cfg.frontend != "none"
+                or cfg.pos_embedding == "learned"):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not yet ported to "
-                f"repro_torch (ported: dense, ssm)")
+                f"repro_torch (ported: dense, moe, ssm)")
         if attn_impl not in IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}; use one of "
                              f"{IMPLS}")
+        if moe_impl not in MOE_IMPLS:
+            raise ValueError(f"unknown moe_impl {moe_impl!r}; use one of "
+                             f"{MOE_IMPLS}")
+        if moe_impl == "auto":
+            moe_impl = "sorted" if cfg.num_experts > 8 else "dense"
+        self.moe_impl = moe_impl
+        # pad_experts: E padded to a multiple of 16 (qwen 60 -> 64); the
+        # padded experts are router-masked, never used
+        num_experts = (MOE.padded_experts(cfg) if pad_experts
+                       else cfg.num_experts)
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, compute_dtype)
         self.param_dtype = getattr(torch, cfg.param_dtype)
@@ -275,7 +346,8 @@ class Model(nn.Module):
             {"tokens": _param((cfg.padded_vocab, d), dt, dev)})
         self.layers = nn.ModuleList(
             Block(cfg, i % cfg.scan_period, dt, dev, attn_impl,
-                  use_ssd_kernel) for i in range(cfg.num_layers))
+                  use_ssd_kernel, moe_impl, moe_capacity_factor,
+                  num_experts) for i in range(cfg.num_layers))
         self.final_norm = Norm(cfg, d, dev)
         self.unembed = (None if cfg.tie_embeddings
                         else _param((d, cfg.padded_vocab), dt, dev))
@@ -285,12 +357,13 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def init_params(self, generator: torch.Generator) -> "Model":
         """Random parameters from ``generator`` (on the model's device), in
-        place: truncated-normal fan-in projections, ones for norms, the
-        Mamba-2 A_log / dt_bias distributions. Returns the model."""
+        place: truncated-normal fan-in projections (the MoE router
+        included, float32), ones for norms, the Mamba-2 A_log / dt_bias
+        distributions. Returns the model."""
         d = self.cfg.d_model
         dense_init_(self.embed["tokens"], d, generator)
         for layer in self.layers:
-            for sub in (layer.attn, layer.ssm, layer.ffn):
+            for sub in (layer.attn, layer.ssm, layer.ffn, layer.moe):
                 if sub is not None:
                     sub.reset_parameters(generator)
         if self.unembed is not None:
@@ -301,15 +374,21 @@ class Model(nn.Module):
     # Stack
     # ------------------------------------------------------------------
     def _run_stack(self, h, *, sincos, mode, cache, pos, max_cache_len):
+        """(h, cache, aux): aux is the MoE load-balance loss summed over
+        the layers (float32, 0 without MoE layers)."""
         period = self.cfg.scan_period
         new_cache = {f"sub{s}": [] for s in range(period)}
+        aux = torch.zeros((), device=self.device)
         for i, layer in enumerate(self.layers):
             s, per = i % period, i // period
             lc = cache[f"sub{s}"][per] if mode == "decode" else None
-            h, nc = layer(h, sincos=sincos, mode=mode, cache=lc, pos=pos,
-                          max_cache_len=max_cache_len, cd=self.compute_dtype)
+            h, nc, a = layer(h, sincos=sincos, mode=mode, cache=lc, pos=pos,
+                             max_cache_len=max_cache_len,
+                             cd=self.compute_dtype)
+            if a is not None:
+                aux = aux + a
             new_cache[f"sub{s}"].append(nc)
-        return h, (new_cache if mode == "prefill" else cache)
+        return h, (new_cache if mode == "prefill" else cache), aux
 
     # ------------------------------------------------------------------
     # Public API
@@ -342,33 +421,42 @@ class Model(nn.Module):
 
     def forward(self, batch):
         """Full-sequence logits. Returns (logits_f32 (B, S, padded_vocab),
-        aux): aux is 0, the MoE load-balance loss of the families not
-        ported yet."""
+        aux): aux is the MoE load-balance loss summed over the layers,
+        float32 (0 for the families without MoE layers)."""
         h = self._embed(batch["tokens"])
         sincos = self._pos_tables(h.shape[1])
-        h, _ = self._run_stack(h, sincos=sincos, mode="fwd", cache=None,
-                               pos=None, max_cache_len=0)
-        return self._logits(h), torch.zeros((), device=self.device)
+        h, _, aux = self._run_stack(h, sincos=sincos, mode="fwd",
+                                    cache=None, pos=None, max_cache_len=0)
+        return self._logits(h), aux
 
     def prefill(self, batch, max_cache_len: int):
         """Populate the decode cache; returns (last_logits (B, 1, V),
         cache)."""
         h = self._embed(batch["tokens"])
         sincos = self._pos_tables(h.shape[1])
-        h, cache = self._run_stack(h, sincos=sincos, mode="prefill",
-                                   cache=None, pos=None,
-                                   max_cache_len=max_cache_len)
+        h, cache, _ = self._run_stack(h, sincos=sincos, mode="prefill",
+                                      cache=None, pos=None,
+                                      max_cache_len=max_cache_len)
         return self._logits(h, last_only=True), cache
 
-    def decode_step(self, cache, tokens, pos: int):
-        """One decode step. tokens: (B, 1); pos: int, the next index.
-        Returns (logits (B, 1, V), cache); the cache is updated in place."""
+    def decode_step(self, cache, tokens, pos):
+        """One decode step. tokens: (B, 1); pos: the next index, an int for
+        the whole batch, or a (B,) integer tensor with one per lane (each
+        lane's rope angle, ring slot ``pos[b] % T_cache`` and cache
+        positions its own, so the attention caches' ``cache_pos`` must be
+        (B, T_cache), as the continuous batcher's pool holds them; nothing
+        is read back to the host). Returns (logits (B, 1, V), cache); the
+        cache is updated in place."""
         h = self._embed(tokens)
-        sincos = self._pos_tables(
-            1, positions=torch.tensor([int(pos)], device=self.device))
-        h, cache = self._run_stack(h, sincos=sincos, mode="decode",
-                                   cache=cache, pos=int(pos),
-                                   max_cache_len=0)
+        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+            pos = pos.to(self.device)
+            positions = pos[:, None]                          # (B, 1)
+        else:
+            pos = int(pos)
+            positions = torch.tensor([pos], device=self.device)
+        sincos = self._pos_tables(1, positions=positions)
+        h, cache, _ = self._run_stack(h, sincos=sincos, mode="decode",
+                                      cache=cache, pos=pos, max_cache_len=0)
         return self._logits(h), cache
 
     # ------------------------------------------------------------------
@@ -402,6 +490,26 @@ class Model(nn.Module):
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+
+def _write_decode_kv(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                     pos) -> None:
+    """Write one step's k/v (B, 1, KV, hd) into a ring cache in place, at
+    slot ``pos % T_cache``: one slot for the batch (int ``pos``) or one per
+    lane ((B,) tensor ``pos`` and a (B, T_cache) ``cache_pos``)."""
+    tc = cache["k"].shape[1]
+    kd, vd = k[:, 0].to(cache["k"].dtype), v[:, 0].to(cache["v"].dtype)
+    if isinstance(pos, int):
+        slot = pos % tc
+        cache["k"][:, slot] = kd
+        cache["v"][:, slot] = vd
+        cache["cache_pos"][..., slot] = pos
+        return
+    lanes = torch.arange(k.shape[0], device=k.device)
+    slot = pos % tc
+    cache["k"][lanes, slot] = kd
+    cache["v"][lanes, slot] = vd
+    cache["cache_pos"][lanes, slot] = pos.to(cache["cache_pos"].dtype)
+
 
 def _build_prefill_cache(k: torch.Tensor, v: torch.Tensor, tc: int) -> dict:
     """Pack computed K/V (B, S, KV, hd) into a ring cache of length tc."""

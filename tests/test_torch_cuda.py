@@ -2,7 +2,9 @@
 version, the wrappers' refusals, and the port's paths on the card (the GA
 main path; the fused variation with one hyperparameter row per run and a
 meta-fitness call through it; the host pool on CUDA genomes; prefill with the kernels against prefill with their plain
-versions; the serving entry point; the HVDC power flow against the same
+versions; the serving entry point; the continuous batcher against
+per-request decoding; the MoE dispatch against the dense oracle and the
+router against the CPU; the HVDC power flow against the same
 code on the CPU; the flash wrapper under vmap(grad); the LM fitness
 against the CPU; mamba2 training through the plain chunked scan).
 They skip without a card. This file imports no JAX, so it runs on a
@@ -10,6 +12,9 @@ machine that has PyTorch for CUDA and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -32,11 +37,13 @@ from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 from repro_torch.launch import ga_run, serve, train
 from repro_torch.models.convert import cache_to_numpy
+from repro_torch.models import moe
 from repro_torch.models.model import Model
 from repro_torch.powerflow.contingency import contingency_loadings
 from repro_torch.powerflow.grid import make_german_grid, make_synthetic_grid
 from repro_torch.powerflow.hvdc import apply_hvdc
 from repro_torch.powerflow.newton import newton_powerflow
+from repro_torch.serve import Request
 from repro_torch.train.train_step import reduced_train_step
 from torch_parity import (ATTN_BF16_TOL, ATTN_CASES, ATTN_TOL,  # noqa: F401
                           GA_RUN_HP, GRAD_TOL, MASKED_CASE, MODEL_TOL,
@@ -652,7 +659,9 @@ def test_ssd_wrapper_refuses_inputs_that_need_a_gradient(cuda_device):
 # the model and the serving entry point on the card
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-780m", "granite-8b",
+                                  "minicpm-2b", "granite-moe-1b-a400m",
+                                  "qwen2-moe-a2.7b"])
 def test_prefill_with_kernels_matches_plain_versions(cuda_device, arch):
     cfg = get_config(arch).reduced()
     toks = torch.randint(0, cfg.vocab_size, (2, 40),
@@ -671,7 +680,7 @@ def test_prefill_with_kernels_matches_plain_versions(cuda_device, arch):
         outs.append((last, cache_to_numpy(cache), grew))
     (kl, kc, kgrew), (pl, pc, pgrew) = outs
     n = cfg.num_layers
-    assert kgrew == ((n, 0) if arch == "gemma2-2b" else (0, n))
+    assert kgrew == ((0, n) if cfg.family == "ssm" else (n, 0))
     assert pgrew == (0, 0)
     np.testing.assert_allclose(to_np(kl), to_np(pl), **MODEL_TOL)
     for sub in kc:
@@ -694,7 +703,81 @@ def test_serve_on_card_launches_the_kernels(cuda_device):
         assert stats["prefill_ms"] > 0 and stats["decode_ms_per_token"] > 0
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-2b"])
+def _chip_smoke():
+    """``chip_smoke.py``, whose batcher checks these tests share."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("gemma2-2b", dict()), ("granite-moe-1b-a400m", dict(moe_impl="sorted")),
+    ("mamba2-780m", dict(use_ssd_kernel=True))])
+def test_batcher_on_card_matches_per_request_decoding(cuda_device, arch, kw):
+    """Eight requests through three lanes on the card (flash kernel in the
+    admission prefills; gemma2's prompts of 20 and more wrap its reduced
+    window of 16): each request's tokens and logits equal its own decoding
+    at batch 1 (``chip_smoke.check_request``: MODEL_TOL, up to the first
+    step whose top-2 margin is below 1e-3), and every attention layer
+    launched the flash kernel once per admission."""
+    cfg = get_config(arch).reduced()
+    model = Model(cfg, device=cuda_device, attn_impl="kernel", max_seq=96,
+                  **kw)
+    model.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+    rs = np.random.default_rng(3)
+    reqs = [Request(uid=i, prompt=rs.integers(0, cfg.vocab_size, n),
+                    max_new_tokens=m)
+            for i, (n, m) in enumerate(zip((20, 7, 33, 12, 26, 9, 15, 40),
+                                           (5, 8, 3, 6, 4, 7, 5, 6)))]
+    smoke = _chip_smoke()
+    b, rows, _ = smoke.recording_batcher(model, 3, 64, reqs)
+    attn_ops.launches = ssd_ops.launches = 0
+    done = b.run()
+    n = cfg.num_layers * len(reqs)
+    assert (attn_ops.launches, ssd_ops.launches) == (
+        (0, n) if cfg.family == "ssm" else (n, 0))
+    assert sorted(r.uid for r in done) == list(range(len(reqs)))
+    del model.prefill, model.decode_step
+    with torch.inference_mode():
+        for req in done:
+            assert len(req.out) == req.max_new_tokens
+            smoke.check_request(req, rows[req.uid], smoke.request_rows(
+                model, req.prompt, req.max_new_tokens, 64))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen2-moe-a2.7b"])
+def test_moe_sorted_on_card_matches_dense_and_the_cpu(cuda_device, arch):
+    """On the card: the sorted dispatch with room for every token against
+    the dense oracle (MODEL_TOL), and the router's choices exactly the
+    CPU's (TF32 off for matrix products), at the reduced widths."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch).reduced()
+    m = Model(cfg, device="cpu")
+    m.init_params(torch.Generator().manual_seed(4))
+    p = {k: v for k, v in m.layers[0].moe.named_parameters(recurse=False)}
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 64, cfg.d_model)).astype(np.float32))
+    pc = {k: v.to(cuda_device) for k, v in p.items()}
+    xc = x.to(cuda_device)
+    idx, w, aux = moe.router_topk(cfg, pc["router"], xc)
+    cidx, cw, caux = moe.router_topk(cfg, p["router"], x)
+    assert torch.equal(idx.cpu(), cidx)
+    np.testing.assert_allclose(to_np(w), to_np(cw), **MODEL_TOL)
+    factor = cfg.num_experts / cfg.experts_per_token       # capacity = T
+    out, saux = moe.moe_sorted(cfg, pc, xc, capacity_factor=factor)
+    dense, daux = moe.moe_dense(cfg, pc, xc)
+    np.testing.assert_allclose(to_np(out), to_np(dense), **MODEL_TOL)
+    np.testing.assert_allclose(float(saux), float(caux), **MODEL_TOL)
+    np.testing.assert_allclose(
+        to_np(out), to_np(moe.moe_sorted(cfg, p, x,
+                                         capacity_factor=factor)[0]),
+        **MODEL_TOL)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-2b",
+                                  "granite-moe-1b-a400m"])
 def test_train_step_on_card_matches_cpu(cuda_device, arch):
     """One train step of a reduced config, the flash kernels forward and
     backward on the card against their plain versions on the CPU; float32
@@ -714,7 +797,7 @@ def test_train_step_on_card_matches_cpu(cuda_device, arch):
         np.testing.assert_allclose(
             to_np(gpu[0][name]), to_np(g), rtol=GRAD_TOL["rtol"],
             atol=GRAD_TOL["atol"] * float(g.abs().max()), err_msg=name)
-    for key in ("loss", "grad_norm", "lr"):
+    for key in ("loss", "grad_norm", "lr", "aux"):
         np.testing.assert_allclose(gpu[1][key], cpu[1][key], rtol=1e-4,
                                    err_msg=key)
     for name, p in cpu[2].items():
@@ -931,6 +1014,32 @@ def test_lm_fitness_on_card_matches_cpu(cuda_device, arch, monkeypatch):
     monkeypatch.setattr(fit, "chunk_runs", lambda: 4)
     np.testing.assert_allclose(to_np(fit(g.to(cuda_device))), to_np(got),
                                rtol=1e-5)
+
+
+def test_lm_fitness_moe_on_card_matches_cpu(cuda_device):
+    """granite-moe-1b-a400m's LM fitness (MoE layers, the dense oracle at
+    the reduced 8 experts) for the 8 genomes, 3 steps: card against the CPU
+    (rtol 1e-4 / atol 2e-6) and against one run per genome (rtol 1e-5),
+    2 x 3 launches of each flash kernel a call. Three steps, not six: by
+    step 6 one genome's router holds two experts 2e-6 apart (on the CPU),
+    close enough for another summation order to swap them; the closest
+    pair in 3 steps is 1.2e-5 apart."""
+    from repro_torch.fitness.lm import LMTrainFitness
+    assert not torch.backends.cuda.matmul.allow_tf32
+    arch = "granite-moe-1b-a400m"
+    per_call = get_config(arch).reduced().num_layers * 3
+    g = torch.from_numpy(LM_GENOMES)
+    fit = LMTrainFitness(arch, steps=3, device=cuda_device)
+    before = (attn_ops.launches, attn_ops.bwd_launches)
+    got = fit(g.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (attn_ops.launches - before[0],
+            attn_ops.bwd_launches - before[1]) == (per_call, per_call)
+    assert got.shape == (8, 1) and bool(torch.isfinite(got).all())
+    cpu = LMTrainFitness(arch, steps=3, device="cpu")(g)
+    np.testing.assert_allclose(to_np(got), to_np(cpu), rtol=1e-4, atol=2e-6)
+    loop = fit.per_genome_loop(g.to(cuda_device))
+    np.testing.assert_allclose(to_np(loop), to_np(got), rtol=1e-5)
 
 
 def test_mamba2_train_step_on_card_matches_cpu(cuda_device):

@@ -32,7 +32,8 @@ from repro_torch.models.convert import params_from_numpy
 
 PARAM_TOL = dict(rtol=1e-4, atol=2e-6)
 BATCHED_TOL = dict(rtol=1e-6, atol=0.0)
-ARCHS = ["tinyllama-1.1b", "gemma2-2b", "mamba2-780m"]
+ARCHS = ["tinyllama-1.1b", "gemma2-2b", "mamba2-780m",
+         "granite-moe-1b-a400m"]
 SMALL = dict(steps=3, batch_size=2, seq_len=16)
 # the corners the reference's system test measures against, and two draws
 GENOMES = np.array([[0.0, 0.0, 1.0, 1.0], [1.0, 1.0, 0.0, 0.0],

@@ -7,7 +7,9 @@ fed the same tokens — past the sliding window on gemma2 (s = 40 > 16).
 Tolerances of tests/test_models_smoke.py: 2e-4, 3e-4 through the ring
 cache. Each case runs twice: with the plain paths, and with the kernel
 paths (JAX: Pallas in interpret mode; the port: its kernels' plain
-versions on CPU tensors)."""
+versions on CPU tensors); the MoE archs once more with the sorted
+capacity dispatch forced, at a capacity factor that drops tokens. Decode
+at one position per lane is held against decode lane by lane."""
 import dataclasses
 
 import jax
@@ -23,6 +25,8 @@ from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.convert import cache_to_numpy, params_from_numpy
 from repro_torch.models.model import Model
+from torch.utils._python_dispatch import TorchDispatchMode
+
 from torch_parity import MODEL_TOL, RING_TOL, to_np
 
 S, DECODE, MAX_CACHE = 40, 4, 64
@@ -34,8 +38,15 @@ VARIANTS = {
 }
 
 
-def _pair(arch, variant):
-    jkw, tkw = VARIANTS[variant]
+MOE_ARCHS = [a for a in list_archs() if get_config(a).num_experts]
+# sorted dispatch at a capacity factor of 1.0: 88 tokens over 8 experts, 2
+# choices each, leave 24 slots an expert, and the busiest ones overflow
+SORTED = (dict(moe_impl="sorted", moe_capacity_factor=1.0),
+          dict(moe_impl="sorted", moe_capacity_factor=1.0))
+
+
+def _pair(arch, variant, kw=None):
+    jkw, tkw = VARIANTS[variant] if kw is None else kw
     jcfg, cfg = jax_config(arch).reduced(), get_config(arch).reduced()
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
     jm = JaxModel(jcfg, max_seq=96, **jkw)
@@ -49,12 +60,30 @@ def _pair(arch, variant):
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("arch", list_archs())
 def test_model_matches_reference(arch, variant):
-    jm, params, m = _pair(arch, variant)
+    _check_against_reference(*_pair(arch, variant))
+
+
+@pytest.mark.parametrize("arch,pad", [(a, False) for a in MOE_ARCHS]
+                         + [("qwen2-moe-a2.7b", True)])
+def test_moe_sorted_matches_reference(arch, pad):
+    """The sorted dispatch at capacity factor 1.0, and on qwen with the
+    experts padded to a multiple of 16 (8 -> 16 reduced), the padded
+    experts' weights carried across with the rest."""
+    kw = dict(SORTED[0], pad_experts=pad)
+    jm, params, m = _pair(arch, None, (kw, kw))
+    assert m.moe_impl == "sorted" and m.layers[0].moe.impl == "sorted"
+    assert m.layers[0].moe.wi.shape[0] == (16 if pad else 8)
+    # the full sequence drops tokens at this capacity, a decode step none:
+    # decode matches the reference's decode, not the full logits
+    _check_against_reference(jm, params, m, decode_is_full=False)
+
+
+def _check_against_reference(jm, params, m, decode_is_full=True):
     cfg = m.cfg
     toks = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, S + DECODE)).astype(np.int32)
     tt = torch.from_numpy(toks)
-    jfull, _ = jm.forward(params, {"tokens": jnp.asarray(toks)})
+    jfull, jaux = jm.forward(params, {"tokens": jnp.asarray(toks)})
     jlast, jcache = jm.prefill(params, {"tokens": jnp.asarray(toks[:, :S])},
                                max_cache_len=MAX_CACHE)
     before = (attn_ops.launches, ssd_ops.launches)
@@ -63,7 +92,8 @@ def test_model_matches_reference(arch, variant):
         last, cache = m.prefill({"tokens": tt[:, :S]}, MAX_CACHE)
     assert (attn_ops.launches, ssd_ops.launches) == before   # CPU: plain
     assert full.shape == (2, S + DECODE, cfg.padded_vocab)
-    assert float(aux) == 0.0
+    assert (float(jaux) == 0.0) == (not cfg.num_experts)
+    np.testing.assert_allclose(float(aux), float(jaux), **MODEL_TOL)
     np.testing.assert_allclose(to_np(full), np.asarray(jfull), **MODEL_TOL)
     np.testing.assert_allclose(to_np(last), np.asarray(jlast), **MODEL_TOL)
 
@@ -84,8 +114,24 @@ def test_model_matches_reference(arch, variant):
         with torch.inference_mode():
             dec, cache = m.decode_step(cache, tt[:, pos:pos + 1], pos)
         np.testing.assert_allclose(to_np(dec), np.asarray(jdec), **RING_TOL)
-        np.testing.assert_allclose(to_np(dec[:, 0]), to_np(full[:, pos]),
-                                   **RING_TOL)
+        if decode_is_full:
+            np.testing.assert_allclose(to_np(dec[:, 0]), to_np(full[:, pos]),
+                                       **RING_TOL)
+
+
+def test_registry_matches_reference():
+    """The port registers the reference's archs of the families it runs
+    (all but hybrid, VLM and audio), each config field for field equal
+    to the reference's, at full size and reduced."""
+    from repro.configs import list_archs as jax_archs
+    ported = [a for a in jax_archs()
+              if jax_config(a).family in ("dense", "moe", "ssm")]
+    assert list_archs() == ported and len(ported) == 7
+    for arch in ported:
+        assert (dataclasses.asdict(get_config(arch))
+                == dataclasses.asdict(jax_config(arch)))
+        assert (dataclasses.asdict(get_config(arch).reduced())
+                == dataclasses.asdict(jax_config(arch).reduced()))
 
 
 def test_gemma2_ring_cache_wraps_past_the_window():
@@ -120,8 +166,81 @@ def test_init_params_is_seeded_and_finite():
     assert abs(n - pad - cfg.total_params()) / cfg.total_params() < 0.02
 
 
+def _cat_lanes(caches):
+    """One cache of B lanes from B caches of one lane each (prefills of
+    different lengths): k/v and SSM states concatenated on the batch axis,
+    ``cache_pos`` stacked to (B, T_cache)."""
+    def cat(items):
+        if isinstance(items[0], dict):
+            return {k: cat([it[k] for it in items]) for k in items[0]}
+        if isinstance(items[0], list):
+            return [cat(list(per)) for per in zip(*items)]
+        if items[0].ndim == 1:                          # cache_pos
+            return torch.stack(items)
+        return torch.cat(items)
+    return cat(caches)
+
+
+class _HostReads(TorchDispatchMode):
+    """Counts reads of a tensor's value into Python (``.item()``,
+    ``int(t)``, ``bool(t)``: ``aten._local_scalar_dense``), each a device
+    sync on the GPU."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            self.reads += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_decode_with_lane_positions_equals_lane_by_lane(arch):
+    """Three lanes prefilled at B = 1 to different lengths (one past
+    gemma2's reduced window of 16), then 4 decode steps with a (3,)
+    position tensor: each lane's logits and cache equal its own decode at
+    an int position; the tensor form reads no position back to the
+    host."""
+    cfg = get_config(arch).reduced()
+    m = Model(cfg, device="cpu", max_seq=96, moe_impl="sorted"
+              if cfg.num_experts else "auto")
+    m.init_params(torch.Generator().manual_seed(5))
+    rs = np.random.default_rng(6)
+    lens = (9, 37, 22)
+    prompts = [torch.from_numpy(rs.integers(0, cfg.vocab_size, (1, n)))
+               for n in lens]
+    steps = torch.from_numpy(rs.integers(0, cfg.vocab_size, (3, DECODE)))
+    with torch.inference_mode():
+        lanes = [m.prefill({"tokens": p}, MAX_CACHE)[1] for p in prompts]
+        pool = _cat_lanes([m.prefill({"tokens": p}, MAX_CACHE)[1]
+                           for p in prompts])
+        pos = torch.tensor(lens)
+        for i in range(DECODE):
+            with _HostReads() as mode:
+                dec, pool = m.decode_step(pool, steps[:, i:i + 1], pos + i)
+            assert mode.reads == 0
+            for b in range(3):
+                one, lanes[b] = m.decode_step(
+                    lanes[b], steps[b:b + 1, i:i + 1], lens[b] + i)
+                np.testing.assert_allclose(to_np(dec[b]), to_np(one[0]),
+                                           **MODEL_TOL)
+    ours = cache_to_numpy(pool)
+    for b in range(3):
+        lane = cache_to_numpy(lanes[b])
+        for s in lane:
+            for kind, leaves in lane[s].items():
+                for leaf, val in leaves.items():
+                    got = ours[s][kind][leaf][:, b]
+                    if leaf == "cache_pos":
+                        np.testing.assert_array_equal(got, val)
+                    else:
+                        np.testing.assert_allclose(got, val[:, 0],
+                                                   **MODEL_TOL)
+
+
 @pytest.mark.parametrize("change", [
-    dict(family="moe", num_experts=4, experts_per_token=2),
     dict(family="hybrid", attn_every=2),
     dict(family="vlm", frontend="vision_patches"),
     dict(family="audio", is_encoder_decoder=True, pos_embedding="learned"),
@@ -131,6 +250,25 @@ def test_families_not_ported_raise(change):
                               **change)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         Model(cfg, device="cpu")
+
+
+def test_moe_impl_choice_and_padded_experts():
+    """"auto" takes the sorted dispatch above 8 experts (the reference's
+    rule); ``pad_experts`` widens the router and expert weights to a
+    multiple of 16 while the config keeps its count."""
+    cfg = get_config("qwen2-moe-a2.7b")
+    small = cfg.reduced()
+    assert Model(small, device="cpu").moe_impl == "dense"
+    assert Model(dataclasses.replace(small, num_experts=9),
+                 device="cpu").moe_impl == "sorted"
+    m = Model(dataclasses.replace(small, num_experts=12), device="cpu",
+              pad_experts=True)
+    moe = m.layers[0].moe
+    assert moe.router.shape == (small.d_model, 16)
+    assert moe.router.dtype == torch.float32
+    assert moe.wi.shape[0] == moe.wg.shape[0] == moe.wo.shape[0] == 16
+    with pytest.raises(ValueError, match="moe_impl"):
+        Model(small, device="cpu", moe_impl="grouped")
 
 
 def test_default_device_needs_a_gpu(monkeypatch):

@@ -37,7 +37,9 @@ def test_synthetic_tokens_identical(arch, mode):
         np.testing.assert_array_equal(a["tokens"], b["tokens"])
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-780m", "granite-8b",
+                                  "minicpm-2b", "granite-moe-1b-a400m",
+                                  "qwen2-moe-a2.7b"])
 def test_serve_gives_the_reference_tokens(arch, monkeypatch):
     kw = dict(reduced=True, batch=2, prompt_len=24, gen=6, seed=0)
     ref_lines = []
@@ -97,6 +99,21 @@ def test_cli_switches(monkeypatch, capsys):
     with pytest.raises(SystemExit):
         serve.main(["--attn-impl", "pallas"])
     capsys.readouterr()
+
+
+def test_cli_takes_every_ported_arch(monkeypatch):
+    """``--arch`` offers the registry's seven archs (the reference's
+    dense, MoE and SSM ones), each of which the CLI hands on."""
+    seen = []
+    monkeypatch.setattr(serve, "serve", lambda arch, **kw: seen.append(arch))
+    archs = ["gemma2-2b", "granite-8b", "granite-moe-1b-a400m",
+             "mamba2-780m", "minicpm-2b", "qwen2-moe-a2.7b",
+             "tinyllama-1.1b"]
+    for arch in archs:
+        serve.main(["--arch", arch, "--device", "cpu"])
+    assert seen == archs
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "jamba-1.5-large-398b"])
 
 
 def test_cli_runs_on_the_cpu(capsys):

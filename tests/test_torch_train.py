@@ -197,11 +197,18 @@ def test_adamw_update_matches_reference(moments, clip):
 # flash kernels' paths (JAX: Pallas in interpret mode and its custom VJP;
 # the port: _FlashAttention's plain versions), gemma2-2b (softcap, window
 # 16, tied embeddings, GeGLU) the port's kernel path against the
-# reference's default, mamba2-780m the plain chunked SSD scan on both
+# reference's default, mamba2-780m the plain chunked SSD scan on both,
+# granite-moe-1b-a400m its MoE layers (the reduced 8 experts: the dense
+# oracle, "auto" in both) with the load-balance aux in the loss, and
+# qwen2-moe-a2.7b the sorted capacity dispatch and the shared expert
+# under autograd
 TRAIN_ARCHS = {
     "tinyllama-1.1b": (dict(attn_impl="pallas"), dict(attn_impl="kernel")),
     "gemma2-2b": (dict(), dict(attn_impl="kernel")),
     "mamba2-780m": (dict(), dict(attn_impl="kernel", use_ssd_kernel=False)),
+    "granite-moe-1b-a400m": (dict(), dict(attn_impl="kernel")),
+    "qwen2-moe-a2.7b": (dict(moe_impl="sorted"),
+                        dict(attn_impl="kernel", moe_impl="sorted")),
 }
 
 
@@ -293,6 +300,21 @@ def test_train_cli_on_cpu(capsys):
     assert len(stats["loss"]) == len(stats["step_ms"]) == 12
     assert all(np.isfinite(stats["loss"] + stats["grad_norm"]))
     assert int(state["opt"]["step"]) == 12
+
+
+def test_train_cli_moe_on_cpu(capsys):
+    """``launch.train --arch granite-moe-1b-a400m --device cpu``: the MoE
+    family trains through the CLI, its load-balance aux in every step's
+    metrics (E x sum f p / k: 1 for a perfectly balanced router)."""
+    stats = {}
+    state, history = train_cli.main(
+        ["--arch", "granite-moe-1b-a400m", "--steps", "4", "--batch", "2",
+         "--seq", "16", "--device", "cpu"], stats=stats)
+    assert len(stats["loss"]) == 4
+    assert all(np.isfinite(stats["loss"] + stats["grad_norm"]))
+    assert all(a > 0.5 for a in stats["aux"])
+    assert [h["step"] for h in history] == [4]
+    assert int(state["opt"]["step"]) == 4
 
 
 def test_train_defaults_to_the_gpu(monkeypatch):
