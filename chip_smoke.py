@@ -5,7 +5,7 @@ paths on the card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Seven main paths: the GA loop (``repro_torch.launch.ga_run``), LM
+Main paths: the GA loop (``repro_torch.launch.ga_run``), LM
 serving (``repro_torch.launch.serve``: prefill + decode), LM training
 (``repro_torch.launch.train``: tinyllama-1.1b at its published widths,
 flash attention forward and backward kernels), the paper's HVDC
@@ -26,8 +26,12 @@ into their batch axis) with mamba2-780m training on the card, and LM
 serving of the dense (granite-8b, minicpm-2b) and MoE
 (granite-moe-1b-a400m, qwen2-moe-a2.7b) families at published widths
 with the continuous batcher (``repro_torch.serve.batching``: lanes at
-their own decode positions). Phases, in order; any failure exits
-non-zero:
+their own decode positions), and LM serving of the audio
+(whisper-large-v3: encoder, cross-attention, learned positions), VLM
+(llava-next-34b: a patch prefix, bfloat16 parameters) and hybrid
+(jamba-1.5-large-398b: Mamba-2 and attention interleaved, MoE on every
+other layer; one period, expert width cut) families. Phases, in order;
+any failure exits non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
 2. build:  every CUDA kernel of the port (fused variation, flash attention
@@ -99,7 +103,17 @@ non-zero:
            widths, moe_sorted with room for every token against
            moe_dense (2e-4) and the router's experts equal to the CPU's;
            each new arch at its published widths cut to 2 layers, prefill
-           on the card (flash kernel) against the CPU (2e-4);
+           on the card (flash kernel) against the CPU (2e-4); flash
+           attention at the audio, VLM and hybrid families' layer shapes
+           (whisper's encoder at T = 1500, its cross-attention with
+           Sq = 128 != T = 1500 and its decoder; llava's GQA 7:1; jamba's
+           GQA 8:1) and the SSD kernel at jamba's (P, N, chunk) = (128,
+           128, 256), both draws, the chunk decay above 1e-4; and each of
+           the three at its published widths (jamba cut as in main), one
+           prefill of 1 x 256 tokens (whisper's 1500 frames, llava's 576
+           patches) through the kernels against the plain paths on the
+           same model: last logits and every cache leaf at 2e-4, flash /
+           SSD launched once a layer, then not at all;
 4. main:   ``python -m repro_torch.launch.ga_run --fitness rastrigin`` at
            I=32 islands x P=1024 individuals x G=128 genes, 5 generations x
            3 epochs, then again with --sync-every 2 --pipeline-depth 2,
@@ -115,10 +129,10 @@ non-zero:
            forward and 22 x 8 backward launches, every loss and grad norm
            finite, the last loss below the first; ``ga_run --fitness hvdc
            --grid-size 2715 --hvdc-lines 18 --islands 2 --gens-per-epoch 2
-           --epochs 2 --num-workers 4``, horizontal (--pop 16) and
-           vertical (--pop 8 --contingencies 8: full AC on 8 outages per
-           genome), each
-           launching the fused variation exactly 4 times, with finite
+           --num-workers 4``, horizontal (--pop 16 --epochs 2) and
+           vertical (--pop 8 --contingencies 8 --epochs 1: full AC on 8
+           outages per genome), each launching the fused variation
+           exactly once a generation (4 and 2 times), with finite
            fitness and genomes in [-1, 1]; ``ga_run --fitness rastrigin``
            at the main shape under --dispatch-backend host-thread,
            host-process and host-thread --sync-every 2 --pipeline-depth 2
@@ -167,7 +181,19 @@ non-zero:
            tokens): 26 x 12 flash launches, ticks, tokens/s, admission
            prefill and tick ms, then each request against its own batch-1
            decoding on the card (tokens equal, logits at 2e-4, up to the
-           first step whose top-2 margin is below 1e-3). Every run has the
+           first step whose top-2 margin is below 1e-3);
+           ``python -m repro_torch.launch.serve --no-reduced`` on
+           whisper-large-v3 (32 encoder + 32 decoder layers, batch 8,
+           1500 frames, prompt 128, 64 tokens: flash 96 a prefill, 32
+           each encoder, causal, cross) and llava-next-34b (all 60
+           layers, 68.8 GB of bfloat16 weights, float32 compute; batch 2,
+           576 patches + prompt 1024, 16 tokens: flash 60), and
+           ``launch.serve.serve`` on jamba-1.5-large-398b cut to one
+           published period of 8 layers with moe_d_ff 24576 -> 6144
+           (every other width published, 16 experts top-2, sorted
+           dispatch; batch 2, prompt 2048, 16 tokens: SSD 7 and flash 1
+           a prefill): finite logits, tokens in the vocabulary, prefill
+           ms, decode ms/token, tokens/s, peak memory. Every run has the
            launch counts zeroed just before it and read just after;
 5. times:  with CUDA events, medians of repeats: each kernel beside its
            bound and its plain version. The fused variation at the main
@@ -220,7 +246,9 @@ non-zero:
            layer and step at both sizes), the per-genome loop at 128
            genomes, which the batched call must beat, and the mamba2-780m
            train step (ms, tokens/s); the flash kernel at the new archs'
-           layer shapes beside its bound;
+           layer shapes beside its bound; the flash kernel at the audio,
+           VLM and hybrid layer shapes and SSD at jamba's serving shape,
+           each beside its bound and its plain version;
 6. trace:  one prefill and 8 decode steps of each served model, and one
            train step of the training path, under torch.profiler: the
            device's idle share and the kernels' share of each window and
@@ -228,7 +256,9 @@ non-zero:
            step each flash kernel's ms per launch (a flash kernel missing
            from FLASH_SYMBOLS fails the run); one batched LM fitness call
            (128 genomes): idle share, flash share, largest entries;
-7. the ``{"kernels": [...]}`` line (five kernels), the card line, and last
+7. the ``{"kernels": [...]}`` line (five kernels; flash and SSD with
+   their launches by path, the families' prefills among them), the card
+   line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or outside a checkout, it exits non-zero and prints no
@@ -297,15 +327,16 @@ VARIATION_POINTS = {"no_powf": (MAIN["genes"], NO_POWF, {}),
 HVDC_SMALL = dict(n_bus=60, n_line=110, n_gen=15, n_hvdc=4, seed=1)
 HVDC_BRIDGE = 11
 HVDC_TOL, HVDC_PF_ATOL = (1e-4, 1e-4), 1e-4
-HVDC_BUSES, HVDC_EPOCHS = 2715, 2
-HVDC_GENS = 2 * HVDC_EPOCHS          # generations per epoch x epochs
+HVDC_BUSES, HVDC_GENS_PER_EPOCH = 2715, 2
 HVDC_ARGS = ["--fitness", "hvdc", "--grid-size", str(HVDC_BUSES),
              "--hvdc-lines", str(HVDC_GENES), "--islands", "2",
-             "--gens-per-epoch", str(HVDC_GENS // HVDC_EPOCHS),
-             "--epochs", str(HVDC_EPOCHS), "--num-workers", "4",
-             "--device", "cuda"]
-HVDC_RUNS = {"horizontal": ["--pop", "16"],
-             "vertical": ["--pop", "8", "--contingencies", "8"]}
+             "--gens-per-epoch", str(HVDC_GENS_PER_EPOCH),
+             "--num-workers", "4", "--device", "cuda"]
+# run: (its flags, epochs). The vertical run keeps one epoch (it took
+# ~100 s at two on an H100), so the smoke stays within its time with the
+# audio, VLM and hybrid phases
+HVDC_RUNS = {"horizontal": (["--pop", "16"], 2),
+             "vertical": (["--pop", "8", "--contingencies", "8"], 1)}
 HVDC_SOLVE_BATCHES = (1, 16)
 # the decoupled host backend: the GA main path under host-thread,
 # host-process and host-thread pipelined (fitness.hostsim's numpy
@@ -462,6 +493,37 @@ ATTN_NEW = [(4, 4096, 16, 8, 64, True, 0, 0.0, "float32"),
             (4, 2048, 36, 36, 64, True, 0, 0.0, "float32")]
 # whole models: tests/torch_parity.py's MODEL_TOL (rtol, atol)
 MODEL_TOL = (2e-4, 2e-4)
+# the audio, VLM and hybrid families served at published widths, float32
+# compute, kernels on: (arch, prompt length, batch, gen). whisper-large-v3
+# at its full depth (32 encoder + 32 decoder layers) on 1500 frames;
+# llava-next-34b at its 60 layers on 576 patches, bfloat16 parameters
+# (68.8 GB); jamba-1.5-large-398b cut (FAMILY_CUTS) to one published
+# period of 8 layers with its expert FFN width 24576 -> 6144 (one period
+# at 24576 holds 77.3 GB of expert weights), 32.4 GB of bfloat16
+FAMILY_RUNS = [("whisper-large-v3", 128, 8, 64),
+               ("llava-next-34b", 1024, 2, 16),
+               ("jamba-1.5-large-398b", 2048, 2, 16)]
+FAMILY_CUTS = {"jamba-1.5-large-398b": dict(num_layers=8, moe_d_ff=6144)}
+# each family's prefill on the card, kernel path against the plain path
+# (attn_impl "auto": dense or blocked; the plain chunked SSD scan) on the
+# same weights: (batch, prompt tokens), the frontends at their defaults
+FAMILY_CHECK_TOKENS = (1, 256)
+# the flash kernel at the families' layer shapes, as FAMILY_RUNS gives
+# them (B, S, H, KV, hd, causal, window, softcap, dtype[, T]): whisper's
+# encoder (T = 1500 = 23 x 64 + 28, a partial last key tile), its
+# cross-attention (the prompt's queries against 1500 frames, Sq != T) and
+# its causal decoder; llava's GQA 7:1 over 576 + 1024 positions; jamba's
+# attention layer (GQA 8:1, no RoPE). Kept apart from ATTN_CASES, whose
+# cases the backward checks take too (no family trains in this smoke)
+ATTN_FAMILIES = [(8, 1500, 20, 20, 64, False, 0, 0.0, "float32"),
+                 (8, 128, 20, 20, 64, False, 0, 0.0, "float32", 1500),
+                 (8, 128, 20, 20, 64, True, 0, 0.0, "float32"),
+                 (2, 1600, 56, 8, 128, True, 0, 0.0, "float32"),
+                 (2, 2048, 64, 8, 128, True, 0, 0.0, "float32")]
+# the SSD kernel at jamba's (H, P, N, chunk) = (128, 128, 128, 256), one
+# head a block: the card tests' case and the serving path's shape, with
+# Mamba-2's dt and a (the chunk-decay check)
+SSD_FAMILIES = [(1, 512, 8, 128, 128, 256), (2, 2048, 128, 128, 128, 256)]
 # one published-width MoE layer on (batch, tokens); each new arch at its
 # published widths cut to NEW_ARCH_DEPTH layers, prefill of NEW_ARCH_TOKENS
 # on the card against the CPU
@@ -1134,33 +1196,35 @@ def phase_check_hvdc(device):
 def phase_main_hvdc():
     """``ga_run --fitness hvdc`` on the German-size grid, horizontal and
     vertical, each with the fused variation's count zeroed just before and
-    read just after: exactly HVDC_GENS launches (the initial evaluation
+    read just after: exactly one launch a generation (the initial evaluation
     launches none), finite fitness, genomes in [-1, 1]."""
     import torch
     from repro_torch.kernels.genetic import ops
     from repro_torch.launch import ga_run
     runs = {}
-    for name, extra in HVDC_RUNS.items():
+    for name, (extra, epochs) in HVDC_RUNS.items():
+        gens = HVDC_GENS_PER_EPOCH * epochs
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ops.launches = 0
         t0 = time.perf_counter()
-        pop, hist = ga_run.main(HVDC_ARGS + extra)
+        pop, hist = ga_run.main(HVDC_ARGS + extra + ["--epochs", str(epochs)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.launches
         peak = torch.cuda.max_memory_allocated()
         i, p, g = pop.genomes.shape
-        evals = i * p * (1 + HVDC_GENS)
+        evals = i * p * (1 + gens)
         contingencies = int(extra[extra.index("--contingencies") + 1]) \
             if "--contingencies" in extra else 0
-        say(f"main: ga_run hvdc {name} {' '.join(extra)}: {wall:.3f} s wall "
+        say(f"main: ga_run hvdc {name} {' '.join(extra)} --epochs {epochs}: "
+            f"{wall:.3f} s wall "
             f"(set-up included), fused_variation launches {launches}, "
             f"{evals} evaluations, peak memory {peak} B")
-        if launches != HVDC_GENS:
+        if launches != gens:
             fail(f"fused_variation launched {launches} times in ga_run hvdc "
-                 f"{name}, expected {HVDC_GENS}")
-        if g != HVDC_GENES or len(hist) != HVDC_EPOCHS or \
+                 f"{name}, expected {gens}")
+        if g != HVDC_GENES or len(hist) != epochs or \
                 not bool(torch.isfinite(pop.fitness).all()) or \
                 not all(math.isfinite(h["best"]) for h in hist):
             fail(f"ga_run hvdc {name}: genes {g}, {len(hist)} epochs, "
@@ -1170,7 +1234,8 @@ def phase_main_hvdc():
         if any(h["balanced"] != 1.0 for h in hist):
             fail(f"ga_run hvdc {name}: balanced dispatch did not engage")
         runs[name] = dict(pop=pop, launches=launches, wall_s=wall,
-                          evaluations=evals, contingencies=contingencies,
+                          epochs=epochs, evaluations=evals,
+                          contingencies=contingencies,
                           peak_bytes=peak, best=hist[-1]["best"],
                           skew=[h["skew"] for h in hist])
     return runs
@@ -1199,12 +1264,12 @@ def phase_times_hvdc(runs, device, card):
     from repro_torch.powerflow.newton import newton_powerflow
     out = {"card": card}
     fits = {}
-    for name, extra in HVDC_RUNS.items():
+    for name in HVDC_RUNS:
         pop = runs[name]["pop"]
         i, p, g = pop.genomes.shape
         ns = argparse.Namespace(
             grid_size=HVDC_BUSES, hvdc_lines=HVDC_GENES, pop=p, islands=i,
-            gens_per_epoch=HVDC_GENS // HVDC_EPOCHS, epochs=HVDC_EPOCHS,
+            gens_per_epoch=HVDC_GENS_PER_EPOCH, epochs=runs[name]["epochs"],
             seed=0, contingencies=runs[name]["contingencies"],
             screen_top_k=0)
         cfg, fit, cost = ga_run.build("hvdc", ns, device)
@@ -2259,10 +2324,12 @@ def phase_times_queue(pop, device, card, queue_runs):
 # ---------------------------------------------------------------------------
 
 def attn_tensors(case, device, seed, t=None):
+    """q, k, v of ``case``; the keys' length ``t``, or the case's tenth
+    entry, or S."""
     import torch
     b, s, h, kv, hd = case[:5]
     dtype = getattr(torch, case[8])
-    t = s if t is None else t
+    t = t if t is not None else case[9] if len(case) > 9 else s
     gen = torch.Generator(device=device).manual_seed(seed)
     return [torch.randn(shape, generator=gen, device=device).to(dtype)
             for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd))]
@@ -2294,9 +2361,10 @@ def ssd_tensors(b, l, h, p, n, device, seed, mamba2=False):
     (dt = softplus(z), a = -exp(0.3 z): ~-0.8 per step, so a 256-step
     chunk decays to 0 in float32); with ``mamba2``, in the range of
     Mamba-2's own initialisation (dt log-uniform in [1e-3, 1e-1],
-    a = -U(1, 16), one head per 1/H stratum of the range so the slowest
-    heads are always drawn), where the decay across a chunk and between
-    chunks stays above 0 on the heads of small |a|."""
+    a = -U(1, 16), one head per 1/H stratum of the range and the first at
+    its slow end, a = -1, so the slowest heads are always drawn whatever
+    H), where the decay across a chunk and between chunks stays above 0
+    on the heads of small |a|."""
     import torch
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -2308,8 +2376,9 @@ def ssd_tensors(b, l, h, p, n, device, seed, mamba2=False):
     x = rnd(b, l, h, p) * 0.5
     if mamba2:
         dt = torch.exp(uniform(math.log(1e-3), math.log(1e-1), b, l, h))
-        a = -(1.0 + 15.0 * (torch.arange(h, device=device)
-                            + uniform(0.0, 1.0, h)) / h)
+        u = uniform(0.0, 1.0, h)
+        u[0] = 0.0
+        a = -(1.0 + 15.0 * (torch.arange(h, device=device) + u) / h)
     else:
         dt = torch.nn.functional.softplus(rnd(b, l, h))
         a = -torch.exp(rnd(h) * 0.3)
@@ -2450,15 +2519,16 @@ def tensor_bound(flops, nbytes, card):
 def flash_bound(case, card):
     """float32 multiply-adds over the visible (query, key) pairs (2 hd for
     Q K^T, 2 hd for P V, per query head), and q, k, v, out each moved
-    once (``tensor_bound``)."""
+    once (``tensor_bound``); T keys (the case's tenth entry) or S."""
     b, s, h, kv, hd, causal, window = case[:7]
+    t = case[9] if len(case) > 9 else s
     pairs = 0
     for pos in range(s):
-        vis = pos + 1 if causal else s
+        vis = pos + 1 if causal else t
         pairs += min(vis, window) if window else vis
     itemsize = 2 if case[8] == "bfloat16" else 4
     return tensor_bound(4 * hd * b * h * pairs,
-                        itemsize * (2 * b * s * h * hd + 2 * b * s * kv * hd),
+                        itemsize * (2 * b * s * h * hd + 2 * b * t * kv * hd),
                         card)
 
 
@@ -4320,6 +4390,230 @@ def phase_times_serving(device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the audio, VLM and hybrid families: whisper-large-v3, llava-next-34b,
+# jamba-1.5-large-398b
+# ---------------------------------------------------------------------------
+
+def family_config(arch):
+    """``arch``'s published config, with FAMILY_CUTS applied."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **FAMILY_CUTS.get(arch, {}))
+
+
+def family_layers(cfg):
+    """(flash, SSD) launches of one prefill of ``cfg``: one a
+    self-attention, encoder and cross-attention layer; one a Mamba-2
+    layer."""
+    attn = sum(cfg.mixer_kind(i % cfg.scan_period) == "attn"
+               for i in range(cfg.num_layers))
+    enc = (cfg.encoder_layers + cfg.num_layers if cfg.is_encoder_decoder
+           else 0)
+    return attn + enc, cfg.num_layers - attn
+
+
+def set_plain(model, plain):
+    """Switch every attention and Mamba-2 sub-layer of ``model`` between
+    the kernels (flash, SSD) and the plain paths (attention "auto": dense,
+    or blocked past 2048 keys; the chunked SSD scan), in place."""
+    from repro_torch.models.model import Attention, Mamba2
+    for mod in model.modules():
+        if isinstance(mod, Attention):
+            mod.attn_impl = "auto" if plain else "kernel"
+        elif isinstance(mod, Mamba2):
+            mod.use_kernel = not plain
+
+
+def leaves(tree):
+    """The tensors of a nested cache, in a fixed order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for item in tree for x in leaves(item)]
+    return [tree]
+
+
+def check_family(arch, device):
+    """``arch`` (FAMILY_CUTS applied) at its published widths: one prefill
+    of FAMILY_CHECK_TOKENS (frontends at the pipeline's defaults) through
+    the kernels, then through the plain paths on the same model, every
+    count zeroed before and read after each: flash and SSD launches one a
+    layer in the first and none in the second; the last logits and every
+    cache leaf at MODEL_TOL; finite. Returns the largest error."""
+    import gc
+    import torch
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models.model import Model
+    from repro_torch.train.train_step import frontend_len
+    cfg = family_config(arch)
+    b, s = FAMILY_CHECK_TOKENS
+    data = SyntheticTokens(cfg, b, s, seed=70, mode="bigram")
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch(0).items()}
+    batch["tokens"] = batch["tokens"][:, :s]
+    cache_len = frontend_len(cfg, batch) + s
+    model = Model(cfg, device=device, attn_impl="kernel",
+                  use_ssd_kernel=True, max_seq=cache_len)
+    model.init_params(torch.Generator(device=device).manual_seed(71))
+    runs = []
+    for plain in (False, True):
+        set_plain(model, plain)
+        zero_counts()
+        with torch.inference_mode():
+            last, cache = model.prefill(batch, cache_len)
+        torch.cuda.synchronize()
+        runs.append((last, leaves(cache),
+                     (attn_ops.launches, ssd_ops.launches)))
+        del cache
+    (kl, kc, kn), (pl, pc, pn) = runs
+    want = family_layers(cfg)
+    ok, err = close(kl, pl, *MODEL_TOL)
+    for a, p in zip(kc, pc):
+        ok_c, e = close(a, p, *MODEL_TOL)
+        ok, err = ok and ok_c, max(err, e)
+    finite = bool(torch.isfinite(kl).all())
+    del model, runs, kc, pc
+    gc.collect()
+    torch.cuda.empty_cache()
+    if kn != want or pn != (0, 0) or not ok or not finite:
+        fail(f"{arch}: prefill through the kernels vs the plain paths on "
+             f"the card: max abs err {err} (logits and {len(pc)} cache "
+             f"leaves), flash / SSD launches {kn} (expected {want}) and "
+             f"{pn} (expected (0, 0)), finite {finite}")
+    fe = batch.get("frontend_embeds")
+    front = ("" if fe is None else f" after {fe.shape[1]} patches"
+             if cfg.frontend == "vision_patches"
+             else f" on {fe.shape[1]} encoder frames")
+    say(f"check: {arch} ({cfg.num_layers} layers, published widths"
+        f"{', cut ' + str(FAMILY_CUTS[arch]) if arch in FAMILY_CUTS else ''}"
+        f"), prefill {b} x {s} tokens{front}: kernels (flash / SSD launches "
+        f"{kn}) vs plain paths, last logits and every cache leaf max abs "
+        f"err {err:.3g}")
+    return err
+
+
+def phase_check_families(device):
+    """The flash kernel at ATTN_FAMILIES, the SSD kernel at SSD_FAMILIES
+    (the tests' draws and Mamba-2's), and each family's prefill kernels
+    vs plain paths (``check_family``). Returns (flash error, SSD error,
+    model error)."""
+    import torch
+    flash_err = ssd_err = 0.0
+    for i, case in enumerate(ATTN_FAMILIES):
+        err, _ = check_flash(case, device, seed=500 + i)
+        flash_err = max(flash_err, err)
+        say(f"check: flash attention at {case}: max abs err {err:.3g}")
+        torch.cuda.empty_cache()
+    for i, case in enumerate(SSD_FAMILIES):
+        for mamba2 in (False, True):
+            err = check_ssd(case, device, seed=510 + i, mamba2=mamba2)
+            ssd_err = max(ssd_err, err)
+            draws = "Mamba-2's range" if mamba2 else "the tests' draws"
+            say(f"check: SSD {case}, {draws}: max abs err {err:.3g}")
+            torch.cuda.empty_cache()
+    model_err = max(check_family(arch, device) for arch, *_ in FAMILY_RUNS)
+    return flash_err, ssd_err, model_err
+
+
+def phase_serve_families():
+    """Each family served at published widths (FAMILY_RUNS): whisper and
+    llava through ``launch.serve --no-reduced`` (the pipeline's 1500
+    frames and 576 patches), jamba through ``launch.serve.serve`` on its
+    cut config; the launch counts zeroed just before and read just after:
+    flash and SSD once per layer of the prefill (``family_layers``), finite
+    logits, tokens in the vocabulary; prefill ms, decode ms/token,
+    tokens/s, peak memory."""
+    import gc
+    import torch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import serve
+    runs = {}
+    for arch, prompt, batch, gen in FAMILY_RUNS:
+        cfg = family_config(arch)
+        want = family_layers(cfg)
+        zero_counts()
+        stats = {}
+        t0 = time.perf_counter()
+        if arch in FAMILY_CUTS:
+            out = serve.serve(cfg, reduced=False, batch=batch,
+                              prompt_len=prompt, gen=gen, device="cuda",
+                              log_fn=say, stats=stats)
+        else:
+            out = serve.main(serve_new_args(arch, prompt, batch, gen),
+                             stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (attn_ops.launches, ssd_ops.launches)
+        tok_s = batch * gen / stats["seconds"]
+        cut = f" (cut: {FAMILY_CUTS[arch]})" if arch in FAMILY_CUTS else ""
+        say(f"main: serve {arch} --no-reduced{cut}, {cfg.num_layers} layers"
+            f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}"
+            f", batch {batch} prompt {prompt} gen {gen}: {wall:.3f} s wall "
+            f"(set-up included), flash / SSD launches {got}; prefill "
+            f"{stats['prefill_ms']:.3f} ms, decode "
+            f"{stats['decode_ms_per_token']:.4f} ms/token, {tok_s:.2f} "
+            f"tokens/s, peak memory {stats['peak_bytes']} B")
+        if got != want:
+            fail(f"serve {arch}: launches {got}, expected {want}")
+        if not stats.get("logits_finite"):
+            fail(f"serve {arch}: a logit is not finite")
+        if tuple(out.shape) != (batch, gen) or int(out.min()) < 0 or \
+                int(out.max()) >= cfg.vocab_size:
+            fail(f"serve {arch}: tokens of shape {tuple(out.shape)} in "
+                 f"[{int(out.min())}, {int(out.max())}]")
+        runs[arch] = dict(stats, flash_launches=got[0], ssd_launches=got[1],
+                          wall_s=wall, tokens_per_s=tok_s, prompt=prompt,
+                          batch=batch, gen=gen, layers=cfg.num_layers,
+                          cut=FAMILY_CUTS.get(arch))
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def phase_times_families(device, card):
+    """The flash kernel at ATTN_FAMILIES and the SSD kernel at jamba's
+    serving shape beside their bounds and plain versions (CUDA events,
+    median)."""
+    import torch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_plain
+    flash, ssd = [], []
+    for i, case in enumerate(ATTN_FAMILIES):
+        q, k, v = attn_tensors(case, device, seed=520 + i)
+        kw = attn_kwargs(case)
+        ms = cuda_ms(lambda: attn_ops.flash_attention(q, k, v, **kw),
+                     repeats=5, inner=3)
+        plain = cuda_ms(lambda: attn_ops.flash_attention_plain(q, k, v,
+                                                               **kw),
+                        repeats=3, inner=1)
+        bnd = flash_bound(case, card)
+        say_kernel_time(f"flash attention {case}", ms, plain, bnd)
+        flash.append({"shape": list(case), "ms": ms, "plain_ms": plain,
+                      "bound_ms": bnd["bound_ms"],
+                      "bound_by": bnd["bound_by"]})
+        del q, k, v
+        torch.cuda.empty_cache()
+    case = SSD_FAMILIES[-1]
+    args = ssd_tensors(*case[:5], device, seed=530, mamba2=True)
+    ms = cuda_ms(lambda: ssd_ops.ssd_intra_chunk(*args, chunk=case[5]),
+                 repeats=5, inner=3)
+    plain = cuda_ms(lambda: ssd_intra_chunk_plain(*args, chunk=case[5]),
+                    repeats=3, inner=1)
+    bnd = ssd_bound(case, card)
+    say_kernel_time(f"SSD intra-chunk {case}", ms, plain, bnd)
+    ssd.append({"shape": list(case), "ms": ms, "plain_ms": plain,
+                "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"]})
+    del args
+    torch.cuda.empty_cache()
+    return flash, ssd
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -4365,10 +4659,12 @@ def main():
     phase_check_meta(device)
     vmap_err = phase_check_lm_fitness(device)
     serving_err = phase_check_serving(device)
+    fam_flash_err, fam_ssd_err, fam_model_err = phase_check_families(device)
     launches, pop = phase_main()
     lm_launches = phase_serve()
     new_runs = phase_serve_new()
     batch_run = phase_batcher(device)
+    family_runs = phase_serve_families()
     train_fwd, train_bwd, train_stats = phase_train()
     hvdc_runs = phase_main_hvdc()
     host_runs = phase_main_host()
@@ -4398,15 +4694,28 @@ def main():
                **{f"serve {k} prefill": v["launches"]
                   for k, v in new_runs.items()},
                f"ContinuousBatcher {BATCH_ARCH} ({BATCH_N} admissions)":
-               batch_run["launches"]}
+               batch_run["launches"],
+               **{f"serve {k} prefill": v["flash_launches"]
+                  for k, v in family_runs.items()}}
     kernels[1]["launches"] = sum(serving.values())
-    kernels[1]["max_abs_err"] = max(flash_err, serving_err)
+    kernels[1]["max_abs_err"] = max(flash_err, serving_err, fam_flash_err)
     kernels[1]["launches_by_path"] = {
         **serving, f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_fwd,
         **{k: v["launches"] for k, v in lm_paths.items()}}
     kernels[1]["serving_shapes"] = phase_times_serving(device, card)
+    fam_flash, fam_ssd = phase_times_families(device, card)
+    kernels[1]["family_shapes"] = fam_flash
+    ssd_paths = {"serve mamba2-780m prefill": lm_launches["ssd_chunk"],
+                 **{f"serve {k} prefill": v["ssd_launches"]
+                    for k, v in family_runs.items() if v["ssd_launches"]}}
+    kernels[2]["launches"] = sum(ssd_paths.values())
+    kernels[2]["launches_by_path"] = ssd_paths
+    kernels[2]["max_abs_err"] = max(ssd_err, fam_ssd_err)
+    kernels[2]["family_shapes"] = fam_ssd
     say("times: serving " + json.dumps({
-        "card": card, "serve": new_runs, "batcher": batch_run}))
+        "card": card, "serve": new_runs, "batcher": batch_run,
+        "families": family_runs,
+        "families_kernel_vs_plain_max_abs_err": fam_model_err}))
     fwd_train, bwd_entry = phase_times_train(device, card, train_fwd,
                                              train_bwd, bwd_err, train_stats)
     kernels[1]["train_shape"] = fwd_train

@@ -1,9 +1,9 @@
 """Config registry: ``get_config(arch_id)`` / ``list_archs()``.
 
 Each architecture the port carries has its own module defining ``CONFIG``,
-a copy of the reference's module of the same name. Registered: the
-architectures of the families the port runs (dense, MoE, SSM); the
-hybrid (jamba), VLM (llava) and audio (whisper) ones are not ported.
+a copy of the reference's module of the same name. Registered: all ten
+of the reference's architectures, of every family: dense, MoE, SSM,
+hybrid (jamba), VLM (llava) and audio (whisper).
 """
 from __future__ import annotations
 
@@ -16,10 +16,13 @@ _ARCH_MODULES = {
     "gemma2-2b":            "gemma2_2b",
     "granite-8b":           "granite_8b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "llava-next-34b":       "llava_next_34b",
     "mamba2-780m":          "mamba2_780m",
     "minicpm-2b":           "minicpm_2b",
     "qwen2-moe-a2.7b":      "qwen2_moe_a2_7b",
     "tinyllama-1.1b":       "tinyllama_1_1b",
+    "whisper-large-v3":     "whisper_large_v3",
 }
 
 

@@ -8,7 +8,9 @@ Genome (4 genes, in [0, 1], decoded below):
     g3 -> weight decay  in [0.0, 0.3]
 
 Fitness = the training loss of the last of ``steps`` steps of the reduced
-config on the synthetic bigram stream (the loss of that step's forward,
+config on the synthetic bigram stream (with the pipeline's frontend
+embeddings for the VLM and audio archs, the VLM's patch rows left out of
+the loss) (the loss of that step's forward,
 before its update), every genome from one shared initialisation and on
 the same batches. The update is the reference's own inner Adam, not
 ``train/optimizer.py``'s AdamW: beta2 0.95, eps 1e-8 added to sqrt(v), no
@@ -40,6 +42,7 @@ from repro_torch.core.device import available_bytes, resolve_device
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.models.model import Model
 from repro_torch.train.loss import lm_loss
+from repro_torch.train.train_step import frontend_len
 
 LM_GENE_SPEC = (
     ("log10_lr", -4.5, -2.0),
@@ -76,7 +79,7 @@ class LMTrainFitness:
         self.batch_size, self.seq_len = batch_size, seq_len
         self.device = resolve_device(device)
         self.cfg = cfg = get_config(arch).reduced()
-        init = Model(cfg, device="cpu").init_params(
+        init = Model(cfg, device="cpu", max_seq=seq_len + 8).init_params(
             torch.Generator().manual_seed(seed)).state_dict()
         self.model = Model(cfg, device=self.device, attn_impl="kernel",
                            use_ssd_kernel=False, max_seq=seq_len + 8)
@@ -86,15 +89,21 @@ class LMTrainFitness:
                       self.model.named_parameters()}
         data = SyntheticTokens(cfg, batch_size, seq_len, seed=seed,
                                mode="bigram")
-        self._batches = [torch.from_numpy(data.batch(i)["tokens"]).to(
-            self.device) for i in range(steps)]
+        # each step's tokens and, where the arch has a frontend, the
+        # pipeline's frontend_embeds (576 VLM patches, encoder_seq frames),
+        # as the reference's batches carry them
+        self._batches = [{k: torch.from_numpy(v).to(self.device)
+                          for k, v in data.batch(i).items()}
+                         for i in range(steps)]
         self._grad = grad_and_value(self._loss)
         self._batched_grad = vmap(self._grad, in_dims=(0, None))
 
-    def _loss(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        logits, aux = functional_call(self.model, params,
-                                      ({"tokens": tokens[:, :-1]},))
-        loss, _ = lm_loss(self.cfg, logits, tokens[:, 1:])
+    def _loss(self, params: dict, batch: dict) -> torch.Tensor:
+        tokens = batch["tokens"]
+        fl = frontend_len(self.cfg, batch)
+        logits, aux = functional_call(
+            self.model, params, ({**batch, "tokens": tokens[:, :-1]},))
+        loss, _ = lm_loss(self.cfg, logits[:, fl:], tokens[:, 1:])
         return loss + self.cfg.router_aux_weight * aux
 
     def run_bytes(self) -> int:
@@ -103,10 +112,13 @@ class LMTrainFitness:
         width = (cfg.d_model + cfg.d_ff + cfg.num_heads * cfg.head_dim
                  + (2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
                     if cfg.ssm_state else 0))
-        tokens = self.batch_size * self.seq_len
+        fe = self._batches[0].get("frontend_embeds")
+        tokens = self.batch_size * (self.seq_len
+                                    + (0 if fe is None else fe.shape[1]))
         params = sum(p.numel() for p in self._init.values())
         return 4 * (PARAM_COPIES * params + ACT_COPIES * tokens
-                    * (cfg.num_layers * width + cfg.padded_vocab))
+                    * ((cfg.num_layers + cfg.encoder_layers) * width
+                       + cfg.padded_vocab))
 
     def chunk_runs(self) -> int:
         """Runs trained at once: as many as
@@ -126,12 +138,12 @@ class LMTrainFitness:
         m = {k: torch.zeros_like(p) for k, p in params.items()}
         v = {k: torch.zeros_like(p) for k, p in params.items()}
         loss = None
-        for i, tokens in enumerate(self._batches):
+        for i, batch in enumerate(self._batches):
             if batched:
-                grads, loss = self._batched_grad(params, tokens)
+                grads, loss = self._batched_grad(params, batch)
             else:
                 grads, loss = self._grad(
-                    {k: p[0] for k, p in params.items()}, tokens)
+                    {k: p[0] for k, p in params.items()}, batch)
                 grads, loss = {k: g[None] for k, g in grads.items()}, \
                     loss[None]
             if i == self.steps - 1:

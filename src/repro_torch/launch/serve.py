@@ -11,9 +11,16 @@ architecture at its published widths (the reference's ``--reduced`` flag
 cannot be turned off). ``--arch`` takes every registered architecture:
 the dense (gemma2-2b, granite-8b, minicpm-2b, tinyllama-1.1b), MoE
 (granite-moe-1b-a400m, qwen2-moe-a2.7b; the sorted capacity dispatch
-above 8 experts) and SSM (mamba2-780m) families. The weights are made in
-place on the device (qwen2-moe-a2.7b at its published widths: 53.3 GiB of
-float32).
+above 8 experts), SSM (mamba2-780m), hybrid (jamba-1.5-large-398b),
+VLM (llava-next-34b) and audio (whisper-large-v3) families. The batch
+carries the frontend's embeddings from ``SyntheticTokens``: under
+``--reduced`` 8 patches for the VLM, as the reference's ``serve`` gives it,
+and ``encoder_seq`` frames for whisper; under ``--no-reduced`` the
+pipeline's own defaults, 576 patches and 1500 frames. The cache holds a
+VLM's patches too. The weights are made in place on the device, in the
+config's ``param_dtype`` (qwen2-moe-a2.7b at its published widths: 53.3
+GiB of float32; llava-next-34b 64.1 GiB of bfloat16; jamba-1.5-large-398b
+at its 72 layers does not fit one card), and computed in float32.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
@@ -23,6 +30,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch granite-moe-1b-a400m --no-reduced --batch 4 \
       --prompt-len 4096 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch whisper-large-v3 --no-reduced --batch 8 --prompt-len 128 \
+      --gen 64
 """
 from __future__ import annotations
 
@@ -31,20 +41,24 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config, list_archs
+from repro_torch.configs import ModelConfig, get_config, list_archs
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.models.attention import IMPLS
 from repro_torch.models.model import Model
 from repro_torch.train.serve_step import generate
+from repro_torch.train.train_step import frontend_len
 
 
-def serve(arch: str = "gemma2-2b", *, reduced: bool = True, batch: int = 4,
-          prompt_len: int = 32, gen: int = 16, temperature: float = 0.0,
-          seed: int = 0, device="cuda", attn_impl: str = "kernel",
-          use_ssd_kernel: bool = True, log_fn=print, stats=None):
+def serve(arch: str | ModelConfig = "gemma2-2b", *, reduced: bool = True,
+          batch: int = 4, prompt_len: int = 32, gen: int = 16,
+          temperature: float = 0.0, seed: int = 0, device="cuda",
+          attn_impl: str = "kernel", use_ssd_kernel: bool = True,
+          log_fn=print, stats=None):
     """Generate ``gen`` tokens for a (batch, prompt_len) synthetic prompt.
-    Returns the (batch, gen) tokens. ``stats``, where given, receives the
+    ``arch`` is a registered arch or a ``ModelConfig`` (a config cut to
+    fit a card). Returns the (batch, gen) tokens. ``stats``, where given,
+    receives the
     wall seconds, ``logits_finite`` and, on the GPU, ``prefill_ms`` and
     ``decode_ms_per_token`` (CUDA events) and ``peak_bytes``
     (``torch.cuda.max_memory_allocated`` from the model's construction to
@@ -52,16 +66,19 @@ def serve(arch: str = "gemma2-2b", *, reduced: bool = True, batch: int = 4,
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    cfg = get_config(arch)
+    cfg = get_config(arch) if isinstance(arch, str) else arch
     if reduced:
         cfg = cfg.reduced()
-    max_cache = prompt_len + gen + 64
+    vlm = cfg.frontend == "vision_patches"
+    data = SyntheticTokens(cfg, batch, prompt_len, seed=seed, mode="bigram",
+                           frontend_seq=8 if vlm and reduced else 0)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+    b["tokens"] = b["tokens"][:, :prompt_len]
+    # the cache holds a VLM's patches before the prompt
+    max_cache = frontend_len(cfg, b) + prompt_len + gen + 64
     model = Model(cfg, device=dev, attn_impl=attn_impl,
                   use_ssd_kernel=use_ssd_kernel, max_seq=max_cache)
     model.init_params(torch.Generator(device=dev).manual_seed(seed))
-    data = SyntheticTokens(cfg, batch, prompt_len, seed=seed, mode="bigram")
-    b = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
-    b["tokens"] = b["tokens"][:, :prompt_len]
     timings = {}
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

@@ -103,7 +103,9 @@ def train(arch: str = "tinyllama-1.1b", *, reduced: bool = True,
                                  warmup_steps=max(steps // 20, 5),
                                  total_steps=steps)
     step_fn = make_train_step(model, opt_cfg, microbatches=microbatches)
-    data = SyntheticTokens(cfg, batch, seq, seed=seed, mode="bigram")
+    data = SyntheticTokens(cfg, batch, seq, seed=seed, mode="bigram",
+                           frontend_seq=16 if cfg.frontend == "vision_patches"
+                           else 0)
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
 
     state, start = None, 0

@@ -189,10 +189,16 @@ def ffn(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 def dense_init_(w: torch.Tensor, in_axis_dims: int,
                 generator: torch.Generator) -> torch.Tensor:
     """Truncated-normal fan-in init, in place: std 1/sqrt(fan_in), cut at
-    two standard deviations (the reference's ``dense_init``)."""
+    two standard deviations (the reference's ``dense_init``). A weight of
+    another dtype (bfloat16) is drawn in float32 and rounded to it, as the
+    reference casts its float32 draw."""
     std = 1.0 / math.sqrt(max(in_axis_dims, 1))
     with torch.no_grad():
-        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+        t = w if w.dtype == torch.float32 else torch.empty(
+            w.shape, dtype=torch.float32, device=w.device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
                                     generator=generator)
-        w.mul_(std)
+        t.mul_(std)
+        if t is not w:
+            w.copy_(t)
     return w

@@ -1,16 +1,20 @@
-"""Model assembly for the dense, MoE and SSM families (port of
+"""Model assembly for every family of the reference (port of
 ``repro/models/model.py``).
 
-One :class:`Model` (an ``nn.Module``) covers the families ported so far
-through ``ModelConfig`` dispatch: dense llama/gemma-like stacks (attention
-+ dense FFN), MoE stacks (attention + routed experts, ``models.moe``) and
-pure Mamba-2 (SSD mixer, no FFN). The reference groups
-layers into ``scan_period``-sized periods with stacked parameters under
-``lax.scan``; here every layer is its own module and the stack is a Python
-loop. The period still decides each layer's kinds: layer ``i`` is
-sub-layer ``s = i % scan_period`` of period ``i // scan_period``, and
-``cfg.is_local_layer(s)`` picks gemma2's sliding-window layers, as in the
-reference.
+One :class:`Model` (an ``nn.Module``) covers all ten architectures through
+``ModelConfig`` dispatch: dense llama/gemma-like stacks (attention + dense
+FFN), MoE stacks (attention + routed experts, ``models.moe``), pure
+Mamba-2 (SSD mixer, no FFN), the hybrid (jamba: Mamba-2 layers with one
+attention layer per period, MoE on every other layer), the VLM backbone
+(llava: patch embeddings in front of the token embeddings) and the
+encoder-decoder (whisper: a bidirectional encoder over frame embeddings,
+learned positions, cross-attention in every decoder layer). The
+reference groups layers into ``scan_period``-sized periods with stacked
+parameters under ``lax.scan``; here every layer is its own module and the
+stack is a Python loop. The period still decides each layer's kinds:
+layer ``i`` is sub-layer ``s = i % scan_period`` of period
+``i // scan_period``, and ``cfg.is_local_layer(s)`` picks gemma2's
+sliding-window layers, as in the reference.
 
 Modes:
   * ``forward``  — logits over the full sequence (teacher forcing) and the
@@ -20,6 +24,14 @@ Modes:
     one position for the batch or at a position per lane (the continuous
     batcher's lanes, ``serve.batching``)
 
+Frontends (``batch["frontend_embeds"]``, as ``data.pipeline`` makes them):
+a VLM's (B, P, d) patches are cast to the compute dtype and go in front of
+the token embeddings, so positions run from 0 over patches and tokens and
+prefill caches the prefix (decoding then starts at P + S,
+``train.train_step.frontend_len``); whisper's (B, T_enc, d) frames go
+through the encoder, whose output every decoder layer's cross-attention
+reads (prefill stores its ``xk`` / ``xv``; decode reads them).
+
 MoE: ``moe_impl`` "dense" (every expert on every token) or "sorted"
 (capacity dispatch); "auto" takes "sorted" above 8 experts, as the
 reference does. ``forward`` and ``prefill`` dispatch all tokens as one
@@ -28,10 +40,16 @@ its own group, so a lane's capacity and its tokens never depend on the
 other lanes (what the reference's batcher gets from ``vmap``-ing
 single-lane decode steps).
 
+Dtypes: parameters are made in ``cfg.param_dtype`` (bfloat16 for llava
+and jamba at their published widths) and each sub-layer's weights are
+cast to ``compute_dtype`` (float32 by default, as the reference) as it
+runs; an embedding table is indexed before its rows are cast.
+
 The cache mirrors the reference's tree, with the period axis as a list:
 ``cache["sub{s}"][period]`` is one layer's ``{"attn": {k, v, cache_pos}}``
-or ``{"ssm": {conv, state}}``. ``models.convert.cache_to_numpy`` stacks it
-back into the reference's layout.
+or ``{"ssm": {conv, state}}``, and whisper's layers also hold
+``{"cross": {xk, xv}}``. ``models.convert.cache_to_numpy`` stacks it back
+into the reference's layout.
 
 Parameters are created with ``requires_grad=False``, which serving wants;
 training turns them on with ``model.requires_grad_(True)``
@@ -39,9 +57,6 @@ training turns them on with ``model.requires_grad_(True)``
 autograd (with ``attn_impl="kernel"`` the flash kernel's backward is a
 kernel too). The last component of every parameter name is the
 reference's leaf name, which the optimizer's weight-decay mask reads.
-
-The hybrid, VLM and audio families are not ported yet and raise at
-construction.
 """
 from __future__ import annotations
 
@@ -61,7 +76,6 @@ from repro_torch.models.layers import (apply_norm, apply_rope,
                                        decode_attention, dense_init_, ffn,
                                        rope_tables, softcap)
 
-NOT_PORTED_FAMILIES = ("hybrid", "vlm", "audio")
 MOE_IMPLS = ("auto", "dense", "sorted")
 
 
@@ -95,28 +109,41 @@ class Norm(_Weights):
 
 
 class Attention(_Weights):
-    """Self-attention sub-layer: pre-norm, q/k/v/o projections, RoPE,
-    ``attend`` for full sequences and ``decode_attention`` on the cache."""
+    """Attention sub-layer: pre-norm, q/k/v/o projections, RoPE,
+    ``attend`` for full sequences and ``decode_attention`` on the cache.
+
+    ``cross=True`` is whisper's cross-attention (the reference's
+    ``attn_p(cross=True)``): projections ``xq, xk, xv, xo`` and no
+    post-norm; its keys and values come from the encoder's output,
+    attended with no mask, and prefill stores them as the cache's ``xk``
+    / ``xv``. ``causal=False`` is the encoder's bidirectional
+    self-attention."""
 
     def __init__(self, cfg: ModelConfig, local: bool, dtype, device,
-                 attn_impl: str):
+                 attn_impl: str, *, cross: bool = False,
+                 causal: bool = True):
         super().__init__()
         self.cfg, self.local, self.attn_impl = cfg, local, attn_impl
+        self.cross, self.causal = cross, causal
+        self.pre = pre = "x" if cross else ""
         d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         self.ln = Norm(cfg, d, device)
-        self.q = _param((d, h * hd), dtype, device)
-        self.k = _param((d, kv * hd), dtype, device)
-        self.v = _param((d, kv * hd), dtype, device)
-        self.o = _param((h * hd, d), dtype, device)
-        self.post_ln = Norm(cfg, d, device) if cfg.post_norm else None
+        for name, shape in (("q", (d, h * hd)), ("k", (d, kv * hd)),
+                            ("v", (d, kv * hd)), ("o", (h * hd, d))):
+            setattr(self, pre + name, _param(shape, dtype, device))
+        self.post_ln = (Norm(cfg, d, device) if cfg.post_norm and not cross
+                        else None)
 
     def reset_parameters(self, gen):
         d, hhd = self.cfg.d_model, self.cfg.num_heads * self.cfg.head_dim
-        for w, fan_in in ((self.q, d), (self.k, d), (self.v, d),
-                          (self.o, hhd)):
-            dense_init_(w, fan_in, gen)
+        for name, fan_in in (("q", d), ("k", d), ("v", d), ("o", hhd)):
+            dense_init_(getattr(self, self.pre + name), fan_in, gen)
 
-    def forward(self, h, *, sincos, mode, cache, pos, max_cache_len, cd):
+    def forward(self, h, *, sincos, mode, cache, pos, max_cache_len, cd,
+                enc_out=None):
+        if self.cross:
+            return self._cross(h, mode=mode, cache=cache, enc_out=enc_out,
+                               cd=cd)
         cfg = self.cfg
         b, s, _ = h.shape
         nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -138,13 +165,36 @@ class Attention(_Weights):
                                    attn_softcap=cfg.attn_softcap)
             new_cache = cache
         else:
-            out = attend(q, k, v, scale=scale, causal=True, window=window,
-                         attn_softcap=cfg.attn_softcap, impl=self.attn_impl)
+            out = attend(q, k, v, scale=scale, causal=self.causal,
+                         window=window, attn_softcap=cfg.attn_softcap,
+                         impl=self.attn_impl)
             if mode == "prefill":
                 tc = (min(window, max_cache_len) if (self.local and window)
                       else max_cache_len)
                 new_cache = _build_prefill_cache(k, v, tc)
         return out.reshape(b, s, nh * hd) @ w["o"], new_cache
+
+    def _cross(self, h, *, mode, cache, enc_out, cd):
+        cfg = self.cfg
+        b, s, _ = h.shape
+        nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        w = self.weights(cd)
+        q = (self.ln(h) @ w["xq"]).reshape(b, s, nh, hd)
+        scale = (cfg.query_pre_attn_scalar or hd) ** -0.5
+        new_cache = {}
+        if mode == "decode":
+            out = decode_attention(q, cache["xk"], cache["xv"],
+                                   kv_len=cache["xk"].shape[1], scale=scale)
+            new_cache = cache
+        else:
+            t = enc_out.shape[1]
+            k = (enc_out @ w["xk"]).reshape(b, t, kvh, hd)
+            v = (enc_out @ w["xv"]).reshape(b, t, kvh, hd)
+            out = attend(q, k, v, scale=scale, causal=False,
+                         impl=self.attn_impl)
+            if mode == "prefill":
+                new_cache = {"xk": k, "xv": v}
+        return out.reshape(b, s, nh * hd) @ w["xo"], new_cache
 
 
 class FFN(_Weights):
@@ -256,8 +306,9 @@ class Mamba2(_Weights):
 
 
 class Block(nn.Module):
-    """One layer: a mixer (attention or Mamba-2) and, where the config has
-    one, a dense or MoE FFN, each with its residual (and gemma2's
+    """One layer: a mixer (attention or Mamba-2), whisper's cross-attention
+    where the config is an encoder-decoder, and, where the config has one,
+    a dense or MoE FFN, each with its residual (and gemma2's
     post-norms)."""
 
     def __init__(self, cfg: ModelConfig, sub: int, dtype, device,
@@ -270,6 +321,9 @@ class Block(nn.Module):
                                attn_impl) if mix == "attn" else None)
         self.ssm = (Mamba2(cfg, dtype, device, use_ssd_kernel)
                     if mix == "ssm" else None)
+        self.cross = (Attention(cfg, False, dtype, device, attn_impl,
+                                cross=True)
+                      if cfg.is_encoder_decoder else None)
         self.ffn = FFN(cfg, dtype, device) if f == "dense" else None
         self.moe = (MoE(cfg, dtype, device, moe_impl, moe_capacity_factor,
                         num_experts) if f == "moe" else None)
@@ -279,7 +333,8 @@ class Block(nn.Module):
             out = post_ln(out)
         return h + self.cfg.residual_scale * out
 
-    def forward(self, h, *, sincos, mode, cache, pos, max_cache_len, cd):
+    def forward(self, h, *, sincos, mode, cache, pos, max_cache_len, cd,
+                enc_out=None):
         """(h, this layer's new cache, MoE aux or None)."""
         nc = {}
         if self.attn is not None:
@@ -298,6 +353,14 @@ class Block(nn.Module):
                     cache["ssm"].update(c)      # decode: in place
                     c = cache["ssm"]
                 nc["ssm"] = c
+        if self.cross is not None:
+            out, c = self.cross(h, sincos=None, mode=mode,
+                                cache=cache["cross"] if cache else None,
+                                pos=pos, max_cache_len=max_cache_len, cd=cd,
+                                enc_out=enc_out)
+            h = self._residual(h, out, None)
+            if c:
+                nc["cross"] = c
         aux = None
         if self.ffn is not None:
             h = self._residual(h, self.ffn(h, cd), self.ffn.post_ln)
@@ -308,6 +371,25 @@ class Block(nn.Module):
         return h, nc, aux
 
 
+class EncoderBlock(nn.Module):
+    """One layer of whisper's encoder (the reference's ``_encode`` body):
+    bidirectional self-attention without positions, then the dense FFN,
+    each with its residual and no post-norm."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, attn_impl: str):
+        super().__init__()
+        self.cfg = cfg
+        self.attn = Attention(cfg, False, dtype, device, attn_impl,
+                              causal=False)
+        self.ffn = FFN(cfg, dtype, device)
+
+    def forward(self, h, cd):
+        out, _ = self.attn(h, sincos=None, mode="fwd", cache=None, pos=None,
+                           max_cache_len=0, cd=cd)
+        h = h + self.cfg.residual_scale * out
+        return h + self.cfg.residual_scale * self.ffn(h, cd)
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig | str, *, device="cuda",
                  compute_dtype: str = "float32", attn_impl: str = "auto",
@@ -316,12 +398,6 @@ class Model(nn.Module):
                  moe_capacity_factor: float = 1.25):
         super().__init__()
         self.cfg = cfg = get_config(cfg) if isinstance(cfg, str) else cfg
-        if (cfg.family in NOT_PORTED_FAMILIES or cfg.attn_every
-                or cfg.is_encoder_decoder or cfg.frontend != "none"
-                or cfg.pos_embedding == "learned"):
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not yet ported to "
-                f"repro_torch (ported: dense, moe, ssm)")
         if attn_impl not in IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}; use one of "
                              f"{IMPLS}")
@@ -351,6 +427,18 @@ class Model(nn.Module):
         self.final_norm = Norm(cfg, d, dev)
         self.unembed = (None if cfg.tie_embeddings
                         else _param((d, cfg.padded_vocab), dt, dev))
+        self.pos = (nn.ParameterDict(
+            {"table": _param((max_seq, d), dt, dev)})
+            if cfg.pos_embedding == "learned" else None)
+        if cfg.is_encoder_decoder:
+            self.enc_layers = nn.ModuleList(
+                EncoderBlock(cfg, dt, dev, attn_impl)
+                for _ in range(cfg.encoder_layers))
+            self.enc_pos = nn.ParameterDict({"table": _param(
+                (max(cfg.encoder_seq, 1), d), dt, dev)})
+            self.enc_norm = Norm(cfg, d, dev)
+        else:
+            self.enc_layers = self.enc_pos = self.enc_norm = None
 
     # ------------------------------------------------------------------
     # Parameter init
@@ -359,21 +447,30 @@ class Model(nn.Module):
         """Random parameters from ``generator`` (on the model's device), in
         place: truncated-normal fan-in projections (the MoE router
         included, float32), ones for norms, the Mamba-2 A_log / dt_bias
-        distributions. Returns the model."""
+        distributions, the learned position tables. Returns the model."""
         d = self.cfg.d_model
         dense_init_(self.embed["tokens"], d, generator)
         for layer in self.layers:
-            for sub in (layer.attn, layer.ssm, layer.ffn, layer.moe):
+            for sub in (layer.attn, layer.ssm, layer.cross, layer.ffn,
+                        layer.moe):
                 if sub is not None:
                     sub.reset_parameters(generator)
         if self.unembed is not None:
             dense_init_(self.unembed, d, generator)
+        if self.pos is not None:
+            dense_init_(self.pos["table"], d, generator)
+        if self.enc_layers is not None:
+            for layer in self.enc_layers:
+                layer.attn.reset_parameters(generator)
+                layer.ffn.reset_parameters(generator)
+            dense_init_(self.enc_pos["table"], d, generator)
         return self
 
     # ------------------------------------------------------------------
     # Stack
     # ------------------------------------------------------------------
-    def _run_stack(self, h, *, sincos, mode, cache, pos, max_cache_len):
+    def _run_stack(self, h, *, sincos, mode, cache, pos, max_cache_len,
+                   enc_out=None):
         """(h, cache, aux): aux is the MoE load-balance loss summed over
         the layers (float32, 0 without MoE layers)."""
         period = self.cfg.scan_period
@@ -384,29 +481,56 @@ class Model(nn.Module):
             lc = cache[f"sub{s}"][per] if mode == "decode" else None
             h, nc, a = layer(h, sincos=sincos, mode=mode, cache=lc, pos=pos,
                              max_cache_len=max_cache_len,
-                             cd=self.compute_dtype)
+                             cd=self.compute_dtype, enc_out=enc_out)
             if a is not None:
                 aux = aux + a
             new_cache[f"sub{s}"].append(nc)
         return h, (new_cache if mode == "prefill" else cache), aux
 
+    def _encode(self, frames):
+        """Whisper's encoder: bidirectional attention over the frame
+        embeddings (B, T_enc, d) plus learned positions, then a norm."""
+        cd = self.compute_dtype
+        h = frames.to(self.device, cd)
+        h = h + self.enc_pos["table"][:h.shape[1]].to(cd)
+        for layer in self.enc_layers:
+            h = layer(h, cd)
+        return self.enc_norm(h)
+
     # ------------------------------------------------------------------
     # Public API
     # ------------------------------------------------------------------
     def _embed(self, tokens):
-        emb = self.embed["tokens"].to(self.compute_dtype)
-        h = emb[tokens.to(self.device).long()]
+        h = self.embed["tokens"][tokens.to(self.device).long()].to(
+            self.compute_dtype)
         if self.cfg.embed_scale != 1.0:
             h = h * self.cfg.embed_scale
         return h
 
-    def _pos_tables(self, s: int, start: int = 0, positions=None):
+    def _assemble_inputs(self, batch):
+        """(token embeddings, with a VLM's patches in front; whisper's
+        encoder output or None)."""
         cfg = self.cfg
-        if cfg.pos_embedding != "rope" or not cfg.num_heads:
-            return None
+        h = self._embed(batch["tokens"])
+        enc_out = None
+        if cfg.frontend == "vision_patches":
+            fe = batch["frontend_embeds"].to(self.device, self.compute_dtype)
+            h = torch.cat([fe, h], dim=1)
+        elif cfg.is_encoder_decoder:
+            enc_out = self._encode(batch["frontend_embeds"])
+        return h, enc_out
+
+    def _pos_tables(self, h, positions=None):
+        """(h, sincos): RoPE's tables for ``positions`` (default 0..S-1),
+        or h plus the learned table's rows at them (sincos None)."""
+        cfg = self.cfg
         if positions is None:
-            positions = start + torch.arange(s, device=self.device)
-        return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+            positions = torch.arange(h.shape[1], device=self.device)
+        if cfg.pos_embedding == "rope" and cfg.num_heads:
+            return h, rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        if cfg.pos_embedding == "learned":
+            h = h + self.pos["table"][positions].to(h.dtype)
+        return h, None
 
     def _logits(self, h, last_only: bool = False):
         cfg = self.cfg
@@ -420,33 +544,36 @@ class Model(nn.Module):
         return softcap(logits.float(), cfg.final_softcap)
 
     def forward(self, batch):
-        """Full-sequence logits. Returns (logits_f32 (B, S, padded_vocab),
-        aux): aux is the MoE load-balance loss summed over the layers,
-        float32 (0 for the families without MoE layers)."""
-        h = self._embed(batch["tokens"])
-        sincos = self._pos_tables(h.shape[1])
+        """Full-sequence logits. Returns (logits_f32 (B, P + S,
+        padded_vocab), aux): P a VLM's patches (0 otherwise); aux is the
+        MoE load-balance loss summed over the layers, float32 (0 for the
+        families without MoE layers)."""
+        h, enc_out = self._assemble_inputs(batch)
+        h, sincos = self._pos_tables(h)
         h, _, aux = self._run_stack(h, sincos=sincos, mode="fwd",
-                                    cache=None, pos=None, max_cache_len=0)
+                                    cache=None, pos=None, max_cache_len=0,
+                                    enc_out=enc_out)
         return self._logits(h), aux
 
     def prefill(self, batch, max_cache_len: int):
         """Populate the decode cache; returns (last_logits (B, 1, V),
-        cache)."""
-        h = self._embed(batch["tokens"])
-        sincos = self._pos_tables(h.shape[1])
+        cache). A VLM's patches are cached as the first P positions."""
+        h, enc_out = self._assemble_inputs(batch)
+        h, sincos = self._pos_tables(h)
         h, cache, _ = self._run_stack(h, sincos=sincos, mode="prefill",
                                       cache=None, pos=None,
-                                      max_cache_len=max_cache_len)
+                                      max_cache_len=max_cache_len,
+                                      enc_out=enc_out)
         return self._logits(h, last_only=True), cache
 
     def decode_step(self, cache, tokens, pos):
         """One decode step. tokens: (B, 1); pos: the next index, an int for
         the whole batch, or a (B,) integer tensor with one per lane (each
-        lane's rope angle, ring slot ``pos[b] % T_cache`` and cache
-        positions its own, so the attention caches' ``cache_pos`` must be
-        (B, T_cache), as the continuous batcher's pool holds them; nothing
-        is read back to the host). Returns (logits (B, 1, V), cache); the
-        cache is updated in place."""
+        lane's rope angle or learned position row, ring slot
+        ``pos[b] % T_cache`` and cache positions its own, so the attention
+        caches' ``cache_pos`` must be (B, T_cache), as the continuous
+        batcher's pool holds them; nothing is read back to the host).
+        Returns (logits (B, 1, V), cache); the cache is updated in place."""
         h = self._embed(tokens)
         if isinstance(pos, torch.Tensor) and pos.ndim == 1:
             pos = pos.to(self.device)
@@ -454,7 +581,7 @@ class Model(nn.Module):
         else:
             pos = int(pos)
             positions = torch.tensor([pos], device=self.device)
-        sincos = self._pos_tables(1, positions=positions)
+        h, sincos = self._pos_tables(h, positions=positions)
         h, cache, _ = self._run_stack(h, sincos=sincos, mode="decode",
                                       cache=cache, pos=pos, max_cache_len=0)
         return self._logits(h), cache
@@ -483,6 +610,11 @@ class Model(nn.Module):
             else:
                 layer = {"ssm": SSM.mamba2_init_cache(cfg, batch_size, dtype,
                                                       dev)}
+            if cfg.is_encoder_decoder:
+                shape = (batch_size, cfg.encoder_seq, kvh, hd)
+                layer["cross"] = {
+                    "xk": torch.zeros(shape, dtype=dtype, device=dev),
+                    "xv": torch.zeros(shape, dtype=dtype, device=dev)}
             cache[f"sub{s}"].append(layer)
         return cache
 

@@ -17,7 +17,10 @@ semantics become static shapes: the tick always runs every lane, and
 inactive lanes are ignored on the host. The one host read a tick is the
 (slots,) next tokens; an admission reads its first token.
 
-The batcher runs where the model lives (``model.device``).
+The batcher runs where the model lives (``model.device``). Requests are
+token prompts only: an arch with a frontend (VLM patches, whisper frames)
+is refused, as the reference's batcher cannot prefill one either (it
+passes no ``frontend_embeds``).
 """
 from __future__ import annotations
 
@@ -58,6 +61,10 @@ class ContinuousBatcher:
     @torch.inference_mode()
     def __init__(self, model: Model, *, slots: int = 4,
                  max_cache_len: int = 256):
+        if model.cfg.frontend != "none":
+            raise NotImplementedError(
+                f"{model.cfg.name}: the continuous batcher takes token "
+                f"prompts only, not a {model.cfg.frontend} frontend")
         self.model = model
         self.slots = slots
         self.max_cache_len = max_cache_len

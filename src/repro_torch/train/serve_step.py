@@ -4,7 +4,10 @@
 Greedy decoding takes the argmax over the real vocabulary
 (``[:vocab_size]``, never the padding); temperature sampling draws through
 an explicit ``torch.Generator``. The steps run under
-``torch.inference_mode()``.
+``torch.inference_mode()``. A batch may carry ``frontend_embeds`` (VLM
+patches, whisper frames), which the prefill hands to the model; decoding
+starts after a VLM's patch prefix, as the reference's ``generate`` starts
+it (``train_step.frontend_len``).
 """
 from __future__ import annotations
 
@@ -13,11 +16,14 @@ from typing import Optional
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.train.train_step import frontend_len
 
 
 def make_prefill_step(model: Model, max_cache_len: int):
     @torch.inference_mode()
     def prefill_step(batch):
+        """batch: ``tokens`` (B, S) and, where the model has a frontend,
+        ``frontend_embeds``."""
         logits, cache = model.prefill(batch, max_cache_len)
         next_tok = torch.argmax(logits[:, -1, :model.cfg.vocab_size], dim=-1)
         return next_tok, logits, cache
@@ -63,7 +69,7 @@ def generate(model: Model, batch, *, steps: int, max_cache_len: int,
     finite = torch.isfinite(logits).all()
     if timed:
         ev[1].record()
-    pos = batch["tokens"].shape[1]
+    pos = batch["tokens"].shape[1] + frontend_len(model.cfg, batch)
     out = [tok[:, None]]
     cur = tok[:, None]
     for i in range(steps - 1):

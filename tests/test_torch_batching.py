@@ -143,3 +143,13 @@ def test_reused_lane_equals_a_fresh_batcher(arch):
             for leaf in a[s][kind]:
                 np.testing.assert_allclose(a[s][kind][leaf],
                                            b[s][kind][leaf], **RING_TOL)
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-large-v3"])
+def test_frontend_archs_are_refused(arch):
+    """Requests carry token prompts only, so an arch with a frontend is
+    refused at construction (the reference's batcher passes no
+    ``frontend_embeds`` and fails at its first prefill)."""
+    m = Model(get_config(arch).reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="token prompts only"):
+        ContinuousBatcher(m, slots=2, max_cache_len=MAX_CACHE)

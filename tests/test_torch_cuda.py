@@ -326,6 +326,31 @@ def test_flash_kernel_tiling_edges(cuda_device, b, sq, t, h, kv, hd, causal,
                                **tol)
 
 
+# the audio, VLM and hybrid families' layer shapes as their serving paths
+# give them (batches cut): whisper's encoder (non-causal, T = 1500 =
+# 23 x 64 + 28, a partial last key tile), its cross-attention (prompt
+# queries against the 1500 encoder frames, Sq != T) and its causal
+# decoder; llava's GQA 7:1 (576 patches + 1024 tokens); jamba's attention
+# layer, GQA 8:1, no RoPE. (B, Sq, Tk, H, KV, hd, causal, window,
+# softcap, q_offset, dtype)
+FAMILY_ATTN_CASES = [
+    (2, 1500, 1500, 20, 20, 64, False, 0, 0.0, 0, "float32"),
+    (2, 128, 1500, 20, 20, 64, False, 0, 0.0, 0, "float32"),
+    (2, 128, 128, 20, 20, 64, True, 0, 0.0, 0, "float32"),
+    (1, 1600, 1600, 56, 8, 128, True, 0, 0.0, 0, "float32"),
+    (1, 2048, 2048, 64, 8, 128, True, 0, 0.0, 0, "float32"),
+]
+
+
+@pytest.mark.parametrize("b,sq,t,h,kv,hd,causal,win,cap,q_offset,dtype",
+                         FAMILY_ATTN_CASES)
+def test_flash_kernel_at_the_new_families_shapes(cuda_device, b, sq, t, h,
+                                                 kv, hd, causal, win, cap,
+                                                 q_offset, dtype):
+    test_flash_kernel_tiling_edges(cuda_device, b, sq, t, h, kv, hd, causal,
+                                   win, cap, q_offset, dtype)
+
+
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     q, k, v = _attn((1, 32, 4, 2, 64), "float32", cuda_device)
     kw = dict(scale=0.125)
@@ -547,12 +572,14 @@ def test_flash_attention_autograd_launches_both_kernels(cuda_device):
 @pytest.mark.parametrize(
     "b,l,h,p,n,q,mamba2",
     [c + (False,) for c in SSD_CASES + [(2, 100, 4, 32, 16, 32)]]
-    + [c + (True,) for c in SSD_CHUNK256_CASES])
+    + [c + (True,) for c in SSD_CHUNK256_CASES
+       + [(1, 512, 8, 128, 128, 256)]])
 def test_ssd_kernel_matches_plain_version(cuda_device, b, l, h, p, n, q,
                                           mamba2):
     """At the reference's cases, and at chunk 256 (four 64-row tiles,
     three chunks) with dt and a in Mamba-2's range, where the far tiles,
-    the state loop and the recurrence between chunks carry weight."""
+    the state loop and the recurrence between chunks carry weight; and
+    at jamba's (P, N, chunk) = (128, 128, 256), one head per block."""
     arrs = [torch.from_numpy(a).to(cuda_device)
             for a in ssd_inputs(b, l, h, p, n, seed=l + n, mamba2=mamba2)]
     before = ssd_ops.launches
@@ -659,13 +686,27 @@ def test_ssd_wrapper_refuses_inputs_that_need_a_gradient(cuda_device):
 # the model and the serving entry point on the card
 # ---------------------------------------------------------------------------
 
+def family_batch(cfg, b, s, device, seed=0):
+    """Tokens (b, s) and, where the arch has one, the frontend's
+    embeddings (8 VLM patches, ``encoder_seq`` frames), from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen)}
+    n = (8 if cfg.frontend == "vision_patches"
+         else cfg.encoder_seq if cfg.is_encoder_decoder else 0)
+    if n:
+        batch["frontend_embeds"] = torch.randn((b, n, cfg.d_model),
+                                               generator=gen) * 0.02
+    return {k: v.to(device) for k, v in batch.items()}
+
+
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-780m", "granite-8b",
                                   "minicpm-2b", "granite-moe-1b-a400m",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "jamba-1.5-large-398b",
+                                  "llava-next-34b", "whisper-large-v3"])
 def test_prefill_with_kernels_matches_plain_versions(cuda_device, arch):
     cfg = get_config(arch).reduced()
-    toks = torch.randint(0, cfg.vocab_size, (2, 40),
-                         generator=torch.Generator().manual_seed(0))
+    batch = family_batch(cfg, 2, 40, cuda_device)
     outs = []
     for impl, ssd_kernel in (("kernel", True), ("blocked", False)):
         m = Model(cfg, device=cuda_device, attn_impl=impl,
@@ -673,14 +714,13 @@ def test_prefill_with_kernels_matches_plain_versions(cuda_device, arch):
         m.init_params(torch.Generator(device=cuda_device).manual_seed(0))
         launches = (attn_ops.launches, ssd_ops.launches)
         with torch.inference_mode():
-            last, cache = m.prefill({"tokens": toks.to(cuda_device)}, 64)
+            last, cache = m.prefill(batch, 64)
         torch.cuda.synchronize()
         grew = (attn_ops.launches - launches[0],
                 ssd_ops.launches - launches[1])
         outs.append((last, cache_to_numpy(cache), grew))
     (kl, kc, kgrew), (pl, pc, pgrew) = outs
-    n = cfg.num_layers
-    assert kgrew == ((0, n) if cfg.family == "ssm" else (n, 0))
+    assert kgrew == _chip_smoke().family_layers(cfg)
     assert pgrew == (0, 0)
     np.testing.assert_allclose(to_np(kl), to_np(pl), **MODEL_TOL)
     for sub in kc:
@@ -701,6 +741,24 @@ def test_serve_on_card_launches_the_kernels(cuda_device):
         assert (attn_ops.launches, ssd_ops.launches) == expect
         assert out.shape == (2, 4)
         assert stats["prefill_ms"] > 0 and stats["decode_ms_per_token"] > 0
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "llava-next-34b",
+                                  "whisper-large-v3"])
+def test_serve_on_card_serves_the_new_families(cuda_device, arch):
+    """``serve`` on the reduced hybrid, VLM and audio archs: the batch's
+    frontend embeddings reach the model, flash launched once an attention,
+    encoder and cross-attention layer and SSD once a Mamba-2 layer in the
+    prefill, every logit finite."""
+    cfg = get_config(arch).reduced()
+    attn_ops.launches = ssd_ops.launches = 0
+    stats = {}
+    out = serve.serve(arch, batch=2, prompt_len=40, gen=4,
+                      log_fn=lambda s: None, stats=stats)
+    assert (attn_ops.launches, ssd_ops.launches) == \
+        _chip_smoke().family_layers(cfg)
+    assert out.shape == (2, 4) and stats["logits_finite"]
+    assert stats["prefill_ms"] > 0 and stats["decode_ms_per_token"] > 0
 
 
 def _chip_smoke():

@@ -9,7 +9,11 @@ cache. Each case runs twice: with the plain paths, and with the kernel
 paths (JAX: Pallas in interpret mode; the port: its kernels' plain
 versions on CPU tensors); the MoE archs once more with the sorted
 capacity dispatch forced, at a capacity factor that drops tokens. Decode
-at one position per lane is held against decode lane by lane."""
+at one position per lane is held against decode lane by lane. The VLM
+and audio archs get the reference's smoke-test frontends (8 patches,
+``encoder_seq`` frames), so their caches hold the patch prefix and the
+cross-attention's ``xk`` / ``xv``, and decoding starts after the
+prefix."""
 import dataclasses
 
 import jax
@@ -27,7 +31,7 @@ from repro_torch.models.convert import cache_to_numpy, params_from_numpy
 from repro_torch.models.model import Model
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from torch_parity import MODEL_TOL, RING_TOL, to_np
+from torch_parity import MODEL_TOL, RING_TOL, frontend_embeds, to_np
 
 S, DECODE, MAX_CACHE = 40, 4, 64
 VARIANTS = {
@@ -71,8 +75,9 @@ def test_moe_sorted_matches_reference(arch, pad):
     experts' weights carried across with the rest."""
     kw = dict(SORTED[0], pad_experts=pad)
     jm, params, m = _pair(arch, None, (kw, kw))
-    assert m.moe_impl == "sorted" and m.layers[0].moe.impl == "sorted"
-    assert m.layers[0].moe.wi.shape[0] == (16 if pad else 8)
+    moe = next(layer.moe for layer in m.layers if layer.moe is not None)
+    assert m.moe_impl == "sorted" and moe.impl == "sorted"
+    assert moe.wi.shape[0] == (16 if pad else 8)
     # the full sequence drops tokens at this capacity, a decode step none:
     # decode matches the reference's decode, not the full logits
     _check_against_reference(jm, params, m, decode_is_full=False)
@@ -80,18 +85,22 @@ def test_moe_sorted_matches_reference(arch, pad):
 
 def _check_against_reference(jm, params, m, decode_is_full=True):
     cfg = m.cfg
-    toks = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, S + DECODE)).astype(np.int32)
+    rs = np.random.default_rng(1)
+    toks = rs.integers(0, cfg.vocab_size, (2, S + DECODE)).astype(np.int32)
+    fe = frontend_embeds(cfg, 2, rs)
+    off = 8 if cfg.frontend == "vision_patches" else 0
     tt = torch.from_numpy(toks)
-    jfull, jaux = jm.forward(params, {"tokens": jnp.asarray(toks)})
-    jlast, jcache = jm.prefill(params, {"tokens": jnp.asarray(toks[:, :S])},
-                               max_cache_len=MAX_CACHE)
+    jfe = {k: jnp.asarray(v) for k, v in fe.items()}
+    tfe = {k: torch.from_numpy(v) for k, v in fe.items()}
+    jfull, jaux = jm.forward(params, {"tokens": jnp.asarray(toks), **jfe})
+    jlast, jcache = jm.prefill(params, {"tokens": jnp.asarray(toks[:, :S]),
+                                        **jfe}, max_cache_len=MAX_CACHE)
     before = (attn_ops.launches, ssd_ops.launches)
     with torch.inference_mode():
-        full, aux = m.forward({"tokens": tt})
-        last, cache = m.prefill({"tokens": tt[:, :S]}, MAX_CACHE)
+        full, aux = m.forward({"tokens": tt, **tfe})
+        last, cache = m.prefill({"tokens": tt[:, :S], **tfe}, MAX_CACHE)
     assert (attn_ops.launches, ssd_ops.launches) == before   # CPU: plain
-    assert full.shape == (2, S + DECODE, cfg.padded_vocab)
+    assert full.shape == (2, off + S + DECODE, cfg.padded_vocab)
     assert (float(jaux) == 0.0) == (not cfg.num_experts)
     np.testing.assert_allclose(float(aux), float(jaux), **MODEL_TOL)
     np.testing.assert_allclose(to_np(full), np.asarray(jfull), **MODEL_TOL)
@@ -110,24 +119,22 @@ def _check_against_reference(jm, params, m, decode_is_full=True):
         pos = S + i
         jdec, jcache = jm.decode_step(params, jcache,
                                       jnp.asarray(toks[:, pos:pos + 1]),
-                                      jnp.int32(pos))
+                                      jnp.int32(off + pos))
         with torch.inference_mode():
-            dec, cache = m.decode_step(cache, tt[:, pos:pos + 1], pos)
+            dec, cache = m.decode_step(cache, tt[:, pos:pos + 1], off + pos)
         np.testing.assert_allclose(to_np(dec), np.asarray(jdec), **RING_TOL)
         if decode_is_full:
-            np.testing.assert_allclose(to_np(dec[:, 0]), to_np(full[:, pos]),
-                                       **RING_TOL)
+            np.testing.assert_allclose(to_np(dec[:, 0]),
+                                       to_np(full[:, off + pos]), **RING_TOL)
 
 
 def test_registry_matches_reference():
-    """The port registers the reference's archs of the families it runs
-    (all but hybrid, VLM and audio), each config field for field equal
-    to the reference's, at full size and reduced."""
+    """The port registers all ten of the reference's archs, each config
+    field for field equal to the reference's, at full size and
+    reduced."""
     from repro.configs import list_archs as jax_archs
-    ported = [a for a in jax_archs()
-              if jax_config(a).family in ("dense", "moe", "ssm")]
-    assert list_archs() == ported and len(ported) == 7
-    for arch in ported:
+    assert list_archs() == jax_archs() and len(list_archs()) == 10
+    for arch in list_archs():
         assert (dataclasses.asdict(get_config(arch))
                 == dataclasses.asdict(jax_config(arch)))
         assert (dataclasses.asdict(get_config(arch).reduced())
@@ -199,23 +206,28 @@ class _HostReads(TorchDispatchMode):
 @pytest.mark.parametrize("arch", list_archs())
 def test_decode_with_lane_positions_equals_lane_by_lane(arch):
     """Three lanes prefilled at B = 1 to different lengths (one past
-    gemma2's reduced window of 16), then 4 decode steps with a (3,)
-    position tensor: each lane's logits and cache equal its own decode at
-    an int position; the tensor form reads no position back to the
-    host."""
+    gemma2's reduced window of 16; each with its own VLM patches or
+    whisper frames), then 4 decode steps with a (3,) position tensor: each
+    lane's logits and cache (whisper's cross cache included) equal its own
+    decode at an int position; the tensor form reads no position back to
+    the host."""
     cfg = get_config(arch).reduced()
     m = Model(cfg, device="cpu", max_seq=96, moe_impl="sorted"
               if cfg.num_experts else "auto")
     m.init_params(torch.Generator().manual_seed(5))
     rs = np.random.default_rng(6)
+    off = 8 if cfg.frontend == "vision_patches" else 0
     lens = (9, 37, 22)
-    prompts = [torch.from_numpy(rs.integers(0, cfg.vocab_size, (1, n)))
+    prompts = [{"tokens": torch.from_numpy(rs.integers(0, cfg.vocab_size,
+                                                       (1, n))),
+                **{k: torch.from_numpy(v)
+                   for k, v in frontend_embeds(cfg, 1, rs).items()}}
                for n in lens]
     steps = torch.from_numpy(rs.integers(0, cfg.vocab_size, (3, DECODE)))
+    lens = tuple(off + n for n in lens)
     with torch.inference_mode():
-        lanes = [m.prefill({"tokens": p}, MAX_CACHE)[1] for p in prompts]
-        pool = _cat_lanes([m.prefill({"tokens": p}, MAX_CACHE)[1]
-                           for p in prompts])
+        lanes = [m.prefill(p, MAX_CACHE)[1] for p in prompts]
+        pool = _cat_lanes([m.prefill(p, MAX_CACHE)[1] for p in prompts])
         pos = torch.tensor(lens)
         for i in range(DECODE):
             with _HostReads() as mode:
@@ -238,18 +250,6 @@ def test_decode_with_lane_positions_equals_lane_by_lane(arch):
                     else:
                         np.testing.assert_allclose(got, val[:, 0],
                                                    **MODEL_TOL)
-
-
-@pytest.mark.parametrize("change", [
-    dict(family="hybrid", attn_every=2),
-    dict(family="vlm", frontend="vision_patches"),
-    dict(family="audio", is_encoder_decoder=True, pos_embedding="learned"),
-])
-def test_families_not_ported_raise(change):
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
-                              **change)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Model(cfg, device="cpu")
 
 
 def test_moe_impl_choice_and_padded_experts():

@@ -39,7 +39,8 @@ def test_synthetic_tokens_identical(arch, mode):
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-780m", "granite-8b",
                                   "minicpm-2b", "granite-moe-1b-a400m",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "jamba-1.5-large-398b",
+                                  "llava-next-34b", "whisper-large-v3"])
 def test_serve_gives_the_reference_tokens(arch, monkeypatch):
     kw = dict(reduced=True, batch=2, prompt_len=24, gen=6, seed=0)
     ref_lines = []
@@ -102,18 +103,56 @@ def test_cli_switches(monkeypatch, capsys):
 
 
 def test_cli_takes_every_ported_arch(monkeypatch):
-    """``--arch`` offers the registry's seven archs (the reference's
-    dense, MoE and SSM ones), each of which the CLI hands on."""
+    """``--arch`` offers the registry's ten archs (all of the reference's
+    families), each of which the CLI hands on; an unknown one is
+    refused."""
     seen = []
     monkeypatch.setattr(serve, "serve", lambda arch, **kw: seen.append(arch))
     archs = ["gemma2-2b", "granite-8b", "granite-moe-1b-a400m",
-             "mamba2-780m", "minicpm-2b", "qwen2-moe-a2.7b",
-             "tinyllama-1.1b"]
+             "jamba-1.5-large-398b", "llava-next-34b", "mamba2-780m",
+             "minicpm-2b", "qwen2-moe-a2.7b", "tinyllama-1.1b",
+             "whisper-large-v3"]
     for arch in archs:
         serve.main(["--arch", arch, "--device", "cpu"])
     assert seen == archs
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "jamba-1.5-large-398b"])
+        serve.main(["--arch", "jamba-1.5-large"])
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-large-v3"])
+def test_generate_matches_reference(arch):
+    """``generate`` against the reference's, token for token, on the same
+    parameters and batch (llava's 8 patches, whisper's frames), and the
+    last decode step's position: after the patch prefix on llava, as the
+    reference starts decoding (``frontend_len``)."""
+    from repro.train.serve_step import generate as jax_generate
+    from repro_torch.train.serve_step import generate
+    cfg = get_config(arch).reduced()
+    jm = JaxModel(jax_config(arch).reduced(), max_seq=96)
+    jparams = jm.init_params(jax.random.PRNGKey(3))
+    m = Model(cfg, device="cpu", max_seq=96)
+    m.load_state_dict(params_from_numpy(
+        cfg, jax.tree_util.tree_map(np.asarray, jparams)), strict=True)
+    data = SyntheticTokens(cfg, 2, 12, seed=3, frontend_seq=8
+                           if cfg.frontend == "vision_patches" else 0)
+    batch = data.batch(0)
+    batch["tokens"] = batch["tokens"][:, :12]
+    ref = np.asarray(jax_generate(
+        jm, jparams, {k: jax.numpy.asarray(v) for k, v in batch.items()},
+        steps=6, max_cache_len=40))
+    seen = []
+    decode_step = m.decode_step
+
+    def record(cache, tokens, pos):
+        seen.append(pos)
+        return decode_step(cache, tokens, pos)
+
+    m.decode_step = record
+    out = generate(m, {k: torch.from_numpy(v) for k, v in batch.items()},
+                   steps=6, max_cache_len=40)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    off = 8 if cfg.frontend == "vision_patches" else 0
+    assert seen == [off + 12 + i for i in range(5)]
 
 
 def test_cli_runs_on_the_cpu(capsys):

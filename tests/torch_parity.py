@@ -148,19 +148,36 @@ def ssd_inputs(b, l, h, p, n, seed=0, mamba2=False):
     the decay is ~exp(-0.8) per step. With ``mamba2``, dt and a are drawn
     in the range of Mamba-2's own initialisation: dt log-uniform in
     [1e-3, 1e-1], a = -U(1, 16) with one head per 1/H stratum of the range
-    (the slowest heads are always drawn), so a 256-step chunk's decay
-    stays above 0 on those heads."""
+    and the first head at its slow end, a = -1 (with few heads a stratum
+    is wide: at H = 8 the slowest spans [1, 2.9], where a chunk can decay
+    below 1e-4), so a 256-step chunk's decay stays above 0 on the slow
+    heads whatever H."""
     rs = np.random.default_rng(seed)
     x = rs.standard_normal((b, l, h, p)) * 0.5
     if mamba2:
         dt = np.exp(rs.uniform(np.log(1e-3), np.log(1e-1), (b, l, h)))
-        a = -(1.0 + 15.0 * (np.arange(h) + rs.random(h)) / h)
+        u = rs.random(h)
+        u[0] = 0.0
+        a = -(1.0 + 15.0 * (np.arange(h) + u) / h)
     else:
         dt = np.logaddexp(rs.standard_normal((b, l, h)), 0.0)
         a = -np.exp(rs.standard_normal(h) * 0.3)
     bm = rs.standard_normal((b, l, n)) * 0.3
     cm = rs.standard_normal((b, l, n)) * 0.3
     return tuple(np32(v) for v in (x, dt, a, bm, cm))
+
+
+def frontend_embeds(cfg, b, rs) -> dict:
+    """``frontend_embeds`` as the reference's
+    ``tests/test_models_smoke.py::make_batch`` shapes them (8 VLM patches,
+    ``encoder_seq`` whisper frames, N(0, 0.02)), float32 drawn with numpy
+    from the generator ``rs``; {} for an arch without a frontend."""
+    n = (8 if cfg.frontend == "vision_patches"
+         else cfg.encoder_seq if cfg.is_encoder_decoder else 0)
+    if not n:
+        return {}
+    return {"frontend_embeds": np32(rs.standard_normal((b, n, cfg.d_model))
+                                    * 0.02)}
 
 
 @pytest.fixture
