@@ -30,8 +30,12 @@ their own decode positions), and LM serving of the audio
 (whisper-large-v3: encoder, cross-attention, learned positions), VLM
 (llava-next-34b: a patch prefix, bfloat16 parameters) and hybrid
 (jamba-1.5-large-398b: Mamba-2 and attention interleaved, MoE on every
-other layer; one period, expert width cut) families. Phases, in order;
-any failure exits non-zero:
+other layer; one period, expert width cut) families, and LM training of
+the MoE (granite-moe-1b-a400m, with and without the reference's
+activation recomputation, ``Model(remat=True)``), audio
+(whisper-large-v3) and VLM (llava-next-34b, cut in depth, bfloat16
+parameters) families at published widths. Phases, in order; any failure
+exits non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
 2. build:  every CUDA kernel of the port (fused variation, flash attention
@@ -113,7 +117,20 @@ any failure exits non-zero:
            prefill of 1 x 256 tokens (whisper's 1500 frames, llava's 576
            patches) through the kernels against the plain paths on the
            same model: last logits and every cache leaf at 2e-4, flash /
-           SSD launched once a layer, then not at all;
+           SSD launched once a layer, then not at all; the flash
+           backward at the trained families' layer shapes (whisper's
+           encoder at T = 1500, non-causal; its decoder; its
+           cross-attention, 448 queries against 1500 keys, no mask;
+           llava's GQA 7:1 at hd 128; granite-moe's 16:8 at 4 x 2048 and
+           4 x 4096) against its plain version at 1e-3 / 1e-4;
+           granite-moe-1b-a400m at its published widths, one gradient
+           evaluation of 4 x 2048 with remat=True against remat=False
+           (the router's experts equal exactly, the backward's recomputed
+           ones included; gradients at 1e-3 of each leaf's largest; flash
+           forward launched twice a layer under remat); one train step
+           of reduced whisper, llava, jamba and granite-moe (sorted
+           dispatch, with and without remat) on the card against the
+           CPU, with the routers' smallest top-k margin;
 4. main:   ``python -m repro_torch.launch.ga_run --fitness rastrigin`` at
            I=32 islands x P=1024 individuals x G=128 genes, 5 generations x
            3 epochs, then again with --sync-every 2 --pipeline-depth 2,
@@ -193,8 +210,22 @@ any failure exits non-zero:
            (every other width published, 16 experts top-2, sorted
            dispatch; batch 2, prompt 2048, 16 tokens: SSD 7 and flash 1
            a prefill): finite logits, tokens in the vocabulary, prefill
-           ms, decode ms/token, tokens/s, peak memory. Every run has the
-           launch counts zeroed just before it and read just after;
+           ms, decode ms/token, tokens/s, peak memory; ``python -m
+           repro_torch.launch.train --arch granite-moe-1b-a400m --full
+           --steps 8 --batch 4 --seq 2048`` (24 x 8 flash forward and
+           backward launches), granite-moe through ``make_train_step(
+           Model(..., remat=True))`` for 3 steps of 4 x 4096 (48 x 3
+           forward, 24 x 3 backward), ``launch.train --arch
+           whisper-large-v3 --full --steps 8 --batch 4 --seq 448`` on 1500
+           frames (96 x 8 each) and llava-next-34b cut to 4 layers,
+           bfloat16 parameters, 4 steps of 2 x (576 patches + 1024
+           tokens) (16 each; every bf16 parameter keeps its dtype through
+           AdamW and moves): finite losses and grad norms, step ms,
+           tokens/s, peak memory; ``ga_run --fitness lm --epochs 0`` on
+           reduced whisper, llava and jamba, one fitness call of 16
+           genomes each against the same call on the CPU (1e-4 / 2e-6).
+           Every run has the launch counts zeroed just before it and read
+           just after;
 5. times:  with CUDA events, medians of repeats: each kernel beside its
            bound and its plain version. The fused variation at the main
            shape at three points (no crossover or mutation, so no powf
@@ -248,13 +279,18 @@ any failure exits non-zero:
            train step (ms, tokens/s); the flash kernel at the new archs'
            layer shapes beside its bound; the flash kernel at the audio,
            VLM and hybrid layer shapes and SSD at jamba's serving shape,
-           each beside its bound and its plain version;
+           each beside its bound and its plain version, flash at every
+           serving shape also beside SDPA's fastest float32 backend; the
+           flash backward and forward at the trained families' shapes
+           beside the bound, the plain version and SDPA's backward, and
+           each training run's flash share of a step;
 6. trace:  one prefill and 8 decode steps of each served model, and one
            train step of the training path, under torch.profiler: the
            device's idle share and the kernels' share of each window and
            the largest device entries, read from the trace; in the train
            step each flash kernel's ms per launch (a flash kernel missing
-           from FLASH_SYMBOLS fails the run); one batched LM fitness call
+           from FLASH_SYMBOLS fails the run), and one granite-moe-1b-a400m
+           train step (4 x 2048) likewise; one batched LM fitness call
            (128 genomes): idle share, flash share, largest entries;
 7. the ``{"kernels": [...]}`` line (five kernels; flash and SSD with
    their launches by path, the families' prefills among them), the card
@@ -602,6 +638,73 @@ GRAD_TOL = (1e-3, 1e-4)
 # the backward needs five products of 2 hd FLOP per visible (query, key)
 # pair and query head: Q K^T, dO V^T, P^T dO, dS^T Q, dS K
 BWD_PRODUCTS = 5
+
+# training the MoE, audio and VLM families on the card at published
+# widths: granite-moe-1b-a400m through ``launch.train`` (32 experts top-8,
+# the sorted dispatch, 8 steps of 4 x 2048), then ``Model(remat=True)``
+# for 3 steps at its served shape 4 x 4096 (without remat its saved
+# activations would pass the card's memory); whisper-large-v3 through
+# ``launch.train`` (32 + 32 layers, 1500 frames, 8 steps of 4 x 448);
+# llava-next-34b cut to LLAVA_TRAIN_CUT layers (34.4 B parameters would
+# need 412 GB of training state), bfloat16 parameters, 4 steps of 2 x
+# (576 patches + 1024 tokens) through ``make_train_step``
+MOE_TRAIN_ARCH, MOE_TRAIN_STEPS = "granite-moe-1b-a400m", 8
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 2048
+MOE_TRAIN_ARGS = ["--arch", MOE_TRAIN_ARCH, "--full", "--steps",
+                  str(MOE_TRAIN_STEPS), "--batch", str(MOE_TRAIN_BATCH),
+                  "--seq", str(MOE_TRAIN_SEQ), "--device", "cuda"]
+MOE_REMAT = dict(steps=3, batch=4, seq=4096)
+WHISPER_TRAIN_STEPS, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 8, 4, 448
+WHISPER_TRAIN_ARGS = ["--arch", "whisper-large-v3", "--full", "--steps",
+                      str(WHISPER_TRAIN_STEPS), "--batch",
+                      str(WHISPER_TRAIN_BATCH), "--seq",
+                      str(WHISPER_TRAIN_SEQ), "--device", "cuda"]
+LLAVA_TRAIN = dict(arch="llava-next-34b", steps=4, batch=2, patches=576,
+                   seq=1024)
+LLAVA_TRAIN_CUT = dict(num_layers=4)
+# the flash backward at these runs' layer shapes (B, S, H, KV, hd, causal,
+# window, softcap, dtype[, T]), with the layers of a step that run each:
+# whisper's encoder (T = 1500 = 23 x 64 + 28, non-causal), decoder
+# (causal) and cross-attention (448 queries against 1500 frames, no
+# mask); llava's GQA 7:1 over 576 + 1024 positions; granite-moe's 16:8 at
+# hd 64, at 4 x 2048 and at the remat run's 4 x 4096
+TRAIN_FAMILY_BWD = {
+    "whisper encoder": ((4, 1500, 20, 20, 64, False, 0, 0.0, "float32"),
+                        32),
+    "whisper decoder": ((4, 448, 20, 20, 64, True, 0, 0.0, "float32"), 32),
+    "whisper cross": ((4, 448, 20, 20, 64, False, 0, 0.0, "float32",
+                       1500), 32),
+    "llava": ((2, 1600, 56, 8, 128, True, 0, 0.0, "float32"),
+              LLAVA_TRAIN_CUT["num_layers"]),
+    "granite-moe": ((4, 2048, 16, 8, 64, True, 0, 0.0, "float32"), 24),
+    "granite-moe remat": ((4, 4096, 16, 8, 64, True, 0, 0.0, "float32"),
+                          24)}
+# one train step of each reduced family on the card against the CPU
+# (``train_step.reduced_train_step``): (arch, Model switches)
+TRAIN_FAMILY_REDUCED = [("whisper-large-v3", {}), ("llava-next-34b", {}),
+                        ("jamba-1.5-large-398b", {}),
+                        ("granite-moe-1b-a400m", dict(moe_impl="sorted")),
+                        ("granite-moe-1b-a400m", dict(moe_impl="sorted",
+                                                      remat=True))]
+# the LM search on the new families: ``ga_run --fitness lm --lm-arch A
+# --epochs 0``, one fitness call of LM_FAMILY_GENOMES genomes (the initial
+# population), held against the same call on the CPU at LM_CPU_TOL;
+# jamba's at 3 training steps, not 6: its reduced routers (8 experts,
+# top-2) come closer to ties the longer they train, and a near-tie lets
+# another summation order swap two experts (as granite-moe's, ROADMAP
+# queue 1 item 4.2)
+LM_FAMILY_ARCHS = {"whisper-large-v3": 6, "llava-next-34b": 6,
+                   "jamba-1.5-large-398b": 3}
+LM_FAMILY_GENOMES = (2, 8)
+# with MoE layers, a genome's card loss is held to the CPU's only where
+# round-off alone cannot move it past the tolerance: where the same CPU
+# call from the initialisation scaled by (1 + LM_PERTURB x N(0, 1))
+# moves it by at most LM_SPREAD_MAX (the larger of LM_PERTURB_DRAWS
+# draws). A router is discontinuous: on
+# reduced jamba a 1e-7 perturbation moves one genome of 32 by 1.1e-3
+# after 3 steps (a CPU run), ten times the tolerance. At least
+# LM_MIN_HELD of the genomes must qualify
+LM_PERTURB, LM_PERTURB_DRAWS, LM_SPREAD_MAX, LM_MIN_HELD = 1e-7, 2, 1e-5, 0.5
 
 # float32 operations of the fused variation, counted from the source with
 # each powf as ONE operation (a lower bound): per gene pair always (mask
@@ -2554,9 +2657,10 @@ def say_kernel_time(label, ms, plain, bnd):
         f"({bnd['simt_bound_ms']:.4f} ms)")
 
 
-def sdpa_yardstick(q, k, v, scale, out):
+def sdpa_yardstick(q, k, v, scale, out, causal=True):
     """The fastest backend of F.scaled_dot_product_attention that computes
-    this float32 GQA case (causal, no softcap, no window) on the kernel's
+    this float32 GQA case (causal or not, no softcap, no window; Sq may
+    differ from T where it is not causal) on the kernel's
     own tensors, in SDPA's (B, H, S, hd) layout: (ms, backend). The flash
     backend refuses float32. MATH takes the KV heads as they are
     (enable_gqa); EFFICIENT_ATTENTION and CUDNN_ATTENTION refuse
@@ -2577,7 +2681,8 @@ def sdpa_yardstick(q, k, v, scale, out):
         def call(backend=backend, kb=kb, vb=vb, gqa=gqa):
             with sdpa_kernel(backend):
                 return F.scaled_dot_product_attention(
-                    qt, kb, vb, is_causal=True, enable_gqa=gqa, scale=scale)
+                    qt, kb, vb, is_causal=causal, enable_gqa=gqa,
+                    scale=scale)
         try:
             with warnings.catch_warnings():   # the refusal's reasons
                 warnings.simplefilter("ignore")
@@ -2844,23 +2949,25 @@ def fwd_errs(fwd):
             f"err {fwd[1]:.3g}")
 
 
-def train_step_card_vs_cpu(arch, device):
-    """One train step of reduced ``arch`` on the card (the flash kernels,
-    forward and backward) against the same step on the CPU (their plain
-    versions), from the same parameters and tokens
+def train_step_card_vs_cpu(arch, device, **model_kw):
+    """One train step of reduced ``arch`` (``Model`` switches
+    ``model_kw``) on the card (the flash kernels, forward and backward)
+    against the same step on the CPU (their plain versions), from the same
+    parameters, tokens and frontend embeddings
     (``train_step.reduced_train_step``): (loss rel err, grad norm rel err,
     max over leaves of max |dg| / max |g|)."""
     from repro_torch.train.train_step import reduced_train_step
     (ggpu, mgpu, _), (gcpu, mcpu, _) = (
-        reduced_train_step(arch, dev, seq=128) for dev in (device, "cpu"))
+        reduced_train_step(arch, dev, seq=128, **model_kw)
+        for dev in (device, "cpu"))
     loss_err = abs(mgpu["loss"] - mcpu["loss"]) / abs(mcpu["loss"])
     norm_err = abs(mgpu["grad_norm"] - mcpu["grad_norm"]) / mcpu["grad_norm"]
     grad_err = max(float((ggpu[n] - g).abs().max() / g.abs().max())
                    for n, g in gcpu.items())
     if not (loss_err < 1e-4 and norm_err < 1e-4 and grad_err < GRAD_TOL[0]):
-        fail(f"a train step of reduced {arch} on the card differs from the "
-             f"CPU's: loss {loss_err}, grad norm {norm_err}, grads "
-             f"{grad_err} (relative)")
+        fail(f"a train step of reduced {arch} {model_kw} on the card "
+             f"differs from the CPU's: loss {loss_err}, grad norm "
+             f"{norm_err}, grads {grad_err} (relative)")
     return loss_err, norm_err, grad_err
 
 
@@ -2954,19 +3061,20 @@ def phase_train():
 def flash_bwd_bound(case, card):
     """BWD_PRODUCTS x 2 hd FLOP per visible (query, key) pair and query
     head; q, k, v, out, dO and lse read once, dq, dk, dv written once
-    (``tensor_bound``)."""
+    (``tensor_bound``); T keys (the case's tenth entry) or S."""
     b, s, h, kv, hd = case[:5]
+    t = case[9] if len(case) > 9 else s
     # flash_bound counts 2 products (4 hd FLOP) per pair and head
     flops = flash_bound(case, card)["flops"] * BWD_PRODUCTS // 2
-    nbytes = 4 * (3 * b * s * h * hd + 2 * b * s * kv * hd + b * s * h
-                  + b * s * h * hd + 2 * b * s * kv * hd)
+    nbytes = 4 * (3 * b * s * h * hd + 2 * b * t * kv * hd + b * s * h
+                  + b * s * h * hd + 2 * b * t * kv * hd)
     return tensor_bound(flops, nbytes, card)
 
 
-def sdpa_bwd_yardstick(q, k, v, do, scale, dq):
+def sdpa_bwd_yardstick(q, k, v, do, scale, dq, causal=True):
     """Autograd backward through the fastest backend of
     F.scaled_dot_product_attention that computes this float32 GQA case
-    (causal, no softcap, no window) on the same tensors, in SDPA's
+    (causal or not, no softcap, no window) on the same tensors, in SDPA's
     (B, H, S, hd) layout, K and V repeated to H heads for the backends
     that refuse enable_gqa (MATH takes GQA as it is). Only the backward is
     timed (``torch.autograd.grad`` on a kept graph). Each backend's dq is
@@ -2989,7 +3097,8 @@ def sdpa_bwd_yardstick(q, k, v, do, scale, dq):
             with warnings.catch_warnings(), sdpa_kernel(backend):
                 warnings.simplefilter("ignore")     # the refusal's reasons
                 out = F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=gqa, scale=scale)
+                    qt, kt, vt, is_causal=causal, enable_gqa=gqa,
+                    scale=scale)
                 got = torch.autograd.grad(out, (qt, kt, vt), dot,
                                           retain_graph=True)
         except RuntimeError as err:
@@ -3232,31 +3341,31 @@ def phase_trace(device, card):
     return out
 
 
-def phase_trace_train(device, card):
-    """One train step of the training path (tinyllama-1.1b, published
-    widths, batch TRAIN_BATCH x TRAIN_SEQ, kernels on) under
-    torch.profiler, after a warm-up step and one unprofiled step: the
-    device's idle share, the flash kernels' share and the largest device
-    entries, read from the trace."""
+def phase_trace_train(device, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+                      seq=TRAIN_SEQ, layers=TRAIN_LAYERS):
+    """One train step of ``arch`` (published widths, batch x seq, kernels
+    on; the training path's tinyllama-1.1b by default, ``layers``
+    attention layers) under torch.profiler, after a warm-up step and one
+    unprofiled step: the device's idle share, the flash kernels' share and
+    the largest device entries, read from the trace."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.models.model import Model
     from repro_torch.train.optimizer import optimizer_for_arch
     from repro_torch.train.train_step import init_train_state, make_train_step
-    cfg = get_config(TRAIN_ARCH)
-    model = Model(cfg, device=device, attn_impl="kernel",
-                  max_seq=TRAIN_SEQ + 8)
+    cfg = get_config(arch)
+    model = Model(cfg, device=device, attn_impl="kernel", max_seq=seq + 8)
     state = {"s": init_train_state(
         model, torch.Generator(device=device).manual_seed(0))}
     step = make_train_step(model, optimizer_for_arch(
-        TRAIN_ARCH, lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS))
-    data = SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
-    batch = {k: torch.from_numpy(v).to(device)
-             for k, v in data.batch(0).items()}
+        arch, lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS))
+    data = SyntheticTokens(cfg, batch, seq, seed=0)
+    batch_t = {k: torch.from_numpy(v).to(device)
+               for k, v in data.batch(0).items()}
 
     def run():
-        state["s"], _ = step(state["s"], batch)
+        state["s"], _ = step(state["s"], batch_t)
 
     run()                                                   # warm-up
     torch.cuda.synchronize()
@@ -3283,18 +3392,373 @@ def phase_trace_train(device, card):
         say("trace: train step: the profiler recorded no device activity; "
             "idle share not measured")
     else:
-        say(f"trace: {TRAIN_ARCH} train step (batch {TRAIN_BATCH} x "
-            f"{TRAIN_SEQ}): host {host_ms:.3f} ms unprofiled, {span:.3f} ms "
-            f"traced; device busy {busy:.3f} ms, idle share "
-            f"{row['idle_share']:.4f} of the traced window, "
-            f"{1 - busy / host_ms:.4f} of the unprofiled one; flash "
+        say(f"trace: {arch} train step (batch {batch} x {seq}): host "
+            f"{host_ms:.3f} ms unprofiled, {span:.3f} ms traced; device busy "
+            f"{busy:.3f} ms, idle share {row['idle_share']:.4f} of the "
+            f"traced window, {1 - busy / host_ms:.4f} of the unprofiled "
+            f"one; flash "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in flash.items())
             + f" = {row['flash_share']:.4f} of the traced window")
-        say("trace: per launch (" + str(TRAIN_LAYERS) + " a step): "
-            + ", ".join(f"{k} {v / TRAIN_LAYERS:.4f} ms"
+        say("trace: per launch (" + str(layers) + " a step): "
+            + ", ".join(f"{k} {v / layers:.4f} ms"
                         for k, v in flash.items()))
-    say("trace: " + json.dumps({"card": card, "train_step": row}))
+        say(f"trace: {arch} train step, largest device entries: "
+            + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top))
+    key = "train_step" if arch == TRAIN_ARCH else f"train_step {arch}"
+    say("trace: " + json.dumps({"card": card, key: row}))
     return row
+
+
+# ---------------------------------------------------------------------------
+# Training the MoE, audio and VLM families at published widths, and
+# Model(remat=True)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every ``moe.router_topk`` call inside the block, in call order: a
+    list of (expert indices on the CPU, the smallest top-k margin over the
+    call's tokens: the k-th largest router probability less the
+    (k+1)-th)."""
+    import torch
+    from repro_torch.models import moe
+    topk, calls = moe.router_topk, []
+
+    def record(cfg, router_w, x):
+        out = topk(cfg, router_w, x)
+        with torch.no_grad():
+            probs = torch.softmax(x.detach().float()
+                                  @ router_w.detach().float(), dim=-1)
+            srt = probs.sort(dim=-1, descending=True).values
+            k = cfg.experts_per_token
+            margin = float((srt[..., k - 1] - srt[..., k]).min())
+        calls.append((out[0].detach().cpu(), margin))
+        return out
+
+    moe.router_topk = record
+    try:
+        yield calls
+    finally:
+        moe.router_topk = topk
+
+
+def check_remat_moe(device):
+    """granite-moe-1b-a400m at its published widths, one gradient
+    evaluation of MOE_TRAIN_BATCH x MOE_TRAIN_SEQ tokens from the same
+    parameters and batch with ``remat=False`` and ``remat=True``: the
+    router's experts equal exactly, the backward's recomputed ones (layer
+    by layer from the last) included; the loss and aux at 1e-6, every
+    gradient within GRAD_TOL of its leaf's largest |g| (the dispatch's
+    backward sums with atomics); flash forward launches layers and 2 x
+    layers, backward layers. Returns (largest gradient error, smallest
+    top-k margin, peak bytes without and with remat)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models.model import Model
+    from repro_torch.train.train_step import make_compute_grads
+    cfg = get_config(MOE_TRAIN_ARCH)
+    layers = cfg.num_layers
+    model = Model(cfg, device=device, attn_impl="kernel",
+                  max_seq=MOE_TRAIN_SEQ + 8)
+    model.init_params(torch.Generator(device=device).manual_seed(80))
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    data = SyntheticTokens(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, seed=81)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch(0).items()}
+    runs = []
+    for remat in (False, True):
+        model.remat = remat
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        with recorded_routes() as routes:
+            grads, metrics = make_compute_grads(model)(params, batch)
+        torch.cuda.synchronize()
+        runs.append((grads, {k: float(v) for k, v in metrics.items()},
+                     routes, lm_counts()[:2],
+                     torch.cuda.max_memory_allocated(device)))
+    (g0, m0, r0, n0, peak0), (g1, m1, r1, n1, peak1) = runs
+    routes_equal = (len(r0) == layers and len(r1) == 2 * layers and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[0], c[0])
+        for a, b, c in zip(r0, r1[:layers], reversed(r1[layers:]))))
+    grad_err = max(float((g1[n] - g).abs().max() / g.abs().max())
+                   for n, g in g0.items())
+    margin = min(m for _, m in r0)
+    loss_err = abs(m1["loss"] - m0["loss"]) / abs(m0["loss"])
+    aux_err = abs(m1["aux"] - m0["aux"]) / abs(m0["aux"])
+    del g0, g1, runs, params, model, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (routes_equal and n0 == (layers, layers)
+            and n1 == (2 * layers, layers) and grad_err < GRAD_TOL[0]
+            and loss_err < 1e-6 and aux_err < 1e-6):
+        fail(f"{MOE_TRAIN_ARCH} at published widths: remat=True differs "
+             f"from remat=False: routes equal {routes_equal}, flash "
+             f"launches {n0} / {n1}, grads {grad_err}, loss {loss_err}, aux "
+             f"{aux_err} (relative)")
+    say(f"check: {MOE_TRAIN_ARCH} at published widths ({cfg.num_experts} "
+        f"experts, top-{cfg.experts_per_token}, sorted dispatch), one "
+        f"gradient evaluation of {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ}: "
+        f"remat=True vs remat=False, the router's experts equal in all "
+        f"{layers} layers and in the {layers} recomputed ones; grads "
+        f"{grad_err:.3g} of each leaf's largest, loss {loss_err:.3g}, aux "
+        f"{aux_err:.3g} (relative); flash launches (forward, backward) "
+        f"{n0} / {n1}; smallest top-k margin {margin:.3g}; peak device "
+        f"memory {peak0} B without remat, {peak1} B with")
+    return grad_err, margin, peak0, peak1
+
+
+def phase_check_train_families(device):
+    """The flash backward at TRAIN_FAMILY_BWD against its plain version;
+    remat against no remat at granite-moe's published widths
+    (``check_remat_moe``); one train step of each TRAIN_FAMILY_REDUCED
+    case on the card against the CPU (the MoE cases with the smallest
+    top-k margin of the card's routers). Returns (largest backward error,
+    the remat check's numbers)."""
+    import torch
+    bwd_err = 0.0
+    for i, (label, (case, _)) in enumerate(TRAIN_FAMILY_BWD.items()):
+        err, fwd, grads = check_flash_bwd(case, device, seed=700 + i)
+        bwd_err = max(bwd_err, err)
+        say(f"check: flash attention backward, {label} {case}: max abs err "
+            f"{err:.3g}; {fwd_errs(fwd)}")
+        del grads
+        torch.cuda.empty_cache()
+    remat = check_remat_moe(device)
+    for arch, kw in TRAIN_FAMILY_REDUCED:
+        with recorded_routes() as routes:
+            errs = train_step_card_vs_cpu(arch, device, **kw)
+        margin = (f"; smallest top-k margin {min(m for _, m in routes):.3g}"
+                  if routes else "")
+        say(f"check: one train step of reduced {arch} {kw}, card vs CPU: "
+            f"loss {errs[0]:.3g}, grad norm {errs[1]:.3g} (relative), grads "
+            f"{errs[2]:.3g} of each leaf's largest{margin}")
+    return bwd_err, remat
+
+
+def llava_train_config():
+    """llava-next-34b's published config with LLAVA_TRAIN_CUT applied."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LLAVA_TRAIN["arch"]),
+                               **LLAVA_TRAIN_CUT)
+
+
+def train_direct(arch, cfg, device, *, steps, batch, seq, seed,
+                 frontend_seq=0, **model_kw):
+    """``make_train_step`` on ``Model(cfg, attn_impl="kernel",
+    **model_kw)`` for ``steps`` steps of ``SyntheticTokens`` (bigram;
+    ``frontend_seq`` patches), AdamW as ``launch.train`` sets it (lr 1e-3,
+    5 warm-up steps): stats with launch.train's keys (loss, grad_norm,
+    aux, step_ms, peak_bytes from the first step on), and for parameters
+    kept in another dtype than float32 (bf16) whether each kept its dtype
+    and, by name, the share of 4096 of its elements (evenly strided) that
+    the steps moved."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import optimizer_for_arch
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    model = Model(cfg, device=device, attn_impl="kernel", max_seq=seq + 8,
+                  **model_kw)
+    state = init_train_state(model,
+                             torch.Generator(device=device).manual_seed(seed))
+    step = make_train_step(model, optimizer_for_arch(
+        arch, lr=1e-3, warmup_steps=5, total_steps=steps))
+    data = SyntheticTokens(cfg, batch, seq, seed=seed, mode="bigram",
+                           frontend_seq=frontend_seq)
+    def sample(p):
+        return p.detach().flatten()[::max(1, p.numel() // 4096)][:4096]
+
+    low = {n: (p.dtype, sample(p).clone())
+           for n, p in state["params"].items() if p.dtype != torch.float32}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    step_ms, per_step = [], []
+    for i in range(steps):
+        b = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch(i).items()}
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: metrics[k] for k in ("loss", "grad_norm",
+                                                 "aux")})
+    stats = {k: [float(m[k]) for m in per_step]
+             for k in ("loss", "grad_norm", "aux")}
+    stats.update(step_ms=step_ms,
+                 peak_bytes=torch.cuda.max_memory_allocated(device))
+    if low:
+        params = state["params"]
+        stats["dtypes_kept"] = all(params[n].dtype == dt
+                                   for n, (dt, _) in low.items())
+        stats["moved_shares"] = {
+            n: float((sample(params[n]) != x).float().mean())
+            for n, (_, x) in low.items()}
+    del state, model, step
+    return stats
+
+
+def train_family_run(label, run, expect, tokens):
+    """``run()`` (a training run returning launch.train's stats) with the
+    launch counts zeroed just before and read just after, which must be
+    ``expect`` (flash forward, backward, SSD, fused variation); every loss
+    and grad norm finite. ``tokens``: the text tokens of a step. Prints
+    and returns its numbers: step ms (median of steps 2-N), tokens/s, peak
+    bytes, the MoE aux, launches."""
+    import gc
+    import torch
+    zero_counts()
+    t0 = time.perf_counter()
+    stats = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = lm_counts()
+    losses, norms = stats["loss"], stats["grad_norm"]
+    step_ms = statistics.median(stats["step_ms"][1:])
+    tok_s = tokens / (step_ms / 1e3)
+    say(f"main: train {label}: {wall:.3f} s wall (set-up included), flash "
+        f"forward / backward launches {got[0]} / {got[1]}, ssd {got[2]}, "
+        f"fused variation {got[3]}; step {step_ms:.3f} ms (median of steps "
+        f"2-{len(losses)}; step 1 {stats['step_ms'][0]:.3f} ms), "
+        f"{tok_s:.1f} tokens/s, peak device memory {stats['peak_bytes']} B")
+    fell = "below" if losses[-1] < losses[0] else "not below"
+    say(f"main: train {label}: losses {losses}; grad norms {norms}; MoE aux "
+        f"{stats['aux']}; the last loss {fell} the first")
+    if got != expect:
+        fail(f"train {label}: kernel launches {got}, expected {expect}")
+    if not all(map(math.isfinite, losses + norms)):
+        fail(f"train {label}: losses {losses}, grad norms {norms}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(stats, wall_s=wall, step_ms_median=step_ms,
+                tokens_per_s=tok_s, flash_launches=got[0],
+                bwd_launches=got[1])
+
+
+def phase_train_families(device):
+    """granite-moe-1b-a400m (``launch.train``, then remat at 4 x 4096),
+    whisper-large-v3 (``launch.train``) and llava-next-34b (cut,
+    ``train_direct``) at their published widths (``train_family_run``).
+    The bf16 parameters of llava must keep their dtype through AdamW and
+    move. Returns {label: numbers}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    def cli(args):
+        stats = {}
+        train.main(args, stats=stats)
+        return stats
+
+    moe_layers = get_config(MOE_TRAIN_ARCH).num_layers
+    runs = {}
+    n, b, s = MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ
+    runs[MOE_TRAIN_ARCH] = train_family_run(
+        f"{' '.join(MOE_TRAIN_ARGS)}", lambda: cli(MOE_TRAIN_ARGS),
+        (moe_layers * n, moe_layers * n, 0, 0), b * s)
+    r = MOE_REMAT
+    runs[f"{MOE_TRAIN_ARCH} remat"] = train_family_run(
+        f"{MOE_TRAIN_ARCH} --full Model(remat=True) {r['steps']} steps of "
+        f"{r['batch']} x {r['seq']}",
+        lambda: train_direct(MOE_TRAIN_ARCH, get_config(MOE_TRAIN_ARCH),
+                             device, seed=82, remat=True, **r),
+        (2 * moe_layers * r["steps"], moe_layers * r["steps"], 0, 0),
+        r["batch"] * r["seq"])
+    wcfg = get_config("whisper-large-v3")
+    n, b, s = WHISPER_TRAIN_STEPS, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ
+    per = 2 * wcfg.num_layers + wcfg.encoder_layers
+    runs["whisper-large-v3"] = train_family_run(
+        f"{' '.join(WHISPER_TRAIN_ARGS)} ({wcfg.encoder_seq} frames)",
+        lambda: cli(WHISPER_TRAIN_ARGS), (per * n, per * n, 0, 0), b * s)
+    lt, lcfg = LLAVA_TRAIN, llava_train_config()
+    run = train_family_run(
+        f"{lt['arch']} --full cut to {lcfg.num_layers} layers, "
+        f"{lcfg.param_dtype} parameters, {lt['steps']} steps of "
+        f"{lt['batch']} x ({lt['patches']} patches + {lt['seq']} tokens)",
+        lambda: train_direct(lt["arch"], lcfg, device, steps=lt["steps"],
+                             batch=lt["batch"], seq=lt["seq"], seed=83,
+                             frontend_seq=lt["patches"]),
+        (lcfg.num_layers * lt["steps"],) * 2 + (0, 0),
+        lt["batch"] * lt["seq"])
+    moved = run["moved_shares"]
+    median = statistics.median(moved.values())
+    say(f"main: train {lt['arch']}: {len(moved)} {lcfg.param_dtype} "
+        f"parameters, dtype kept through AdamW {run['dtypes_kept']}; share "
+        f"of 4096 sampled elements the steps moved: smallest "
+        f"{min(moved.values()):.3f} ({min(moved, key=moved.get)}; an "
+        f"embedding moves only the rows of the tokens drawn), median "
+        f"{median:.3f}")
+    if not (run["dtypes_kept"] and min(moved.values()) > 0
+            and median > 0.5):
+        fail(f"train {lt['arch']}: bf16 parameters kept their dtype "
+             f"{run['dtypes_kept']}, moved shares {moved}")
+    runs[lt["arch"]] = dict(run, layers=lcfg.num_layers,
+                            positions_per_s=run["tokens_per_s"]
+                            * (lt["patches"] + lt["seq"]) / lt["seq"])
+    return runs
+
+
+def phase_times_train_families(device, card, runs):
+    """The flash backward (and the forward with its lse, what training
+    runs) at TRAIN_FAMILY_BWD beside its bound, its plain version and
+    SDPA's backward on the same tensors (CUDA events, median); each run's
+    flash share of a step (kernel ms x launches a step / step ms). Returns
+    {label: row}."""
+    import torch
+    from repro_torch.kernels.attention.flash import (flash_attention_bwd_cuda,
+                                                     flash_attention_fwd_cuda)
+    from repro_torch.kernels.attention.ref import flash_attention_bwd_plain
+    rows = {}
+    for i, (label, (case, layers)) in enumerate(TRAIN_FAMILY_BWD.items()):
+        q, k, v, do = grad_tensors(case, device, seed=720 + i)
+        kw = attn_kwargs(case)
+        out, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+        fwd_ms = cuda_ms(lambda: flash_attention_fwd_cuda(
+            q, k, v, with_lse=True, **kw), repeats=5, inner=3)
+        ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                      **kw),
+                     repeats=5, inner=3)
+        plain = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, lse,
+                                                          do, **kw),
+                        repeats=3, inner=1)
+        bnd = flash_bwd_bound(case, card)
+        say_kernel_time(f"flash attention backward, {label} {case}", ms,
+                        plain, bnd)
+        dq = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)[0]
+        lib_ms, backend = sdpa_bwd_yardstick(q, k, v, do, kw["scale"], dq,
+                                             causal=case[5])
+        say(f"times: like for like at {case}: backward kernel {ms:.4f} ms, "
+            f"scaled_dot_product_attention's backward ({backend}) "
+            f"{lib_ms:.4f} ms; forward with lse {fwd_ms:.4f} ms")
+        rows[label] = dict(shape=list(case), layers=layers, ms=ms,
+                           plain_ms=plain, bound_ms=bnd["bound_ms"],
+                           bound_by=bnd["bound_by"], library_ms=lib_ms,
+                           library_backend=backend, fwd_lse_ms=fwd_ms)
+        del q, k, v, do, out, lse, dq
+        torch.cuda.empty_cache()
+    shapes = {MOE_TRAIN_ARCH: (["granite-moe"], 1),
+              f"{MOE_TRAIN_ARCH} remat": (["granite-moe remat"], 2),
+              "whisper-large-v3": (["whisper encoder", "whisper decoder",
+                                    "whisper cross"], 1),
+              LLAVA_TRAIN["arch"]: (["llava"], 1)}
+    for name, (labels, fwd_per_layer) in shapes.items():
+        run = runs[name]
+        bwd = sum(rows[x]["ms"] * rows[x]["layers"] for x in labels)
+        fwd = sum(rows[x]["fwd_lse_ms"] * rows[x]["layers"] for x in labels)
+        run["flash_bwd_share"] = bwd / run["step_ms_median"]
+        run["flash_fwd_share"] = fwd_per_layer * fwd / run["step_ms_median"]
+        say(f"times: train {name}: step {run['step_ms_median']:.3f} ms, "
+            f"{run['tokens_per_s']:.1f} tokens/s, peak device memory "
+            f"{run['peak_bytes']} B; flash's share of a step (kernel ms x "
+            f"launches a step / step ms): backward "
+            f"{run['flash_bwd_share']:.4f}, forward "
+            f"{run['flash_fwd_share']:.4f}")
+    say("times: " + json.dumps({"card": card, "train_families": runs,
+                                "flash_bwd_family_shapes": rows}))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3873,14 +4337,91 @@ def lm_run(arch, extra=(), chunks=1):
             "wall_s": wall, "best": best, "corners": corners}
 
 
+def lm_roundoff_spread(arch, steps, genomes, losses):
+    """How far round-off alone moves each genome's LM fitness: the larger,
+    over LM_PERTURB_DRAWS draws, of |the same CPU call from the
+    initialisation scaled by (1 + LM_PERTURB x N(0, 1)) - ``losses``|
+    (n,)."""
+    import torch
+    from repro_torch.fitness.lm import LMTrainFitness
+    spread = torch.zeros(len(losses))
+    for seed in range(LM_PERTURB_DRAWS):
+        fit = LMTrainFitness(arch, steps=steps, device="cpu")
+        gen = torch.Generator().manual_seed(90 + seed)
+        with torch.no_grad():
+            for p in fit._init.values():
+                p.mul_(1 + LM_PERTURB * torch.randn(p.shape, generator=gen))
+        spread = torch.maximum(spread,
+                               (fit(genomes) - losses).abs().flatten())
+    return spread
+
+
+def lm_family_run(arch, steps):
+    """``ga_run --fitness lm --lm-arch arch --epochs 0``: one fitness call
+    of the initial LM_FAMILY_GENOMES population, ``steps`` training steps
+    a genome, with the launch counts zeroed just before and read just
+    after: the flash forward and backward once per attention layer
+    (self-, encoder and cross-attention) and step, no SSD or fused
+    variation launch (jamba trains through the plain chunked scan); its
+    losses held against the same call on the CPU at LM_CPU_TOL, where the
+    arch has MoE layers on the genomes that round-off alone moves by at
+    most LM_SPREAD_MAX (``lm_roundoff_spread``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fitness.lm import LMTrainFitness
+    islands, pop_size = LM_FAMILY_GENOMES
+    label = f"ga_run lm {arch} (one call of {islands * pop_size} genomes)"
+    zero_counts()
+    t0 = time.perf_counter()
+    pop, _, _ = run_captured(
+        ["--fitness", "lm", "--lm-arch", arch, "--islands", str(islands),
+         "--pop", str(pop_size), "--epochs", "0", "--lm-steps", str(steps),
+         "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = lm_counts()
+    expect = family_layers(get_config(arch).reduced())[0] * steps
+    genomes = pop.genomes.reshape(-1, 4).cpu()
+    card = pop.fitness.reshape(-1, 1).cpu()
+    cpu = LMTrainFitness(arch, steps=steps, device="cpu")(genomes)
+    spread = (lm_roundoff_spread(arch, steps, genomes, cpu)
+              if get_config(arch).num_experts else torch.zeros(len(cpu)))
+    held = spread <= LM_SPREAD_MAX
+    ok, err = (close(card[held], cpu[held], *LM_CPU_TOL) if bool(held.any())
+               else (False, math.nan))
+    apart = {i: (float(spread[i]), float((card[i] - cpu[i]).abs()))
+             for i in range(len(cpu)) if not held[i]}
+    say(f"main: {label}, {steps} steps: {wall:.3f} s wall, flash forward / "
+        f"backward launches {got[0]} / {got[1]}, ssd {got[2]}, fused "
+        f"variation {got[3]}; losses "
+        f"{[round(x, 6) for x in card.flatten().tolist()]}; card vs CPU max "
+        f"abs err {err:.3g} over {int(held.sum())} genomes"
+        + (f"; moved past {LM_SPREAD_MAX} by a {LM_PERTURB} perturbation "
+           f"of the start, not held (genome: (that move, card vs CPU)) "
+           f"{apart}" if apart else ""))
+    if got != (expect, expect, 0, 0) or pop.evals != islands * pop_size:
+        fail(f"{label}: kernel launches {got}, expected ({expect}, "
+             f"{expect}, 0, 0); {pop.evals} evaluations")
+    if not ok or not bool(torch.isfinite(card).all()) or \
+            float(held.float().mean()) < LM_MIN_HELD:
+        fail(f"{label}: losses on the card {card.flatten().tolist()} vs the "
+             f"CPU's {cpu.flatten().tolist()}, held on {held.tolist()}")
+    return {"launches": got[0], "bwd_launches": got[1], "calls": 1,
+            "steps": steps, "wall_s": wall, "card_vs_cpu_max_abs_err": err,
+            "held": int(held.sum()), "not_held": apart}
+
+
 def phase_main_lm():
-    """``ga_run --fitness lm`` on each arch, and tinyllama-1.1b under
+    """``ga_run --fitness lm`` on each arch, tinyllama-1.1b under
     host-thread (HOST_WORKERS chunks a generation, each a fitness call on
-    the card behind one lock)."""
+    the card behind one lock), and one call on each of LM_FAMILY_ARCHS
+    (``lm_family_run``)."""
     runs = {arch: lm_run(arch) for arch in LM_ARCHS}
     runs["tinyllama-1.1b host-thread"] = lm_run(
         "tinyllama-1.1b", ["--dispatch-backend", "host-thread"] + HOST_ARGS,
         chunks=HOST_WORKERS)
+    for arch, steps in LM_FAMILY_ARCHS.items():
+        runs[f"{arch} (one call)"] = lm_family_run(arch, steps)
     return runs
 
 
@@ -4369,25 +4910,37 @@ def phase_batcher(device):
             "margin_cut": cut}
 
 
-def phase_times_serving(device, card):
-    """The flash kernel at the new archs' layer shapes (ATTN_NEW) beside
-    its bound (CUDA events, median)."""
+def flash_times(case, device, card, seed):
+    """The flash kernel at ``case`` (no softcap, no window) beside its
+    bound, its plain version and SDPA's fastest float32 backend on the
+    same tensors (``sdpa_yardstick``; CUDA events, median): its row."""
     import torch
     from repro_torch.kernels.attention import ops as attn_ops
-    out = []
-    for i, case in enumerate(ATTN_NEW):
-        q, k, v = attn_tensors(case, device, seed=410 + i)
-        kw = attn_kwargs(case)
-        ms = cuda_ms(lambda: attn_ops.flash_attention(q, k, v, **kw),
-                     repeats=5, inner=3)
-        bnd = flash_bound(case, card)
-        say_kernel_time(f"flash attention {case}", ms, None, bnd)
-        out.append({"shape": list(case), "ms": ms,
-                    "bound_ms": bnd["bound_ms"],
-                    "bound_by": bnd["bound_by"]})
-        del q, k, v
-        torch.cuda.empty_cache()
-    return out
+    q, k, v = attn_tensors(case, device, seed=seed)
+    kw = attn_kwargs(case)
+    out = attn_ops.flash_attention(q, k, v, **kw)
+    ms = cuda_ms(lambda: attn_ops.flash_attention(q, k, v, **kw),
+                 repeats=5, inner=3)
+    plain = cuda_ms(lambda: attn_ops.flash_attention_plain(q, k, v, **kw),
+                    repeats=3, inner=1)
+    bnd = flash_bound(case, card)
+    say_kernel_time(f"flash attention {case}", ms, plain, bnd)
+    lib_ms, backend = sdpa_yardstick(q, k, v, kw["scale"], out,
+                                     causal=case[5])
+    say(f"times: like for like at {case}: kernel {ms:.4f} ms, "
+        f"scaled_dot_product_attention ({backend}) {lib_ms:.4f} ms")
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return {"shape": list(case), "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+            "library_ms": lib_ms, "library_backend": backend}
+
+
+def phase_times_serving(device, card):
+    """The flash kernel at the new archs' layer shapes (ATTN_NEW)
+    (``flash_times``)."""
+    return [flash_times(case, device, card, seed=410 + i)
+            for i, case in enumerate(ATTN_NEW)]
 
 
 # ---------------------------------------------------------------------------
@@ -4576,29 +5129,15 @@ def phase_serve_families():
 
 
 def phase_times_families(device, card):
-    """The flash kernel at ATTN_FAMILIES and the SSD kernel at jamba's
-    serving shape beside their bounds and plain versions (CUDA events,
-    median)."""
+    """The flash kernel at ATTN_FAMILIES (``flash_times``) and the SSD
+    kernel at jamba's serving shape beside its bound and plain version
+    (CUDA events, median)."""
     import torch
-    from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_intra_chunk_plain
-    flash, ssd = [], []
-    for i, case in enumerate(ATTN_FAMILIES):
-        q, k, v = attn_tensors(case, device, seed=520 + i)
-        kw = attn_kwargs(case)
-        ms = cuda_ms(lambda: attn_ops.flash_attention(q, k, v, **kw),
-                     repeats=5, inner=3)
-        plain = cuda_ms(lambda: attn_ops.flash_attention_plain(q, k, v,
-                                                               **kw),
-                        repeats=3, inner=1)
-        bnd = flash_bound(case, card)
-        say_kernel_time(f"flash attention {case}", ms, plain, bnd)
-        flash.append({"shape": list(case), "ms": ms, "plain_ms": plain,
-                      "bound_ms": bnd["bound_ms"],
-                      "bound_by": bnd["bound_by"]})
-        del q, k, v
-        torch.cuda.empty_cache()
+    flash = [flash_times(case, device, card, seed=520 + i)
+             for i, case in enumerate(ATTN_FAMILIES)]
+    ssd = []
     case = SSD_FAMILIES[-1]
     args = ssd_tensors(*case[:5], device, seed=530, mamba2=True)
     ms = cuda_ms(lambda: ssd_ops.ssd_intra_chunk(*args, chunk=case[5]),
@@ -4633,6 +5172,7 @@ def main():
               f"(no src/repro_torch)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
     card = card_line()
@@ -4653,6 +5193,7 @@ def main():
     main_err = phase_check(device)
     flash_err, ssd_err = phase_check_lm(device)
     bwd_err = phase_check_train(device)
+    fam_bwd_err, remat_check = phase_check_train_families(device)
     phase_check_hvdc(device)
     delay_err = phase_check_host(device)
     phase_check_queue(device)
@@ -4666,6 +5207,7 @@ def main():
     batch_run = phase_batcher(device)
     family_runs = phase_serve_families()
     train_fwd, train_bwd, train_stats = phase_train()
+    family_train = phase_train_families(device)
     hvdc_runs = phase_main_hvdc()
     host_runs = phase_main_host()
     queue_runs = phase_main_queue(host_runs)
@@ -4697,10 +5239,13 @@ def main():
                batch_run["launches"],
                **{f"serve {k} prefill": v["flash_launches"]
                   for k, v in family_runs.items()}}
-    kernels[1]["launches"] = sum(serving.values())
+    trained = {f"train {k}": v for k, v in family_train.items()}
+    kernels[1]["launches"] = sum(serving.values()) + sum(
+        v["flash_launches"] for v in trained.values())
     kernels[1]["max_abs_err"] = max(flash_err, serving_err, fam_flash_err)
     kernels[1]["launches_by_path"] = {
         **serving, f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_fwd,
+        **{k: v["flash_launches"] for k, v in trained.items()},
         **{k: v["launches"] for k, v in lm_paths.items()}}
     kernels[1]["serving_shapes"] = phase_times_serving(device, card)
     fam_flash, fam_ssd = phase_times_families(device, card)
@@ -4719,9 +5264,17 @@ def main():
     fwd_train, bwd_entry = phase_times_train(device, card, train_fwd,
                                              train_bwd, bwd_err, train_stats)
     kernels[1]["train_shape"] = fwd_train
+    bwd_entry["launches"] += sum(v["bwd_launches"] for v in trained.values())
+    bwd_entry["max_abs_err"] = max(bwd_err, fam_bwd_err)
     bwd_entry["launches_by_path"] = {
         f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_bwd,
+        **{k: v["bwd_launches"] for k, v in trained.items()},
         **{k: v["bwd_launches"] for k, v in lm_paths.items()}}
+    bwd_entry["family_shapes"] = phase_times_train_families(
+        device, card, family_train)
+    bwd_entry["remat_check"] = dict(zip(
+        ("grad_max_rel_err", "min_topk_margin", "peak_bytes_no_remat",
+         "peak_bytes_remat"), remat_check))
     kernels.append(bwd_entry)
     lm_times = phase_times_lm_fitness(device, card, ssm_stats)
     for entry in (kernels[1], bwd_entry):
@@ -4736,6 +5289,8 @@ def main():
     phase_times_queue(pop, device, card, queue_runs)
     phase_trace(device, card)
     phase_trace_train(device, card)
+    phase_trace_train(device, card, MOE_TRAIN_ARCH, MOE_TRAIN_BATCH,
+                      MOE_TRAIN_SEQ, get_config(MOE_TRAIN_ARCH).num_layers)
     phase_trace_lm_fitness(device, card)
     say(json.dumps({"kernels": kernels}))
     say(card)

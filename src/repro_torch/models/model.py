@@ -45,6 +45,18 @@ and jamba at their published widths) and each sub-layer's weights are
 cast to ``compute_dtype`` (float32 by default, as the reference) as it
 runs; an embedding table is indexed before its rows are cast.
 
+Activation recomputation (``remat=True``, the reference's
+``Model(remat=, remat_policy=)``): in ``forward`` under autograd, each
+period of ``scan_period`` layers (8 on jamba, 1 elsewhere) is one
+``torch.utils.checkpoint`` body, so only its input is kept and the
+backward runs its forward again (the flash forward kernel and the MoE
+router included). ``remat_policy="dots"`` keeps the outputs of the
+products without batch dims (``aten.mm`` / ``addmm``: the weight and
+router products) and recomputes the rest; any other policy keeps nothing.
+The encoder is not recomputed, prefill and decode never are, and nothing
+is checkpointed under ``torch.func`` (the LM fitness builds its model
+without remat, as the reference's does).
+
 The cache mirrors the reference's tree, with the period axis as a list:
 ``cache["sub{s}"][period]`` is one layer's ``{"attn": {k, v, cache_pos}}``
 or ``{"ssm": {conv, state}}``, and whisper's layers also hold
@@ -60,11 +72,15 @@ reference's leaf name, which the optimizer's weight-decay mask reads.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
@@ -77,6 +93,23 @@ from repro_torch.models.layers import (apply_norm, apply_rope,
                                        rope_tables, softcap)
 
 MOE_IMPLS = ("auto", "dense", "sorted")
+
+# products without batch dims (the weight products, the router's): the
+# outputs that jax.checkpoint_policies.dots_with_no_batch_dims_saveable
+# keeps. Batched products (aten.bmm: attention's plain versions, the MoE
+# expert einsums over (E, C, .)) and the flash kernels are recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if func in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_REMAT_CONTEXTS = {
+    "nothing": noop_context_fn,
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              _dots_policy)}
 
 
 def _param(shape, dtype, device, fill=None) -> nn.Parameter:
@@ -395,7 +428,8 @@ class Model(nn.Module):
                  compute_dtype: str = "float32", attn_impl: str = "auto",
                  moe_impl: str = "auto", use_ssd_kernel: bool = False,
                  max_seq: int = 4096, pad_experts: bool = False,
-                 moe_capacity_factor: float = 1.25):
+                 moe_capacity_factor: float = 1.25, remat: bool = False,
+                 remat_policy: str = "nothing"):
         super().__init__()
         self.cfg = cfg = get_config(cfg) if isinstance(cfg, str) else cfg
         if attn_impl not in IMPLS:
@@ -417,6 +451,11 @@ class Model(nn.Module):
         self.attn_impl = attn_impl
         self.use_ssd_kernel = use_ssd_kernel
         self.max_seq = max_seq
+        # remat: recompute each period's activations in the backward;
+        # "dots" keeps the weight products' outputs, any other policy
+        # keeps nothing (as the reference)
+        self.remat = remat
+        self.remat_policy = "dots" if remat_policy == "dots" else "nothing"
         dt, dev, d = self.param_dtype, self.device, cfg.d_model
         self.embed = nn.ParameterDict(
             {"tokens": _param((cfg.padded_vocab, d), dt, dev)})
@@ -472,19 +511,35 @@ class Model(nn.Module):
     def _run_stack(self, h, *, sincos, mode, cache, pos, max_cache_len,
                    enc_out=None):
         """(h, cache, aux): aux is the MoE load-balance loss summed over
-        the layers (float32, 0 without MoE layers)."""
+        the layers (float32, 0 without MoE layers). Under ``remat`` each
+        period of a ``forward`` that autograd records is one checkpointed
+        body (the reference's ``jax.checkpoint`` around its scan body)."""
         period = self.cfg.scan_period
         new_cache = {f"sub{s}": [] for s in range(period)}
+
+        def run_period(h, aux, per):
+            for s in range(period):
+                layer = self.layers[per * period + s]
+                lc = cache[f"sub{s}"][per] if mode == "decode" else None
+                h, nc, a = layer(h, sincos=sincos, mode=mode, cache=lc,
+                                 pos=pos, max_cache_len=max_cache_len,
+                                 cd=self.compute_dtype, enc_out=enc_out)
+                if a is not None:
+                    aux = aux + a
+                new_cache[f"sub{s}"].append(nc)
+            return h, aux
+
+        remat = self.remat and mode == "fwd" and torch.is_grad_enabled()
         aux = torch.zeros((), device=self.device)
-        for i, layer in enumerate(self.layers):
-            s, per = i % period, i // period
-            lc = cache[f"sub{s}"][per] if mode == "decode" else None
-            h, nc, a = layer(h, sincos=sincos, mode=mode, cache=lc, pos=pos,
-                             max_cache_len=max_cache_len,
-                             cd=self.compute_dtype, enc_out=enc_out)
-            if a is not None:
-                aux = aux + a
-            new_cache[f"sub{s}"].append(nc)
+        for per in range(self.cfg.num_periods):
+            if remat:
+                h, aux = checkpoint(run_period, h, aux, per,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False,
+                                    context_fn=_REMAT_CONTEXTS[
+                                        self.remat_policy])
+            else:
+                h, aux = run_period(h, aux, per)
         return h, (new_cache if mode == "prefill" else cache), aux
 
     def _encode(self, frames):

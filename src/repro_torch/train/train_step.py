@@ -135,17 +135,23 @@ def init_train_state(model: Model, generator: torch.Generator,
 
 
 def reduced_train_step(arch: str, device, *, microbatches: int = 1,
-                       batch: int = 4, seq: int = 64):
+                       batch: int = 4, seq: int = 64, **model_kw):
     """One gradient evaluation and one train step of ``arch``'s reduced
     config on ``device``, attention through the flash kernels
-    (``attn_impl="kernel"``), from parameters drawn on the CPU from seed 0
-    and tokens (batch, seq + 1) from seed 3, so every device starts from
-    the same state: (step-1 grads, metrics as floats, parameters after the
-    step), all on the CPU."""
+    (``attn_impl="kernel"``; ``model_kw`` adds ``Model`` switches such as
+    ``moe_impl`` or ``remat``), from parameters drawn on the CPU from seed
+    0, tokens (batch, seq + 1) from seed 3 and, where the arch has a
+    frontend, its embeddings from seed 4 (scaled by 0.02, as
+    ``data.pipeline`` draws them): a VLM's (batch, 16, d) patches (as
+    ``launch.train`` gives a reduced VLM), an encoder-decoder's (batch,
+    encoder_seq, d) frames. Every device starts from the same state.
+    Returns (step-1 grads, metrics as floats, parameters after the step),
+    all on the CPU."""
     cfg = get_config(arch).reduced()
-    init = Model(cfg, device="cpu").init_params(
+    init = Model(cfg, device="cpu", max_seq=seq + 8).init_params(
         torch.Generator().manual_seed(0))
-    model = Model(cfg, device=device, attn_impl="kernel", max_seq=seq + 8)
+    model = Model(cfg, device=device, attn_impl="kernel", max_seq=seq + 8,
+                  **model_kw)
     model.load_state_dict(init.state_dict())
     model.requires_grad_(True)
     params = dict(model.named_parameters())
@@ -154,6 +160,11 @@ def reduced_train_step(arch: str, device, *, microbatches: int = 1,
                          generator=torch.Generator().manual_seed(3),
                          dtype=torch.int32)
     data = {"tokens": toks.to(model.device)}
+    if cfg.frontend != "none":
+        fs = 16 if cfg.frontend == "vision_patches" else cfg.encoder_seq
+        fe = torch.randn((batch, fs, cfg.d_model),
+                         generator=torch.Generator().manual_seed(4)) * 0.02
+        data["frontend_embeds"] = fe.to(model.device)
     grads, _ = make_compute_grads(model, microbatches)(params, data)
     grads = {n: g.cpu() for n, g in grads.items()}
     step = make_train_step(model, optimizer_for_arch(

@@ -44,7 +44,8 @@ from repro_torch.powerflow.grid import make_german_grid, make_synthetic_grid
 from repro_torch.powerflow.hvdc import apply_hvdc
 from repro_torch.powerflow.newton import newton_powerflow
 from repro_torch.serve import Request
-from repro_torch.train.train_step import reduced_train_step
+from repro_torch.train.train_step import (make_compute_grads,
+                                          reduced_train_step)
 from torch_parity import (ATTN_BF16_TOL, ATTN_CASES, ATTN_TOL,  # noqa: F401
                           GA_RUN_HP, GRAD_TOL, MASKED_CASE, MODEL_TOL,
                           SSD_CASES, SSD_CHUNK256_CASES, SSD_MIN_DECAY,
@@ -406,6 +407,9 @@ BWD_EDGE_CASES = [c for c in FLASH_EDGE_CASES if c[-1] == "float32"] + [
     (1, 320, 320, 2, 2, 64, True, 0, 0.0, 0, "float32"),
     (1, 300, 300, 4, 1, 32, True, 0, 0.0, 0, "float32"),
     (2, 200, 200, 4, 2, 128, True, 150, 0.0, 0, "float32"),
+    # non-causal, Sq != T, the keys ending inside a key tile (whisper's
+    # cross-attention: every query row's dq partials over the key tiles)
+    (1, 40, 100, 4, 2, 64, False, 0, 0.0, 0, "float32"),
 ]
 
 
@@ -843,14 +847,53 @@ def test_train_step_on_card_matches_cpu(cuda_device, arch):
     largest |g|, loss and grad norm at 1e-4; the parameters where the
     CPU's gradient is at least 1e-3 of its leaf's largest (AdamW's first
     step is lr x sign(g) there)."""
+    _check_train_step_card_vs_cpu(cuda_device, arch)
+
+
+def _attn_launches(cfg, remat=False):
+    """Flash (forward, backward) launches of one gradient evaluation of
+    ``cfg``: one each per self-, encoder and cross-attention layer, and
+    under remat the decoder's forwards once more."""
+    dec = sum(cfg.mixer_kind(i % cfg.scan_period) == "attn"
+              for i in range(cfg.num_layers))
+    if cfg.is_encoder_decoder:
+        dec += cfg.num_layers                       # cross-attention
+    per = dec + cfg.encoder_layers
+    return per + (dec if remat else 0), per
+
+
+# the families trained in this file's card checks: the encoder-decoder
+# (whisper: frames, cross-attention, learned positions), the VLM (llava:
+# patches), the hybrid (jamba: one period of 8, MoE on odd layers, the
+# plain chunked scan) and the sorted MoE dispatch with and without remat
+NEW_TRAIN_CASES = [("whisper-large-v3", {}), ("llava-next-34b", {}),
+                   ("jamba-1.5-large-398b", {}),
+                   ("granite-moe-1b-a400m", dict(moe_impl="sorted")),
+                   ("granite-moe-1b-a400m", dict(moe_impl="sorted",
+                                                 remat=True))]
+
+
+@pytest.mark.parametrize("arch,kw", NEW_TRAIN_CASES,
+                         ids=["whisper", "llava", "jamba", "moe_sorted",
+                              "moe_sorted_remat"])
+def test_new_families_train_step_on_card_matches_cpu(cuda_device, arch,
+                                                     kw):
+    """As test_train_step_on_card_matches_cpu, for the families trained
+    on the card since remat was ported (frontends drawn by
+    ``reduced_train_step``)."""
+    _check_train_step_card_vs_cpu(cuda_device, arch, **kw)
+
+
+def _check_train_step_card_vs_cpu(cuda_device, arch, **kw):
     assert not torch.backends.cuda.matmul.allow_tf32
-    layers = get_config(arch).reduced().num_layers
+    cfg = get_config(arch).reduced()
+    fwd, bwd = _attn_launches(cfg, kw.get("remat", False))
     before = (attn_ops.launches, attn_ops.bwd_launches)
-    gpu = reduced_train_step(arch, cuda_device)
+    gpu = reduced_train_step(arch, cuda_device, **kw)
     torch.cuda.synchronize()
     assert (attn_ops.launches - before[0],
-            attn_ops.bwd_launches - before[1]) == (2 * layers, 2 * layers)
-    cpu = reduced_train_step(arch, "cpu")
+            attn_ops.bwd_launches - before[1]) == (2 * fwd, 2 * bwd)
+    cpu = reduced_train_step(arch, "cpu", **kw)
     for name, g in cpu[0].items():
         np.testing.assert_allclose(
             to_np(gpu[0][name]), to_np(g), rtol=GRAD_TOL["rtol"],
@@ -864,6 +907,50 @@ def test_train_step_on_card_matches_cpu(cuda_device, arch):
         np.testing.assert_allclose(to_np(gpu[2][name][sure]),
                                    to_np(p[sure]), rtol=1e-4, atol=2e-6,
                                    err_msg=name)
+
+
+def test_remat_on_card_equals_no_remat(cuda_device, monkeypatch):
+    """Reduced granite-moe-1b-a400m through the sorted dispatch on the
+    card: ``remat=True`` against ``remat=False`` from the same parameters
+    and batch. The router's experts equal exactly, the recomputed ones
+    (the backward's, layer by layer from the last) included; the loss at
+    1e-6, the gradients at GRAD_TOL of each leaf's largest (the dispatch's
+    backward sums with atomics); the flash forward once more a layer."""
+    arch = "granite-moe-1b-a400m"
+    cfg = get_config(arch).reduced()
+    init = Model(cfg, device="cpu", max_seq=72).init_params(
+        torch.Generator().manual_seed(0)).state_dict()
+    toks = torch.randint(0, cfg.vocab_size, (4, 65),
+                         generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": toks.to(cuda_device)}
+    routes, topk = [], moe.router_topk
+    monkeypatch.setattr(moe, "router_topk", lambda *a: routes.append(
+        topk(*a)) or routes[-1])
+    runs = []
+    for remat in (False, True):
+        model = Model(cfg, device=cuda_device, attn_impl="kernel",
+                      moe_impl="sorted", max_seq=72, remat=remat)
+        model.load_state_dict(init)
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        routes.clear()
+        before = attn_ops.launches
+        grads, metrics = make_compute_grads(model)(params, batch)
+        torch.cuda.synchronize()
+        runs.append((grads, float(metrics["loss"]),
+                     [r[0].cpu() for r in routes],
+                     attn_ops.launches - before))
+    (g0, l0, r0, n0), (g1, l1, r1, n1) = runs
+    layers = cfg.num_layers
+    assert (n0, n1) == (layers, 2 * layers)
+    assert len(r0) == layers and len(r1) == 2 * layers
+    for a, b, c in zip(r0, r1[:layers], reversed(r1[layers:])):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    np.testing.assert_allclose(l1, l0, rtol=1e-6)
+    for name, g in g0.items():
+        np.testing.assert_allclose(
+            to_np(g1[name]), to_np(g), rtol=GRAD_TOL["rtol"],
+            atol=GRAD_TOL["atol"] * float(g.abs().max()), err_msg=name)
 
 
 def test_train_on_card_launches_both_kernels(cuda_device):

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_config as jax_config
 from repro.models.model import Model as JaxModel
@@ -212,10 +213,35 @@ TRAIN_ARCHS = {
 }
 
 
+# activation recomputation, each policy on both packages (the reference's
+# jax.checkpoint of its period body, the port's torch.utils.checkpoint):
+# reduced qwen2-moe-a2.7b through the sorted dispatch, whose router the
+# backward runs again
+REMAT_CASES = {
+    "nothing": (dict(remat=True, moe_impl="sorted"),
+                dict(attn_impl="kernel", moe_impl="sorted", remat=True)),
+    "dots": (dict(remat=True, remat_policy="dots", moe_impl="sorted"),
+             dict(attn_impl="kernel", moe_impl="sorted", remat=True,
+                  remat_policy="dots")),
+}
+
+
 @pytest.mark.parametrize("microbatches", [1, 2])
 @pytest.mark.parametrize("arch", sorted(TRAIN_ARCHS))
 def test_train_step_matches_reference(arch, microbatches):
-    jkw, tkw = TRAIN_ARCHS[arch]
+    _check_train_step(arch, *TRAIN_ARCHS[arch], microbatches)
+
+
+@pytest.mark.parametrize("policy", sorted(REMAT_CASES))
+def test_remat_train_step_matches_reference(policy):
+    _check_train_step("qwen2-moe-a2.7b", *REMAT_CASES[policy], 1)
+
+
+def _check_train_step(arch, jkw, tkw, microbatches):
+    """STEPS steps of reduced ``arch`` on both packages, the reference's
+    ``Model`` built with ``jkw`` and the port's with ``tkw``: the first
+    step's gradients, every step's metrics and the final parameters, at
+    the tolerances above."""
     jcfg, cfg = jax_config(arch).reduced(), get_config(arch).reduced()
     jm = JaxModel(jcfg, max_seq=SEQ + 8, **jkw)
     jstate = jstep.init_train_state(jm, jax.random.PRNGKey(0))
@@ -275,6 +301,124 @@ def test_train_step_matches_reference(arch, microbatches):
         assert np.abs(a - b).max() <= 2 * LR * STEPS
     kept = sum(int(ok.sum()) for ok in sure) / sum(ok.size for ok in sure)
     assert kept > MIN_KEPT, kept
+
+
+# ---------------------------------------------------------------------------
+# the port's remat against its own remat=False; reduced_train_step's draws
+# ---------------------------------------------------------------------------
+
+class _CountMM(TorchDispatchMode):
+    """Counts the weight products (``aten.mm``) run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.mm = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.mm += func is torch.ops.aten.mm.default
+        return func(*args, **(kwargs or {}))
+
+
+def _grads_and_counts(model, batch, monkeypatch):
+    """(loss, gradients by name, flash forward calls, weight products run
+    by the backward) of one gradient evaluation of ``model``."""
+    calls = []
+    fwd = attn_ops.flash_attention_fwd_plain
+    monkeypatch.setattr(attn_ops, "flash_attention_fwd_plain",
+                        lambda *a, **kw: calls.append(1) or fwd(*a, **kw))
+    params = dict(model.named_parameters())
+    total, _ = train_step.make_loss_fn(model)(batch)
+    with _CountMM() as count:
+        grads = torch.autograd.grad(total, list(params.values()))
+    monkeypatch.setattr(attn_ops, "flash_attention_fwd_plain", fwd)
+    return (float(total.detach()), dict(zip(params, grads)), len(calls),
+            count.mm)
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llava-next-34b"])
+def test_remat_equals_no_remat(arch, policy, monkeypatch):
+    """``Model(remat=True)`` gives the loss and gradients of
+    ``remat=False`` bit for bit on the CPU (the same operations run again
+    on the same inputs), and the recompute shows in the calls: every
+    decoder layer's flash forward runs a second time in the backward (its
+    self-attention and, on whisper, its cross-attention; the encoder is
+    not recomputed, as in the reference), and under "dots" the backward
+    runs no more weight products than without remat (their outputs were
+    kept), under "nothing" more."""
+    cfg = get_config(arch).reduced()
+    init = Model(cfg, device="cpu", max_seq=SEQ + 8).init_params(
+        torch.Generator().manual_seed(0)).state_dict()
+    rs = np.random.default_rng(5)
+    fs = cfg.encoder_seq if cfg.is_encoder_decoder else 8
+    batch = {"tokens": torch.from_numpy(rs.integers(
+        0, cfg.vocab_size, (2, SEQ + 1)).astype(np.int32)),
+        "frontend_embeds": torch.from_numpy(rs.standard_normal(
+            (2, fs, cfg.d_model)).astype(np.float32) * 0.02)}
+    runs = []
+    for remat in (False, True):
+        model = Model(cfg, device="cpu", max_seq=SEQ + 8, attn_impl="kernel",
+                      remat=remat, remat_policy=policy)
+        model.load_state_dict(init)
+        model.requires_grad_(True)
+        runs.append(_grads_and_counts(model, batch, monkeypatch))
+    (loss0, g0, f0, mm0), (loss1, g1, f1, mm1) = runs
+    assert loss1 == loss0
+    for name, g in g0.items():
+        np.testing.assert_array_equal(to_np(g1[name]), to_np(g),
+                                      err_msg=name)
+    per_layer = 2 if cfg.is_encoder_decoder else 1
+    assert f0 == cfg.encoder_layers + per_layer * cfg.num_layers
+    assert f1 == f0 + per_layer * cfg.num_layers
+    assert (mm1 == mm0) if policy == "dots" else (mm1 > mm0)
+
+
+def test_remat_is_off_outside_autograd():
+    """Prefill, and a forward with gradients off, never checkpoint: the
+    flash forward runs once a layer and the logits equal remat=False's."""
+    cfg = get_config("tinyllama-1.1b").reduced()
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    out = []
+    for remat in (False, True):
+        model = Model(cfg, device="cpu", attn_impl="kernel", remat=remat)
+        model.init_params(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            logits, _ = model.forward({"tokens": toks})
+            last, _ = model.prefill({"tokens": toks}, 24)
+        out.append((logits, last))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert Model(cfg, device="cpu", remat=True,
+                 remat_policy="other").remat_policy == "nothing"
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llava-next-34b"])
+def test_reduced_train_step_draws_the_frontend(arch, monkeypatch):
+    """``reduced_train_step`` hands a frontend arch its embeddings, drawn
+    from seed 4 and scaled by 0.02: whisper's (B, encoder_seq, d) frames,
+    which reach the encoder's weights, and llava's (B, 16, d) patches,
+    whose rows the loss leaves out."""
+    seen = []
+    forward = Model.forward
+
+    def spy(self, batch):
+        seen.append(batch["frontend_embeds"].clone())
+        return forward(self, batch)
+
+    monkeypatch.setattr(Model, "forward", spy)
+    cfg = get_config(arch).reduced()
+    grads, metrics, _ = train_step.reduced_train_step(arch, "cpu", batch=2,
+                                                      seq=16)
+    fs = cfg.encoder_seq if cfg.is_encoder_decoder else 16
+    want = torch.randn((2, fs, cfg.d_model),
+                       generator=torch.Generator().manual_seed(4)) * 0.02
+    assert len(seen) == 2           # the gradient evaluation, the step
+    for fe in seen:
+        assert torch.equal(fe, want)
+    if cfg.is_encoder_decoder:
+        assert float(grads["enc_layers.0.attn.q"].abs().max()) > 0
+    assert np.isfinite(metrics["loss"]) and metrics["tokens"] == 2 * 16
 
 
 def test_train_step_refuses_multi_device_options():
