@@ -34,8 +34,11 @@ other layer; one period, expert width cut) families, and LM training of
 the MoE (granite-moe-1b-a400m, with and without the reference's
 activation recomputation, ``Model(remat=True)``), audio
 (whisper-large-v3) and VLM (llava-next-34b, cut in depth, bfloat16
-parameters) families at published widths. Phases, in order; any failure
-exits non-zero:
+parameters) families at published widths, and the GA and the HVDC
+fitness on a device mesh (``GAEngine(ctx=)`` over
+``repro_torch.launch.mesh``: islands over the data axis, contingency cases
+over the model axis, cost-balanced dispatch across ranks). Phases, in
+order; any failure exits non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
 2. build:  every CUDA kernel of the port (fused variation, flash attention
@@ -224,6 +227,20 @@ exits non-zero:
            tokens/s, peak memory; ``ga_run --fitness lm --epochs 0`` on
            reduced whisper, llava and jamba, one fitness call of 16
            genomes each against the same call on the CPU (1e-4 / 2e-6).
+           ``GAEngine(ctx=)`` at the GA cell's shape (32, 1024, 128), 3
+           epochs, right after the first ga_run: unsharded, then on a
+           one-rank NCCL mesh (``launch.mesh.init_distributed``,
+           ``make_local_mesh(1, 1)``; population and best trace bit-equal,
+           15 launches each, nothing staged through the host), then
+           ``ga_run --fitness hvdc``'s German-size grid (2715 buses, 18
+           lines) on that mesh, pop 8, 8 contingencies, one generation
+           with the cost model over 4 lanes (1 launch; the survivors'
+           fitness bit-equal to the unsharded fitness through the same
+           dispatch), then 4 processes of ``mesh_rank`` on one gloo group
+           sharing the card (8 islands each, bit-equal to the one-rank
+           run; per rank the epoch s, a migration's ms, the collectives'
+           calls and bytes, all staged through the host, and 15
+           launches);
            Every run has the launch counts zeroed just before it and read
            just after;
 5. times:  with CUDA events, medians of repeats: each kernel beside its
@@ -313,6 +330,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 MAIN = dict(islands=32, pop=1024, genes=128, gens_per_epoch=5, epochs=3)
+# the mesh phase: the GA cell on a one-rank NCCL mesh and on MESH_RANKS
+# gloo ranks sharing the card; HVDC at German size on the one-rank mesh
+MESH_EPOCHS, MESH_RANKS, MESH_MIGRATIONS, MESH_TIMEOUT_S = 3, 4, 5, 300
+MESH_HVDC = dict(fitness="hvdc", islands=1, pop=8, gens_per_epoch=1,
+                 epochs=1, grid_size=2715, hvdc_lines=18, contingencies=8,
+                 screen_top_k=0)
+MESH_HVDC_WORKERS = 4
 MAIN_ARGS = ["--fitness", "rastrigin", "--genes", str(MAIN["genes"]),
              "--islands", str(MAIN["islands"]), "--pop", str(MAIN["pop"]),
              "--gens-per-epoch", str(MAIN["gens_per_epoch"]),
@@ -979,6 +1003,233 @@ def phase_main():
     say(f"main: best fitness {runs[0][1]!r}, bit-identical best genome "
         f"under pipelining")
     return runs[0][2], runs[0][4]
+
+
+# ---------------------------------------------------------------------------
+# the GA and the HVDC fitness on a device mesh (GAEngine(ctx=))
+# ---------------------------------------------------------------------------
+
+def mesh_args(**kw):
+    """ga_run's arguments for ``ga_run.build``: the GA cell's by default."""
+    import types
+    args = dict(genes=MAIN["genes"], pop=MAIN["pop"], islands=MAIN["islands"],
+                gens_per_epoch=MAIN["gens_per_epoch"], epochs=MESH_EPOCHS,
+                seed=0)
+    args.update(kw)
+    return types.SimpleNamespace(**args)
+
+
+def mesh_engine_run(eng, epochs):
+    """Run ``eng`` from its own init: the global population, the best
+    trace, kernel 1's launches in the run and its epoch s (the run's wall
+    time, synchronised, over its epochs)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.genetic import ops
+    local = eng.init()
+    torch.cuda.synchronize()
+    ops.launches = 0
+    t0 = time.perf_counter()
+    pop, hist = eng.run(local, epochs=epochs)
+    torch.cuda.synchronize()
+    return {"pop": pop, "trace": np.stack([h["trace"] for h in hist]),
+            "launches": ops.launches,
+            "epoch_s": (time.perf_counter() - t0) / epochs}
+
+
+def same_run(a, b, label):
+    import numpy as np
+    import torch
+    if not (torch.equal(a["pop"].genomes.cpu(), b["pop"].genomes.cpu())
+            and torch.equal(a["pop"].fitness.cpu(), b["pop"].fitness.cpu())
+            and np.array_equal(a["trace"], b["trace"])):
+        fail(f"{label}: the population or the best trace differs from the "
+             f"unsharded engine's")
+
+
+def mesh_hvdc(ctx, device, card):
+    """HVDC at German size on the one-rank mesh with the cost model (4
+    lanes): init and one generation, then the survivors' fitness against
+    the unsharded fitness through the same dispatch."""
+    import torch
+    from repro_torch.core.broker import Broker
+    from repro_torch.core.engine import GAEngine
+    from repro_torch.fitness.powerflow import HVDCDispatchFitness
+    from repro_torch.kernels.genetic import ops
+    from repro_torch.launch import ga_run
+    args = mesh_args(**MESH_HVDC)
+    cfg, one, cost = ga_run.build("hvdc", args, device)
+    fit = HVDCDispatchFitness(one.grid, contingencies=args.contingencies,
+                              ctx=ctx, device=device)
+    eng = GAEngine(cfg, fit, cost_fn=fit.cost_model(), ctx=ctx,
+                   num_workers=MESH_HVDC_WORKERS, device=device)
+    ops.launches = 0
+    t0 = time.perf_counter()
+    pop, hist = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launches
+    if launches != cfg.generations_per_epoch * cfg.num_epochs:
+        fail(f"mesh HVDC: fused_variation launched {launches} times")
+    genomes = pop.genomes.reshape(-1, cfg.num_genes)
+    want, _ = Broker(one, cost, num_workers=MESH_HVDC_WORKERS).evaluate(
+        genomes)
+    got = pop.fitness.reshape(want.shape)
+    if not torch.equal(got, want):
+        fail(f"mesh HVDC: fitness differs from the unsharded fitness "
+             f"(max abs {float((got - want).abs().max())})")
+    say(f"mesh: HVDC {one.grid.n_bus} buses, {cfg.num_genes} lines, pop "
+        f"{genomes.shape[0]}, {args.contingencies} contingencies, one "
+        f"generation on a one-rank NCCL mesh, cost model over "
+        f"{MESH_HVDC_WORKERS} lanes: {seconds:.3f} s (init + generation), "
+        f"fused_variation launches {launches}, skew {hist[-1]['skew']:.4f}, "
+        f"fitness bit-equal to the unsharded fitness; card: {card}")
+    return {"launches": launches, "seconds": seconds}
+
+
+def mesh_rank(rank, world, where):
+    """One of the MESH_RANKS gloo ranks sharing the card (run in its own
+    process by phase_mesh): the GA cell on its islands; rank 0 saves the
+    global population, the best trace and every rank's report."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import collectives, island
+    from repro_torch.core.engine import GAEngine
+    from repro_torch.core.population import population_to_numpy
+    from repro_torch.launch import ga_run
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.models.sharding import ShardingCtx
+    device = init_distributed(rank, world, f"file://{where}/ranks.store",
+                              local_world_size=world)
+    try:
+        ctx = ShardingCtx(mesh=make_local_mesh(world, 1), dp=("data",),
+                          tp="model")
+        cfg, fit, _ = ga_run.build("rastrigin", mesh_args(), device)
+        eng = GAEngine(cfg, fit, ctx=ctx, device=device)
+        collectives.reset_counts()
+        run = mesh_engine_run(eng, MESH_EPOCHS)
+        counts = {k: dict(v) for k, v in collectives.counts.items()}
+        local = island.constrain_pop(run["pop"], ctx)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(rank)
+        times = []
+        for _ in range(MESH_MIGRATIONS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            island.migrate_ring(cfg, local, gen, ctx)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        report = {"rank": rank, "device": str(device),
+                  "backend": str(dist.get_backend()),
+                  "islands": local.genomes.shape[0],
+                  "epoch_s": run["epoch_s"],
+                  "migration_ms": statistics.median(times),
+                  "launches": run["launches"], "collectives": counts}
+        reports = [None] * world
+        dist.all_gather_object(reports, report)
+        if rank == 0:
+            torch.save({"genomes": run["pop"].genomes.cpu(),
+                        "fitness": run["pop"].fitness.cpu(),
+                        "trace": np.asarray(run["trace"]),
+                        "reports": reports}, Path(where) / "mesh.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_spawn(where):
+    """MESH_RANKS processes of mesh_rank; rank 0's results."""
+    import torch
+    cmd = "import sys; sys.path.insert(0, {!r}); import chip_smoke; " \
+          "chip_smoke.mesh_rank({}, {}, {!r})"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", cmd.format(str(ROOT), r, MESH_RANKS, where)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MESH_RANKS)]
+    try:
+        logs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"mesh rank {r} of {MESH_RANKS} exited {p.returncode}:\n"
+                 f"{log[-3000:]}")
+    return torch.load(Path(where) / "mesh.pt", weights_only=False)
+
+
+def phase_mesh(device, card):
+    """GAEngine(ctx=) at the GA cell's shape: unsharded, on a one-rank NCCL
+    mesh (bit-equal; then HVDC at German size on it), and on MESH_RANKS
+    gloo ranks sharing the card (bit-equal to the one-rank run)."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import collectives
+    from repro_torch.core.engine import GAEngine
+    from repro_torch.launch import ga_run
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.models.sharding import ShardingCtx
+    expect = MAIN["gens_per_epoch"] * MESH_EPOCHS
+    cfg, fit, _ = ga_run.build("rastrigin", mesh_args(), device)
+    one = mesh_engine_run(GAEngine(cfg, fit, device=device), MESH_EPOCHS)
+    shape = tuple(one["pop"].genomes.shape)
+    with tempfile.TemporaryDirectory() as where:
+        init_distributed(0, 1, f"file://{where}/one.store",
+                         local_world_size=1)
+        try:
+            if dist.get_backend() != "nccl":
+                fail(f"a one-rank mesh on the card runs on "
+                     f"{dist.get_backend()}, not NCCL")
+            ctx = ShardingCtx(mesh=make_local_mesh(1, 1), dp=("data",),
+                              tp="model")
+            collectives.reset_counts()
+            mesh1 = mesh_engine_run(GAEngine(cfg, fit, ctx=ctx,
+                                             device=device), MESH_EPOCHS)
+            counts = {k: dict(v) for k, v in collectives.counts.items()}
+            hvdc = mesh_hvdc(ctx, device, card)
+        finally:
+            dist.destroy_process_group()
+        for run in (one, mesh1):
+            if run["launches"] != expect:
+                fail(f"mesh: fused_variation launched {run['launches']} "
+                     f"times, expected {expect}")
+        same_run(one, mesh1, "one-rank NCCL mesh")
+        if counts["data"]["staged_calls"]:
+            fail("the NCCL mesh staged a collective through the host")
+        say(f"mesh: GAEngine(ctx=) one-rank NCCL mesh at {shape}, "
+            f"{MESH_EPOCHS} epochs: population and best trace bit-equal to "
+            f"the unsharded engine; epoch {mesh1['epoch_s']:.4f} s "
+            f"(unsharded {one['epoch_s']:.4f} s); fused_variation launches "
+            f"{mesh1['launches']} (unsharded {one['launches']}); "
+            f"collectives {json.dumps(counts)}; card: {card}")
+        del one
+        torch.cuda.empty_cache()
+        got = mesh_spawn(where)
+    four = {"pop": mesh1["pop"]._replace(genomes=got["genomes"],
+                                         fitness=got["fitness"]),
+            "trace": got["trace"]}
+    same_run(mesh1, four, f"{MESH_RANKS} gloo ranks")
+    for rep in got["reports"]:
+        if rep["launches"] != expect or rep["backend"] != "gloo":
+            fail(f"mesh rank {rep['rank']}: {rep['backend']}, "
+                 f"fused_variation launches {rep['launches']}")
+        c = rep["collectives"]["data"]
+        say(f"mesh: gloo rank {rep['rank']}/{MESH_RANKS} on {rep['device']}:"
+            f" {rep['islands']} islands, epoch {rep['epoch_s']:.4f} s, "
+            f"migration {rep['migration_ms']:.3f} ms (median of "
+            f"{MESH_MIGRATIONS}), collectives {c['calls']} calls "
+            f"{c['bytes']} B ({c['staged_calls']} staged, "
+            f"{c['staged_bytes']} B), fused_variation launches "
+            f"{rep['launches']}; card: {card}")
+    say(f"mesh: {MESH_RANKS} gloo ranks sharing the card: population and "
+        f"best trace bit-equal to the one-rank run")
+    return {"one_rank": mesh1["launches"], "hvdc": hvdc["launches"],
+            "ranks": [r["launches"] for r in got["reports"]]}
 
 
 def variation_bound(args, card, label="fused_variation"):
@@ -5202,6 +5453,7 @@ def main():
     serving_err = phase_check_serving(device)
     fam_flash_err, fam_ssd_err, fam_model_err = phase_check_families(device)
     launches, pop = phase_main()
+    mesh_runs = phase_mesh(device, card)
     lm_launches = phase_serve()
     new_runs = phase_serve_new()
     batch_run = phase_batcher(device)
@@ -5225,6 +5477,10 @@ def main():
         **{f"ga_run hvdc {k}": v["launches"] for k, v in hvdc_runs.items()},
         **{f"ga_run {k}": v["launches"] for k, v in host_runs.items()
            if k.startswith("hvdc")},
+        **{"GAEngine(ctx=) one-rank NCCL mesh": mesh_runs["one_rank"],
+           "ga hvdc GAEngine(ctx=) one-rank NCCL mesh": mesh_runs["hvdc"]},
+        **{f"GAEngine(ctx=) {MESH_RANKS} gloo ranks, rank {r}": n
+           for r, n in enumerate(mesh_runs["ranks"])},
         **{"meta-GA (Fig. 6)": meta_run["launches"],
            "resize " + "->".join(map(str, RESIZE_ISLANDS)):
            resize_run["launches"]})

@@ -15,6 +15,15 @@ descending keeps per-lane cost within one item per round of optimal LPT.
 
 For uniform costs (``cost_fn=None``) or one lane, dispatch is the identity.
 
+Each rank of the ``dp`` axes of ``ctx`` holds a block of the rows (the
+default ``ShardingCtx()`` has no mesh: one rank holds them all). With the
+identity dispatch it evaluates its own rows. With a cost model every rank
+all-gathers the genomes, computes the same global cost and permutation,
+and evaluates its share of the lanes (lane chunks
+``tensor_split(range(W), dp)[r]``: chunk r when W equals the data ranks);
+the ranks then all-gather the fitness, undo the permutation and keep their
+rows. The dispatch stats are the global permutation's.
+
 Evaluation itself is pluggable (the paper's decoupled "simulation backend"
 microservice): a :class:`DispatchBackend` executes the shuffled batch.
 :class:`InlineBackend` runs the fitness on the genomes' device in the
@@ -46,6 +55,7 @@ import torch
 
 from repro_torch.core.hostbridge import (PureCallbackBridge, _timed_eval,
                                          collect_chunk_results)
+from repro_torch.models.sharding import ShardingCtx
 from repro_torch.runtime import metrics as _metrics
 
 
@@ -418,12 +428,14 @@ class Broker:
     num_workers: number of horizontal lanes
     backend:    DispatchBackend executing the shuffled batch
                 (default: InlineBackend(fitness_fn))
+    ctx:        a mesh's ShardingCtx: rows split over its ``dp`` axes
     """
 
     def __init__(self, fitness_fn: Optional[Callable] = None,
                  cost_fn: Optional[Callable] = None,
                  num_workers: int = 1,
-                 backend: Optional[DispatchBackend] = None):
+                 backend: Optional[DispatchBackend] = None,
+                 ctx: ShardingCtx = ShardingCtx()):
         if backend is None:
             if fitness_fn is None:
                 raise ValueError("need fitness_fn or backend")
@@ -432,6 +444,17 @@ class Broker:
         self.fitness_fn = fitness_fn or getattr(backend, "fitness_fn", None)
         self.cost_fn = cost_fn
         self.num_workers = max(1, num_workers)
+        self.ctx = ctx
+        if ctx.dp_size > 1 and cost_fn is not None:
+            if isinstance(cost_fn, CostEMA):
+                raise ValueError(
+                    "a learned cost model (CostEMA) over several data ranks "
+                    "is not ported: each rank would learn only its own "
+                    "lanes' times and the ranks' permutations would part")
+            if self.num_workers < ctx.dp_size:
+                raise ValueError(
+                    f"num_workers {self.num_workers} under a mesh must be "
+                    f"at least its {self.ctx.dp_size} data ranks")
         # learned cost model: wire the EMA into a decoupled backend that
         # can report measured per-chunk wall times back to it
         if (isinstance(cost_fn, CostEMA)
@@ -462,36 +485,49 @@ class Broker:
                 "balanced": torch.zeros((), device=device),
                 "padded": torch.zeros((), dtype=torch.int32, device=device)}
 
-    def evaluate(self, genomes: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    def evaluate(self, genomes: torch.Tensor,
+                 rows: Optional[list] = None) -> Tuple[torch.Tensor, dict]:
         """genomes: (N, G) -> (fitness (N, O), dispatch stats).
 
         Total: cost-balanced dispatch applies for EVERY N/num_workers
         combination when a cost model is given; padding absorbs
-        N % W != 0.
+        N % W != 0. ``genomes`` are this rank's rows and ``rows`` every
+        data rank's row count, in rank order (default: this rank's alone).
         """
-        n = genomes.shape[0]
         w = self.num_workers
         if self.cost_fn is None or w <= 1:
             return self.backend(genomes), self._identity_stats(genomes.device)
-        cost = self.cost_fn(genomes)
+        ctx = self.ctx
+        rows = list(rows) if rows is not None else [genomes.shape[0]]
+        everyone = ctx.gather(genomes, rows, ctx.dp)
+        n = everyone.shape[0]
+        cost = self.cost_fn(everyone)
         perm = balanced_permutation(cost, w)                # (Np,)
         n_pad = perm.shape[0]
         real = perm < n                                     # pad mask
-        shuffled = padded_take(genomes, perm, n)
         # predicted per-slot cost in shuffled order (pads carry zero)
         lane_cost = torch.where(real, padded_take(cost, perm, n), 0.0)
+        # this rank's lanes: contiguous worker chunks of n_pad / w
+        per = n_pad // w
+        share = [len(c) * per for c in
+                 torch.arange(w).tensor_split(ctx.dp_size)]
+        r = ctx.coord(ctx.dp)
+        mine = slice(sum(share[:r]), sum(share[:r + 1]))
+        shuffled = padded_take(everyone, perm[mine], n)
         if hasattr(self.backend, "eval_with_perm"):
             # decoupled backend: `perm` keys measured per-chunk wall times
             # back into the EMA cost model; sentinel pads are marked -inf,
             # not their zero stats-cost: a pad slot re-evaluates a
             # duplicate of genome 0 at its true price, so a cost-sizing
             # backend must identify pads, not mistake them for free work
-            pad_marked = torch.where(real, lane_cost, -torch.inf)
-            fit_shuf = self.backend.eval_with_perm(shuffled, perm,
+            pad_marked = torch.where(real[mine], lane_cost[mine], -torch.inf)
+            fit_mine = self.backend.eval_with_perm(shuffled, perm[mine],
                                                    pad_marked)
         else:
-            fit_shuf = self.backend(shuffled)
+            fit_mine = self.backend(shuffled)
+        fit_shuf = ctx.gather(fit_mine, share, ctx.dp)
         fit = torch.index_select(fit_shuf, 0, inverse_permutation(perm, n))
+        fit = fit[sum(rows[:r]):sum(rows[:r + 1])]
         # stats: per-worker predicted load skew (max/mean), before/after;
         # padded lanes contribute zero load
         loads = torch.sum(lane_cost.reshape(w, n_pad // w), dim=1)

@@ -2,7 +2,8 @@
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``. A run that
 asked for the GPU on a machine without one raises here: it never continues
-on the CPU in its place. A batched computation sizes its chunks from
+on the CPU in its place. ``meta`` builds shapes without data (a model at
+published widths for its sharding specs). A batched computation sizes its chunks from
 :func:`available_bytes`.
 """
 from __future__ import annotations
@@ -16,8 +17,9 @@ CPU_CHUNK_BYTES = 4 << 30
 
 
 def resolve_device(device="cuda") -> torch.device:
-    """The torch.device for ``device`` ("cuda", "cuda:N", "cpu" or a
-    torch.device); raises RuntimeError when CUDA is asked for and absent."""
+    """The torch.device for ``device`` ("cuda", "cuda:N", "cpu", "meta"
+    or a torch.device); raises RuntimeError when CUDA is asked for and
+    absent."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -26,7 +28,7 @@ def resolve_device(device="cuda") -> torch.device:
                 "false; pass device='cpu' (--device cpu) to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}: use cuda or cpu")
     return dev
 

@@ -23,6 +23,16 @@ for any ``sync_every`` / ``pipeline_depth`` there too.
 ``resize`` repartitions a running population onto another island count
 (``runtime/elastic.repartition_islands``) and re-balances the broker's
 lanes for the resized fleet.
+
+On a mesh (``ctx=``, a ``models.sharding.ShardingCtx``; every rank builds
+the same engine; the default has no mesh) each rank runs its islands
+(``core.island``) and the broker gets ``ctx.dp_size`` lanes unless told
+otherwise, as in the reference. ``init`` returns this rank's islands; ``run`` takes a global
+population or a rank's block and returns the global population on every
+rank. Metrics and ``evals_host`` count every island once. Checkpoints
+hold the global population in the reference's layout: rank 0 writes
+them, every rank restores and keeps its rows. ``resize`` is not ported
+under a mesh.
 """
 from __future__ import annotations
 
@@ -32,21 +42,25 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import GAConfig
 from repro_torch.core.broker import Broker, DispatchBackend
 from repro_torch.core.device import resolve_device
-from repro_torch.core.island import evaluate_population, make_epoch_step
+from repro_torch.core.island import (constrain_pop, evaluate_population,
+                                     gather_pop, make_epoch_step)
 from repro_torch.core.population import (Population, best_of, fold_rng,
                                          init_population, seed_rng,
                                          population_from_numpy,
                                          population_to_numpy)
+from repro_torch.models.sharding import ShardingCtx, sharded
 
 
 class GAEngine:
     def __init__(self, cfg: GAConfig, fitness_fn: Optional[Callable] = None,
                  *, cost_fn: Optional[Callable] = None,
                  backend: Optional[DispatchBackend] = None,
+                 ctx: ShardingCtx = ShardingCtx(),
                  num_workers: Optional[int] = None,
                  checkpointer=None, checkpoint_every: int = 0,
                  log_fn: Optional[Callable] = None,
@@ -55,8 +69,13 @@ class GAEngine:
                  device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.broker = Broker(fitness_fn, cost_fn,
-                             num_workers=num_workers or 1, backend=backend)
+        self.ctx = ctx
+        if cfg.num_islands < ctx.dp_size:
+            raise ValueError(f"{cfg.num_islands} islands cannot cover the "
+                             f"mesh's {ctx.dp_size} data ranks")
+        self.broker = Broker(fitness_fn, cost_fn, num_workers=(
+            num_workers if num_workers is not None else ctx.dp_size),
+            backend=backend, ctx=ctx)
         self.checkpointer = checkpointer
         self.checkpoint_every = checkpoint_every
         self.log_fn = log_fn
@@ -71,15 +90,18 @@ class GAEngine:
         """(Re)build the epoch step for the current cfg and broker: at
         construction and after an elastic :meth:`resize`."""
         self._epoch_step = make_epoch_step(self.cfg, self.broker,
-                                           self.device)
+                                           self.device, ctx=self.ctx)
 
     # ------------------------------------------------------------------
     def init(self, seed: Optional[int] = None) -> Population:
+        """A fresh, evaluated population (this rank's islands on a
+        mesh)."""
         pop = init_population(self.cfg,
                               self.cfg.seed if seed is None else seed,
                               self.device)
         self.evals_host = self.cfg.global_pop
-        return evaluate_population(self.cfg, self.broker, pop)
+        return evaluate_population(self.cfg, self.broker,
+                                   constrain_pop(pop, self.ctx), self.ctx)
 
     def restore(self, step: Optional[int] = None) -> Optional[Population]:
         """The population of a checkpoint (of this package or the
@@ -100,6 +122,29 @@ class GAEngine:
         state["evals_host"] = np.uint64(self.evals_host)
         return state
 
+    def _agree(self, flag: bool) -> bool:
+        """Rank 0's ``flag`` on every rank of a mesh (a clock read on each
+        rank would part them); ``flag`` itself without one."""
+        if not sharded(self.ctx):
+            return flag
+        box = [flag]
+        dist.broadcast_object_list(box, src=0)
+        return bool(box[0])
+
+    def _save(self, pop: Population, step: int, last: bool) -> None:
+        """Checkpoint the global population: rank 0 writes it; on a mesh
+        every rank takes part in the gather, and after the ``last`` save
+        waits until the write is on disk, so a later restore on any rank
+        reads it."""
+        pop = gather_pop(pop, self.ctx)
+        mesh = sharded(self.ctx)
+        if not mesh or dist.get_rank() == 0:
+            self.checkpointer.save(self._checkpoint_state(pop), step=step)
+            if last and mesh:
+                self.checkpointer.wait()
+        if last and mesh:
+            dist.barrier()
+
     # ------------------------------------------------------------------
     def resize(self, pop: Population, new_islands: int, *, rng=None,
                num_workers: Optional[int] = None) -> Population:
@@ -114,6 +159,10 @@ class GAEngine:
         goes on, and counted. Dispatch permutations never change fitness
         values, so a re-balanced run tracks a fixed-lane run exactly on a
         deterministic fitness."""
+        if sharded(self.ctx):
+            raise NotImplementedError(
+                "GAEngine.resize under a mesh is not ported (ROADMAP.md, "
+                "queue 1 item 6)")
         old_islands = pop.genomes.shape[0]
         if rng is None:
             rng = fold_rng(seed_rng(self.cfg.seed), 1000 + new_islands)
@@ -178,20 +227,22 @@ class GAEngine:
             target: Optional[float] = None,
             wallclock_s: Optional[float] = None):
         """Run until an epoch/target/wall-clock limit. Returns
-        (population, history) where history is a list of per-epoch dicts."""
+        (population, history) where history is a list of per-epoch dicts;
+        on a mesh the population is the global one, on every rank."""
         cfg = self.cfg
         if pop is None:
             pop = self.restore() or self.init()
         elif self.evals_host == 0:
             # externally supplied population: seed the host counter
             self.evals_host = max(0, pop.evals)
+        pop = constrain_pop(pop, self.ctx)
         epochs = epochs if epochs is not None else cfg.num_epochs
         history = []
         t0 = time.monotonic()
         pending = []                                   # in-flight metrics
         start_epoch = pop.epoch
         evals_per_epoch = (cfg.generations_per_epoch
-                           * pop.genomes.shape[0] * pop.genomes.shape[1])
+                           * pop.rng.shape[0] * pop.genomes.shape[1])
 
         for e in range(start_epoch, start_epoch + epochs):
             pop, metrics = self._epoch_step(pop)
@@ -208,15 +259,14 @@ class GAEngine:
                     break
             if self.checkpointer and self.checkpoint_every and \
                     (e + 1) % self.checkpoint_every == 0:
-                self.checkpointer.save(self._checkpoint_state(pop),
-                                       step=e + 1)
-            if wallclock_s is not None and time.monotonic() - t0 > wallclock_s:
+                self._save(pop, e + 1, last=False)
+            if wallclock_s is not None and self._agree(
+                    time.monotonic() - t0 > wallclock_s):
                 break
         self._drain(pending, history, keep=0)
         if self.checkpointer and self.checkpoint_every:
-            self.checkpointer.save(self._checkpoint_state(pop),
-                                   step=pop.epoch)
-        return pop, history
+            self._save(pop, pop.epoch, last=True)
+        return gather_pop(pop, self.ctx), history
 
     def best(self, pop: Population):
         g, f = best_of(pop)

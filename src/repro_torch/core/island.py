@@ -17,6 +17,17 @@ operators, and to the fused kernel's (5,) row, where they lie, with no
 host sync; ``pop_active`` masks the selection keys past the active slots
 to 2**30, draws the tournament from [0, pop_active) and masks the
 offspring's fitness there to +inf.
+
+The island axis is split over the ``dp`` axes of ``ctx`` (a
+``models.sharding.ShardingCtx``; the default has no mesh and one block of
+every island): rank r holds islands ``tensor_split(arange(I), dp)[r]``
+(uneven blocks allowed, as GSPMD pads) and ``pop.rng`` stays global on
+every rank, I = ``pop.rng.shape[0]``. Each draw is made for all I islands
+and the rank keeps its rows (``uniforms.IslandRows``), so a sharded run
+is bit-identical to one rank. Migration all-gathers the (I, m) emigrants,
+one collective per shift on a mesh, and each rank takes its rows of the
+rolled array. The per-generation ``best`` trace is gathered once an
+epoch, so metrics are global.
 """
 from __future__ import annotations
 
@@ -28,7 +39,9 @@ from repro_torch.configs.base import GAConfig
 from repro_torch.core import nsga2, operators
 from repro_torch.core.broker import Broker
 from repro_torch.core.population import Population, next_rng, rng_seed
-from repro_torch.core.uniforms import GeneratorUniforms, as_source
+from repro_torch.core.uniforms import (GeneratorUniforms, IslandRows,
+                                       as_source)
+from repro_torch.models.sharding import ShardingCtx
 
 
 def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -37,12 +50,41 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         idx.shape + x.shape[-1:]))
 
 
+def island_block(pop: Population, ctx: ShardingCtx) -> tuple:
+    """(lo, hi, sizes) of this rank's islands and every rank's island
+    count over the ``dp`` axes."""
+    total = pop.rng.shape[0]
+    lo, hi = ctx.rows(total, ctx.dp)
+    return lo, hi, ctx.sizes(total, ctx.dp)
+
+
+def constrain_pop(pop: Population, ctx: ShardingCtx) -> Population:
+    """This rank's islands of a population: a global one (as many islands
+    as ``pop.rng`` has rows) is cut to the rank's block, a rank's own
+    block is returned as it is."""
+    if pop.genomes.shape[0] != pop.rng.shape[0]:
+        return pop
+    return pop._replace(genomes=ctx.cs(pop.genomes, ctx.dp_spec),
+                        fitness=ctx.cs(pop.fitness, ctx.dp_spec))
+
+
+def gather_pop(pop: Population, ctx: ShardingCtx) -> Population:
+    """The global population from every rank's islands (each rank gets
+    it)."""
+    i = pop.rng.shape[0]
+    return pop._replace(genomes=ctx.gather(pop.genomes, i, ctx.dp),
+                        fitness=ctx.gather(pop.fitness, i, ctx.dp))
+
+
 def make_generation_step(cfg: GAConfig, broker: Broker, device,
-                         hyper: Optional[dict] = None) -> Callable:
+                         hyper: Optional[dict] = None,
+                         ctx: ShardingCtx = ShardingCtx()) -> Callable:
     """One NSGA-II generation for all islands (no cross-island traffic):
     ``generation(pop, rng) -> (pop, metrics)``, with ``rng`` a uniform
     source or a ``torch.Generator``. ``hyper`` optionally overrides
-    {eta_cx, prob_cx, eta_mut, prob_mut, pop_active} (meta-GA path)."""
+    {eta_cx, prob_cx, eta_mut, prob_mut, pop_active} (meta-GA path).
+    ``pop`` holds this rank's islands of ``ctx``, ``rng`` draws for all
+    of them, and metrics["best"] is this rank's."""
     lo_np, hi_np = cfg.bounds()
     lo = torch.as_tensor(lo_np, device=device)
     hi = torch.as_tensor(hi_np, device=device)
@@ -60,7 +102,9 @@ def make_generation_step(cfg: GAConfig, broker: Broker, device,
 
     def generation(pop: Population, rng) -> Tuple[Population, dict]:
         i, p, g = pop.genomes.shape
-        rand = as_source(rng, pop.genomes.device)
+        first, end, sizes = island_block(pop, ctx)
+        rand = IslandRows(as_source(rng, pop.genomes.device), first, end,
+                          pop.rng.shape[0])
 
         # island-local selection keys (rank, crowding)
         _, _, keys = nsga2.nsga2_keys(pop.fitness)             # (I, P)
@@ -75,7 +119,8 @@ def make_generation_step(cfg: GAConfig, broker: Broker, device,
             use_kernel=cfg.fused_operators, **hp)
 
         # shared-pool evaluation (the broker = the paper's queue)
-        fit_flat, stats = broker.evaluate(offspring.reshape(i * p, g))
+        fit_flat, stats = broker.evaluate(offspring.reshape(i * p, g),
+                                          rows=[s * p for s in sizes])
         off_fit = fit_flat.reshape(i, p, -1)
         if pop_active is not None:
             off_fit = torch.where((slot < pop_active)[:, None], off_fit,
@@ -88,7 +133,7 @@ def make_generation_step(cfg: GAConfig, broker: Broker, device,
 
         newpop = pop._replace(genomes=new_g, fitness=new_f,
                               generation=pop.generation + 1,
-                              evals=pop.evals + i * p)
+                              evals=pop.evals + sum(sizes) * p)
         metrics = {"best": torch.amin(new_f[..., 0], dim=1),   # per island
                    "skew": stats["skew"],
                    "balanced": stats["balanced"]}
@@ -116,21 +161,29 @@ def _migration_shifts(topology: str, num_islands: int) -> list:
     raise ValueError(topology)
 
 
-def migrate_ring(cfg: GAConfig, pop: Population, rng) -> Population:
+def migrate_ring(cfg: GAConfig, pop: Population, rng,
+                 ctx: ShardingCtx = ShardingCtx()) -> Population:
     """Migration: best ``m`` of island k replace random non-elite slots of
     each neighbor per the configured topology (paper §4 uses "ring":
     "sending out the best individual and replacing a randomly selected
-    individual"). Draws (I, m) victim uniforms per shift from ``rng``."""
+    individual"). Draws (I, m) victim uniforms per shift from ``rng``.
+    ``pop`` holds this rank's islands of ``ctx`` and each shift
+    all-gathers the emigrants over the ``dp`` axes."""
     m = cfg.num_migrants
     i, p, g = pop.genomes.shape
-    rand = as_source(rng, pop.genomes.device)
+    total = pop.rng.shape[0]
+    first, end, _ = island_block(pop, ctx)
+    rand = IslandRows(as_source(rng, pop.genomes.device), first, end, total)
     genomes, fitness = pop.genomes, pop.fitness
-    for shift in _migration_shifts(cfg.migration_pattern, i):
+    for shift in _migration_shifts(cfg.migration_pattern, total):
         _, _, keys = nsga2.nsga2_keys(fitness)
         order = torch.argsort(keys, dim=1, stable=True)    # best first
         best_idx = order[:, :m]                            # (I, m)
-        recv_g = torch.roll(take_rows(genomes, best_idx), shift, dims=0)
-        recv_f = torch.roll(take_rows(fitness, best_idx), shift, dims=0)
+        send = torch.cat([take_rows(genomes, best_idx),
+                          take_rows(fitness, best_idx)], -1)
+        recv = torch.roll(ctx.gather(send, total, ctx.dp), shift,
+                          dims=0)[first:end]
+        recv_g, recv_f = recv[..., :g], recv[..., g:]
 
         # random non-elite victims: positions >= m in sorted order
         u = rand((i, m))
@@ -144,10 +197,12 @@ def migrate_ring(cfg: GAConfig, pop: Population, rng) -> Population:
 
 
 def make_epoch_step(cfg: GAConfig, broker: Broker, device,
-                    hyper: Optional[dict] = None) -> Callable:
+                    hyper: Optional[dict] = None,
+                    ctx: ShardingCtx = ShardingCtx()) -> Callable:
     """M island-local generations + one migration:
-    ``epoch_step(pop) -> (pop, metrics)`` with metrics["best"] (M, I)."""
-    generation = make_generation_step(cfg, broker, device, hyper)
+    ``epoch_step(pop) -> (pop, metrics)`` with metrics["best"] (M, I),
+    of all I islands on a mesh too."""
+    generation = make_generation_step(cfg, broker, device, hyper, ctx)
 
     def epoch_step(pop: Population) -> Tuple[Population, dict]:
         gen = torch.Generator(device=device)
@@ -157,17 +212,23 @@ def make_epoch_step(cfg: GAConfig, broker: Broker, device,
         for _ in range(cfg.generations_per_epoch):
             pop, metrics = generation(pop, rand)
             trace.append(metrics)
-        pop = migrate_ring(cfg, pop, rand)
+        pop = migrate_ring(cfg, pop, rand, ctx)
         pop = pop._replace(rng=next_rng(pop.rng))
-        return pop, {k: torch.stack([t[k] for t in trace]) for k in trace[0]}
+        metrics = {k: torch.stack([t[k] for t in trace]) for k in trace[0]}
+        metrics["best"] = ctx.gather(metrics["best"], pop.rng.shape[0],
+                                     ctx.dp, dim=1)
+        return pop, metrics
 
     return epoch_step
 
 
-def evaluate_population(cfg: GAConfig, broker: Broker,
-                        pop: Population) -> Population:
-    """Initial fitness evaluation of a fresh population."""
+def evaluate_population(cfg: GAConfig, broker: Broker, pop: Population,
+                        ctx: ShardingCtx = ShardingCtx()) -> Population:
+    """Initial fitness evaluation of a fresh population (this rank's
+    islands of ``ctx``)."""
     i, p, g = pop.genomes.shape
-    fit, _ = broker.evaluate(pop.genomes.reshape(i * p, g))
+    sizes = island_block(pop, ctx)[2]
+    fit, _ = broker.evaluate(pop.genomes.reshape(i * p, g),
+                             rows=[s * p for s in sizes])
     return pop._replace(fitness=fit.reshape(i, p, -1),
-                        evals=pop.evals + i * p)
+                        evals=pop.evals + sum(sizes) * p)

@@ -10,7 +10,10 @@ draws every random number through a *uniform source*, a callable
   replay the reference's draws through it);
 * :class:`SeedUniforms` draws one stream per seed, shared across a leading
   batch dim (the meta-GA's common random numbers: every individual runs
-  seed s on the same draws).
+  seed s on the same draws);
+* :class:`IslandRows` hands a rank of a mesh its islands' rows of draws
+  made for every island, so a sharded run draws what an unsharded one
+  does.
 
 Operators take a source as their first argument, in the place of the
 reference's ``rng`` key, and consume it in the reference's draw order.
@@ -77,6 +80,22 @@ class SeedUniforms:
         return torch.stack([
             torch.rand(shape[2:], generator=gen, device=self.device,
                        dtype=torch.float32) for gen in self.generators])
+
+
+class IslandRows:
+    """Rows [lo, hi) of draws made for all ``total`` islands: a request of
+    shape (hi - lo, *rest) draws (total, *rest) from ``source`` and keeps
+    this rank's rows, bit for bit the rows an unsharded run draws."""
+
+    def __init__(self, source: Callable, lo: int, hi: int, total: int):
+        self.source, self.lo, self.hi, self.total = source, lo, hi, total
+
+    def __call__(self, shape) -> torch.Tensor:
+        shape = tuple(shape)
+        if not shape or shape[0] != self.hi - self.lo:
+            raise ValueError(f"a draw of shape {shape} does not lead with "
+                             f"this rank's {self.hi - self.lo} islands")
+        return self.source((self.total,) + shape[1:])[self.lo:self.hi]
 
 
 def as_source(rng, device=None) -> Callable:

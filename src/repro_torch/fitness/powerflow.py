@@ -6,7 +6,10 @@ injections. With ``contingencies > 0`` the paper's N-1 penalty multiplies
 the objective (+10% per critical case, +1% per near-critical).
 
 Scaling axes (paper Fig. 3): the genome batch and the contingency batch
-are flattened into one batch of systems on the device.
+are flattened into one batch of systems on the device. On a mesh
+(``ctx``): horizontal — the genome batch goes over the ``dp`` axes through
+the broker; vertical — each genome's case list goes over the ``tp`` axis
+(``powerflow.contingency``).
 
 ``screen_top_k > 0`` (with ``contingencies > 0``) enables the LODF
 screening: DC-rank all single-line outages per genome, full-AC only the
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.models.sharding import ShardingCtx
 from repro_torch.powerflow.contingency import (contingency_loadings,
                                                penalized_objective,
                                                select_contingency_lines)
@@ -35,12 +39,15 @@ from repro_torch.powerflow.newton import line_flows, newton_powerflow
 
 class HVDCDispatchFitness:
     """Callable (N, H) genomes in [-1, 1] -> (N, 1) objectives, on
-    ``device``."""
+    ``device``; with a mesh ``ctx`` the cases split over its ``tp``
+    axis."""
 
     def __init__(self, grid: Grid, *, contingencies: int = 0,
                  newton_iters: int = 10, screen_top_k: int = 0,
-                 seed: int = 0, device="cuda"):
+                 ctx: ShardingCtx = ShardingCtx(), seed: int = 0,
+                 device="cuda"):
         self.device = resolve_device(device)
+        self.ctx = ctx
         self.grid = grid
         self.gridt = grid.to_torch(self.device)
         self.newton_iters = newton_iters
@@ -77,7 +84,8 @@ class HVDCDispatchFitness:
             else:
                 cases = self.outages                          # (C,)
             loadings = contingency_loadings(
-                gridt, cases, p_extra=p_extra, num_iters=self.newton_iters)
+                gridt, cases, p_extra=p_extra, num_iters=self.newton_iters,
+                ctx=self.ctx)
             base = penalized_objective(base, loadings)        # eq. (3)
         return base[:, None]
 

@@ -1,0 +1,381 @@
+"""Sharding rules: map every parameter / cache tensor to a spec on the
+production mesh (the port of ``repro.models.sharding``).
+
+Axes semantics:
+  dp   — batch data-parallel axes (("pod","data") multi-pod, ("data",) else)
+  tp   — tensor-parallel axis ("model"): heads, d_ff, vocab, experts
+  fsdp — ZeRO param/optimizer sharding axes (== dp for train, () for serve)
+  seq  — axis used to shard long decode KV caches / activation seq dim
+
+A spec is a tuple with one entry per tensor dim: None (replicated), an
+axis name, or a tuple of axis names, as the reference's ``PartitionSpec``
+holds them. ``_RULES``, ``param_specs``, ``cache_specs`` and the context
+factories return the reference's specs exactly. The port keeps one module
+per layer where the reference stacks layers over periods, so a layer
+leaf's spec is the reference's without its leading period ``None``.
+
+The mesh is a ``torch.distributed.device_mesh.DeviceMesh``
+(``launch/mesh.py``). ``named(*spec)`` gives a spec's DTensor placements
+on it (``Shard(d)`` or ``Replicate()`` per mesh dim);
+``param_shardings`` / ``cache_shardings`` give them per leaf. There is no
+GSPMD to hand a constraint to: ``cs`` keeps this rank's block of a global
+tensor (``torch.tensor_split`` order over the spec's axes, uneven blocks
+allowed, as GSPMD pads), ``gather`` puts the blocks back together, and
+``rows`` / ``sizes`` say where the blocks lie.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.core import collectives
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingCtx:
+    mesh: Optional[Any] = None       # a DeviceMesh
+    dp: Tuple[str, ...] = ()
+    tp: Optional[str] = None
+    fsdp: Tuple[str, ...] = ()
+    seq: Optional[str] = None        # shard seq dim of caches/activations
+    shard_cache_seq: bool = False    # long-context decode: KV seq over `seq`
+    seq_parallel: bool = False       # train: carry activations seq-sharded
+
+    def _shape(self) -> dict:
+        return dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))
+
+    @property
+    def dp_spec(self):
+        return self.dp if self.dp else None
+
+    @property
+    def dp_size(self) -> int:
+        if self.mesh is None or not self.dp:
+            return 1
+        return self.axes_size(self.dp)
+
+    @property
+    def tp_size(self) -> int:
+        if self.mesh is None or not self.tp:
+            return 1
+        return self._shape()[self.tp]
+
+    def named(self, *spec) -> Optional[list]:
+        """The DTensor placements of ``spec`` on the mesh, one per mesh
+        dim; None without a mesh."""
+        if self.mesh is None:
+            return None
+        from torch.distributed.tensor import Replicate, Shard
+        where = {}
+        for d, axes in enumerate(spec):
+            for a in _axes(axes):
+                where[a] = d
+        return [Shard(where[a]) if a in where else Replicate()
+                for a in self.mesh.mesh_dim_names]
+
+    def axes_size(self, axes) -> int:
+        if self.mesh is None or axes is None:
+            return 1
+        shape = self._shape()
+        n = 1
+        for a in _axes(axes):
+            n *= shape[a]
+        return n
+
+    def if_div(self, dim: int, axes):
+        """``axes`` if ``dim`` divides evenly across them, else None (the
+        reference's pjit arguments require exact divisibility)."""
+        if axes is None:
+            return None
+        n = self.axes_size(axes)
+        return axes if (n > 0 and dim % n == 0) else None
+
+    # -- where this rank's blocks lie ----------------------------------
+    def coord(self, axes) -> int:
+        """This rank's coordinate along ``axes`` (row-major over them)."""
+        if self.mesh is None or axes is None:
+            return 0
+        names = list(self.mesh.mesh_dim_names)
+        shape, pos = self.mesh.shape, self.mesh.get_coordinate()
+        c = 0
+        for a in _axes(axes):
+            c = c * shape[names.index(a)] + pos[names.index(a)]
+        return c
+
+    def sizes(self, n: int, axes) -> list:
+        """Block lengths of ``n`` rows split over ``axes``, in rank order
+        (``torch.tensor_split``'s: the first ``n % k`` blocks one longer)."""
+        k = self.axes_size(axes)
+        return [n // k + (r < n % k) for r in range(k)]
+
+    def rows(self, n: int, axes) -> Tuple[int, int]:
+        """[lo, hi) of this rank's block of ``n`` rows over ``axes``."""
+        sizes = self.sizes(n, axes)
+        c = self.coord(axes)
+        lo = sum(sizes[:c])
+        return lo, lo + sizes[c]
+
+    def group(self, axes):
+        """The process group of this rank's peers along ``axes``."""
+        axes = _axes(axes)
+        if len(axes) == 1:
+            return self.mesh.get_group(axes[0])
+        return _flat_group(self.mesh, axes)
+
+    def gather(self, x: torch.Tensor, n, axes, dim: int = 0):
+        """The whole ``n`` rows along ``dim`` from every rank's block over
+        ``axes`` (this rank holds block ``rows(n, axes)``), or, with ``n``
+        a list, from blocks of those lengths in rank order; ``x`` itself
+        over no axes."""
+        if self.mesh is None or not _axes(axes):
+            return x
+        sizes = n if isinstance(n, (list, tuple)) else self.sizes(n, axes)
+        return collectives.all_gather(x, sizes, self.group(axes),
+                                      "+".join(_axes(axes)), dim)
+
+    def cs(self, x: torch.Tensor, *spec) -> torch.Tensor:
+        """This rank's block of the global tensor ``x`` along every dim
+        that ``spec`` shards; ``x`` itself without a mesh."""
+        if self.mesh is None:
+            return x
+        for d, axes in enumerate(spec):
+            if axes is not None:
+                lo, hi = self.rows(x.shape[d], axes)
+                x = x.narrow(d, lo, hi - lo)
+        return x
+
+    def cs_hidden(self, h: torch.Tensor) -> torch.Tensor:
+        """Activation block (B, S, D) at layer boundaries."""
+        if self.mesh is None:
+            return h
+        if self.seq_parallel and self.tp:
+            return self.cs(h, self.dp_spec, self.tp, None)
+        return self.cs(h, self.dp_spec, None, None)
+
+
+def _spec(entries) -> tuple:
+    """A spec as the reference's ``PartitionSpec`` holds it: a one-axis
+    tuple entry reads as the axis name, an empty one as None."""
+    return tuple((e[0] if len(e) == 1 else e or None)
+                 if isinstance(e, tuple) else e for e in entries)
+
+
+def _axes(axes) -> tuple:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+_FLAT_GROUPS: dict = {}
+
+
+def _flat_group(mesh, axes: tuple):
+    """One group per slice of the mesh along several axes, made once per
+    (mesh, axes) by every rank together (``new_subgroups_by_enumeration``
+    is collective), in the axes' row-major order."""
+    key = (id(mesh), axes)
+    if key not in _FLAT_GROUPS:
+        import torch.distributed as dist
+        names = list(mesh.mesh_dim_names)
+        idx = [names.index(a) for a in axes]
+        rest = [d for d in range(len(names)) if d not in idx]
+        n = 1
+        for d in idx:
+            n *= mesh.shape[d]
+        ranks = mesh.mesh.permute(rest + idx).reshape(-1, n)
+        _FLAT_GROUPS[key] = dist.new_subgroups_by_enumeration(
+            ranks.tolist())[0]
+    return _FLAT_GROUPS[key]
+
+
+REPLICATED = ()
+
+# Leaf-name -> spec template. `F`=fsdp axes, `T`=tp axis, None=replicated dim.
+_RULES: list[tuple[re.Pattern, tuple]] = [
+    (re.compile(r"tokens$"),     ("T", "F")),       # embed (V, D)
+    (re.compile(r"unembed$"),    ("F", "T")),       # (D, V)
+    (re.compile(r"^(x?)[qkv]$"), ("F", "T")),       # (D, H*hd)
+    (re.compile(r"^(x?)o$"),     ("T", "F")),       # (H*hd, D)
+    (re.compile(r"^w[ig]$"),     ("F", "T")),       # dense ffn (D, F) / moe (E,D,F) handled below
+    (re.compile(r"^wo$"),        ("T", "F")),
+    (re.compile(r"^sw[ig]$"),    ("F", "T")),
+    (re.compile(r"^swo$"),       ("T", "F")),
+    (re.compile(r"^sgate$"),     ("F", None)),
+    (re.compile(r"^router$"),    ("F", None)),
+    (re.compile(r"^in_proj$"),   ("F", "T")),
+    (re.compile(r"^out_proj$"),  ("T", "F")),
+    (re.compile(r"^conv$"),      (None, "T")),
+    (re.compile(r"^(conv_bias|A_log|D|dt_bias|norm_scale)$"), ("T",)),
+    (re.compile(r"^(scale|bias)$"), (None,)),       # norms
+    (re.compile(r"table$"),      (None, None)),     # learned pos
+]
+
+# the port's per-layer module lists (the reference's stacks)
+_LAYER_LISTS = ("layers", "enc_layers")
+
+
+def _leaf_spec(path_names: list[str], shape: tuple, ctx: ShardingCtx) -> tuple:
+    """The spec of one leaf. A layer leaf (under ``layers.{i}`` or
+    ``enc_layers.{i}``) has no period dim: its spec is the reference's
+    stacked leaf's without the leading None."""
+    name = path_names[-1]
+    ndim = len(shape)
+    is_moe = any(n == "moe" for n in path_names)
+    body = shape
+
+    def ax(sym):
+        if sym == "F":
+            return ctx.fsdp if ctx.fsdp else None
+        if sym == "T":
+            return ctx.tp
+        return None
+
+    spec: Optional[tuple] = None
+    for pat, tmpl in _RULES:
+        if pat.search(name):
+            spec = tuple(ax(s) for s in tmpl)
+            break
+    if spec is None:
+        spec = (None,) * ndim
+
+    if is_moe and name in ("wi", "wg", "wo"):
+        # (E, D, F) / (E, F, D). Expert-parallel over tp when E divides the
+        # model axis (jamba 16e, granite-moe 32e); otherwise (qwen 60e)
+        # fall back to tensor parallelism on the expert d_ff dim.
+        e = body[0]
+        ep = ctx.if_div(e, ctx.tp)
+        if ep is not None:
+            spec = ((ep, None, ax("F")) if name in ("wi", "wg")
+                    else (ep, ax("F"), None))
+        else:
+            spec = ((None, ax("F"), ctx.tp) if name in ("wi", "wg")
+                    else (None, ctx.tp, ax("F")))
+
+    # exact divisibility, as the reference's pjit arguments need it
+    spec = tuple(ctx.if_div(d, a) if a is not None else None
+                 for d, a in zip(body, spec))
+    return _spec(tuple(spec[:ndim]) + (None,) * max(0, ndim - len(spec)))
+
+
+def _named_shapes(params) -> dict:
+    """{dotted name: shape} of a module's parameters or a mapping of
+    tensors / shapes."""
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    return {k: tuple(getattr(v, "shape", v)) for k, v in params.items()}
+
+
+def param_specs(params: Any, ctx: ShardingCtx) -> dict:
+    """{name: spec} for a ``Model`` (any device, ``meta`` included) or a
+    mapping of its parameter names to tensors or shapes."""
+    return {name: _leaf_spec(name.split("."), shape, ctx)
+            for name, shape in _named_shapes(params).items()}
+
+
+def param_shardings(params: Any, ctx: ShardingCtx) -> Optional[dict]:
+    """{name: DTensor placements} of ``param_specs``; None without a
+    mesh."""
+    if ctx.mesh is None:
+        return None
+    return {k: ctx.named(*s) for k, s in param_specs(params, ctx).items()}
+
+
+# ---------------------------------------------------------------------------
+# Cache specs
+# ---------------------------------------------------------------------------
+
+def _cache_leaf_spec(name: str, shp: tuple, ctx: ShardingCtx) -> tuple:
+    nd = len(shp)
+    if name in ("k", "v"):
+        b, t = shp[0], shp[1]
+        if ctx.shard_cache_seq and ctx.seq and ctx.tp:
+            # long-context: seq over data AND model (flash-decode both
+            # ways); falls back to data-only if not divisible
+            seq_axes = (ctx.if_div(t, (ctx.seq, ctx.tp))
+                        or ctx.if_div(t, ctx.seq))
+        else:
+            seq_axes = ctx.if_div(t, ctx.tp)
+        spec = (ctx.if_div(b, ctx.dp_spec), seq_axes, None, None)
+    elif name in ("xk", "xv"):
+        spec = (ctx.if_div(shp[0], ctx.dp_spec), None, None, None)
+    elif name == "state":                        # (B, H, P, N)
+        spec = (ctx.if_div(shp[0], ctx.dp_spec), ctx.if_div(shp[1], ctx.tp),
+                None, None)
+    elif name == "conv":                         # (B, W-1, C)
+        spec = (ctx.if_div(shp[0], ctx.dp_spec), None,
+                ctx.if_div(shp[2], ctx.tp))
+    else:                                        # cache_pos
+        spec = (None,) * nd
+    return _spec(tuple(spec[:nd]) + (None,) * max(0, nd - len(spec)))
+
+
+def _map_cache(cache, fn, name=""):
+    if isinstance(cache, dict):
+        return {k: _map_cache(v, fn, k) for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [_map_cache(v, fn, name) for v in cache]
+    return fn(name, tuple(cache.shape))
+
+
+def cache_specs(cache: Any, ctx: ShardingCtx):
+    """KV/SSM cache specs, in the structure of the port's cache
+    (``{"sub{s}": [one layer's dict per period]}``).
+
+    Self-attention caches (B, T, KV, hd): batch over dp, the cache's
+    sequence dim over tp (flash-decode-style partial softmax combined over
+    the model axis). For long-context serving (batch below the data size)
+    the sequence dim also shards over the data axis. Cross-attention
+    caches (whisper, 1500 frames) shard batch only. Every rule is guarded
+    by exact divisibility; non-divisible dims replicate.
+    """
+    return _map_cache(cache, lambda n, s: _cache_leaf_spec(n, s, ctx))
+
+
+def cache_shardings(cache: Any, ctx: ShardingCtx):
+    """``cache_specs`` as DTensor placements; None without a mesh."""
+    if ctx.mesh is None:
+        return None
+    return _map_cache(cache, lambda n, s: ctx.named(
+        *_cache_leaf_spec(n, s, ctx)))
+
+
+# ---------------------------------------------------------------------------
+# Context factories
+# ---------------------------------------------------------------------------
+
+def make_train_ctx(mesh, *, seq_parallel: bool = True) -> ShardingCtx:
+    if mesh is None:
+        return ShardingCtx()
+    axes = mesh.mesh_dim_names
+    dp = tuple(a for a in ("pod", "data") if a in axes)
+    tp = "model" if "model" in axes else None
+    return ShardingCtx(mesh=mesh, dp=dp, tp=tp, fsdp=dp, seq="data",
+                       seq_parallel=seq_parallel)
+
+
+def make_serve_ctx(mesh, *, global_batch: int,
+                   big_model: bool = False) -> ShardingCtx:
+    """Serving: no optimizer, params TP (+2D over data for big models);
+    batch over dp when divisible, else KV-seq over data."""
+    if mesh is None:
+        return ShardingCtx()
+    axes = mesh.mesh_dim_names
+    dp = tuple(a for a in ("pod", "data") if a in axes)
+    tp = "model" if "model" in axes else None
+    shape = dict(zip(axes, mesh.shape))
+    dp_size = 1
+    for a in dp:
+        dp_size *= shape[a]
+    shard_seq = global_batch < dp_size
+    fsdp = dp if big_model else ()
+    return ShardingCtx(mesh=mesh, dp=() if shard_seq else dp, tp=tp,
+                       fsdp=fsdp, seq="data", shard_cache_seq=shard_seq)
+
+
+def sharded(ctx: Optional[ShardingCtx]) -> bool:
+    """Whether ``ctx`` carries a mesh (the callers' test for running on
+    their blocks)."""
+    return ctx is not None and ctx.mesh is not None

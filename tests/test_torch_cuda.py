@@ -1220,3 +1220,37 @@ def test_train_mamba2_on_card(cuda_device):
     assert np.all(np.isfinite(losses + stats["grad_norm"]))
     assert stats["peak_bytes"] > 0 and len(stats["step_ms"]) == 12
     assert losses[-1] < losses[0] and np.mean(losses[-3:]) < losses[0]
+
+
+def test_one_rank_nccl_mesh_ga_equals_unsharded(cuda_device, tmp_path):
+    """GAEngine(ctx=) on a one-rank NCCL mesh on the card: the same
+    population and best trace as the engine without a mesh, bit for bit,
+    with kernel 1 launched once a generation and the collectives on NCCL
+    (nothing staged)."""
+    import torch.distributed as dist
+    from repro_torch.core import collectives
+    from repro_torch.core.engine import GAEngine
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.models.sharding import ShardingCtx
+    cfg = GAConfig(num_genes=32, pop_per_island=64, num_islands=4,
+                   generations_per_epoch=3, num_epochs=2, lower=-5.12,
+                   upper=5.12, seed=3)
+    pop1, hist1 = GAEngine(cfg, rastrigin).run()
+    init_distributed(0, 1, f"file://{tmp_path / 'store'}",
+                     local_world_size=1)
+    try:
+        assert dist.get_backend() == "nccl"
+        ctx = ShardingCtx(mesh=make_local_mesh(1, 1), dp=("data",),
+                          tp="model")
+        collectives.reset_counts()
+        ops.launches = 0
+        pop2, hist2 = GAEngine(cfg, rastrigin, ctx=ctx).run()
+        assert ops.launches == 3 * 2
+        counts = collectives.counts["data"]
+        assert counts["calls"] > 0 and counts["staged_calls"] == 0
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(pop1.genomes, pop2.genomes)
+    assert torch.equal(pop1.fitness, pop2.fitness)
+    for a, b in zip(hist1, hist2):
+        np.testing.assert_array_equal(a["trace"], b["trace"])
