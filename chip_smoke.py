@@ -37,7 +37,10 @@ activation recomputation, ``Model(remat=True)``), audio
 parameters) families at published widths, and the GA and the HVDC
 fitness on a device mesh (``GAEngine(ctx=)`` over
 ``repro_torch.launch.mesh``: islands over the data axis, contingency cases
-over the model axis, cost-balanced dispatch across ranks). Phases, in
+over the model axis, cost-balanced dispatch across ranks), and LM
+training over a device mesh (``launch.train.train(mesh=)``: parameters
+and moments as each rank's fsdp / tensor-parallel blocks, the int8
+compressed pod reduce). Phases, in
 order; any failure exits non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
@@ -148,11 +151,12 @@ order; any failure exits non-zero:
            random weights from a seed, bigram data, exactly 22 x 8 flash
            forward and 22 x 8 backward launches, every loss and grad norm
            finite, the last loss below the first; ``ga_run --fitness hvdc
-           --grid-size 2715 --hvdc-lines 18 --islands 2 --gens-per-epoch 2
-           --num-workers 4``, horizontal (--pop 16 --epochs 2) and
-           vertical (--pop 8 --contingencies 8 --epochs 1: full AC on 8
-           outages per genome), each launching the fused variation
-           exactly once a generation (4 and 2 times), with finite
+           --grid-size 2715 --hvdc-lines 18 --islands 2 --num-workers 4``,
+           horizontal (--pop 16 --gens-per-epoch 2 --epochs 2) and
+           vertical (--pop 8 --contingencies 8 --gens-per-epoch 1
+           --epochs 1: full AC on 8 outages per genome), each launching
+           the fused variation exactly once a generation (4 times and
+           once), with finite
            fitness and genomes in [-1, 1]; ``ga_run --fitness rastrigin``
            at the main shape under --dispatch-backend host-thread,
            host-process and host-thread --sync-every 2 --pipeline-depth 2
@@ -240,7 +244,21 @@ order; any failure exits non-zero:
            sharing the card (8 islands each, bit-equal to the one-rank
            run; per rank the epoch s, a migration's ms, the collectives'
            calls and bytes, all staged through the host, and 15
-           launches);
+           launches); then ``launch.train.train(mesh=)`` (mesh train:)
+           of tinyllama-1.1b at its published widths, all 22 layers, 3
+           steps: (a) at 4 x 2048 on a one-rank NCCL mesh, losses, grad
+           norms and parameters bit-equal to the unsharded train; on 4
+           gloo ranks sharing the card on (data 2, model 2) at 4 x 512,
+           rank 0 first running one rank's baselines: (b) losses and grad
+           norms at rtol 2e-5 of one rank, the gathered parameters at
+           tests/test_torch_train.py's PARAM_TOL on its held elements, and
+           (c) granite-moe-1b-a400m (16 experts a tp rank) 2 steps, step
+           1's routes exactly one rank's with num_groups=2, loss and aux
+           at rtol 2e-5; (d) 2 gloo ranks on (pod 2, data 1, model 1)
+           with compress_pod_reduce=True, the last loss within 5% of the
+           exact run's and int8 on the pod axis; per rank the step ms,
+           collectives a step (every call on gloo staged and counted),
+           peak memory, block bytes and flash launches (layers x steps);
            Every run has the launch counts zeroed just before it and read
            just after;
 5. times:  with CUDA events, medians of repeats: each kernel beside its
@@ -337,6 +355,40 @@ MESH_HVDC = dict(fitness="hvdc", islands=1, pop=8, gens_per_epoch=1,
                  epochs=1, grid_size=2715, hvdc_lines=18, contingencies=8,
                  screen_top_k=0)
 MESH_HVDC_WORKERS = 4
+# the mesh training phase (train(mesh=)): tinyllama-1.1b at its published
+# widths, all 22 layers, MESH_TRAIN_STEPS steps (a) at the training path's
+# 4 x 2048 on a one-rank NCCL mesh against the unsharded run, bit for bit;
+# (b) on MESH_TRAIN_RANKS gloo ranks sharing the card on (data 2, model 2)
+# and (c) granite-moe-1b-a400m on the same ranks (16 experts a tp rank,
+# MESH_MOE_STEPS steps), both against one rank at the same shape; (d) on
+# MESH_POD_RANKS gloo ranks on (pod 2, data 1, model 1) with the int8
+# compressed pod reduce against the exact run. (b)-(d) run MESH_TRAIN_CUT
+# (batch, context): cut from 4 x 2048 so that the phase fits its budget
+MESH_TRAIN_ARCH, MESH_MOE_ARCH = "tinyllama-1.1b", "granite-moe-1b-a400m"
+MESH_TRAIN_STEPS, MESH_MOE_STEPS = 3, 2
+MESH_TRAIN_ONE = (4, 2048)
+MESH_TRAIN_CUT = (4, 512)
+MESH_TRAIN_RANKS, MESH_POD_RANKS, MESH_TRAIN_TIMEOUT_S = 4, 2, 600
+# losses, grad norms, aux against one rank; tests/test_torch_train.py's
+# parameter rule (PARAM_TOL on the elements whose every one-rank gradient
+# is at least G_FLOOR_FRAC of its leaf's largest or exactly 0, over
+# MIN_KEPT of all; every element within 2 lr a step); the compressed
+# reduce's final loss within 5% of the exact run's
+# (tests/test_multidevice.py:98)
+MESH_TRAIN_RTOL, MESH_PARAM_TOL = 2e-5, (1e-4, 2e-6)
+MESH_G_FLOOR, MESH_MIN_KEPT, MESH_TRAIN_LR = 1e-3, 0.9, 1e-3
+MESH_COMPRESS_TOL = 0.05
+# (d)'s loss change over its steps against the exact run's (zero or one
+# pod's gradients move it otherwise), and its pod bytes against int8's
+# quarter of a float32 gather (each leaf's two scales and the metrics
+# add ~1e-6 of it)
+MESH_COMPRESS_DROP_TOL, MESH_COMPRESS_BYTES_TOL = 0.1, 0.01
+# the routes of a step are held exactly on every token whose one-rank
+# top-k margin (the k-th router probability less the (k+1)-th) is at
+# least MESH_ROUTE_MARGIN: float32 sums in another order move the router
+# probabilities by ~1e-7 (ROADMAP's rule: MoE results are held where the
+# routers keep their top-k margins)
+MESH_ROUTE_MARGIN = 1e-5
 MAIN_ARGS = ["--fitness", "rastrigin", "--genes", str(MAIN["genes"]),
              "--islands", str(MAIN["islands"]), "--pop", str(MAIN["pop"]),
              "--gens-per-epoch", str(MAIN["gens_per_epoch"]),
@@ -390,13 +442,13 @@ HVDC_TOL, HVDC_PF_ATOL = (1e-4, 1e-4), 1e-4
 HVDC_BUSES, HVDC_GENS_PER_EPOCH = 2715, 2
 HVDC_ARGS = ["--fitness", "hvdc", "--grid-size", str(HVDC_BUSES),
              "--hvdc-lines", str(HVDC_GENES), "--islands", "2",
-             "--gens-per-epoch", str(HVDC_GENS_PER_EPOCH),
              "--num-workers", "4", "--device", "cuda"]
-# run: (its flags, epochs). The vertical run keeps one epoch (it took
-# ~100 s at two on an H100), so the smoke stays within its time with the
-# audio, VLM and hybrid phases
-HVDC_RUNS = {"horizontal": (["--pop", "16"], 2),
-             "vertical": (["--pop", "8", "--contingencies", "8"], 1)}
+# run: (its flags, epochs, generations an epoch). The vertical run keeps
+# one epoch of one generation (it took ~100 s at two epochs of two on an
+# H100, 57.4 s for its second generation), so the smoke stays within its
+# time with the audio, VLM and hybrid phases and the mesh training phase
+HVDC_RUNS = {"horizontal": (["--pop", "16"], 2, HVDC_GENS_PER_EPOCH),
+             "vertical": (["--pop", "8", "--contingencies", "8"], 1, 1)}
 HVDC_SOLVE_BATCHES = (1, 16)
 # the decoupled host backend: the GA main path under host-thread,
 # host-process and host-thread pipelined (fitness.hostsim's numpy
@@ -1232,6 +1284,484 @@ def phase_mesh(device, card):
             "ranks": [r["launches"] for r in got["reports"]]}
 
 
+def mesh_train_counts(steps):
+    """This process's collectives a step, by mesh axis."""
+    from repro_torch.core import collectives
+    return {axis: {k: (v / steps if k != "ops" else
+                       {op: n / steps for op, n in v.items()})
+                   for k, v in c.items()}
+            for axis, c in collectives.counts.items()}
+
+
+def mesh_train_report(label, device, stats, steps, state_numel):
+    """One run's numbers on this rank: step ms (the first, with the set-up
+    of the kernels, and the median of the others), collectives a step,
+    peak device memory, the bytes of its parameter and moment blocks and
+    its flash launches."""
+    import torch
+    from repro_torch.kernels.attention import ops as attn_ops
+    return {"run": label, "device": str(device),
+            "step_ms_first": stats["step_ms"][0],
+            "step_ms": statistics.median(stats["step_ms"][1:]),
+            "collectives_per_step": mesh_train_counts(steps),
+            "peak_bytes": torch.cuda.max_memory_allocated(device),
+            "param_and_moment_bytes": 3 * 4 * state_numel,
+            "flash_launches": [attn_ops.launches, attn_ops.bwd_launches]}
+
+
+def mesh_train_zero():
+    import torch
+    from repro_torch.core import collectives
+    from repro_torch.kernels.attention import ops as attn_ops
+    collectives.reset_counts()
+    attn_ops.launches = attn_ops.bwd_launches = 0
+    torch.cuda.empty_cache()
+
+
+def mesh_route_check(got, base):
+    """Step 1's routes on the mesh against one rank's: (router calls,
+    tokens, tokens held (margin at least MESH_ROUTE_MARGIN), routes that
+    differ on held tokens, on the others, and the smallest margin)."""
+    held = bad = loose = tokens = 0
+    for a, b, m in zip(got, base["routes"], base["margins"]):
+        differ = (a != b).any(-1)
+        keep = m >= MESH_ROUTE_MARGIN
+        tokens += keep.numel()
+        held += int(keep.sum())
+        bad += int((differ & keep).sum())
+        loose += int((differ & ~keep).sum())
+    low = min(float(m.min()) for m in base["margins"])
+    return {"calls": len(got), "calls_one_rank": len(base["routes"]),
+            "tokens": tokens, "held": held, "differ_held": bad,
+            "differ_below_margin": loose, "min_margin": low}
+
+
+def mesh_train_baseline(arch, device, steps, batch, seq, **model_kw):
+    """One rank of ``launch.train.train(arch, reduced=False)``'s run (the
+    same model, initialisation, optimizer and bigram batches), with each
+    step's gradients taken first: losses, grad norms and aux, the first
+    step's routes with each token's top-k margin, the elements whose every
+    gradient is sure, the last parameters (on the CPU)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens, place
+    from repro_torch.models.model import Model
+    from repro_torch.models.sharding import ShardingCtx
+    from repro_torch.train.optimizer import optimizer_for_arch
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_compute_grads,
+                                              make_train_step)
+    cfg = get_config(arch)
+    model = Model(cfg, device=device, attn_impl="kernel",
+                  use_ssd_kernel=False, max_seq=seq + 8, **model_kw)
+    state = init_train_state(model,
+                             torch.Generator(device=device).manual_seed(0))
+    step = make_train_step(model, optimizer_for_arch(
+        arch, lr=MESH_TRAIN_LR, warmup_steps=max(steps // 20, 5),
+        total_steps=steps))
+    grads_fn = make_compute_grads(model)
+    data = SyntheticTokens(cfg, batch, seq, seed=0, mode="bigram")
+    out = {"loss": [], "grad_norm": [], "aux": []}
+    sure = None
+    for i in range(steps):
+        b = place(data.batch(i), ShardingCtx(), device)
+        with (recorded_routes() if i == 0 else
+              contextlib.nullcontext()) as routes:
+            grads, _ = grads_fn(state["params"], b)
+        if i == 0:
+            out["routes"] = [r for r, _ in routes]
+            out["margins"] = [m for _, m in routes]
+        with torch.no_grad():
+            now = {n: (g.abs() >= MESH_G_FLOOR * g.abs().max()) | (g == 0)
+                   for n, g in grads.items()}
+        sure = now if sure is None else {n: sure[n] & now[n] for n in now}
+        del grads
+        state, met = step(state, b)
+        for key in ("loss", "grad_norm", "aux"):
+            out[key].append(float(met[key]))
+    out["params"] = {n: p.detach().cpu() for n, p in state["params"].items()}
+    out["sure"] = {n: m.cpu() for n, m in sure.items()}
+    del state, model, step, grads_fn, sure
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_params_check(got, base, steps):
+    """tests/test_torch_train.py's rule (MESH_PARAM_TOL on the sure
+    elements, over MESH_MIN_KEPT of all; every element within 2 lr a step):
+    (kept share, largest difference) or the failure."""
+    rtol, atol = MESH_PARAM_TOL
+    kept = total = 0
+    worst = 0.0
+    for name, want in base["params"].items():
+        ok, diff = base["sure"][name], (got[name] - want).abs()
+        bad = ok & (diff > atol + rtol * want.abs())
+        if bool(bad.any()):
+            return f"{name}: {int(bad.sum())} sure elements off"
+        worst = max(worst, float(diff.max()))
+        kept, total = kept + int(ok.sum()), total + ok.numel()
+    if worst > 2 * MESH_TRAIN_LR * steps or kept / total <= MESH_MIN_KEPT:
+        return f"largest difference {worst}, kept {kept / total}"
+    return kept / total, worst
+
+
+def mesh_train_rank(rank, world, where, kind):
+    """One rank of a mesh training world sharing the card (run in its own
+    process by phase_mesh_train): "dm" runs (b) and (c) on (data 2, model
+    2), rank 0 first running the one-rank baselines; "pod" runs (d). Rank
+    0 saves every rank's reports and its checks' numbers."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens, place
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.models.sharding import ShardingCtx, gather_params
+    from repro_torch.train.optimizer import optimizer_for_arch
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    device = init_distributed(rank, world, f"file://{where}/{kind}.store",
+                              local_world_size=world)
+    batch, seq = MESH_TRAIN_CUT
+    reports, out = [], {"backend": dist.get_backend(), "seconds": {}}
+    clock = time.perf_counter()
+
+    def lap(name):
+        nonlocal clock
+        now = time.perf_counter()
+        out["seconds"][name] = now - clock
+        clock = now
+
+    try:
+        if kind == "dm":
+            base = {}
+            if rank == 0:
+                base["b"] = mesh_train_baseline(MESH_TRAIN_ARCH, device,
+                                                MESH_TRAIN_STEPS, batch, seq)
+                base["c"] = mesh_train_baseline(MESH_MOE_ARCH, device,
+                                                MESH_MOE_STEPS, batch, seq,
+                                                moe_groups=2)
+                out["base"] = {k: {key: v[key] for key in
+                                   ("loss", "grad_norm", "aux")}
+                               for k, v in base.items()}
+            lap("one-rank baselines")
+            mesh = make_local_mesh(2, 2)
+            for run, arch, steps in (("b", MESH_TRAIN_ARCH,
+                                      MESH_TRAIN_STEPS),
+                                     ("c", MESH_MOE_ARCH, MESH_MOE_STEPS)):
+                mesh_train_zero()
+                stats = {}
+                with recorded_routes() as routes:
+                    state, _ = train_cli.train(
+                        arch, reduced=False, steps=steps, batch=batch,
+                        seq=seq, mesh=mesh, device=device,
+                        log_fn=lambda *_: None, stats=stats)
+                params = state["params"]
+                numel = sum(p.numel() for p in params.values())
+                reports.append(mesh_train_report(run, device, stats, steps,
+                                                 numel))
+                lap(f"({run}) train")
+                model_ctx = train_cli.make_train_ctx(mesh)
+                layouts = {n: p._layout for n, p in params.items()}
+                if run == "b":
+                    whole = gather_params(params, layouts, model_ctx)
+                else:
+                    first = [r for r, _ in routes][
+                        :get_config(arch).num_layers]
+                    whole = [model_ctx.gather(r, batch, model_ctx.dp)
+                             for r in first]
+                    # tp peers route their data rank's tokens alike
+                    peers = [None] * world
+                    dist.all_gather_object(peers, [r.numpy() for r in
+                                                   first])
+                    out["tp_peers_alike"] = all(
+                        all((a == b).all() for a, b in zip(peers[2 * d],
+                                                           peers[2 * d + 1]))
+                        for d in range(2))
+                del state, params
+                if rank == 0:
+                    out[run] = {k: stats[k] for k in ("loss", "grad_norm",
+                                                      "aux")}
+                    if run == "b":
+                        out["b"]["params"] = mesh_params_check(
+                            whole, base["b"], steps)
+                    else:
+                        out["c"]["routes"] = mesh_route_check(whole,
+                                                              base["c"])
+                del whole
+                lap(f"({run}) gather and check")
+        else:
+            from torch.distributed.device_mesh import init_device_mesh
+            mesh = init_device_mesh("cuda", (2, 1, 1),
+                                    mesh_dim_names=("pod", "data", "model"))
+            ctx = ShardingCtx(mesh=mesh, dp=("pod", "data"), tp="model",
+                              fsdp=("data",))
+            cfg = get_config(MESH_TRAIN_ARCH)
+            mesh_train_zero()
+            model = Model(cfg, device=device, attn_impl="kernel",
+                          max_seq=seq + 8, ctx=ctx)
+            state = init_train_state(
+                model, torch.Generator(device=device).manual_seed(0))
+            step = make_train_step(model, optimizer_for_arch(
+                MESH_TRAIN_ARCH, lr=MESH_TRAIN_LR,
+                warmup_steps=max(MESH_TRAIN_STEPS // 20, 5),
+                total_steps=MESH_TRAIN_STEPS), compress_pod_reduce=True)
+            data = SyntheticTokens(cfg, batch, seq, seed=0, mode="bigram")
+            torch.cuda.reset_peak_memory_stats(device)
+            stats = {"step_ms": [], "loss": [], "grad_norm": []}
+            for i in range(MESH_TRAIN_STEPS):
+                b = place(data.batch(i), ctx, device)
+                t0 = time.perf_counter()
+                state, met = step(state, b)
+                torch.cuda.synchronize(device)
+                stats["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                stats["loss"].append(float(met["loss"]))
+                stats["grad_norm"].append(float(met["grad_norm"]))
+            numel = sum(p.numel() for p in state["params"].values())
+            reports.append(mesh_train_report("d", device, stats,
+                                             MESH_TRAIN_STEPS, numel))
+            reports[-1]["state_numel"] = numel
+            out["leaves"] = len(state["params"])
+            out["d"] = {k: stats[k] for k in ("loss", "grad_norm")}
+            del state, model, step
+            lap("(d) build and train")
+        every = [None] * world
+        dist.all_gather_object(every, reports)
+        if rank == 0:
+            out["reports"] = every
+            torch.save(out, Path(where) / f"{kind}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_train_spawn(where, kind, world):
+    """``world`` processes of mesh_train_rank (each one's output in a file
+    under ``where``); rank 0's results. A rank that fails stops the others
+    at once."""
+    import torch
+    cmd = "import sys; sys.path.insert(0, {!r}); import chip_smoke; " \
+          "chip_smoke.mesh_train_rank({}, {}, {!r}, {!r})"
+    logs = [Path(where) / f"{kind}.rank{r}.log" for r in range(world)]
+    procs = []
+    try:
+        for r in range(world):
+            with open(logs[r], "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c",
+                     cmd.format(str(ROOT), r, world, where, kind)],
+                    stdout=out, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + MESH_TRAIN_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            fail(f"mesh train: rank {r} of {world} ({kind}) exited "
+                 f"{p.returncode}:\n{logs[r].read_text()[-3000:]}")
+    return torch.load(Path(where) / f"{kind}.pt", weights_only=False)
+
+
+def mesh_rel(a, b):
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def say_mesh_report(rep, card):
+    c = rep["collectives_per_step"]
+    say(f"mesh train: ({rep['run']}) rank on {rep['device']}: step "
+        f"{rep['step_ms']:.3f} ms (median of steps 2-N; the first "
+        f"{rep['step_ms_first']:.3f}), peak device memory "
+        f"{rep['peak_bytes']} B, parameter + moment blocks "
+        f"{rep['param_and_moment_bytes']} B, flash forward / backward "
+        f"launches {rep['flash_launches'][0]} / {rep['flash_launches'][1]}, "
+        f"collectives a step " + json.dumps(
+            {a: {k: round(v, 1) if not isinstance(v, dict) else v
+                 for k, v in x.items()} for a, x in c.items()})
+        + f"; card: {card}")
+
+
+def phase_mesh_train(device, card):
+    """train(mesh=) on the card: (a) tinyllama-1.1b at 4 x 2048 on a
+    one-rank NCCL mesh, bit-equal to the unsharded train; (b), (c) on
+    MESH_TRAIN_RANKS gloo ranks, (d) on MESH_POD_RANKS with the compressed
+    pod reduce, against one rank. Returns the flash launches by run."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    t_phase = time.perf_counter()
+    batch, seq = MESH_TRAIN_ONE
+    layers = get_config(MESH_TRAIN_ARCH).num_layers
+    runs, launches = [], {}
+    with tempfile.TemporaryDirectory() as where:
+        for mesh_run in (False, True):
+            mesh_train_zero()
+            if mesh_run:
+                init_distributed(0, 1, f"file://{where}/one.store",
+                                 local_world_size=1)
+            try:
+                if mesh_run and dist.get_backend() != "nccl":
+                    fail(f"mesh train: a one-rank mesh on the card runs on "
+                         f"{dist.get_backend()}, not NCCL")
+                stats = {}
+                state, _ = train_cli.train(
+                    MESH_TRAIN_ARCH, reduced=False, steps=MESH_TRAIN_STEPS,
+                    batch=batch, seq=seq, device=device,
+                    mesh=make_local_mesh(1, 1) if mesh_run else None,
+                    log_fn=lambda *_: None, stats=stats)
+                params = {n: p.detach().cpu()
+                          for n, p in state["params"].items()}
+                rep = mesh_train_report(
+                    "a" if mesh_run else "a unsharded", device, stats,
+                    MESH_TRAIN_STEPS, sum(p.numel() for p in params.values()))
+                del state
+            finally:
+                if mesh_run:
+                    dist.destroy_process_group()
+            runs.append((stats, params, rep))
+            expect = [layers * MESH_TRAIN_STEPS] * 2
+            if rep["flash_launches"] != expect:
+                fail(f"mesh train (a): flash launches "
+                     f"{rep['flash_launches']}, expected {expect}")
+        (s1, p1, r1), (s2, p2, r2) = runs
+        if not (s1["loss"] == s2["loss"]
+                and s1["grad_norm"] == s2["grad_norm"]
+                and all(torch.equal(p1[n], p2[n]) for n in p1)):
+            fail(f"mesh train (a): the one-rank NCCL mesh differs from the "
+                 f"unsharded train (losses {s2['loss']} vs {s1['loss']}, "
+                 f"grad norms {s2['grad_norm']} vs {s1['grad_norm']})")
+        del runs, p1, p2
+        say(f"mesh train: (a) {MESH_TRAIN_ARCH} {batch} x {seq}, "
+            f"{MESH_TRAIN_STEPS} steps, one-rank NCCL mesh: losses "
+            f"{s2['loss']}, grad norms {s2['grad_norm']} and parameters "
+            f"bit-equal to the unsharded train; card: {card}")
+        for rep in (r1, r2):
+            say_mesh_report(rep, card)
+        launches["a"] = r2["flash_launches"]
+        launches["a unsharded"] = r1["flash_launches"]
+        torch.cuda.empty_cache()
+        a_s = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        dm = mesh_train_spawn(where, "dm", MESH_TRAIN_RANKS)
+        dm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pod = mesh_train_spawn(where, "pod", MESH_POD_RANKS)
+        pod_s = time.perf_counter() - t0
+    batch, seq = MESH_TRAIN_CUT
+    for got, ranks in ((dm, MESH_TRAIN_RANKS), (pod, MESH_POD_RANKS)):
+        if got["backend"] != "gloo":
+            fail(f"mesh train: {ranks} ranks sharing the card ran on "
+                 f"{got['backend']}, not gloo")
+    base = dm["base"]
+    b, c, d = dm["b"], dm["c"], pod["d"]
+    routes = c["routes"]
+    exact = base["b"]["loss"][-1]
+    gap = abs(d["loss"][-1] - exact) / exact
+    pod_reports = pod["reports"]
+    wire = pod_reports[0][0]["collectives_per_step"]["pod"]
+    f32 = 2 * 4 * pod_reports[0][0]["state_numel"]
+    exact_drop = base["b"]["loss"][0] - exact
+    comp_drop = d["loss"][0] - d["loss"][-1]
+    say(f"mesh train: (b) {MESH_TRAIN_ARCH} {batch} x {seq}, "
+        f"{MESH_TRAIN_STEPS} steps on {MESH_TRAIN_RANKS} gloo ranks "
+        f"(data 2, model 2): losses {b['loss']} (one rank "
+        f"{base['b']['loss']}, largest rel "
+        f"{mesh_rel(b['loss'], base['b']['loss']):.3e}), grad norms "
+        f"{b['grad_norm']} (one rank {base['b']['grad_norm']}, "
+        f"{mesh_rel(b['grad_norm'], base['b']['grad_norm']):.3e}); gathered "
+        f"parameters (held share, largest difference) {b['params']}; "
+        f"card: {card}")
+    say(f"mesh train: (c) {MESH_MOE_ARCH} {batch} x {seq}, {MESH_MOE_STEPS} "
+        f"steps on the same ranks (16 experts a tp rank): step 1's routes "
+        f"against one rank with num_groups=2 {json.dumps(routes)} "
+        f"(tokens held: one-rank top-k margin >= {MESH_ROUTE_MARGIN}); "
+        f"losses {c['loss']} (one rank {base['c']['loss']}; step 1 "
+        f"{mesh_rel(c['loss'][:1], base['c']['loss'][:1]):.3e}, all "
+        f"{mesh_rel(c['loss'], base['c']['loss']):.3e}), aux {c['aux']} "
+        f"(one rank {base['c']['aux']}; step 1 "
+        f"{mesh_rel(c['aux'][:1], base['c']['aux'][:1]):.3e}, all "
+        f"{mesh_rel(c['aux'], base['c']['aux']):.3e}), grad norms "
+        f"{c['grad_norm']} (one rank {base['c']['grad_norm']}; step 1 "
+        f"{mesh_rel(c['grad_norm'][:1], base['c']['grad_norm'][:1]):.3e}, "
+        f"all {mesh_rel(c['grad_norm'], base['c']['grad_norm']):.3e}); "
+        f"card: {card}")
+    say(f"mesh train: (d) {MESH_TRAIN_ARCH} {batch} x {seq}, "
+        f"{MESH_TRAIN_STEPS} steps on {MESH_POD_RANKS} gloo ranks (pod 2, "
+        f"data 1, model 1), compress_pod_reduce=True: losses {d['loss']}, "
+        f"the last {gap:.4%} from the exact run's {exact} (the exact "
+        f"run's loss moved {exact_drop:.6f} = {exact_drop / exact:.4%} "
+        f"over the steps, the compressed run's {comp_drop:.6f}: "
+        f"{abs(comp_drop - exact_drop) / exact_drop:.4%} apart); pod axis "
+        f"{wire['bytes']:.0f} B a step ({wire['ops']}), a float32 gather "
+        f"of the same blocks {f32} B: {wire['bytes'] / f32:.4f} of it; "
+        f"card: {card}")
+    for rep in dm["reports"] + pod["reports"]:
+        for r in rep:
+            say_mesh_report(r, card)
+            launches.setdefault(r["run"], []).append(r["flash_launches"])
+    say(f"mesh train: phase {time.perf_counter() - t_phase:.1f} s ((a) "
+        f"{a_s:.1f} s, 4-rank world {dm_s:.1f} s, 2-rank world {pod_s:.1f} "
+        f"s); rank 0's seconds {json.dumps(dm['seconds'])} "
+        f"{json.dumps(pod['seconds'])}; card: {card}")
+    errors = []
+    for key in ("loss", "grad_norm"):
+        if mesh_rel(b[key], base["b"][key]) > MESH_TRAIN_RTOL:
+            errors.append(f"(b) {key} off one rank's")
+    if isinstance(b["params"], str):
+        errors.append(f"(b) parameters: {b['params']}")
+    if (routes["differ_held"] or not dm["tp_peers_alike"]
+            or routes["calls"] != routes["calls_one_rank"]):
+        errors.append("(c) routes differ from one rank's where its margin "
+                      "holds, or between tp peers")
+    for key in ("loss", "aux", "grad_norm"):
+        # the step whose routes are held (its grad norm is the backward
+        # before any update); a route that flips below the margin moves
+        # the later steps' parameters
+        if mesh_rel(c[key][:1], base["c"][key][:1]) > MESH_TRAIN_RTOL:
+            errors.append(f"(c) step 1's {key} off one rank's")
+    if gap >= MESH_COMPRESS_TOL or not all(
+            map(math.isfinite, d["loss"] + d["grad_norm"])):
+        errors.append("(d) the compressed loss is off the exact run's")
+    if abs(comp_drop - exact_drop) > MESH_COMPRESS_DROP_TOL * exact_drop:
+        errors.append("(d) the compressed run's loss moved "
+                      f"{comp_drop}, the exact run's {exact_drop}")
+    leaves = pod["leaves"]
+    for rep in pod["reports"]:
+        w = rep[0]["collectives_per_step"]["pod"]
+        if w["ops"] != {"all_gather": 2 * leaves, "all_reduce_sum": 2}:
+            errors.append(f"(d) pod axis calls a step {w['ops']}, not 2 "
+                          f"int8 all-gathers a leaf ({leaves} leaves), "
+                          f"the metrics' and the grad norm's sums")
+        if abs(w["bytes"] / f32 - 0.25) > MESH_COMPRESS_BYTES_TOL:
+            errors.append(f"(d) pod axis bytes {w['bytes'] / f32:.4f} "
+                          "of a float32 gather's, not int8's 0.25")
+    layers_moe = get_config(MESH_MOE_ARCH).num_layers
+    for rep in dm["reports"] + pod["reports"]:
+        for r in rep:
+            steps = MESH_MOE_STEPS if r["run"] == "c" else MESH_TRAIN_STEPS
+            nl = layers_moe if r["run"] == "c" else layers
+            if r["flash_launches"] != [nl * steps] * 2:
+                errors.append(f"({r['run']}) flash launches "
+                              f"{r['flash_launches']} on {r['device']}")
+            for axis, cnt in r["collectives_per_step"].items():
+                if not cnt["calls"] or cnt["staged_calls"] != cnt["calls"]:
+                    errors.append(f"({r['run']}) axis {axis}: not every "
+                                  f"call staged through the host on gloo")
+    if errors:
+        fail("mesh train: " + "; ".join(errors))
+    return launches
+
+
 def variation_bound(args, card, label="fused_variation"):
     """(bound ms, "bytes" or "operations") of one fused variation launch
     on ``args``: every input read once (the parents, each uniform array
@@ -1556,8 +2086,9 @@ def phase_main_hvdc():
     from repro_torch.kernels.genetic import ops
     from repro_torch.launch import ga_run
     runs = {}
-    for name, (extra, epochs) in HVDC_RUNS.items():
-        gens = HVDC_GENS_PER_EPOCH * epochs
+    for name, (extra, epochs, per_epoch) in HVDC_RUNS.items():
+        gens = per_epoch * epochs
+        extra = extra + ["--gens-per-epoch", str(per_epoch)]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ops.launches = 0
@@ -1588,7 +2119,8 @@ def phase_main_hvdc():
         if any(h["balanced"] != 1.0 for h in hist):
             fail(f"ga_run hvdc {name}: balanced dispatch did not engage")
         runs[name] = dict(pop=pop, launches=launches, wall_s=wall,
-                          epochs=epochs, evaluations=evals,
+                          epochs=epochs, gens_per_epoch=per_epoch,
+                          evaluations=evals,
                           contingencies=contingencies,
                           peak_bytes=peak, best=hist[-1]["best"],
                           skew=[h["skew"] for h in hist])
@@ -1623,7 +2155,8 @@ def phase_times_hvdc(runs, device, card):
         i, p, g = pop.genomes.shape
         ns = argparse.Namespace(
             grid_size=HVDC_BUSES, hvdc_lines=HVDC_GENES, pop=p, islands=i,
-            gens_per_epoch=HVDC_GENS_PER_EPOCH, epochs=runs[name]["epochs"],
+            gens_per_epoch=runs[name]["gens_per_epoch"],
+            epochs=runs[name]["epochs"],
             seed=0, contingencies=runs[name]["contingencies"],
             screen_top_k=0)
         cfg, fit, cost = ga_run.build("hvdc", ns, device)
@@ -3668,22 +4201,21 @@ def phase_trace_train(device, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
 @contextlib.contextmanager
 def recorded_routes():
     """Every ``moe.router_topk`` call inside the block, in call order: a
-    list of (expert indices on the CPU, the smallest top-k margin over the
-    call's tokens: the k-th largest router probability less the
-    (k+1)-th)."""
+    list of (expert indices, each token's top-k margin: the k-th largest
+    router probability less the (k+1)-th), both on the CPU."""
     import torch
     from repro_torch.models import moe
     topk, calls = moe.router_topk, []
 
-    def record(cfg, router_w, x):
-        out = topk(cfg, router_w, x)
+    def record(cfg, router_w, x, *ctx):
+        out = topk(cfg, router_w, x, *ctx)
         with torch.no_grad():
             probs = torch.softmax(x.detach().float()
                                   @ router_w.detach().float(), dim=-1)
             srt = probs.sort(dim=-1, descending=True).values
             k = cfg.experts_per_token
-            margin = float((srt[..., k - 1] - srt[..., k]).min())
-        calls.append((out[0].detach().cpu(), margin))
+            margins = (srt[..., k - 1] - srt[..., k]).cpu()
+        calls.append((out[0].detach().cpu(), margins))
         return out
 
     moe.router_topk = record
@@ -3737,7 +4269,7 @@ def check_remat_moe(device):
         for a, b, c in zip(r0, r1[:layers], reversed(r1[layers:]))))
     grad_err = max(float((g1[n] - g).abs().max() / g.abs().max())
                    for n, g in g0.items())
-    margin = min(m for _, m in r0)
+    margin = min(float(m.min()) for _, m in r0)
     loss_err = abs(m1["loss"] - m0["loss"]) / abs(m0["loss"])
     aux_err = abs(m1["aux"] - m0["aux"]) / abs(m0["aux"])
     del g0, g1, runs, params, model, grads
@@ -3782,7 +4314,8 @@ def phase_check_train_families(device):
     for arch, kw in TRAIN_FAMILY_REDUCED:
         with recorded_routes() as routes:
             errs = train_step_card_vs_cpu(arch, device, **kw)
-        margin = (f"; smallest top-k margin {min(m for _, m in routes):.3g}"
+        margin = (f"; smallest top-k margin "
+                  f"{min(float(m.min()) for _, m in routes):.3g}"
                   if routes else "")
         say(f"check: one train step of reduced {arch} {kw}, card vs CPU: "
             f"loss {errs[0]:.3g}, grad norm {errs[1]:.3g} (relative), grads "
@@ -5454,6 +5987,7 @@ def main():
     fam_flash_err, fam_ssd_err, fam_model_err = phase_check_families(device)
     launches, pop = phase_main()
     mesh_runs = phase_mesh(device, card)
+    mesh_train = phase_mesh_train(device, card)
     lm_launches = phase_serve()
     new_runs = phase_serve_new()
     batch_run = phase_batcher(device)
@@ -5496,12 +6030,18 @@ def main():
                **{f"serve {k} prefill": v["flash_launches"]
                   for k, v in family_runs.items()}}
     trained = {f"train {k}": v for k, v in family_train.items()}
+    meshed = {f"train(mesh=) ({run}) rank {r}": n
+              for run, ns in mesh_train.items()
+              for r, n in enumerate(ns if isinstance(ns[0], list)
+                                    else [ns])}
     kernels[1]["launches"] = sum(serving.values()) + sum(
-        v["flash_launches"] for v in trained.values())
+        v["flash_launches"] for v in trained.values()) + sum(
+        n[0] for n in meshed.values())
     kernels[1]["max_abs_err"] = max(flash_err, serving_err, fam_flash_err)
     kernels[1]["launches_by_path"] = {
         **serving, f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_fwd,
         **{k: v["flash_launches"] for k, v in trained.items()},
+        **{k: n[0] for k, n in meshed.items()},
         **{k: v["launches"] for k, v in lm_paths.items()}}
     kernels[1]["serving_shapes"] = phase_times_serving(device, card)
     fam_flash, fam_ssd = phase_times_families(device, card)
@@ -5521,10 +6061,12 @@ def main():
                                              train_bwd, bwd_err, train_stats)
     kernels[1]["train_shape"] = fwd_train
     bwd_entry["launches"] += sum(v["bwd_launches"] for v in trained.values())
+    bwd_entry["launches"] += sum(n[1] for n in meshed.values())
     bwd_entry["max_abs_err"] = max(bwd_err, fam_bwd_err)
     bwd_entry["launches_by_path"] = {
         f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_bwd,
         **{k: v["bwd_launches"] for k, v in trained.items()},
+        **{k: n[1] for k, n in meshed.items()},
         **{k: v["bwd_launches"] for k, v in lm_paths.items()}}
     bwd_entry["family_shapes"] = phase_times_train_families(
         device, card, family_train)

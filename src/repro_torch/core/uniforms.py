@@ -98,6 +98,32 @@ class IslandRows:
         return self.source((self.total,) + shape[1:])[self.lo:self.hi]
 
 
+_GOLDEN, _MIX1, _MIX2 = (-7046029254386353131, -4658895280553007687,
+                         -7723592293110705685)
+_OFFSET = 0x632BE59BD9B4E019
+
+
+def _shr(z: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 ``z``."""
+    return (z >> k) & ((1 << (64 - k)) - 1)
+
+
+def fold_in(seed, data):
+    """A new 64-bit seed from ``seed`` and ``data`` (splitmix64 of their
+    combination, in int64 arithmetic that wraps): the port's
+    ``jax.random.fold_in`` for generator seeds. ``seed`` and ``data`` are
+    ints or integer tensors (a 0-d int64 tensor comes back on ``seed``'s
+    device, with no host sync); ints give an int."""
+    if not torch.is_tensor(seed):
+        seed = (seed + (1 << 63)) % (1 << 64) - (1 << 63)   # as int64
+        return int(fold_in(torch.tensor(seed, dtype=torch.int64), data))
+    z = seed.to(torch.int64) * _GOLDEN + _OFFSET + torch.as_tensor(
+        data, device=seed.device).to(torch.int64)
+    z = (z ^ _shr(z, 30)) * _MIX1
+    z = (z ^ _shr(z, 27)) * _MIX2
+    return z ^ _shr(z, 31)
+
+
 def as_source(rng, device=None) -> Callable:
     """A uniform source from a source (returned as is) or a
     ``torch.Generator`` (drawing on ``device``, default the generator's)."""

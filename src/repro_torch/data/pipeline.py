@@ -7,16 +7,49 @@ Deterministic per-step batches (seeded by (seed, step)) in two modes:
   shows decreasing loss.
 
 Batches are numpy arrays drawn exactly as the reference draws them, so both
-packages give identical batches from one seed. The reference's ``place``
-(mesh sharding) is not ported: the port runs on one device.
+packages give identical batches from one seed. ``place`` (the reference's
+``SyntheticTokens.place``, a function here) puts a batch on the device,
+and over a mesh keeps this rank's block of it over dp (every rank draws
+the whole batch: the single-process stand-in for per-host loading, as the
+reference's).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.sharding import ShardingCtx
+
+
+def place(batch: Dict[str, np.ndarray], ctx: ShardingCtx, device,
+          microbatches: int = 1) -> Dict[str, torch.Tensor]:
+    """Every array of ``batch`` as a tensor on ``device``; over a mesh, this
+    rank's rows over the dp axes (``tokens``, ``frontend_embeds``,
+    ``loss_mask``: every leading dim is the batch). With ``microbatches``
+    the rows are this rank's block of each global microbatch in turn, so
+    that the train step's microbatch i is its block of the reference's
+    microbatch i. Raises where the batch does not split evenly (the
+    reference's ``device_put`` needs it; the MoE dispatch groups are the
+    data blocks)."""
+    out = {}
+    dp = ctx.dp_size
+    for key, value in batch.items():
+        x = torch.as_tensor(value)
+        if ctx.mesh is not None and dp > 1:
+            b = x.shape[0]
+            if b % (dp * microbatches):
+                raise ValueError(
+                    f"place: {key} has a batch of {b}, which does not split "
+                    f"into {microbatches} microbatch(es) over {dp} data "
+                    f"ranks")
+            per = b // microbatches
+            x = torch.cat([ctx.cs(m, ctx.dp_spec)
+                           for m in x.split(per)])
+        out[key] = x.to(device)
+    return out
 
 
 class SyntheticTokens:

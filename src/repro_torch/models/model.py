@@ -34,8 +34,10 @@ reads (prefill stores its ``xk`` / ``xv``; decode reads them).
 
 MoE: ``moe_impl`` "dense" (every expert on every token) or "sorted"
 (capacity dispatch); "auto" takes "sorted" above 8 experts, as the
-reference does. ``forward`` and ``prefill`` dispatch all tokens as one
-group (the reference's single data shard); ``decode_step`` makes each lane
+reference does. ``forward`` and ``prefill`` dispatch the tokens in
+``moe_groups`` groups of consecutive tokens (default one a data rank: one
+group on one device, the reference's ``max(ctx.dp_size, 1)``);
+``decode_step`` makes each lane
 its own group, so a lane's capacity and its tokens never depend on the
 other lanes (what the reference's batcher gets from ``vmap``-ing
 single-lane decode steps).
@@ -63,6 +65,26 @@ or ``{"ssm": {conv, state}}``, and whisper's layers also hold
 ``{"cross": {xk, xv}}``. ``models.convert.cache_to_numpy`` stacks it back
 into the reference's layout.
 
+Training over a device mesh (``ctx=``, a ``models.sharding.ShardingCtx``
+with a mesh; one process per rank): every parameter is this rank's block
+of its ``param_specs`` entry (``models.sharding.shard_params``; the model
+is built on ``meta`` and only the blocks are made), and ``forward`` takes
+this rank's block of the batch over dp (``data.pipeline.place``). Each
+sub-layer gathers its fsdp blocks as it runs (``models.sharding.use``).
+Attention splits its heads over tp (column-parallel q / k / v,
+row-parallel o, the output summed over tp; the flash kernel sees this
+rank's heads only; where the kv heads do not split, every rank reads the
+whole k / v and picks the kv head of each of its query heads); the dense
+FFN splits d_ff; the MoE FFN splits its experts (or their d_ff) and sums
+the combine over tp, routing every token on every tp rank alike, with the
+load-balance aux over the global tokens and the dispatch in
+``moe_groups`` groups (default the dp size: one group a data rank, as the
+reference's ``num_groups=max(ctx.dp_size, 1)``); the embedding and the
+logits split the vocab (out-of-block ids masked, then summed over tp;
+``train.loss`` reduces the logsumexp over tp). The Mamba-2 mixer runs
+whole on every tp rank (its leaves gathered over both axes). Prefill and
+decode take no mesh.
+
 Parameters are created with ``requires_grad=False``, which serving wants;
 training turns them on with ``model.requires_grad_(True)``
 (``train.train_step.init_train_state``), and ``forward`` then runs under
@@ -72,6 +94,8 @@ reference's leaf name, which the optimizer's weight-decay mask reads.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import functools
 import math
 from typing import Optional
@@ -88,6 +112,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.attention import IMPLS, attend
+from repro_torch.models.sharding import ShardingCtx, shard_params, sharded, use
 from repro_torch.models.layers import (apply_norm, apply_rope,
                                        decode_attention, dense_init_, ffn,
                                        rope_tables, softcap)
@@ -116,17 +141,26 @@ def _param(shape, dtype, device, fill=None) -> nn.Parameter:
     t = torch.empty(shape, dtype=dtype, device=device)
     if fill is not None:
         t.fill_(fill)
-    return nn.Parameter(t, requires_grad=False)
+    p = nn.Parameter(t, requires_grad=False)
+    p._fill = fill          # what a block made from ``meta`` is filled with
+    return p
+
+
+def _layout(p):
+    return getattr(p, "_layout", None)
 
 
 class _Weights(nn.Module):
     """A module whose own parameters carry the reference's leaf names."""
 
-    def weights(self, dtype) -> dict:
-        """Own parameters by name, cast to the compute dtype (as the
-        reference's ``_cast``; a no-op where the dtypes agree)."""
-        return {k: v.to(dtype) for k, v in self.named_parameters(
-            recurse=False)}
+    def weights(self, dtype, ctx: Optional[ShardingCtx] = None,
+                tp: str = "whole") -> dict:
+        """Own parameters by name, gathered over the mesh as ``tp`` says
+        (``models.sharding.use``; as they are without one) and cast to the
+        compute dtype (as the reference's ``_cast``; a no-op where the
+        dtypes agree)."""
+        return {k: (v if ctx is None else use(v, ctx, tp)).to(dtype)
+                for k, v in self.named_parameters(recurse=False)}
 
 
 class Norm(_Weights):
@@ -172,19 +206,62 @@ class Attention(_Weights):
         for name, fan_in in (("q", d), ("k", d), ("v", d), ("o", hhd)):
             dense_init_(getattr(self, self.pre + name), fan_in, gen)
 
+    def _tp_heads(self, ctx):
+        """(first local query head, local query heads, whether the kv heads
+        split alike) where the heads split over tp, else None."""
+        if ctx is None:
+            return None
+        pre, h, t = self.pre, self.cfg.num_heads, ctx.tp_size
+        lq = _layout(getattr(self, pre + "q"))
+        lo = _layout(getattr(self, pre + "o"))
+        if lq is None or lq.tdim != 1 or lo is None or lo.tdim != 0 or h % t:
+            return None
+        lk = _layout(getattr(self, pre + "k"))
+        kv_local = (lk is not None and lk.tdim == 1
+                    and self.cfg.num_kv_heads % t == 0)
+        return ctx.coord(ctx.tp) * (h // t), h // t, kv_local
+
+    def _head_weights(self, cd, ctx):
+        """(q, k, v, o weights by their names without the "x", the heads
+        plan of ``_tp_heads``): every head's, or this rank's query heads'
+        with the k / v they read (local, or whole where the kv heads do
+        not split over tp)."""
+        pre = self.pre
+        plan = self._tp_heads(ctx)
+        if plan is None:
+            w = self.weights(cd, ctx)
+        else:
+            kv = "local" if plan[2] else "partial"
+            w = {pre + n: use(getattr(self, pre + n), ctx,
+                              kv if n in "kv" else "local").to(cd)
+                 for n in "qkvo"}
+        return {n: w[pre + n] for n in "qkvo"}, plan
+
+    def _kv_heads(self, k, v, plan):
+        """k, v (B, T, K', hd) as this rank's query heads read them: query
+        head h reads kv head h // (H / K)."""
+        if plan is None or plan[2]:
+            return k, v
+        idx = torch.arange(plan[0], plan[0] + plan[1], device=k.device) \
+            // (self.cfg.num_heads // self.cfg.num_kv_heads)
+        return k[:, :, idx], v[:, :, idx]
+
     def forward(self, h, *, sincos, mode, cache, pos, max_cache_len, cd,
-                enc_out=None):
+                ctx=None, enc_out=None):
         if self.cross:
             return self._cross(h, mode=mode, cache=cache, enc_out=enc_out,
-                               cd=cd)
+                               cd=cd, ctx=ctx)
         cfg = self.cfg
         b, s, _ = h.shape
-        nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        w = self.weights(cd)
+        hd = cfg.head_dim
+        w, plan = self._head_weights(cd, ctx)
         x = self.ln(h)
-        q = (x @ w["q"]).reshape(b, s, nh, hd)
-        k = (x @ w["k"]).reshape(b, s, kvh, hd)
-        v = (x @ w["v"]).reshape(b, s, kvh, hd)
+        if plan is not None:
+            x = ctx.tp_f(x)
+        q = (x @ w["q"]).reshape(b, s, -1, hd)
+        k = (x @ w["k"]).reshape(b, s, -1, hd)
+        v = (x @ w["v"]).reshape(b, s, -1, hd)
+        k, v = self._kv_heads(k, v, plan)
         if sincos is not None:
             sin, cos = sincos
             q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
@@ -205,14 +282,18 @@ class Attention(_Weights):
                 tc = (min(window, max_cache_len) if (self.local and window)
                       else max_cache_len)
                 new_cache = _build_prefill_cache(k, v, tc)
-        return out.reshape(b, s, nh * hd) @ w["o"], new_cache
+        out = out.reshape(b, s, -1) @ w["o"]
+        return (out if plan is None else ctx.tp_g(out)), new_cache
 
-    def _cross(self, h, *, mode, cache, enc_out, cd):
+    def _cross(self, h, *, mode, cache, enc_out, cd, ctx):
         cfg = self.cfg
         b, s, _ = h.shape
-        nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        w = self.weights(cd)
-        q = (self.ln(h) @ w["xq"]).reshape(b, s, nh, hd)
+        hd = cfg.head_dim
+        w, plan = self._head_weights(cd, ctx)
+        x = self.ln(h)
+        if plan is not None:
+            x, enc_out = ctx.tp_f(x), ctx.tp_f(enc_out)
+        q = (x @ w["q"]).reshape(b, s, -1, hd)
         scale = (cfg.query_pre_attn_scalar or hd) ** -0.5
         new_cache = {}
         if mode == "decode":
@@ -221,13 +302,15 @@ class Attention(_Weights):
             new_cache = cache
         else:
             t = enc_out.shape[1]
-            k = (enc_out @ w["xk"]).reshape(b, t, kvh, hd)
-            v = (enc_out @ w["xv"]).reshape(b, t, kvh, hd)
+            k = (enc_out @ w["k"]).reshape(b, t, -1, hd)
+            v = (enc_out @ w["v"]).reshape(b, t, -1, hd)
+            k, v = self._kv_heads(k, v, plan)
             out = attend(q, k, v, scale=scale, causal=False,
                          impl=self.attn_impl)
             if mode == "prefill":
                 new_cache = {"xk": k, "xv": v}
-        return out.reshape(b, s, nh * hd) @ w["xo"], new_cache
+        out = out.reshape(b, s, -1) @ w["o"]
+        return (out if plan is None else ctx.tp_g(out)), new_cache
 
 
 class FFN(_Weights):
@@ -248,8 +331,15 @@ class FFN(_Weights):
         for w, fan_in in ((self.wi, d), (self.wg, d), (self.wo, f)):
             dense_init_(w, fan_in, gen)
 
-    def forward(self, h, cd):
-        return ffn(self.cfg, self.weights(cd), self.ln(h))
+    def forward(self, h, cd, ctx=None):
+        """The FFN's output; over a mesh with d_ff split over tp, wi / wg
+        column-parallel and wo row-parallel, summed over tp."""
+        x = self.ln(h)
+        lay = _layout(self.wi)
+        if lay is None or lay.tdim != 1:
+            return ffn(self.cfg, self.weights(cd, ctx), x)
+        return ctx.tp_g(ffn(self.cfg, self.weights(cd, ctx, "local"),
+                            ctx.tp_f(x)))
 
 
 class MoE(_Weights):
@@ -281,14 +371,28 @@ class MoE(_Weights):
             # fan-in: the model width, or the hidden width into wo / swo
             dense_init_(w, w.shape[-2] if name in ("wo", "swo") else d, gen)
 
-    def forward(self, h, cd, num_groups: int):
-        """(out, aux). ``num_groups``: the sorted dispatch's groups."""
+    def forward(self, h, cd, num_groups: int, ctx=None):
+        """(out, aux). ``num_groups``: the sorted dispatch's groups. Over a
+        mesh whose tp axis splits the experts (or their d_ff), this rank
+        runs its part and the combine is summed over tp
+        (``models.moe.ExpertSplit``); the aux is taken over the global
+        tokens."""
         x = self.ln(h)
-        w = self.weights(cd)
+        lay = _layout(self.wi)
+        split = None
+        if lay is None or lay.tdim is None:
+            w = self.weights(cd, ctx)
+        else:
+            w = self.weights(cd, ctx, "local")
+            shared = _layout(getattr(self, "swi", None))
+            split = MOE.ExpertSplit(
+                ctx, ctx.rows(lay.shape[0], ctx.tp) if lay.tdim == 0
+                else None, shared is not None and shared.tdim == 1)
         if self.impl == "dense":
-            return MOE.moe_dense(self.cfg, w, x)
+            return MOE.moe_dense(self.cfg, w, x, ctx=ctx, split=split)
         return MOE.moe_sorted(self.cfg, w, x, num_groups=num_groups,
-                              capacity_factor=self.capacity_factor)
+                              capacity_factor=self.capacity_factor,
+                              ctx=ctx, split=split)
 
 
 class Mamba2(_Weights):
@@ -326,9 +430,11 @@ class Mamba2(_Weights):
             self.dt_bias.copy_(torch.log(torch.expm1(torch.exp(
                 self.dt_bias))))
 
-    def forward(self, h, *, mode, cache, cd):
+    def forward(self, h, *, mode, cache, cd, ctx=None):
+        """Over a mesh every tp rank runs the whole mixer (its leaves
+        gathered over both axes): no tensor-parallel SSM yet."""
         x = self.ln(h)
-        w = self.weights(cd)
+        w = self.weights(cd, ctx)
         if mode == "decode":
             return SSM.mamba2_decode(self.cfg, w, x, cache)
         if mode == "prefill":
@@ -367,19 +473,23 @@ class Block(nn.Module):
         return h + self.cfg.residual_scale * out
 
     def forward(self, h, *, sincos, mode, cache, pos, max_cache_len, cd,
-                enc_out=None):
-        """(h, this layer's new cache, MoE aux or None)."""
+                enc_out=None, ctx=None, moe_groups: int = 1):
+        """(h, this layer's new cache, MoE aux or None). ``moe_groups``:
+        the MoE dispatch's groups of a forward or prefill (decode makes
+        each lane its own)."""
         nc = {}
         if self.attn is not None:
             out, c = self.attn(h, sincos=sincos, mode=mode,
                                cache=cache["attn"] if cache else None,
-                               pos=pos, max_cache_len=max_cache_len, cd=cd)
+                               pos=pos, max_cache_len=max_cache_len, cd=cd,
+                               ctx=ctx)
             h = self._residual(h, out, self.attn.post_ln)
             if c:
                 nc["attn"] = c
         else:
             out, c = self.ssm(h, mode=mode,
-                              cache=cache["ssm"] if cache else None, cd=cd)
+                              cache=cache["ssm"] if cache else None, cd=cd,
+                              ctx=ctx)
             h = self._residual(h, out, None)
             if c:
                 if cache:
@@ -390,16 +500,17 @@ class Block(nn.Module):
             out, c = self.cross(h, sincos=None, mode=mode,
                                 cache=cache["cross"] if cache else None,
                                 pos=pos, max_cache_len=max_cache_len, cd=cd,
-                                enc_out=enc_out)
+                                ctx=ctx, enc_out=enc_out)
             h = self._residual(h, out, None)
             if c:
                 nc["cross"] = c
         aux = None
         if self.ffn is not None:
-            h = self._residual(h, self.ffn(h, cd), self.ffn.post_ln)
+            h = self._residual(h, self.ffn(h, cd, ctx), self.ffn.post_ln)
         elif self.moe is not None:
             # decode: each lane is its own dispatch group
-            out, aux = self.moe(h, cd, h.shape[0] if mode == "decode" else 1)
+            out, aux = self.moe(h, cd, h.shape[0] if mode == "decode"
+                                else moe_groups, ctx)
             h = self._residual(h, out, self.moe.post_ln)
         return h, nc, aux
 
@@ -416,11 +527,11 @@ class EncoderBlock(nn.Module):
                               causal=False)
         self.ffn = FFN(cfg, dtype, device)
 
-    def forward(self, h, cd):
+    def forward(self, h, cd, ctx=None):
         out, _ = self.attn(h, sincos=None, mode="fwd", cache=None, pos=None,
-                           max_cache_len=0, cd=cd)
+                           max_cache_len=0, cd=cd, ctx=ctx)
         h = h + self.cfg.residual_scale * out
-        return h + self.cfg.residual_scale * self.ffn(h, cd)
+        return h + self.cfg.residual_scale * self.ffn(h, cd, ctx)
 
 
 class Model(nn.Module):
@@ -429,7 +540,9 @@ class Model(nn.Module):
                  moe_impl: str = "auto", use_ssd_kernel: bool = False,
                  max_seq: int = 4096, pad_experts: bool = False,
                  moe_capacity_factor: float = 1.25, remat: bool = False,
-                 remat_policy: str = "nothing"):
+                 remat_policy: str = "nothing",
+                 ctx: Optional[ShardingCtx] = None,
+                 moe_groups: Optional[int] = None):
         super().__init__()
         self.cfg = cfg = get_config(cfg) if isinstance(cfg, str) else cfg
         if attn_impl not in IMPLS:
@@ -456,7 +569,11 @@ class Model(nn.Module):
         # keeps nothing (as the reference)
         self.remat = remat
         self.remat_policy = "dots" if remat_policy == "dots" else "nothing"
-        dt, dev, d = self.param_dtype, self.device, cfg.d_model
+        # a mesh: the parameters are made as this rank's blocks only
+        self.ctx = ctx or ShardingCtx()
+        self.moe_groups = moe_groups
+        dt, d = self.param_dtype, cfg.d_model
+        dev = torch.device("meta") if sharded(self.ctx) else self.device
         self.embed = nn.ParameterDict(
             {"tokens": _param((cfg.padded_vocab, d), dt, dev)})
         self.layers = nn.ModuleList(
@@ -478,6 +595,20 @@ class Model(nn.Module):
             self.enc_norm = Norm(cfg, d, dev)
         else:
             self.enc_layers = self.enc_pos = self.enc_norm = None
+        self.layouts = (shard_params(self, self.ctx, self.device)
+                        if sharded(self.ctx) else {})
+
+    def with_ctx(self, ctx: ShardingCtx) -> "Model":
+        """This model (its parameters shared) under another context on the
+        same mesh with the same fsdp and tp axes (the reference's
+        ``with_ctx``; the compressed pod reduce's per-pod model)."""
+        if (ctx.mesh, ctx.fsdp, ctx.tp) != (self.ctx.mesh, self.ctx.fsdp,
+                                            self.ctx.tp):
+            raise ValueError("with_ctx keeps the mesh, fsdp and tp axes "
+                             "the parameters are blocked over")
+        m = copy.copy(self)
+        m.ctx = ctx
+        return m
 
     # ------------------------------------------------------------------
     # Parameter init
@@ -488,26 +619,59 @@ class Model(nn.Module):
         included, float32), ones for norms, the Mamba-2 A_log / dt_bias
         distributions, the learned position tables. Returns the model."""
         d = self.cfg.d_model
-        dense_init_(self.embed["tokens"], d, generator)
+        with self._whole(self.embed):
+            dense_init_(self.embed["tokens"], d, generator)
         for layer in self.layers:
             for sub in (layer.attn, layer.ssm, layer.cross, layer.ffn,
                         layer.moe):
                 if sub is not None:
-                    sub.reset_parameters(generator)
+                    with self._whole(sub):
+                        sub.reset_parameters(generator)
         if self.unembed is not None:
-            dense_init_(self.unembed, d, generator)
+            with self._whole(self):
+                dense_init_(self.unembed, d, generator)
         if self.pos is not None:
-            dense_init_(self.pos["table"], d, generator)
+            with self._whole(self.pos):
+                dense_init_(self.pos["table"], d, generator)
         if self.enc_layers is not None:
             for layer in self.enc_layers:
-                layer.attn.reset_parameters(generator)
-                layer.ffn.reset_parameters(generator)
-            dense_init_(self.enc_pos["table"], d, generator)
+                for sub in (layer.attn, layer.ffn):
+                    with self._whole(sub):
+                        sub.reset_parameters(generator)
+            with self._whole(self.enc_pos):
+                dense_init_(self.enc_pos["table"], d, generator)
         return self
+
+    @contextlib.contextmanager
+    def _whole(self, module):
+        """Over a mesh, ``module``'s own parameters at their whole shapes
+        inside the block (so an init draws what one rank draws, in the
+        same order), then cut back to this rank's blocks."""
+        own = [p for p in module._parameters.values()
+               if p is not None and _layout(p) is not None]
+        for p in own:
+            p.data = torch.empty(_layout(p).shape, dtype=p.dtype,
+                                 device=p.device)
+        try:
+            yield
+        finally:
+            for p in own:
+                p.data = _layout(p).block(p.data, self.ctx).clone()
 
     # ------------------------------------------------------------------
     # Stack
     # ------------------------------------------------------------------
+    def _moe_groups(self) -> int:
+        """This rank's MoE dispatch groups in a forward or prefill: the
+        global groups (``moe_groups``, default one a data rank) over the
+        data ranks."""
+        dp = max(self.ctx.dp_size, 1)
+        groups = self.moe_groups or dp
+        if groups % dp:
+            raise ValueError(f"moe_groups={groups} does not split over "
+                             f"{dp} data ranks")
+        return groups // dp
+
     def _run_stack(self, h, *, sincos, mode, cache, pos, max_cache_len,
                    enc_out=None):
         """(h, cache, aux): aux is the MoE load-balance loss summed over
@@ -516,6 +680,7 @@ class Model(nn.Module):
         body (the reference's ``jax.checkpoint`` around its scan body)."""
         period = self.cfg.scan_period
         new_cache = {f"sub{s}": [] for s in range(period)}
+        ctx, groups = self.ctx, self._moe_groups()
 
         def run_period(h, aux, per):
             for s in range(period):
@@ -523,7 +688,8 @@ class Model(nn.Module):
                 lc = cache[f"sub{s}"][per] if mode == "decode" else None
                 h, nc, a = layer(h, sincos=sincos, mode=mode, cache=lc,
                                  pos=pos, max_cache_len=max_cache_len,
-                                 cd=self.compute_dtype, enc_out=enc_out)
+                                 cd=self.compute_dtype, enc_out=enc_out,
+                                 ctx=ctx, moe_groups=groups)
                 if a is not None:
                     aux = aux + a
                 new_cache[f"sub{s}"].append(nc)
@@ -549,15 +715,37 @@ class Model(nn.Module):
         h = frames.to(self.device, cd)
         h = h + self.enc_pos["table"][:h.shape[1]].to(cd)
         for layer in self.enc_layers:
-            h = layer(h, cd)
+            h = layer(h, cd, self.ctx)
         return self.enc_norm(h)
 
     # ------------------------------------------------------------------
     # Public API
     # ------------------------------------------------------------------
+    def _vocab_block(self, p):
+        """[lo, hi) of the vocab rows this rank holds of ``p`` (the
+        embedding, dim 0, or the unembedding, dim 1) where the vocab splits
+        over tp, else None."""
+        lay = _layout(p)
+        want = 0 if p is self.embed["tokens"] else 1
+        if lay is None or lay.tdim != want:
+            return None
+        return self.ctx.rows(lay.shape[want], self.ctx.tp)
+
     def _embed(self, tokens):
-        h = self.embed["tokens"][tokens.to(self.device).long()].to(
-            self.compute_dtype)
+        ids = tokens.to(self.device).long()
+        table = self.embed["tokens"]
+        block = self._vocab_block(table)
+        if block is None:
+            h = use(table, self.ctx)[ids].to(self.compute_dtype)
+        else:
+            # vocab-parallel: this rank's rows, out-of-block ids masked,
+            # then summed over tp
+            lo, hi = block
+            inb = (ids >= lo) & (ids < hi)
+            rows = use(table, self.ctx, "local")[torch.where(inb, ids - lo,
+                                                             0)]
+            h = self.ctx.tp_g(torch.where(inb[..., None],
+                                          rows.to(self.compute_dtype), 0.0))
         if self.cfg.embed_scale != 1.0:
             h = h * self.cfg.embed_scale
         return h
@@ -588,21 +776,27 @@ class Model(nn.Module):
         return h, None
 
     def _logits(self, h, last_only: bool = False):
-        cfg = self.cfg
+        """float32 logits; over a mesh whose tp axis splits the vocab, this
+        rank's columns (the reference's ``(dp, None, tp)``)."""
+        cfg, ctx = self.cfg, self.ctx
         if last_only:
             h = h[:, -1:]
         h = self.final_norm(h)
-        if cfg.tie_embeddings:
-            logits = h @ self.embed["tokens"].to(self.compute_dtype).t()
-        else:
-            logits = h @ self.unembed.to(self.compute_dtype)
+        w = self.embed["tokens"] if cfg.tie_embeddings else self.unembed
+        split = self._vocab_block(w) is not None
+        if split:
+            h = ctx.tp_f(h)
+        w = use(w, ctx, "local" if split else "whole").to(self.compute_dtype)
+        logits = h @ (w.t() if cfg.tie_embeddings else w)
         return softcap(logits.float(), cfg.final_softcap)
 
     def forward(self, batch):
         """Full-sequence logits. Returns (logits_f32 (B, P + S,
         padded_vocab), aux): P a VLM's patches (0 otherwise); aux is the
         MoE load-balance loss summed over the layers, float32 (0 for the
-        families without MoE layers)."""
+        families without MoE layers). Over a mesh, ``batch`` is this rank's
+        block over dp and the logits are its block of (B, P + S, vocab)
+        (the vocab over tp where it splits)."""
         h, enc_out = self._assemble_inputs(batch)
         h, sincos = self._pos_tables(h)
         h, _, aux = self._run_stack(h, sincos=sincos, mode="fwd",
@@ -613,6 +807,7 @@ class Model(nn.Module):
     def prefill(self, batch, max_cache_len: int):
         """Populate the decode cache; returns (last_logits (B, 1, V),
         cache). A VLM's patches are cached as the first P positions."""
+        self._serving()
         h, enc_out = self._assemble_inputs(batch)
         h, sincos = self._pos_tables(h)
         h, cache, _ = self._run_stack(h, sincos=sincos, mode="prefill",
@@ -620,6 +815,12 @@ class Model(nn.Module):
                                       max_cache_len=max_cache_len,
                                       enc_out=enc_out)
         return self._logits(h, last_only=True), cache
+
+    def _serving(self):
+        if sharded(self.ctx):
+            raise NotImplementedError(
+                "prefill and decode over a mesh are not ported (ROADMAP "
+                "queue 1): serve on one rank")
 
     def decode_step(self, cache, tokens, pos):
         """One decode step. tokens: (B, 1); pos: the next index, an int for
@@ -629,6 +830,7 @@ class Model(nn.Module):
         caches' ``cache_pos`` must be (B, T_cache), as the continuous
         batcher's pool holds them; nothing is read back to the host).
         Returns (logits (B, 1, V), cache); the cache is updated in place."""
+        self._serving()
         h = self._embed(tokens)
         if isinstance(pos, torch.Tensor) and pos.ndim == 1:
             pos = pos.to(self.device)

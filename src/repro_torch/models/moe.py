@@ -23,15 +23,37 @@ sort, as ``lax.top_k``), and the dispatch sorts each group's (token,
 choice) pairs stably by expert, so a full expert drops the same tokens.
 The router logits are a float32 product; on the GPU that needs TF32 off
 for matrix products (PyTorch's default), or top-k choices flip.
+
+Over a mesh (``ctx``, ``split``): every tp rank routes its data rank's
+tokens alike; the load-balance aux is E x sum_e f_e p_e / k with f and p
+means over the global tokens (their sums and the token count summed over
+dp before the product); with the experts split over tp
+(:class:`ExpertSplit`) each rank runs its experts (or its part of every
+expert's d_ff) on the dispatched buffers and the combine is summed over
+tp, with no all-to-all: tp peers hold the same tokens.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import act_fn
+from repro_torch.models.sharding import ShardingCtx
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertSplit:
+    """How this rank holds the expert weights over ``ctx``'s tp axis:
+    ``experts`` = [lo, hi) of the (padded) experts where they split by
+    expert, None where every expert's d_ff splits; ``shared`` whether the
+    shared expert's width splits too. The routed output is then a partial
+    sum over tp."""
+    ctx: ShardingCtx
+    experts: Optional[Tuple[int, int]]
+    shared: bool
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
@@ -41,14 +63,15 @@ def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
 
 
 def router_topk(cfg: ModelConfig, router_w: torch.Tensor,
-                x: torch.Tensor
+                x: torch.Tensor, ctx: Optional[ShardingCtx] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (expert_idx (..., k) int64, weights (..., k) in x's dtype,
     aux_loss float32 scalar).
 
     The router weight may be padded to E_pad columns (expert-count padding,
     e.g. qwen 60 -> 64); padding experts are masked out of the softmax and
-    can never win top-k.
+    can never win top-k. Over a mesh the aux's means run over the tokens
+    of every data rank of ``ctx``.
     """
     logits = x.float() @ router_w.float()
     e_pad = logits.shape[-1]
@@ -60,12 +83,17 @@ def router_topk(cfg: ModelConfig, router_w: torch.Tensor,
     srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, idx = srt[..., :k], order[..., :k]
     w = w / w.sum(-1, keepdim=True)                       # renormalize
-    # load-balance aux: E * sum_e f_e * p_e (over real experts)
+    # load-balance aux: E * sum_e f_e * p_e (over real experts), f and p
+    # means over the global tokens
     e = cfg.num_experts
     lead = tuple(range(probs.ndim - 1))
-    f = _one_hot(idx, e, torch.float32).sum(-2).mean(lead)     # (E,)
-    p = probs[..., :e].mean(lead)
-    aux = e * (f * p).sum() / k
+    f = _one_hot(idx, e, torch.float32).sum(-2).sum(lead)      # (E,)
+    p = probs[..., :e].sum(lead)
+    n = torch.full((1,), probs[..., 0].numel(), dtype=torch.float32,
+                   device=probs.device)
+    if ctx is not None:
+        f, p, n = ctx.dp_g(torch.cat([f, p, n])).split([e, e, 1])
+    aux = e * ((f / n) * (p / n)).sum() / k
     return idx, w.to(x.dtype), aux
 
 
@@ -77,30 +105,54 @@ def _expert_ffn(cfg: ModelConfig, p, h: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ecf,efd->...ecd", a(gate) * up, p["wo"])
 
 
-def shared_expert(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """Always-on shared expert with sigmoid gate (qwen2-moe)."""
+def shared_expert(cfg: ModelConfig, p, x: torch.Tensor,
+                  ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
+    """Always-on shared expert with sigmoid gate (qwen2-moe). With ``ctx``
+    its width splits over tp: this rank's partial sum (the caller sums it
+    over tp), the gate every tp rank computes alike."""
     a = act_fn(cfg.act)
-    h = a(x @ p["swg"]) * (x @ p["swi"])
-    return (h @ p["swo"]) * torch.sigmoid(x @ p["sgate"])
+    xs = x if ctx is None else ctx.tp_f(x)
+    h = a(xs @ p["swg"]) * (xs @ p["swi"])
+    gate = torch.sigmoid(x @ p["sgate"])
+    return (h @ p["swo"]) * (gate if ctx is None else ctx.tp_f(gate))
 
 
-def moe_dense(cfg: ModelConfig, p, x: torch.Tensor
+def _finish(cfg: ModelConfig, p, x, out, split: Optional[ExpertSplit]):
+    """The routed output ``out`` (a partial sum over tp under ``split``)
+    plus the shared expert, summed over tp."""
+    shared = cfg.num_shared_experts
+    if split is not None:
+        if shared and split.shared:
+            out, shared = out + shared_expert(cfg, p, x, split.ctx), 0
+        out = split.ctx.tp_g(out)
+    if shared:
+        out = out + shared_expert(cfg, p, x)
+    return out
+
+
+def moe_dense(cfg: ModelConfig, p, x: torch.Tensor, *,
+              ctx: Optional[ShardingCtx] = None,
+              split: Optional[ExpertSplit] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Oracle MoE: all experts on all tokens, top-k-masked weighted sum.
 
-    x: (B, S, D). Returns (out, aux_loss).
+    x: (B, S, D). Returns (out, aux_loss). Under ``split``, this rank's
+    experts (or d_ff part) only, summed over tp.
     """
-    e_pad = p["wi"].shape[0]
-    idx, w, aux = router_topk(cfg, p["router"], x)
+    idx, w, aux = router_topk(cfg, p["router"], x, ctx)
+    e_pad = p["router"].shape[-1]
+    xd = x
+    if split is not None:
+        xd, w = split.ctx.tp_f(x), split.ctx.tp_f(w)
     a = act_fn(cfg.act)
-    up = torch.einsum("bsd,edf->bsef", x, p["wi"])
-    gate = torch.einsum("bsd,edf->bsef", x, p["wg"])
+    up = torch.einsum("bsd,edf->bsef", xd, p["wi"])
+    gate = torch.einsum("bsd,edf->bsef", xd, p["wg"])
     y = torch.einsum("bsef,efd->bsed", a(gate) * up, p["wo"])   # (B,S,E,D)
     comb = torch.einsum("bske,bsk->bse", _one_hot(idx, e_pad, w.dtype), w)
+    if split is not None and split.experts is not None:
+        comb = comb[..., split.experts[0]:split.experts[1]]
     out = torch.einsum("bsed,bse->bsd", y, comb)
-    if cfg.num_shared_experts:
-        out = out + shared_expert(cfg, p, x)
-    return out, aux
+    return _finish(cfg, p, x, out, split), aux
 
 
 def capacity(cfg: ModelConfig, tokens_per_group: int, factor: float = 1.25,
@@ -159,38 +211,45 @@ def _dispatch(x: torch.Tensor, idx: torch.Tensor, cap: int, e: int):
 
 
 def moe_sorted(cfg: ModelConfig, p, x: torch.Tensor, *,
-               num_groups: int = 1, capacity_factor: float = 1.25
+               num_groups: int = 1, capacity_factor: float = 1.25,
+               ctx: Optional[ShardingCtx] = None,
+               split: Optional[ExpertSplit] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE with grouped local dispatch.
 
     x: (B, S, D). The B*S tokens are split into ``num_groups`` groups of
     consecutive tokens (one group where B*S does not divide), each with
     its own capacity ``capacity(cfg, tokens per group, capacity_factor)``.
-    Returns (out, aux_loss).
+    Returns (out, aux_loss). Under ``split``, this rank runs its experts'
+    buffers (or every buffer through its d_ff part) and the combine is
+    summed over tp.
     """
     b, s, d = x.shape
-    e_pad = p["wi"].shape[0]
+    e_pad = p["router"].shape[-1]
     k = cfg.experts_per_token
-    idx, w, aux = router_topk(cfg, p["router"], x)
+    idx, w, aux = router_topk(cfg, p["router"], x, ctx)
     t_total = b * s
     g = num_groups if t_total % num_groups == 0 else 1
     tg = t_total // g
     cap = capacity(cfg, tg, capacity_factor)
+    xd = x
+    if split is not None:
+        xd, w = split.ctx.tp_f(x), split.ctx.tp_f(w)
 
-    buffers, slots, keeps = _dispatch(x.reshape(g, tg, d),
+    buffers, slots, keeps = _dispatch(xd.reshape(g, tg, d),
                                       idx.reshape(g, tg, k), cap, e_pad)
     # buffers: (G, E*C+1, D) -> (G, E, C, D) for the expert products
     h = buffers[:, :-1].reshape(g, e_pad, cap, d)
-    y = _expert_ffn(cfg, p, h)                            # (G, E, C, D)
-    yflat = torch.cat([y.reshape(g, e_pad * cap, d),
-                       torch.zeros((g, 1, d), dtype=y.dtype,
-                                   device=y.device)], dim=1)
+    lo, hi = (0, e_pad) if split is None or split.experts is None \
+        else split.experts
+    y = _expert_ffn(cfg, p, h[:, lo:hi])                  # (G, E', C, D)
+    yflat = torch.cat([y.new_zeros((g, lo * cap, d)),
+                       y.reshape(g, (hi - lo) * cap, d),
+                       y.new_zeros((g, (e_pad - hi) * cap + 1, d))], dim=1)
     # combine: gather each (token, choice) back and weight
     gathered = torch.gather(
         yflat, 1, slots.reshape(g, tg * k, 1).expand(-1, -1, d))
     gathered = gathered.reshape(g, tg, k, d)
     wk = w.reshape(g, tg, k) * keeps
     out = (gathered * wk[..., None]).sum(2).reshape(b, s, d)
-    if cfg.num_shared_experts:
-        out = out + shared_expert(cfg, p, x)
-    return out, aux
+    return _finish(cfg, p, x, out, split), aux

@@ -22,16 +22,27 @@ GSPMD to hand a constraint to: ``cs`` keeps this rank's block of a global
 tensor (``torch.tensor_split`` order over the spec's axes, uneven blocks
 allowed, as GSPMD pads), ``gather`` puts the blocks back together, and
 ``rows`` / ``sizes`` say where the blocks lie.
+
+Training over a mesh holds every parameter as this rank's block of its
+``param_specs`` entry (``shard_params``; a :class:`Layout` per leaf says
+which dim lies over the fsdp axes, "F", and which over the tp axis, "T").
+A sub-layer gathers its blocks as it computes (``use``): over F always,
+over T where it computes with the whole leaf. Each gather's gradient is
+reduced back into the block (``core.collectives.Gather``). ``tp_f`` /
+``tp_g`` / ``dp_g`` are the activations' autograd pairs (see
+``core.collectives``). Collectives over axes that hold one rank are
+skipped: a one-rank mesh exchanges nothing.
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import collectives
+from repro_torch.core.collectives import (CopyToTP, Gather, ReduceFromTP)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,6 +157,42 @@ class ShardingCtx:
                 lo, hi = self.rows(x.shape[d], axes)
                 x = x.narrow(d, lo, hi - lo)
         return x
+
+    # -- collectives over mesh axes (skipped where they hold one rank) ---
+    def live(self, axes) -> tuple:
+        """The axes of ``axes`` that spread over more than one rank."""
+        if self.mesh is None:
+            return ()
+        shape = self._shape()
+        return tuple(a for a in _axes(axes) if shape[a] > 1)
+
+    def all_reduce(self, x: torch.Tensor, axes, op: str = "sum"):
+        """``x`` summed (or max, min) over the ranks along ``axes``; no
+        gradient flows through it."""
+        axes = self.live(axes)
+        if not axes:
+            return x
+        return collectives.all_reduce(x, self.group(axes), "+".join(axes),
+                                      op)
+
+    def _pair(self, fn, x, axes):
+        axes = self.live(axes)
+        if not axes:
+            return x
+        return fn.apply(x, self.group(axes), "+".join(axes))
+
+    def tp_f(self, x: torch.Tensor) -> torch.Tensor:
+        """The identity; its gradient is summed over tp ("f")."""
+        return self._pair(CopyToTP, x, self.tp)
+
+    def tp_g(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over tp; its gradient passes through ("g")."""
+        return self._pair(ReduceFromTP, x, self.tp)
+
+    def dp_g(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over dp; its gradient passes through (a global
+        sum every data rank takes the gradient of for its own part)."""
+        return self._pair(ReduceFromTP, x, self.dp)
 
     def cs_hidden(self, h: torch.Tensor) -> torch.Tensor:
         """Activation block (B, S, D) at layer boundaries."""
@@ -281,6 +328,173 @@ def param_shardings(params: Any, ctx: ShardingCtx) -> Optional[dict]:
     if ctx.mesh is None:
         return None
     return {k: ctx.named(*s) for k, s in param_specs(params, ctx).items()}
+
+
+# ---------------------------------------------------------------------------
+# Parameter blocks (training over a mesh)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where one parameter's blocks lie: its global ``shape``, its
+    ``param_specs`` entry ``spec``, the dim ``fdim`` over the fsdp axes
+    ("F") and the dim ``tdim`` over the tp axis ("T"), None where the leaf
+    is whole along them or they hold one rank."""
+    shape: tuple
+    spec: tuple
+    fdim: Optional[int]
+    tdim: Optional[int]
+
+    @property
+    def axes(self) -> tuple:
+        """The mesh axes the spec splits the leaf over."""
+        return tuple(a for e in self.spec for a in _axes(e))
+
+    def block_shape(self, ctx: ShardingCtx) -> tuple:
+        return tuple(n if e is None else ctx.sizes(n, e)[ctx.coord(e)]
+                     for n, e in zip(self.shape, self.spec))
+
+    def block(self, x: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:
+        """This rank's block of the whole leaf ``x``."""
+        return ctx.cs(x, *self.spec)
+
+    def counted(self, ctx: ShardingCtx) -> bool:
+        """Whether this rank counts the block once among the ranks that
+        hold it whole: its coordinate is 0 along every axis the spec
+        leaves replicated."""
+        if ctx is None or ctx.mesh is None:
+            return True
+        rest = [a for a in ctx.mesh.mesh_dim_names if a not in self.axes]
+        return all(ctx.coord(a) == 0 for a in rest)
+
+    def gather(self, x: torch.Tensor, ctx: ShardingCtx, dim: int,
+               grad: str) -> torch.Tensor:
+        e = self.spec[dim]
+        axes = _axes(e)
+        return Gather.apply(x, ctx.sizes(self.shape[dim], e),
+                            ctx.group(axes), "+".join(axes), dim, grad)
+
+
+def layout(shape, spec, ctx: ShardingCtx) -> Layout:
+    """The :class:`Layout` of a leaf of ``shape`` under ``spec``."""
+    fdim = tdim = None
+    for d, e in enumerate(spec):
+        if e is None or not ctx.live(e):
+            continue
+        if e == ctx.tp:
+            tdim = d
+        else:
+            fdim = d
+    return Layout(tuple(shape), tuple(spec), fdim, tdim)
+
+
+def shard_params(model: torch.nn.Module, ctx: ShardingCtx,
+                 device=None) -> Dict[str, Layout]:
+    """Replace every parameter of ``model`` by this rank's block under
+    ``param_specs(model, ctx)``, on ``device`` (default: the parameter's):
+    a parameter on ``meta`` becomes an empty block (filled with its
+    ``_fill`` where it has one, as ``Model`` makes norms), any other is
+    cut. Each new parameter carries its :class:`Layout` as ``_layout``;
+    returns them by name."""
+    specs = param_specs(model, ctx)
+    layouts = {}
+    for name, p in list(model.named_parameters()):
+        lay = layout(p.shape, specs[name], ctx)
+        dev = torch.device(device) if device is not None else p.device
+        if p.is_meta:
+            block = torch.empty(lay.block_shape(ctx), dtype=p.dtype,
+                                device=dev)
+            if getattr(p, "_fill", None) is not None:
+                block.fill_(p._fill)
+        else:
+            block = lay.block(p.detach(), ctx).to(dev).clone()
+        new = torch.nn.Parameter(block, requires_grad=p.requires_grad)
+        new._layout = lay
+        *path, leaf = name.split(".")
+        model.get_submodule(".".join(path))._parameters[leaf] = new
+        layouts[name] = lay
+    return layouts
+
+
+def take_blocks(tensors: Dict[str, torch.Tensor], layouts: Dict[str, Layout],
+                ctx: ShardingCtx) -> Dict[str, torch.Tensor]:
+    """This rank's block of every whole tensor of ``tensors`` (by name);
+    the tensors themselves without layouts."""
+    if not layouts:
+        return dict(tensors)
+    return {n: layouts[n].block(t, ctx) for n, t in tensors.items()}
+
+
+def gather_params(tensors: Dict[str, torch.Tensor],
+                  layouts: Dict[str, Layout], ctx: ShardingCtx,
+                  device="cpu") -> Dict[str, torch.Tensor]:
+    """The whole tensors from every rank's blocks (``tensors`` by name,
+    each a block under ``layouts``), one leaf at a time, on ``device``
+    (each block is moved there first, so a gather to the CPU stages
+    nothing). Every rank of the mesh must call it."""
+    out = {}
+    for name, t in tensors.items():
+        t = t.detach().to(device)
+        lay = layouts.get(name)
+        if lay is not None:
+            for d, e in enumerate(lay.spec):
+                if e is not None and ctx.live(e):
+                    t = ctx.gather(t, ctx.sizes(lay.shape[d], e), e, d)
+        out[name] = t
+    return out
+
+
+def use(p: torch.Tensor, ctx: ShardingCtx, tp: str = "whole"
+        ) -> torch.Tensor:
+    """The tensor a sub-layer computes with, from the block ``p`` (a
+    parameter carrying its ``_layout``; ``p`` itself without one): gathered
+    over its F dim, its gradient reduce-scattered over the data ranks back
+    into the block; and along T by ``tp``:
+
+    * "local": the T block as it is (column- and row-parallel products);
+    * "whole": gathered, for a computation every tp rank runs alike, so
+      each has the whole gradient and keeps its block of it;
+    * "partial": whole, for a computation each tp rank runs on its part
+      (k / v read by the local query heads), so the gradient is summed
+      over tp.
+    """
+    lay = getattr(p, "_layout", None)
+    if lay is None:
+        return p
+    x = p
+    if tp != "local" and lay.tdim is not None:
+        x = lay.gather(x, ctx, lay.tdim,
+                       "scatter" if tp == "partial" else "none")
+    elif tp == "partial":
+        x = ctx.tp_f(x)
+    if lay.fdim is not None:
+        x = lay.gather(x, ctx, lay.fdim, "scatter")
+    return x
+
+
+def reduce_replicated_grads(grads: Dict[str, torch.Tensor],
+                            layouts: Dict[str, Layout], ctx: ShardingCtx
+                            ) -> Dict[str, torch.Tensor]:
+    """Sum each gradient over the dp axes its leaf's block is not split
+    over (the data ranks' parts of a leaf they all hold whole, such as a
+    norm scale), one flat all-reduce per set of axes and dtype."""
+    dp = ctx.live(ctx.dp)
+    if not dp:
+        return grads
+    buckets: dict = {}
+    for name, g in grads.items():
+        lay = layouts.get(name)
+        rest = tuple(a for a in dp if lay is None or a not in lay.axes)
+        if rest:
+            buckets.setdefault((rest, g.dtype), []).append(name)
+    out = dict(grads)
+    for (rest, _), names in buckets.items():
+        flat = ctx.all_reduce(torch.cat([grads[n].reshape(-1)
+                                         for n in names]), rest)
+        for n, part in zip(names, flat.split(
+                [grads[n].numel() for n in names])):
+            out[n] = part.view_as(grads[n])
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,13 @@ holds no second copy of the parameters and moments at full width. The
 schedule and the statistics stay 0-d tensors on the parameters' device,
 so a step needs no host sync.
 
+Over a mesh the leaves are this rank's blocks (``models.sharding``;
+``layouts`` by name): the update is elementwise, so AdamW runs on the
+blocks as they are, and ``global_norm`` sums the squares of each distinct
+block once (a block several ranks hold whole, such as a norm scale on every
+tp rank, counts on one of them) and then over the mesh, so the norm and the
+clip scale are one rank's.
+
 The WSD (warmup-stable-decay) schedule reproduces MiniCPM
 [arXiv:2404.06395] and is selected for the minicpm configs.
 """
@@ -20,9 +27,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.models.sharding import ShardingCtx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,10 +82,20 @@ def init_opt_state(params: Dict[str, torch.Tensor],
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree.values()))
+def global_norm(tree: Dict[str, torch.Tensor],
+                ctx: Optional[ShardingCtx] = None,
+                layouts: Optional[dict] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32; over a mesh,
+    of every distinct block of the leaves once."""
+    layouts = layouts or {}
+    total = sum(torch.sum(torch.square(g.float()))
+                for n, g in tree.items()
+                if n not in layouts or layouts[n].counted(ctx))
+    if ctx is not None and ctx.mesh is not None:
+        if not torch.is_tensor(total):
+            total = torch.zeros((), device=next(iter(tree.values())).device)
+        total = ctx.all_reduce(total, ctx.mesh.mesh_dim_names)
+    return torch.sqrt(total)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -102,14 +121,17 @@ def _decay_mask(name: str) -> bool:
 
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, params: Dict[str, torch.Tensor],
-                 grads: Dict[str, torch.Tensor], state: dict
+                 grads: Dict[str, torch.Tensor], state: dict,
+                 ctx: Optional[ShardingCtx] = None,
+                 layouts: Optional[dict] = None
                  ) -> Tuple[Dict[str, torch.Tensor], dict, dict]:
     """One AdamW step. Updates ``params`` in place and replaces the
     moments of ``state`` leaf by leaf; returns (params, new state, {"lr",
     "grad_norm"}) with the pre-clip global gradient norm. The clip scale
     is applied leaf by leaf (as ``clip_by_global_norm`` computes it), so
-    no clipped copy of all the gradients is held."""
-    raw_norm = global_norm(grads)
+    no clipped copy of all the gradients is held. Over a mesh (``ctx``,
+    ``layouts``) the leaves are this rank's blocks."""
+    raw_norm = global_norm(grads, ctx, layouts)
     clip = _clip_scale(raw_norm, cfg.grad_clip)
     step = state["step"] + 1
     lr = schedule_lr(cfg, step)

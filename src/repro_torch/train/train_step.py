@@ -6,23 +6,41 @@ here the parameters are the model's own (``Model.requires_grad_(True)``,
 done by ``init_train_state``), the gradients come from
 ``torch.autograd.grad`` and ``adamw_update`` writes the new parameters in
 place. ``state`` is {"params": {name: the model's parameter},
-"opt": {"m", "v", "step"}}, the reference's keys without its "rng" (which
-only the multi-device compressed reduce reads). Microbatches are a Python
-loop where the reference has ``lax.scan``; the activation peak is one
-microbatch's either way, and the gradients are summed in float32.
+"opt": {"m", "v", "step"}, "rng"}, the reference's keys; "rng" is a 0-d
+int64 seed on the device, folded with the step after every step
+(``core.uniforms.fold_in``), from which the compressed pod reduce draws
+(a state without it trains as well, without compression). Microbatches
+are a Python loop where the reference has ``lax.scan``; the activation
+peak is one microbatch's either way, and the gradients are summed in
+float32.
 
-``compress_pod_reduce`` and ``shard_grads`` are multi-device (ROADMAP
-queue 1 item 6) and raise ``NotImplementedError``. ``reduced_train_step``
-runs one step from a fixed start, so that two devices can be compared.
+Over a mesh (the model's ``ctx``) the parameters and moments are this
+rank's blocks and the batch its block over dp (``data.pipeline.place``;
+microbatch i is its block of the global microbatch i): the loss and the
+MoE aux are global means, the fsdp blocks' gradients are reduced into the
+blocks inside the backward, and a leaf every data rank holds whole has its
+gradient summed over dp after it (``models.sharding``): the blocks'
+gradients are always reduce-scattered, so ``shard_grads`` (in the
+reference a hint to the partitioner that leaves the numbers as they are)
+is accepted and changes nothing. ``compress_pod_reduce`` (a mesh with a "pod" axis, parameters
+replicated over it: ``fsdp=("data",)``) takes each pod's gradients over
+its own batch, then their int8 compressed mean over "pod"
+(``train.compress``) with the metrics averaged over pods, as the
+reference's ``_pod_compressed_grads``. ``reduced_train_step`` runs one
+step from a fixed start, so that two devices can be compared.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.uniforms import fold_in
 from repro_torch.models.model import Model
+from repro_torch.models.sharding import reduce_replicated_grads, sharded
+from repro_torch.train.compress import compressed_psum_tree
 from repro_torch.train.loss import lm_loss
 from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
                                          init_opt_state, optimizer_for_arch)
@@ -57,7 +75,7 @@ def make_loss_fn(model: Model):
         if fl:
             logits = logits[:, fl:]
         loss, metrics = lm_loss(cfg, logits, labels.to(logits.device),
-                                batch.get("loss_mask"))
+                                batch.get("loss_mask"), model.ctx)
         total = loss + cfg.router_aux_weight * aux
         metrics = {**metrics, "aux": aux.detach()}
         return total, {k: metrics[k] for k in _METRIC_KEYS}
@@ -69,10 +87,16 @@ def make_compute_grads(model: Model, microbatches: int = 1):
     """``compute_grads(params, batch) -> (grads, metrics)``: the gradients
     of the loss with respect to ``params`` (the model's parameters, by
     name), averaged over ``microbatches`` equal slices of the batch and
-    summed in float32, and the metrics averaged likewise."""
+    summed in float32, and the metrics averaged likewise. Over a mesh, the
+    gradients of this rank's blocks of the global loss's."""
     loss_fn = make_loss_fn(model)
 
     def compute_grads(params, batch):
+        grads, metrics = _grads(params, batch)
+        return (reduce_replicated_grads(grads, model.layouts, model.ctx),
+                metrics)
+
+    def _grads(params, batch):
         names, leaves = list(params), list(params.values())
         if microbatches == 1:
             total, metrics = loss_fn(batch)
@@ -106,32 +130,67 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, *,
                     shard_grads: bool = False):
     """``train_step(state, batch) -> (state, metrics)``: gradients, then
     one AdamW update of the parameters in place. metrics: the loss metrics
-    and ``lr`` and ``grad_norm`` (pre-clip)."""
-    if compress_pod_reduce or shard_grads:
-        raise NotImplementedError(
-            "compress_pod_reduce and shard_grads are multi-device, not "
-            "ported yet (ROADMAP queue 1 item 6)")
-    compute_grads = make_compute_grads(model, microbatches)
+    and ``lr`` and ``grad_norm`` (pre-clip). ``shard_grads`` is accepted
+    as the reference's and changes nothing: the fsdp blocks' gradients are
+    always reduce-scattered into the blocks. Without a "pod" axis
+    ``compress_pod_reduce`` changes nothing, as in the reference."""
+    del shard_grads
+    ctx = model.ctx
+    inner = model
+    pods = (compress_pod_reduce and sharded(ctx)
+            and "pod" in ctx.mesh.mesh_dim_names)
+    if pods:
+        if "pod" in ctx.fsdp:
+            raise ValueError(
+                "compress_pod_reduce needs the parameters replicated over "
+                "the pod axis (fsdp without 'pod', as fsdp=('data',))")
+        inner = inner.with_ctx(dataclasses.replace(
+            inner.ctx, dp=tuple(a for a in ctx.dp if a != "pod")))
+    compute_grads = make_compute_grads(inner, microbatches)
 
     def train_step(state, batch):
         params = state["params"]
         grads, metrics = compute_grads(params, batch)
+        if pods:
+            grads = compressed_psum_tree(grads, "pod", int(state["rng"]),
+                                         ctx, model.layouts)
+            keys = list(metrics)
+            mean = ctx.all_reduce(torch.stack([metrics[k] for k in keys]),
+                                  "pod") / ctx.axes_size("pod")
+            metrics = dict(zip(keys, mean.unbind()))
         params, new_opt, stats = adamw_update(opt_cfg, params, grads,
-                                              state["opt"])
+                                              state["opt"], ctx,
+                                              model.layouts)
         del grads
-        return {"params": params, "opt": new_opt}, {**metrics, **stats}
+        new = {"params": params, "opt": new_opt}
+        if "rng" in state:
+            new["rng"] = fold_in(state["rng"], state["opt"]["step"])
+        return new, {**metrics, **stats}
 
     return train_step
 
 
 def init_train_state(model: Model, generator: torch.Generator,
                      moment_dtype: str = "float32") -> dict:
-    """Random parameters from ``generator`` (``Model.init_params``), made
-    trainable, and zero AdamW moments."""
+    """Random parameters from ``generator`` (``Model.init_params``; over a
+    mesh this rank's blocks of them), made trainable, zero AdamW moments
+    and the "rng" seed: ``train_rng(generator.initial_seed(), 0)`` on the
+    model's device."""
     model.init_params(generator)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
-    return {"params": params, "opt": init_opt_state(params, moment_dtype)}
+    return {"params": params, "opt": init_opt_state(params, moment_dtype),
+            "rng": train_rng(generator.initial_seed(), 0).to(model.device)}
+
+
+def train_rng(seed: int, step: int) -> torch.Tensor:
+    """The state's "rng" before step ``step`` of a run from ``seed`` (a 0-d
+    int64 CPU tensor): ``fold_in(seed, 1)``, as the reference's
+    ``init_train_state``, then folded with each earlier step."""
+    rng = torch.tensor(fold_in(seed, 1), dtype=torch.int64)
+    for k in range(step):
+        rng = fold_in(rng, k)
+    return rng
 
 
 def reduced_train_step(arch: str, device, *, microbatches: int = 1,

@@ -1254,3 +1254,41 @@ def test_one_rank_nccl_mesh_ga_equals_unsharded(cuda_device, tmp_path):
     assert torch.equal(pop1.fitness, pop2.fitness)
     for a, b in zip(hist1, hist2):
         np.testing.assert_array_equal(a["trace"], b["trace"])
+
+
+def test_one_rank_nccl_mesh_train_equals_unsharded(cuda_device, tmp_path):
+    """``train(mesh=)`` of reduced tinyllama-1.1b on a one-rank NCCL mesh
+    on the card: the losses, grad norms and parameters of ``train``
+    without a mesh, bit for bit, with the same flash launches (a
+    one-rank mesh exchanges nothing: no collective, nothing staged)."""
+    import torch.distributed as dist
+    from repro_torch.core import collectives
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    kw = dict(steps=3, batch=4, seq=64, device=cuda_device,
+              log_fn=lambda s: None)
+    runs = []
+    for mesh_run in (False, True):
+        stats = {}
+        attn_ops.launches = attn_ops.bwd_launches = 0
+        collectives.reset_counts()
+        if mesh_run:
+            init_distributed(0, 1, f"file://{tmp_path / 'store'}",
+                             local_world_size=1)
+        try:
+            if mesh_run:
+                assert dist.get_backend() == "nccl"
+            state, _ = train.train(
+                "tinyllama-1.1b", stats=stats,
+                mesh=make_local_mesh(1, 1) if mesh_run else None, **kw)
+        finally:
+            if mesh_run:
+                dist.destroy_process_group()
+        runs.append((stats, {n: p.detach().cpu()
+                             for n, p in state["params"].items()},
+                     (attn_ops.launches, attn_ops.bwd_launches)))
+        assert collectives.counts == {}
+    (s1, p1, l1), (s2, p2, l2) = runs
+    assert s1["loss"] == s2["loss"] and s1["grad_norm"] == s2["grad_norm"]
+    assert l1 == l2 == (2 * 3, 2 * 3)
+    for name, p in p1.items():
+        assert torch.equal(p, p2[name]), name

@@ -1,5 +1,6 @@
-"""Import boundary of the port: ``src/repro_torch`` and ``chip_smoke.py``
-import neither jax nor anything of the reference package ``repro``, name
+"""Import boundary of the port: ``src/repro_torch``, ``chip_smoke.py`` and
+the mesh tests' rank workers (``tests/torch_*mesh_worker.py``) import
+neither jax nor anything of the reference package ``repro``, name
 no reference module in a string (a spawn command or import spec would run
 the reference's workers), importing the port builds and loads no kernel
 library, and the protocol linter's worker-purity, atomic-write and
@@ -16,7 +17,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "tests").glob("torch_*mesh_worker.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

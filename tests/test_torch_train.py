@@ -422,11 +422,27 @@ def test_reduced_train_step_draws_the_frontend(arch, monkeypatch):
 
 
 def test_train_step_refuses_multi_device_options():
-    model = Model(get_config("tinyllama-1.1b").reduced(), device="cpu")
-    opt = optimizer.OptimizerConfig()
-    for kw in (dict(compress_pod_reduce=True), dict(shard_grads=True)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            train_step.make_train_step(model, opt, **kw)
+    """``compress_pod_reduce`` and ``shard_grads`` are no longer refused.
+    Without a mesh (so without a "pod" axis) they change nothing, as in the
+    reference: a step with either equals the plain step bit for bit. Their
+    mesh semantics are held in ``tests/test_torch_train_mesh.py``."""
+    cfg = get_config("tinyllama-1.1b").reduced()
+    opt = optimizer.OptimizerConfig(lr=LR, warmup_steps=1, total_steps=10)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 17)).astype(np.int32))
+    runs = []
+    for kw in ({}, dict(compress_pod_reduce=True), dict(shard_grads=True)):
+        model = Model(cfg, device="cpu", max_seq=24, attn_impl="kernel")
+        state = train_step.init_train_state(
+            model, torch.Generator().manual_seed(0))
+        state, met = train_step.make_train_step(model, opt, **kw)(
+            state, {"tokens": toks})
+        runs.append((float(met["loss"]), float(met["grad_norm"]),
+                     int(state["rng"]), model.state_dict()))
+    for loss_, norm, rng, params in runs[1:]:
+        assert (loss_, norm, rng) == runs[0][:3]
+        for name, p in params.items():
+            assert torch.equal(p, runs[0][3][name]), name
 
 
 # ---------------------------------------------------------------------------
