@@ -40,7 +40,8 @@ fitness on a device mesh (``GAEngine(ctx=)`` over
 over the model axis, cost-balanced dispatch across ranks), and LM
 training over a device mesh (``launch.train.train(mesh=)``: parameters
 and moments as each rank's fsdp / tensor-parallel blocks, the int8
-compressed pod reduce). Phases, in
+compressed pod reduce), and bf16 training at the dry run's train_4k cell
+(tinyllama-1.1b and gemma2-2b, remat, the flash backward in bf16). Phases, in
 order; any failure exits non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
@@ -71,7 +72,7 @@ order; any failure exits non-zero:
            islanding outage that reads 10.0 without raising, and TF32 off;
            the flash backward kernel (autograd through the wrapper) against
            its plain version (dq, dk, dv at 1e-3 / 1e-4) at the tests'
-           float32 cases (the bf16 one must be refused), the fully masked
+           float32 cases (the bf16 one below, in bf16), the fully masked
            rows (zero dq), tinyllama-1.1b's layer shape at batch 1 and 4
            (at batch 4 two more calls, and one in one-key-tile chunks,
            must give the same bits) and gemma2-2b's (1, 4500, 8, 4, 256)
@@ -136,7 +137,18 @@ order; any failure exits non-zero:
            forward launched twice a layer under remat); one train step
            of reduced whisper, llava, jamba and granite-moe (sorted
            dispatch, with and without remat) on the card against the
-           CPU, with the routers' smallest top-k margin;
+           CPU, with the routers' smallest top-k margin; the flash
+           backward kernel in bf16 (``check_flash_bwd``, as in float32:
+           autograd through the wrapper, one launch each way, against
+           the plain backward on the forward kernel's out and lse),
+           within one bf16 rounding step (rtol 2^-7,
+           atol 2^-12 of each gradient's largest magnitude), with the
+           share of bit-equal elements, at the tests' bf16 case,
+           tinyllama-1.1b's train_4k layer (4, 4096, 32, 4, 64), gemma2-2b's
+           (1, 4500, 8, 4, 256) windowed and global with softcap 50 and
+           the trained families' shapes; at tinyllama's and gemma2's
+           global shape two more calls and a call in one-key-tile chunks
+           bit-equal;
 4. main:   ``python -m repro_torch.launch.ga_run --fitness rastrigin`` at
            I=32 islands x P=1024 individuals x G=128 genes, 5 generations x
            3 epochs, then again with --sync-every 2 --pipeline-depth 2,
@@ -152,10 +164,10 @@ order; any failure exits non-zero:
            forward and 22 x 8 backward launches, every loss and grad norm
            finite, the last loss below the first; ``ga_run --fitness hvdc
            --grid-size 2715 --hvdc-lines 18 --islands 2 --num-workers 4``,
-           horizontal (--pop 16 --gens-per-epoch 2 --epochs 2) and
-           vertical (--pop 8 --contingencies 8 --gens-per-epoch 1
-           --epochs 1: full AC on 8 outages per genome), each launching
-           the fused variation exactly once a generation (4 times and
+           horizontal (--pop 16 --gens-per-epoch 2 --epochs 1) and
+           vertical (--pop 8 --contingencies 4 --gens-per-epoch 1
+           --epochs 1: full AC on 4 outages per genome), each launching
+           the fused variation exactly once a generation (2 times and
            once), with finite
            fitness and genomes in [-1, 1]; ``ga_run --fitness rastrigin``
            at the main shape under --dispatch-backend host-thread,
@@ -163,8 +175,9 @@ order; any failure exits non-zero:
            (4 workers; 15 launches each, a ``dispatch stats: retries=0``
            line, fitness bit-equal to hostsim.rastrigin, the same best
            genome in all three) and ``ga_run --fitness hvdc`` on the
-           German-size grid under host-thread --cost-ema (one epoch of 2
-           generations: 2 launches, retries=0, CostEMA updates > 0);
+           German-size grid under host-thread --cost-ema (2 islands of 8,
+           one epoch of 1 generation: 1 launch, retries=0, CostEMA
+           updates > 0);
            ``ga_run --fitness rastrigin`` at the main shape under
            --dispatch-backend mq --mq-fleet local, mq-mock (with
            --cost-ema --metrics-dir --events-log), mq-net, slurm-mock and
@@ -237,7 +250,7 @@ order; any failure exits non-zero:
            ``make_local_mesh(1, 1)``; population and best trace bit-equal,
            15 launches each, nothing staged through the host), then
            ``ga_run --fitness hvdc``'s German-size grid (2715 buses, 18
-           lines) on that mesh, pop 8, 8 contingencies, one generation
+           lines) on that mesh, pop 8, 4 contingencies, one generation
            with the cost model over 4 lanes (1 launch; the survivors'
            fitness bit-equal to the unsharded fitness through the same
            dispatch), then 4 processes of ``mesh_rank`` on one gloo group
@@ -245,7 +258,7 @@ order; any failure exits non-zero:
            run; per rank the epoch s, a migration's ms, the collectives'
            calls and bytes, all staged through the host, and 15
            launches); then ``launch.train.train(mesh=)`` (mesh train:)
-           of tinyllama-1.1b at its published widths, all 22 layers, 3
+           of tinyllama-1.1b at its published widths, all 22 layers, 2
            steps: (a) at 4 x 2048 on a one-rank NCCL mesh, losses, grad
            norms and parameters bit-equal to the unsharded train; on 4
            gloo ranks sharing the card on (data 2, model 2) at 4 x 512,
@@ -259,6 +272,18 @@ order; any failure exits non-zero:
            exact run's and int8 on the pod axis; per rank the step ms,
            collectives a step (every call on gloo staged and counted),
            peak memory, block bytes and flash launches (layers x steps);
+           the dry run's train_4k cell trained in bf16 through the
+           library's entry points (``Model(compute_dtype="bfloat16",
+           attn_impl="kernel", remat=True, max_seq=4096)``,
+           ``optimizer_for_arch`` with bf16 moments above 20e9 parameters,
+           ``make_train_step`` with the dry run's microbatches, the batch
+           shaped by ``launch.specs.input_specs``, 256 sequences cut to 4
+           and 1): tinyllama-1.1b 8 steps of 4 x 4096 and gemma2-2b 8 of
+           1 x 4096 at published widths, then tinyllama at the float32
+           run's 4 x 2048 for 4 steps: flash forward launches 2 x layers
+           a step (the remat recompute) and backward layers a step,
+           finite losses, the last and the mean of the last three below
+           the first (not for the 4-step run), step ms, peak memory.
            Every run has the launch counts zeroed just before it and read
            just after;
 5. times:  with CUDA events, medians of repeats: each kernel beside its
@@ -318,7 +343,15 @@ order; any failure exits non-zero:
            serving shape also beside SDPA's fastest float32 backend; the
            flash backward and forward at the trained families' shapes
            beside the bound, the plain version and SDPA's backward, and
-           each training run's flash share of a step;
+           each training run's flash share of a step; the bf16 train
+           runs' step ms (median of steps 2-N), tokens/s and peak memory,
+           the bf16 step at 4 x 2048 beside the float32 one; the bf16
+           backward at tinyllama's and gemma2-2b's shapes (device_ms)
+           beside its bound (bf16 bytes; the two bf16 x bf16 products at
+           the bf16 rate, the three with a float32 operand at the
+           cheaper of 2 TF32 and 3 bf16 passes), its plain version and,
+           at tinyllama's,
+           SDPA's fastest bf16 backward like for like;
 6. trace:  one prefill and 8 decode steps of each served model, and one
            train step of the training path, under torch.profiler: the
            device's idle share and the kernels' share of each window and
@@ -327,7 +360,8 @@ order; any failure exits non-zero:
            from FLASH_SYMBOLS fails the run), and one granite-moe-1b-a400m
            train step (4 x 2048) likewise; one batched LM fitness call
            (128 genomes): idle share, flash share, largest entries;
-7. the ``{"kernels": [...]}`` line (five kernels; flash and SSD with
+7. the ``{"kernels": [...]}`` line (five kernels, the flash backward's
+   bf16 launches in an entry of their own; flash and SSD with
    their launches by path, the families' prefills among them), the card
    line, and last
    the result line ``{"ok": true, "device": {...}}``.
@@ -352,7 +386,7 @@ MAIN = dict(islands=32, pop=1024, genes=128, gens_per_epoch=5, epochs=3)
 # gloo ranks sharing the card; HVDC at German size on the one-rank mesh
 MESH_EPOCHS, MESH_RANKS, MESH_MIGRATIONS, MESH_TIMEOUT_S = 3, 4, 5, 300
 MESH_HVDC = dict(fitness="hvdc", islands=1, pop=8, gens_per_epoch=1,
-                 epochs=1, grid_size=2715, hvdc_lines=18, contingencies=8,
+                 epochs=1, grid_size=2715, hvdc_lines=18, contingencies=4,
                  screen_top_k=0)
 MESH_HVDC_WORKERS = 4
 # the mesh training phase (train(mesh=)): tinyllama-1.1b at its published
@@ -363,9 +397,11 @@ MESH_HVDC_WORKERS = 4
 # MESH_MOE_STEPS steps), both against one rank at the same shape; (d) on
 # MESH_POD_RANKS gloo ranks on (pod 2, data 1, model 1) with the int8
 # compressed pod reduce against the exact run. (b)-(d) run MESH_TRAIN_CUT
-# (batch, context): cut from 4 x 2048 so that the phase fits its budget
+# (batch, context): cut from 4 x 2048 so that the phase fits its budget;
+# MESH_TRAIN_STEPS cut from 3 to 2 for the smoke's time (a gloo step of
+# (b) takes ~12 s)
 MESH_TRAIN_ARCH, MESH_MOE_ARCH = "tinyllama-1.1b", "granite-moe-1b-a400m"
-MESH_TRAIN_STEPS, MESH_MOE_STEPS = 3, 2
+MESH_TRAIN_STEPS, MESH_MOE_STEPS = 2, 2
 MESH_TRAIN_ONE = (4, 2048)
 MESH_TRAIN_CUT = (4, 512)
 MESH_TRAIN_RANKS, MESH_POD_RANKS, MESH_TRAIN_TIMEOUT_S = 4, 2, 600
@@ -435,7 +471,7 @@ VARIATION_POINTS = {"no_powf": (MAIN["genes"], NO_POWF, {}),
 # and its islanding line 11 (it cuts bus 36, of degree 1, loose); the
 # German-size runs (--grid-size 2715 builds 2715 buses, 5348 lines, 18
 # HVDC lines; population and depth are the cuts), horizontal and vertical
-# (full AC on 8 outages per genome)
+# (full AC on 4 outages per genome)
 HVDC_SMALL = dict(n_bus=60, n_line=110, n_gen=15, n_hvdc=4, seed=1)
 HVDC_BRIDGE = 11
 HVDC_TOL, HVDC_PF_ATOL = (1e-4, 1e-4), 1e-4
@@ -445,17 +481,20 @@ HVDC_ARGS = ["--fitness", "hvdc", "--grid-size", str(HVDC_BUSES),
              "--num-workers", "4", "--device", "cuda"]
 # run: (its flags, epochs, generations an epoch). The vertical run keeps
 # one epoch of one generation (it took ~100 s at two epochs of two on an
-# H100, 57.4 s for its second generation), so the smoke stays within its
-# time with the audio, VLM and hybrid phases and the mesh training phase
-HVDC_RUNS = {"horizontal": (["--pop", "16"], 2, HVDC_GENS_PER_EPOCH),
-             "vertical": (["--pop", "8", "--contingencies", "8"], 1, 1)}
+# H100, 57.4 s for its second generation) and 4 outages a genome (46.6 s
+# at 8 on a slow host), the horizontal one epoch of two generations, so
+# the smoke stays within its time with the audio, VLM and hybrid phases,
+# the mesh training phase and the bf16 training phase
+HVDC_RUNS = {"horizontal": (["--pop", "16"], 1, HVDC_GENS_PER_EPOCH),
+             "vertical": (["--pop", "8", "--contingencies", "4"], 1, 1)}
 HVDC_SOLVE_BATCHES = (1, 16)
 # the decoupled host backend: the GA main path under host-thread,
 # host-process and host-thread pipelined (fitness.hostsim's numpy
 # rastrigin on HOST_WORKERS workers; the three must give the same best
 # genome), and HVDC on the German-size grid under host-thread with the
-# learned cost model (one epoch of two generations); the host pool's
-# padded dispatch check runs over HOST_PAD_WORKERS (32768 % 6 != 0)
+# learned cost model (2 islands of 8, one epoch of one generation); the
+# host pool's padded dispatch check runs over HOST_PAD_WORKERS (32768 %
+# 6 != 0)
 HOST_WORKERS, HOST_PAD_WORKERS = 4, 6
 HOST_ARGS = ["--num-workers", str(HOST_WORKERS)]
 HOST_RUNS = {
@@ -463,10 +502,10 @@ HOST_RUNS = {
     "host-process": ["--dispatch-backend", "host-process"] + HOST_ARGS,
     "host-thread pipelined": ["--dispatch-backend", "host-thread"] + HOST_ARGS
     + ["--sync-every", "2", "--pipeline-depth", "2"]}
-HVDC_HOST_GENS = 2
+HVDC_HOST_GENS = 1
 HVDC_HOST_ARGS = ["--fitness", "hvdc", "--grid-size", str(HVDC_BUSES),
                   "--hvdc-lines", str(HVDC_GENES), "--islands", "2",
-                  "--pop", "16", "--gens-per-epoch", str(HVDC_HOST_GENS),
+                  "--pop", "8", "--gens-per-epoch", str(HVDC_HOST_GENS),
                   "--epochs", "1", "--dispatch-backend", "host-thread",
                   "--cost-ema", "--device", "cuda"] + HOST_ARGS
 # the §4.1 delay chain kernel: checked at N lanes x fixed counts, and at
@@ -577,9 +616,10 @@ HOST_SMALL = (1, 16, 4)
 SLEEP_CYCLES = 1 << 22
 
 # Peak rates from NVIDIA's data sheets (dense, at the full 700 W limit):
-# memory bytes/s, float32 operations/s outside the tensor cores, and TF32
-# tensor-core operations/s.
-PEAKS = {"H200": (4.8e12, 67e12, 495e12), "H100": (3.35e12, 67e12, 495e12)}
+# memory bytes/s, float32 operations/s outside the tensor cores, TF32
+# tensor-core operations/s and bf16 tensor-core operations/s.
+PEAKS = {"H200": (4.8e12, 67e12, 495e12, 989e12),
+         "H100": (3.35e12, 67e12, 495e12, 989e12)}
 # the flash and SSD kernels issue each float32 product as three TF32
 # tensor-core products (3xTF32, src/repro_torch/kernels/csrc/mma_tf32.cuh)
 TF32_PRODUCTS = 3
@@ -694,9 +734,10 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048
 TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--full", "--steps", str(TRAIN_STEPS),
               "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
               "--device", "cuda"]
-# the backward kernel's checks beyond ATTN_CASES (its bf16 case must
-# raise): tinyllama-1.1b's layer shape at batch 1 and at the training
-# path's batch 4; gemma2-2b's layer shapes with S > its 4096 window, so
+# the backward kernel's float32 checks beyond ATTN_CASES (its bf16 case
+# is checked with BF16_TINYLLAMA's): tinyllama-1.1b's layer shape at
+# batch 1 and at the training path's batch 4; gemma2-2b's layer shapes
+# with S > its 4096 window, so
 # the window binds, windowed and global, softcap 50; the fully masked
 # rows of ATTN_MASKED. (B, S, H, KV, hd, causal, window, softcap, dtype)
 BWD_TINYLLAMA = (TRAIN_BATCH, TRAIN_SEQ, 32, 4, 64, True, 0, 0.0, "float32")
@@ -709,8 +750,11 @@ BWD_MAIN = [(1, TRAIN_SEQ, 32, 4, 64, True, 0, 0.0, "float32"),
 BWD_LONG = (1, 16384, 32, 4, 64, True, 0, 0.0, "float32")
 # a scratch budget that every shape's dq partials fit
 NO_BUDGET = 1 << 62
-# gradients: tests/test_kernels.py:96-97's tolerance (rtol, atol)
-GRAD_TOL = (1e-3, 1e-4)
+# gradients (rtol, atol): float32 at tests/test_kernels.py:96-97's
+# tolerance; bf16 (computed in float32 and rounded once on both sides) at
+# one rounding step elementwise (2^-7 of the value) plus the float32 sums'
+# own difference, an atol of 2^-12 of the gradient's largest magnitude
+GRAD_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (2.0 ** -7, 2.0 ** -12)}
 # the backward needs five products of 2 hd FLOP per visible (query, key)
 # pair and query head: Q K^T, dO V^T, P^T dO, dS^T Q, dS K
 BWD_PRODUCTS = 5
@@ -755,6 +799,33 @@ TRAIN_FAMILY_BWD = {
     "granite-moe": ((4, 2048, 16, 8, 64, True, 0, 0.0, "float32"), 24),
     "granite-moe remat": ((4, 4096, 16, 8, 64, True, 0, 0.0, "float32"),
                           24)}
+# bf16 training (the dry run's train_4k cell, repro/launch/dryrun.py:
+# 159-173, trained for real on one card): Model(compute_dtype="bfloat16",
+# attn_impl="kernel", remat=True, max_seq=4096), optimizer_for_arch with
+# bf16 moments above 20e9 parameters, make_train_step with the dry run's
+# microbatches (its MICROBATCHES table, dryrun.py:37, lists neither arch
+# run here: 1), the batch shaped by launch/specs.py::input_specs(arch,
+# "train_4k"). Cuts:
+# the global batch of 256 sequences to BF16_TRAIN's (the smoke's time;
+# the card's memory would hold more of tinyllama's), the dry run's
+# optimizer schedule (warmup 100 of 10,000 steps, which a few steps never
+# leave) to launch.train's (lr 1e-3, 5 warmup steps); bigram data
+BF16_SHAPE = "train_4k"
+BF16_TRAIN = {"tinyllama-1.1b": dict(batch=4, steps=8),
+              "gemma2-2b": dict(batch=1, steps=8)}
+BF16_OPT = dict(lr=1e-3, warmup_steps=5)
+# the same bf16 step at the float32 main run's shape, beside it
+BF16_SIDE = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=4)
+# the bf16 backward against its plain version (``check_flash_bwd``): the
+# tests' bf16 case, tinyllama-1.1b's train_4k layer, gemma2-2b's at 4500
+# keys (its 4096 window binds there, never at 4096), windowed and global,
+# softcap 50, and the trained families' shapes; repeat calls and one-key-
+# tile chunks bit-equal at BF16_BITS
+BF16_TINYLLAMA = (4, 4096, 32, 4, 64, True, 0, 0.0, "bfloat16")
+BF16_GEMMA = [(1, 4500, 8, 4, 256, True, 4096, 50.0, "bfloat16"),
+              (1, 4500, 8, 4, 256, True, 0, 50.0, "bfloat16")]
+BF16_BITS = (BF16_TINYLLAMA, BF16_GEMMA[1])
+
 # one train step of each reduced family on the card against the CPU
 # (``train_step.reduced_train_step``): (arch, Model switches)
 TRAIN_FAMILY_REDUCED = [("whisper-large-v3", {}), ("llava-next-34b", {}),
@@ -1773,7 +1844,7 @@ def variation_bound(args, card, label="fused_variation"):
     parents, rnd, scalars, lo, hi = args
     g = parents.shape[-1]
     rows = parents.numel() // g
-    mem_rate, f32_rate, _ = peaks(card)
+    mem_rate, f32_rate = peaks(card)[:2]
     nbytes = 4 * (2 * parents.numel() + sum(v.numel() for v in rnd.values())
                   + scalars.numel() + lo.numel() + hi.numel())
     sc = (scalars if scalars.dim() == 1
@@ -2181,7 +2252,7 @@ def phase_times_hvdc(runs, device, card):
     # PyTorch's default choice of library (what the port runs) and under
     # each library it can be told to prefer
     m = 2 * HVDC_BUSES
-    mem_rate, f32_rate, _ = peaks(card)
+    mem_rate, f32_rate = peaks(card)[:2]
     solve = {}
     default_lib = torch.backends.cuda.preferred_linalg_library()
     for b in HVDC_SOLVE_BATCHES:
@@ -2567,7 +2638,7 @@ def delay_times(device, card, launches, main_err):
     ms = device_ms(lambda: ops.delay_chain(acc0, counts), launches=5,
                    repeats=5)
     plain_ms = once_ms(lambda: delay_chain_ref(acc0, counts))
-    mem_rate, f32_rate, _ = peaks(card)
+    mem_rate, f32_rate = peaks(card)[:2]
     nops = DELAY_OPS_PER_STEP * n * iters
     nbytes = 12 * n
     ops_ms, bytes_ms = nops / f32_rate * 1e3, nbytes / mem_rate * 1e3
@@ -3386,21 +3457,26 @@ def phase_serve():
     return launches
 
 
-def tensor_bound(flops, nbytes, card):
+def tensor_bound(flops, nbytes, card, tc_ms=None, tc_rates=None):
     """The least time of a kernel whose float32 products run as 3xTF32 on
     the tensor cores: the larger of its bytes over the memory rate and
-    3 x its FLOP over the TF32 rate. Also the bound at the float32 rate
-    outside the tensor cores, for comparison with SIMT designs."""
-    mem_rate, f32_rate, tf32_rate = peaks(card)
+    3 x its FLOP over the TF32 rate, or ``tc_ms`` (counted as
+    ``tc_rates`` says) where the products' operands allow cheaper passes:
+    the bf16 backward's (``flash_bwd_bound``). Also the bound at the
+    float32 rate outside the tensor cores, for comparison with SIMT
+    designs."""
+    mem_rate, f32_rate, tf32_rate = peaks(card)[:3]
     bytes_ms = nbytes / mem_rate * 1e3
-    tc_ms = TF32_PRODUCTS * flops / tf32_rate * 1e3
+    if tc_ms is None:
+        tc_ms = TF32_PRODUCTS * flops / tf32_rate * 1e3
+        tc_rates = (f"{flops} FLOP x {TF32_PRODUCTS} at {tf32_rate:.3g} "
+                    f"TF32 op/s")
     simt_ms = flops / f32_rate * 1e3
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(bytes_ms, tc_ms),
             "bound_by": "bytes" if bytes_ms >= tc_ms else "operations",
             "simt_bound_ms": max(bytes_ms, simt_ms), "rates": (
-                f"{flops} FLOP x {TF32_PRODUCTS} at {tf32_rate:.3g} TF32 "
-                f"op/s, or at {f32_rate:.3g} float32 op/s; {nbytes} bytes "
-                f"at {mem_rate:.3g} B/s")}
+                f"{tc_rates}, or at {f32_rate:.3g} float32 op/s; {nbytes} "
+                f"bytes at {mem_rate:.3g} B/s")}
 
 
 def flash_bound(case, card):
@@ -3436,7 +3512,8 @@ def say_kernel_time(label, ms, plain, bnd):
     plain = "" if plain is None else f", plain version {plain:.4f} ms"
     say(f"times: {label}: kernel {ms:.4f} ms{plain}, "
         f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; "
-        f"{bnd['rates']}): {bnd['bound_ms'] / ms:.3f} of the 3xTF32 bound, "
+        f"{bnd['rates']}): {bnd['bound_ms'] / ms:.3f} of the tensor-core "
+        f"bound, "
         f"{bnd['simt_bound_ms'] / ms:.3f} of the float32 SIMT bound "
         f"({bnd['simt_bound_ms']:.4f} ms)")
 
@@ -3588,21 +3665,26 @@ def phase_times_lm(device, card, launches, flash_err, ssd_err):
 # ---------------------------------------------------------------------------
 
 def grad_tensors(case, device, seed, t=None):
-    """q, k, v (``attn_tensors``) and an output gradient dO."""
+    """q, k, v (``attn_tensors``) and an output gradient dO in their
+    dtype."""
     import torch
     q, k, v = attn_tensors(case, device, seed, t)
     gen = torch.Generator(device=device).manual_seed(seed + 1000)
-    return q, k, v, torch.randn(q.shape, generator=gen, device=device)
+    return q, k, v, torch.randn(q.shape, generator=gen,
+                                device=device).to(q.dtype)
 
 
 def check_flash_bwd(case, device, seed, t=None, q_offset=0):
     """Autograd through the wrapper ``ops.flash_attention`` (forward kernel
-    with its lse, backward kernel) against the plain forward and backward
-    (``flash_attention_fwd_plain``, ``flash_attention_bwd_plain``) on the
-    same q, k, v, dO. The wrapper's output and the forward kernel's lse
-    (``flash_attention_fwd_cuda(with_lse=True)``, what the backward reads)
-    are held at ATTN_TOL, the gradients at GRAD_TOL: (max abs error of dq,
-    dk, dv, (out max abs error, lse max relative error), (dq, dk, dv))."""
+    with its lse, backward kernel: one launch each) in the case's dtype
+    against the plain backward (``flash_attention_bwd_plain``) on the same
+    q, k, v, dO and the forward kernel's out and lse. The wrapper's output
+    and the forward kernel's lse (``flash_attention_fwd_cuda(with_lse=
+    True)``, what the backward reads) are held against the plain forward
+    (``flash_attention_fwd_plain``) at ATTN_TOL, dq, dk, dv at GRAD_TOL of
+    the dtype (in bf16 the atol a share of each gradient's largest
+    magnitude): (max abs error of dq, dk, dv, (out max abs error, lse max
+    relative error), (dq, dk, dv), share of bit-equal gradient elements)."""
     import torch
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.attention.flash import flash_attention_fwd_cuda
@@ -3611,12 +3693,21 @@ def check_flash_bwd(case, device, seed, t=None, q_offset=0):
     q, k, v, do = grad_tensors(case, device, seed, t)
     kw = attn_kwargs(case, q_offset)
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    before = (attn_ops.launches, attn_ops.bwd_launches)
     out = attn_ops.flash_attention(qg, kg, vg, **kw)
     grads = torch.autograd.grad(out, (qg, kg, vg), do)
-    _, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
     torch.cuda.synchronize()
+    launched = (attn_ops.launches - before[0],
+                attn_ops.bwd_launches - before[1])
+    fwd, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    if launched != (1, 1) or not torch.equal(fwd, out.detach()):
+        fail(f"flash attention under autograd at {case}: launches "
+             f"{launched}, expected (1, 1); output equal to the forward "
+             f"kernel's {torch.equal(fwd, out.detach())}")
     p_out, p_lse = flash_attention_fwd_plain(q, k, v, **kw)
-    ok_out, out_err = close(out.detach(), p_out, *ATTN_TOL[case[8]])
+    ok_out, out_err = close(out.detach().float(), p_out.float(),
+                            *ATTN_TOL[case[8]])
     ok_lse, _ = close(lse, p_lse, *ATTN_TOL["float32"])
     lse_err = float(((lse - p_lse).abs() / p_lse.abs().clamp_min(1.0)).max())
     if not (ok_out and ok_lse):
@@ -3624,16 +3715,22 @@ def check_flash_bwd(case, device, seed, t=None, q_offset=0):
              f"path) disagrees with its plain version at {case} "
              f"q_offset={q_offset}: out max abs err {out_err}, lse max rel "
              f"err {lse_err}")
-    ref = flash_attention_bwd_plain(q, k, v, p_out, p_lse, do, **kw)
-    err = 0.0
+    ref = flash_attention_bwd_plain(q, k, v, fwd, lse, do, **kw)
+    rtol, atol = GRAD_TOL[case[8]]
+    err, same, n = 0.0, 0, 0
     for name, a, b in zip(("dq", "dk", "dv"), grads, ref):
-        ok, e = close(a, b, *GRAD_TOL)
-        if not ok or a.dtype != torch.float32:
+        if case[8] == "bfloat16":
+            atol = GRAD_TOL["bfloat16"][1] * float(b.float().abs().max())
+        ok, e = close(a.float(), b.float(), rtol, atol)
+        if not ok or a.dtype != q.dtype:
             fail(f"flash attention backward kernel's {name} disagrees with "
                  f"its plain version at {case} q_offset={q_offset}: max abs "
-                 f"err {e}")
+                 f"err {e} (rtol {rtol:.3g}, atol {atol:.3g}), dtype "
+                 f"{a.dtype}")
         err = max(err, e)
-    return err, (out_err, lse_err), grads
+        same += int((a == b).sum())
+        n += a.numel()
+    return err, (out_err, lse_err), grads, same / n
 
 
 @contextlib.contextmanager
@@ -3748,7 +3845,8 @@ def train_step_card_vs_cpu(arch, device, **model_kw):
     norm_err = abs(mgpu["grad_norm"] - mcpu["grad_norm"]) / mcpu["grad_norm"]
     grad_err = max(float((ggpu[n] - g).abs().max() / g.abs().max())
                    for n, g in gcpu.items())
-    if not (loss_err < 1e-4 and norm_err < 1e-4 and grad_err < GRAD_TOL[0]):
+    if not (loss_err < 1e-4 and norm_err < 1e-4
+            and grad_err < GRAD_TOL["float32"][0]):
         fail(f"a train step of reduced {arch} {model_kw} on the card "
              f"differs from the CPU's: loss {loss_err}, grad norm "
              f"{norm_err}, grads {grad_err} (relative)")
@@ -3763,22 +3861,12 @@ def phase_check_train(device):
     import torch
     for i, case in enumerate(ATTN_CASES):
         if case[8] != "float32":
-            q, k, v = (x.requires_grad_() for x in
-                       attn_tensors(case, device, seed=i))
-            try:
-                from repro_torch.kernels.attention import ops as attn_ops
-                attn_ops.flash_attention(q, k, v, **attn_kwargs(case))
-            except ValueError as err:
-                say(f"check: flash attention backward {case}: refused as "
-                    f"expected ({err})")
-                continue
-            fail(f"flash attention under autograd took {case[8]}; the "
-                 f"backward kernel is float32 only")
-        err, fwd, _ = check_flash_bwd(case, device, seed=i)
+            continue                   # phase_check_bf16
+        err, fwd, _, _ = check_flash_bwd(case, device, seed=i)
         say(f"check: flash attention backward {case}: max abs err "
             f"{err:.3g}; {fwd_errs(fwd)}")
     m = ATTN_MASKED
-    err, fwd, (dq, dk, dv) = check_flash_bwd(
+    err, fwd, (dq, dk, dv), _ = check_flash_bwd(
         m["case"], device, seed=7, t=m["t"], q_offset=m["q_offset"])
     if not bool((dq[:, m["first_masked"]:] == 0).all()):
         fail("flash attention backward: fully masked rows have a nonzero dq")
@@ -3787,7 +3875,7 @@ def phase_check_train(device):
         f"{err:.3g}; {fwd_errs(fwd)}")
     main_err = 0.0
     for i, case in enumerate(BWD_MAIN):
-        err, fwd, grads = check_flash_bwd(case, device, seed=400 + i)
+        err, fwd, grads, _ = check_flash_bwd(case, device, seed=400 + i)
         if case == BWD_TINYLLAMA:
             main_err = err
             check_bwd_deterministic(case, device, seed=400 + i, grads=grads)
@@ -3844,25 +3932,48 @@ def phase_train():
 
 def flash_bwd_bound(case, card):
     """BWD_PRODUCTS x 2 hd FLOP per visible (query, key) pair and query
-    head; q, k, v, out, dO and lse read once, dq, dk, dv written once
-    (``tensor_bound``); T keys (the case's tenth entry) or S."""
+    head; q, k, v, out, dO read once and dq, dk, dv written once in the
+    case's dtype, lse read once in float32 (``tensor_bound``); T keys (the
+    case's tenth entry) or S. float32 products at float32 accuracy take
+    3 TF32 passes each. In bf16 the reference widens and computes in
+    float32: S^T = K Q^T and dP^T = V dO^T multiply two bf16 tensors, which
+    is one bf16 product with float32 sums at the bf16 rate; dV, dK and dQ
+    have a float32 operand (P or dS), bounded at the cheaper of its two
+    float32-exact forms: 2 TF32 passes (hi and lo of the float32 operand,
+    the bf16 one exact in TF32) or 3 bf16 passes (the float32 operand split
+    into three bf16 planes, 24 significand bits)."""
     b, s, h, kv, hd = case[:5]
     t = case[9] if len(case) > 9 else s
     # flash_bound counts 2 products (4 hd FLOP) per pair and head
     flops = flash_bound(case, card)["flops"] * BWD_PRODUCTS // 2
-    nbytes = 4 * (3 * b * s * h * hd + 2 * b * t * kv * hd + b * s * h
-                  + b * s * h * hd + 2 * b * t * kv * hd)
-    return tensor_bound(flops, nbytes, card)
+    item = 2 if case[8] == "bfloat16" else 4
+    nbytes = (item * (3 * b * s * h * hd + 2 * b * t * kv * hd
+                      + b * s * h * hd + 2 * b * t * kv * hd)
+              + 4 * b * s * h)
+    if item == 4:
+        return tensor_bound(flops, nbytes, card)
+    _, _, tf32_rate, bf16_rate = peaks(card)
+    raw = flops * 2 // BWD_PRODUCTS
+    mixed_s = (flops - raw) * min(2 / tf32_rate, 3 / bf16_rate)
+    return tensor_bound(flops, nbytes, card,
+                        tc_ms=(raw / bf16_rate + mixed_s) * 1e3,
+                        tc_rates=(
+                            f"{raw} FLOP bf16 x bf16 at {bf16_rate:.3g} "
+                            f"op/s, {flops - raw} FLOP with a float32 "
+                            f"operand at min(2 TF32 at {tf32_rate:.3g}, 3 "
+                            f"bf16 at {bf16_rate:.3g}) passes"))
 
 
 def sdpa_bwd_yardstick(q, k, v, do, scale, dq, causal=True):
     """Autograd backward through the fastest backend of
-    F.scaled_dot_product_attention that computes this float32 GQA case
-    (causal or not, no softcap, no window) on the same tensors, in SDPA's
-    (B, H, S, hd) layout, K and V repeated to H heads for the backends
-    that refuse enable_gqa (MATH takes GQA as it is). Only the backward is
-    timed (``torch.autograd.grad`` on a kept graph). Each backend's dq is
-    held against the kernel's. (ms, backend). The port never calls it."""
+    F.scaled_dot_product_attention that computes this GQA case (causal or
+    not, no softcap, no window) in the tensors' dtype on the same tensors,
+    in SDPA's (B, H, S, hd) layout, K and V repeated to H heads for the
+    backends that refuse enable_gqa (MATH takes GQA as it is; FLASH_ATTENTION
+    is tried for bfloat16 only, as it takes no float32). Only the backward
+    is timed (``torch.autograd.grad`` on a kept graph). Each backend's dq
+    is held against the kernel's. (ms, backend). The port never calls
+    it."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -3870,6 +3981,8 @@ def sdpa_bwd_yardstick(q, k, v, do, scale, dq, causal=True):
     dot = do.transpose(1, 2).contiguous()
     tries = [(SDPBackend.EFFICIENT_ATTENTION, False),
              (SDPBackend.CUDNN_ATTENTION, False), (SDPBackend.MATH, True)]
+    if q.dtype == torch.bfloat16:
+        tries.insert(0, (SDPBackend.FLASH_ATTENTION, False))
     best = None
     for backend, gqa in tries:
         qt = q.detach().transpose(1, 2).contiguous().requires_grad_()
@@ -3889,7 +4002,7 @@ def sdpa_bwd_yardstick(q, k, v, do, scale, dq, causal=True):
             say(f"times: scaled_dot_product_attention backward "
                 f"{backend.name}: refused ({str(err).splitlines()[0][:120]})")
             continue
-        err = float((got[0].transpose(1, 2) - dq).abs().max())
+        err = float((got[0].transpose(1, 2) - dq).float().abs().max())
         del got
 
         def call(out=out, qt=qt, kt=kt, vt=vt):
@@ -4016,6 +4129,194 @@ def phase_times_train(device, card, fwd_launches, bwd_launches, bwd_err,
             "bound_by": main["bound"]["bound_by"], "library_ms": sdpa_ms,
             "library_backend": backend,
             "shape": list(BWD_TINYLLAMA[:8])}
+
+
+def phase_check_bf16(device):
+    """The bf16 backward kernel at every BF16 shape: the tests' bf16 case,
+    tinyllama-1.1b's and gemma2-2b's, and the trained families' in bf16.
+    Returns (largest max abs error, {case: bit-equal share})."""
+    import torch
+    cases = ([c for c in ATTN_CASES if c[8] == "bfloat16"]
+             + [BF16_TINYLLAMA] + BF16_GEMMA
+             + [c[:8] + ("bfloat16",) + c[9:]
+                for c, _ in TRAIN_FAMILY_BWD.values()])
+    errs, shares = [], {}
+    for i, case in enumerate(cases):
+        e, _, grads, share = check_flash_bwd(case, device, seed=700 + i)
+        say(f"check: flash attention bf16 backward {case}: max abs err "
+            f"{e:.3g}, {share:.4f} of dq, dk, dv bit-equal to the plain "
+            f"version")
+        if case in BF16_BITS:
+            check_bwd_deterministic(case, device, seed=700 + i, grads=grads)
+        errs.append(e)
+        shares[str(case)] = share
+        del grads
+        torch.cuda.empty_cache()
+    return max(errs), shares
+
+
+def bf16_train_run(arch, device, *, batch, steps, seq=None, falls=True):
+    """``arch`` at its published widths in the dry run's train_4k
+    configuration (see BF16_TRAIN) for ``steps`` steps of ``batch``
+    sequences of ``seq`` tokens (the cell's 4096 by default), with the
+    launch counts zeroed just before and read just after. Fails unless
+    every loss is finite, the last loss and the mean of the last three
+    are below the first (the mamba2 run's rule), and the flash forward
+    launched 2 x layers x microbatches a step (the forward and the remat
+    recompute) and the backward layers x microbatches. Returns its
+    numbers. ``falls=False`` (a run too short to leave the warmup) skips
+    the loss's rule."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens, place
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.genetic import ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.models.model import Model
+    from repro_torch.models.sharding import ShardingCtx
+    from repro_torch.train.optimizer import optimizer_for_arch
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    cfg = get_config(arch)
+    spec = input_specs(arch, BF16_SHAPE)["batch"]["tokens"]
+    seq = seq or spec.shape[1] - 1
+    moment = "bfloat16" if cfg.total_params() > 20e9 else "float32"
+    mb = 1
+    model = Model(cfg, device=device, compute_dtype="bfloat16",
+                  attn_impl="kernel", remat=True, max_seq=seq)
+    opt_cfg = optimizer_for_arch(cfg.name, moment_dtype=moment,
+                                 total_steps=steps, **BF16_OPT)
+    step_fn = make_train_step(model, opt_cfg, microbatches=mb)
+    state = init_train_state(model, torch.Generator(
+        device=device).manual_seed(0), moment)
+    data = SyntheticTokens(cfg, batch, seq, seed=0, mode="bigram")
+    layers = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.num_layers))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    attn_ops.launches = attn_ops.bwd_launches = 0
+    ssd_ops.launches = ops.launches = 0
+    losses, norms, step_ms = [], [], []
+    for i in range(steps):
+        b = place(data.batch(i), ShardingCtx(), device, mb)
+        if seq == spec.shape[1] - 1 and \
+                tuple(b["tokens"].shape) != (batch, spec.shape[1]):
+            fail(f"bf16 train {arch}: tokens {tuple(b['tokens'].shape)}, "
+                 f"input_specs gives {tuple(spec.shape)} before the cut")
+        t0 = time.perf_counter()
+        state, met = step_fn(state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    got = (attn_ops.launches, attn_ops.bwd_launches, ssd_ops.launches,
+           ops.launches)
+    peak = torch.cuda.max_memory_allocated(device)
+    expect = (2 * layers * mb * steps, layers * mb * steps, 0, 0)
+    label = f"bf16 train {arch} ({batch} x {seq}, remat, microbatches {mb})"
+    say(f"main: {label}: flash forward / backward launches {got[0]} / "
+        f"{got[1]}, ssd {got[2]}, fused variation {got[3]}; losses "
+        f"{losses}; grad norms {norms}; step ms {step_ms}; peak device "
+        f"memory {peak} B; moments {moment}, parameters "
+        f"{cfg.total_params()}")
+    if got != expect:
+        fail(f"{label}: kernel launches {got}, expected {expect}")
+    if not all(map(math.isfinite, losses + norms)):
+        fail(f"{label}: losses {losses}, grad norms {norms}")
+    if falls and not (losses[-1] < losses[0]
+                      and statistics.mean(losses[-3:]) < losses[0]):
+        fail(f"{label}: the last loss {losses[-1]} or the mean of the last "
+             f"three {statistics.mean(losses[-3:])} is not below the first "
+             f"{losses[0]}")
+    steady = statistics.median(step_ms[1:])
+    run = dict(batch=batch, seq=seq, steps=steps, microbatches=mb,
+               moment_dtype=moment, losses=losses, grad_norms=norms,
+               step_ms_all=step_ms, step_ms=steady,
+               tokens_per_s=batch * seq / (steady / 1e3), peak_bytes=peak,
+               flash_launches=got[0], bwd_launches=got[1])
+    del state, model, step_fn
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_train_bf16(device):
+    """The BF16_TRAIN runs at the train_4k cell, then tinyllama-1.1b in
+    the same configuration at the float32 main run's shape (BF16_SIDE).
+    Returns {label: run}."""
+    runs = {arch: bf16_train_run(arch, device, **kw)
+            for arch, kw in BF16_TRAIN.items()}
+    runs[f"{TRAIN_ARCH} at {BF16_SIDE['batch']} x {BF16_SIDE['seq']}"] = \
+        bf16_train_run(TRAIN_ARCH, device, falls=False, **BF16_SIDE)
+    return runs
+
+
+def phase_times_bf16(device, card, runs, f32_stats, err, shares):
+    """The bf16 train runs' step ms, tokens/s and peak memory (the float32
+    main run's beside the bf16 one at its shape), and the bf16 backward at
+    tinyllama-1.1b's and gemma2-2b's shapes (device_ms, the wrapper's row
+    sum and its two kernels) beside its bound, its plain version and, where
+    SDPA computes the same function (causal, global, no softcap),
+    SDPA's bf16 backward. Returns the bf16 backward's kernels entry."""
+    import torch
+    from repro_torch.kernels.attention.flash import (flash_attention_bwd_cuda,
+                                                     flash_attention_fwd_cuda)
+    from repro_torch.kernels.attention.ref import flash_attention_bwd_plain
+    f32_ms = statistics.median(f32_stats["step_ms"][1:])
+    for label, r in runs.items():
+        say(f"times: bf16 train {label} ({card}): step {r['step_ms']:.3f} ms "
+            f"(median of steps 2-{r['steps']}), {r['tokens_per_s']:.1f} "
+            f"tokens/s, peak device memory {r['peak_bytes']} B")
+    side = runs[f"{TRAIN_ARCH} at {BF16_SIDE['batch']} x {BF16_SIDE['seq']}"]
+    say(f"times: {TRAIN_ARCH} at {TRAIN_BATCH} x {TRAIN_SEQ}: float32 step "
+        f"{f32_ms:.3f} ms (no remat, {f32_stats['peak_bytes']} B peak) | "
+        f"bf16 step {side['step_ms']:.3f} ms (remat, {side['peak_bytes']} B "
+        f"peak); information, not a claim: remat recomputes the forward")
+    rows = {}
+    for i, case in enumerate([BF16_TINYLLAMA] + BF16_GEMMA):
+        q, k, v, do = grad_tensors(case, device, seed=800 + i)
+        kw = attn_kwargs(case)
+        out, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+        ms = device_ms(lambda: flash_attention_bwd_cuda(
+            q, k, v, out, lse, do, **kw), launches=5, repeats=5)
+        plain = cuda_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, out, lse, do, **kw), repeats=3, inner=1)
+        bnd = flash_bwd_bound(case, card)
+        say_kernel_time(f"flash attention bf16 backward {case}", ms, plain,
+                        bnd)
+        sdpa = backend = None
+        if not case[6] and not case[7]:
+            dq = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)[0]
+            sdpa, backend = sdpa_bwd_yardstick(q, k, v, do, kw["scale"], dq)
+            say(f"times: like for like at {case}: bf16 backward kernel "
+                f"{ms:.4f} ms, scaled_dot_product_attention's bf16 backward "
+                f"({backend}) {sdpa:.4f} ms")
+            del dq
+        else:
+            say(f"times: like for like at {case}: none "
+                f"(scaled_dot_product_attention has no softcap or window)")
+        rows[str(case)] = dict(ms=ms, plain_ms=plain,
+                               bound_ms=bnd["bound_ms"],
+                               bound_by=bnd["bound_by"], library_ms=sdpa,
+                               library_backend=backend)
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    main = rows[str(BF16_TINYLLAMA)]
+    say("times: " + json.dumps({"card": card, "bf16_train": runs,
+                                "f32_step_ms_at_side_shape": f32_ms,
+                                "flash_bwd_bf16": rows}))
+    launches = {f"bf16 train {k}": r["bwd_launches"] for k, r in runs.items()}
+    return {"name": "flash_attention_bwd_bf16", "route": "cuda",
+            "source": "src/repro_torch/kernels/attention/csrc/"
+                      "flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/attention/ops.py:37",
+            "launches": sum(launches.values()), "max_abs_err": err,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library_backend": main["library_backend"],
+            "shape": list(BF16_TINYLLAMA[:8]), "launches_by_path": launches,
+            "bit_equal_share": shares, "gemma2_shapes": {
+                k: v for k, v in rows.items() if k != str(BF16_TINYLLAMA)}}
 
 
 def profiled(fn):
@@ -4276,7 +4577,8 @@ def check_remat_moe(device):
     gc.collect()
     torch.cuda.empty_cache()
     if not (routes_equal and n0 == (layers, layers)
-            and n1 == (2 * layers, layers) and grad_err < GRAD_TOL[0]
+            and n1 == (2 * layers, layers)
+            and grad_err < GRAD_TOL["float32"][0]
             and loss_err < 1e-6 and aux_err < 1e-6):
         fail(f"{MOE_TRAIN_ARCH} at published widths: remat=True differs "
              f"from remat=False: routes equal {routes_equal}, flash "
@@ -4304,7 +4606,7 @@ def phase_check_train_families(device):
     import torch
     bwd_err = 0.0
     for i, (label, (case, _)) in enumerate(TRAIN_FAMILY_BWD.items()):
-        err, fwd, grads = check_flash_bwd(case, device, seed=700 + i)
+        err, fwd, grads, _ = check_flash_bwd(case, device, seed=700 + i)
         bwd_err = max(bwd_err, err)
         say(f"check: flash attention backward, {label} {case}: max abs err "
             f"{err:.3g}; {fwd_errs(fwd)}")
@@ -5007,8 +5309,8 @@ def check_flash_vmap(arch, device, seed):
             own = torch.autograd.grad(loss(qi, ki, vi, do[i])[0],
                                       (qi, ki, vi))
             for name, a, p_, w in zip(("dq", "dk", "dv"), grads, plain, own):
-                ok, e = close(a[i], p_, *GRAD_TOL)
-                ok_own, e_own = close(a[i], w, *GRAD_TOL)
+                ok, e = close(a[i], p_, *GRAD_TOL["float32"])
+                ok_own, e_own = close(a[i], w, *GRAD_TOL["float32"])
                 if not (ok and ok_own):
                     fail(f"flash under vmap(grad) at {arch}'s layer (window "
                          f"{window}), run {i}: {name} differs from the plain "
@@ -5964,6 +6266,13 @@ def main():
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     device = torch.device("cuda", 0)
+    clock, laps = [time.perf_counter()], {}
+
+    def lap(name):
+        """Seconds since the last lap, kept for the phases line."""
+        now = time.perf_counter()
+        laps[name] = round(now - clock[0], 1)
+        clock[0] = now
 
     t0 = time.perf_counter()
     logs = _build.build()
@@ -5973,34 +6282,49 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 say(f"build: {name}: {line.strip()}")
+    lap("build")
 
     main_err = phase_check(device)
     flash_err, ssd_err = phase_check_lm(device)
+    lap("check: variation, lm")
     bwd_err = phase_check_train(device)
+    bf16_err, bf16_shares = phase_check_bf16(device)
     fam_bwd_err, remat_check = phase_check_train_families(device)
+    lap("check: train, bf16, families' train")
     phase_check_hvdc(device)
     delay_err = phase_check_host(device)
     phase_check_queue(device)
+    lap("check: hvdc, host, queue")
     phase_check_meta(device)
     vmap_err = phase_check_lm_fitness(device)
     serving_err = phase_check_serving(device)
     fam_flash_err, fam_ssd_err, fam_model_err = phase_check_families(device)
+    lap("check: meta, lm fitness, serving, families")
     launches, pop = phase_main()
     mesh_runs = phase_mesh(device, card)
+    lap("main GA and mesh")
     mesh_train = phase_mesh_train(device, card)
+    lap("mesh train")
     lm_launches = phase_serve()
     new_runs = phase_serve_new()
     batch_run = phase_batcher(device)
     family_runs = phase_serve_families()
+    lap("serve")
     train_fwd, train_bwd, train_stats = phase_train()
+    bf16_runs = phase_train_bf16(device)
+    lap("train and bf16 train")
     family_train = phase_train_families(device)
+    lap("train families")
     hvdc_runs = phase_main_hvdc()
+    lap("hvdc")
     host_runs = phase_main_host()
     queue_runs = phase_main_queue(host_runs)
+    lap("host and queue")
     meta_run = phase_main_meta(device)
     resize_run = phase_main_resize(device)
     lm_runs = phase_main_lm()
     ssm_stats = phase_train_ssm()
+    lap("meta, resize, lm, ssm")
     kernels = [phase_times(pop, main_err, launches, device, card)]
     kernels[0]["launches_by_path"] = dict(
         {"ga_run rastrigin": launches},
@@ -6030,17 +6354,20 @@ def main():
                **{f"serve {k} prefill": v["flash_launches"]
                   for k, v in family_runs.items()}}
     trained = {f"train {k}": v for k, v in family_train.items()}
+    bf16_trained = {f"bf16 train {k}": v for k, v in bf16_runs.items()}
     meshed = {f"train(mesh=) ({run}) rank {r}": n
               for run, ns in mesh_train.items()
               for r, n in enumerate(ns if isinstance(ns[0], list)
                                     else [ns])}
     kernels[1]["launches"] = sum(serving.values()) + sum(
         v["flash_launches"] for v in trained.values()) + sum(
-        n[0] for n in meshed.values())
+        n[0] for n in meshed.values()) + sum(
+        v["flash_launches"] for v in bf16_trained.values())
     kernels[1]["max_abs_err"] = max(flash_err, serving_err, fam_flash_err)
     kernels[1]["launches_by_path"] = {
         **serving, f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_fwd,
         **{k: v["flash_launches"] for k, v in trained.items()},
+        **{k: v["flash_launches"] for k, v in bf16_trained.items()},
         **{k: n[0] for k, n in meshed.items()},
         **{k: v["launches"] for k, v in lm_paths.items()}}
     kernels[1]["serving_shapes"] = phase_times_serving(device, card)
@@ -6074,6 +6401,8 @@ def main():
         ("grad_max_rel_err", "min_topk_margin", "peak_bytes_no_remat",
          "peak_bytes_remat"), remat_check))
     kernels.append(bwd_entry)
+    kernels.append(phase_times_bf16(device, card, bf16_runs, train_stats,
+                                    bf16_err, bf16_shares))
     lm_times = phase_times_lm_fitness(device, card, ssm_stats)
     for entry in (kernels[1], bwd_entry):
         entry["lm_fitness"] = {
@@ -6081,15 +6410,20 @@ def main():
             "launches_per_call": {n: r["launches"] for n, r in
                                   lm_times["lm_fitness"].items()},
             "vmap_grad_max_abs_err_vs_plain": vmap_err}
+    lap("times: kernels, meta, serving, train, lm")
     phase_times_hvdc(hvdc_runs, device, card)
     del hvdc_runs
+    lap("times: hvdc")
     kernels.append(phase_times_host(pop, device, card, host_runs, delay_err))
     phase_times_queue(pop, device, card, queue_runs)
+    lap("times: host and queue")
     phase_trace(device, card)
     phase_trace_train(device, card)
     phase_trace_train(device, card, MOE_TRAIN_ARCH, MOE_TRAIN_BATCH,
                       MOE_TRAIN_SEQ, get_config(MOE_TRAIN_ARCH).num_layers)
     phase_trace_lm_fitness(device, card)
+    lap("trace")
+    say("phases (s): " + json.dumps(laps))
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

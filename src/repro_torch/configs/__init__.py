@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import GAConfig, ModelConfig
+from repro_torch.configs.base import (GAConfig, ModelConfig, ShapeConfig,
+                                      SHAPES, shape_applicable)
 
 # arch-id -> module name
 _ARCH_MODULES = {
@@ -38,4 +39,9 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["GAConfig", "ModelConfig", "get_config", "list_archs"]
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+__all__ = ["GAConfig", "ModelConfig", "ShapeConfig", "SHAPES",
+           "get_config", "get_shape", "list_archs", "shape_applicable"]

@@ -1,5 +1,6 @@
 """Configurations: the port's own copies of ``repro.configs.base``'s
-``GAConfig`` and ``ModelConfig``.
+``GAConfig``, ``ModelConfig`` and the input-shape cells (``ShapeConfig``,
+``SHAPES``, ``shape_applicable``).
 
 Field names, defaults and derived values are those of the reference, so one
 set of keyword arguments builds the same configuration in both packages:
@@ -201,6 +202,11 @@ class ModelConfig:
     def total_params(self) -> int:
         return _param_count(self)
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence mixing (SSM / hybrid) -> long_500k runs."""
+        return self.family in ("ssm", "hybrid")
+
     def reduced(self) -> "ModelConfig":
         """A tiny config of the same family for CPU smoke tests.
 
@@ -284,3 +290,36 @@ def _param_count(cfg: ModelConfig) -> int:
         cross = cfg.num_layers * (4 * cfg.d_model * cfg.num_heads * cfg.head_dim)
         n += enc + cross
     return n
+
+
+# ---------------------------------------------------------------------------
+# Input-shape cells (the reference's dry-run shape contract)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(runs?, reason-if-skipped) for one (arch x shape) cell."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("full-attention arch: 500k decode KV cache is "
+                       "quadratic-history / O(100s GiB) per replica; "
+                       "skipped per shape contract (DESIGN.md §3)")
+    return True, ""

@@ -70,6 +70,8 @@
 
 namespace {
 
+using io::load4;
+using io::store2;
 using tf32x3::FragA;
 
 constexpr int WARPS = 8;
@@ -77,24 +79,6 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int R = 16 * WARPS;  // rows (query position, query head) per block
 constexpr int BK = 32;         // keys per KV tile
 constexpr float MIN_CLAMP = -0.7f * 3.402823466e38f;
-
-__device__ __forceinline__ float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 template <int HD>
 constexpr size_t smem_bytes() {

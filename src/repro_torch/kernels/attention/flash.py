@@ -24,8 +24,8 @@ BWD_KERNEL = "flash_attention_bwd"
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_int64, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int64]
-                 + [ctypes.c_int] * 6
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64]
+                 + [ctypes.c_int] * 7
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_float, ctypes.c_int64, ctypes.c_void_p])
 _SCRATCH_ARGTYPES = [ctypes.c_int] * 8 + [ctypes.c_int64] * 2
@@ -80,26 +80,32 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor, *,
                              scale: float, causal: bool, window: int,
                              attn_softcap: float, q_offset: int):
-    """dq, dk, dv (float32, the shapes of q, k, v) of the forward that gave
+    """dq, dk, dv (the dtypes and shapes of q, k, v: float32, or bfloat16
+    computed in float32 and rounded at the end) of the forward that gave
     ``out`` and ``lse``, for the output gradient ``dout``: a row sum
-    D = rowsum(dout * out) in torch, then the backward's two kernels on the
-    current stream (dk, dv and per-key-tile dq partials per key tile; the
-    partials summed in a fixed order). The partials' float32 scratch, of
-    the size the library asks for within BWD_SCRATCH_BYTES, is allocated
-    here. Arguments checked by the caller."""
+    D = rowsum(dout * out) in torch, in float32 from widened tensors, then
+    the backward's two kernels on the current stream (dk, dv and
+    per-key-tile dq partials per key tile; the partials summed in a fixed
+    order). The partials' float32 scratch, of the size the library asks for
+    within BWD_SCRATCH_BYTES, is allocated here, and for bfloat16 where the
+    key tiles run in chunks a float32 buffer for the running dq sums.
+    Arguments checked by the caller."""
     b, sq, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     masks = (int(bool(causal)), int(window))
-    floats = _launcher(BWD_KERNEL, "flash_attention_bwd_scratch_floats",
-                       _SCRATCH_ARGTYPES, ctypes.c_int64)(
-        b, sq, t, h, kvh, hd, *masks, int(q_offset),
-        BWD_SCRATCH_BYTES // 4)
+    scratch = _launcher(BWD_KERNEL, "flash_attention_bwd_scratch_floats",
+                        _SCRATCH_ARGTYPES, ctypes.c_int64)
+    shape = (b, sq, t, h, kvh, hd, *masks, int(q_offset))
+    floats = scratch(*shape, BWD_SCRATCH_BYTES // 4)
     if floats < 0:
         raise RuntimeError(f"{BWD_KERNEL} does not take q {tuple(q.shape)}, "
                            f"k {tuple(k.shape)}")
-    dsum = (dout * out).sum(-1)
+    bf16 = q.dtype == torch.bfloat16
+    dsum = (dout.float() * out.float()).sum(-1)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     dq_part = torch.empty(floats, dtype=torch.float32, device=q.device)
+    dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+              if bf16 and floats < scratch(*shape, 1 << 62) else None)
     launch = _launcher(BWD_KERNEL, "flash_attention_bwd_launch",
                        _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
@@ -107,8 +113,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     0 if dq_acc is None else dq_acc.data_ptr(),
                      dq_part.data_ptr(), floats, b, sq, t, h, kvh, hd,
-                     float(scale), *masks, float(attn_softcap),
+                     int(bf16), float(scale), *masks, float(attn_softcap),
                      int(q_offset), stream)
     _raise_on(err, BWD_KERNEL, q, k)
     return dq, dk, dv

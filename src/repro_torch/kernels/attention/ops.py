@@ -16,8 +16,10 @@ reference wraps its kernel in ``jax.custom_vjp``, ``ops.py:25-46``): its
 forward launches the forward kernel with the per-row log-sum-exp output
 and saves q, k, v, out and lse; its backward runs ``_FlashAttentionBwd``,
 which launches the backward kernel (``csrc/flash_attention_bwd.cu``),
-float32 only. On CPU tensors both directions run the plain versions
-(``flash_attention_fwd_plain``, ``flash_attention_bwd_plain``). Otherwise
+float32 or bfloat16 (widened, float32 arithmetic, the gradients rounded
+to bfloat16 at the end, as the reference's ``_bwd``). On CPU tensors both
+directions run the plain versions (``flash_attention_fwd_plain``,
+``flash_attention_bwd_plain``). Otherwise
 ``_FlashAttentionFwd`` launches the forward kernel with no lse.
 
 The three functions work under ``torch.func``: each has a ``vmap`` rule
@@ -44,9 +46,8 @@ launches = 0
 bwd_launches = 0
 
 HEAD_DIMS = (32, 64, 128, 256)
+#: what the kernels take, forward and backward
 DTYPES = (torch.float32, torch.bfloat16)
-#: what the backward kernel takes (bf16 training: ROADMAP)
-BWD_DTYPES = (torch.float32,)
 
 
 #: The plain PyTorch version, on any device: what the wrapper runs on the
@@ -83,13 +84,6 @@ def _check_layout(name, t):
     if t.data_ptr() % 16:
         raise ValueError(f"flash_attention: {name} is not 16-byte "
                          f"aligned (the kernel copies 16-byte rows)")
-
-
-def _check_bwd(q):
-    if q.dtype not in BWD_DTYPES:
-        raise ValueError(f"flash_attention: the backward kernel takes "
-                         f"float32, not {q.dtype} (bf16 training through "
-                         f"flash attention is not ported)")
 
 
 def _on_cuda(q):
@@ -134,7 +128,6 @@ class _FlashAttention(torch.autograd.Function):
         kw = _kw(scale, causal, window, attn_softcap, q_offset)
         if _on_cuda(q):
             _check(q, k, v)
-            _check_bwd(q)
             out, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
             launches += 1
             return out, lse

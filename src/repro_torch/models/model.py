@@ -642,6 +642,15 @@ class Model(nn.Module):
                 dense_init_(self.enc_pos["table"], d, generator)
         return self
 
+    def param_shapes(self) -> dict:
+        """{name: a ``meta`` tensor of the parameter's shape and dtype},
+        allocating nothing (the reference's ``eval_shape`` of its
+        ``init_params``); over a mesh the whole leaves', not this rank's
+        blocks."""
+        return {n: torch.empty(self.layouts[n].shape if n in self.layouts
+                               else p.shape, dtype=p.dtype, device="meta")
+                for n, p in self.named_parameters()}
+
     @contextlib.contextmanager
     def _whole(self, module):
         """Over a mesh, ``module``'s own parameters at their whole shapes
@@ -846,10 +855,14 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # Cache init (for decode-only entry)
     # ------------------------------------------------------------------
-    def init_cache(self, batch_size: int, max_cache_len: int, dtype=None):
+    def init_cache(self, batch_size: int, max_cache_len: int, dtype=None,
+                   device=None):
+        """Zero caches on ``device`` (default the model's; ``meta``
+        allocates nothing)."""
         cfg = self.cfg
         dtype = dtype or self.compute_dtype
-        kvh, hd, dev = cfg.num_kv_heads, cfg.head_dim, self.device
+        kvh, hd = cfg.num_kv_heads, cfg.head_dim
+        dev = self.device if device is None else device
         cache = {f"sub{s}": [] for s in range(cfg.scan_period)}
         for i in range(cfg.num_layers):
             s = i % cfg.scan_period
@@ -874,6 +887,12 @@ class Model(nn.Module):
                     "xv": torch.zeros(shape, dtype=dtype, device=dev)}
             cache[f"sub{s}"].append(layer)
         return cache
+
+    def cache_shapes(self, batch_size: int, max_cache_len: int, dtype=None):
+        """``init_cache``'s structure as ``meta`` tensors, allocating
+        nothing (the reference's ``eval_shape`` of its ``init_cache``)."""
+        return self.init_cache(batch_size, max_cache_len, dtype,
+                               device="meta")
 
 
 # ---------------------------------------------------------------------------

@@ -183,6 +183,17 @@ def init_train_state(model: Model, generator: torch.Generator,
             "rng": train_rng(generator.initial_seed(), 0).to(model.device)}
 
 
+def train_state_shapes(model: Model, moment_dtype: str = "float32") -> dict:
+    """``init_train_state``'s state as ``meta`` tensors, allocating nothing
+    (the reference's ``eval_shape`` of its ``init_train_state``): the
+    parameters' shapes (``Model.param_shapes``), both moments in
+    ``moment_dtype``, the int32 step and the 0-d int64 "rng" (the
+    reference's is a (2,) uint32 key)."""
+    params = model.param_shapes()
+    return {"params": params, "opt": init_opt_state(params, moment_dtype),
+            "rng": torch.empty((), dtype=torch.int64, device="meta")}
+
+
 def train_rng(seed: int, step: int) -> torch.Tensor:
     """The state's "rng" before step ``step`` of a run from ``seed`` (a 0-d
     int64 CPU tensor): ``fold_in(seed, 1)``, as the reference's

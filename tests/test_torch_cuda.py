@@ -50,7 +50,8 @@ from torch_parity import (ATTN_BF16_TOL, ATTN_CASES, ATTN_TOL,  # noqa: F401
                           GA_RUN_HP, GRAD_TOL, MASKED_CASE, MODEL_TOL,
                           SSD_CASES, SSD_CHUNK256_CASES, SSD_MIN_DECAY,
                           SSD_TOL, TOL, attn_grad_inputs, attn_inputs,
-                          cuda_device, kernel_args, ssd_inputs, to_np)
+                          bf16_grad_tol, cuda_device, kernel_args,
+                          ssd_inputs, to_np)
 
 pytestmark = pytest.mark.cuda
 
@@ -372,9 +373,6 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     shifted = k.new_empty(k.numel() + 1)[1:].view(k.shape).copy_(k)
     with pytest.raises(ValueError, match="aligned"):
         attn_ops.flash_attention(q, shifted, v, **kw)
-    with pytest.raises(ValueError, match="backward kernel takes float32"):
-        attn_ops.flash_attention(q.bfloat16().requires_grad_(), k.bfloat16(),
-                                 v.bfloat16(), **kw)
     assert attn_ops.launches == before
 
 
@@ -415,19 +413,23 @@ BWD_EDGE_CASES = [c for c in FLASH_EDGE_CASES if c[-1] == "float32"] + [
 
 def _check_backward(q, k, v, do, kw):
     """The forward kernel's out and lse, then the backward kernel against
-    flash_attention_bwd_plain on the same tensors."""
+    flash_attention_bwd_plain on the same tensors: float32 at GRAD_TOL,
+    bfloat16 at one rounding step (``bf16_grad_tol``)."""
     from repro_torch.kernels.attention.flash import (
         flash_attention_bwd_cuda, flash_attention_fwd_cuda)
     out, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
     plain_out, plain_lse = flash_attention_fwd_plain(q, k, v, **kw)
-    np.testing.assert_allclose(to_np(out), to_np(plain_out), **ATTN_TOL)
-    np.testing.assert_allclose(to_np(lse), to_np(plain_lse), **ATTN_TOL)
+    fwd_tol = ATTN_TOL if q.dtype == torch.float32 else ATTN_BF16_TOL
+    np.testing.assert_allclose(to_np(out.float()), to_np(plain_out.float()),
+                               **fwd_tol)
+    np.testing.assert_allclose(to_np(lse), to_np(plain_lse), **fwd_tol)
     got = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     ref = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-        assert a.shape == b.shape and a.dtype == torch.float32, name
-        np.testing.assert_allclose(to_np(a), to_np(b), **GRAD_TOL,
+        assert a.shape == b.shape and a.dtype == q.dtype, name
+        tol = GRAD_TOL if q.dtype == torch.float32 else bf16_grad_tol(b)
+        np.testing.assert_allclose(to_np(a.float()), to_np(b.float()), **tol,
                                    err_msg=name)
     return got
 
@@ -464,6 +466,51 @@ def test_flash_backward_kernel_fully_masked_rows(cuda_device):
     first_masked = c["t"] + c["window"] - 1 - c["q_offset"]
     assert bool((dq[:, first_masked:] == 0).all())
     assert bool(torch.isfinite(dk).all() and torch.isfinite(dv).all())
+
+
+# bfloat16 (B, Sq, T, H, KV, hd, causal, window, softcap, q_offset): the
+# tests' bf16 case, tinyllama-1.1b's G = 8, hd 256 with a window and
+# softcap 50 (gemma2-2b's), hd 128 at llava's GQA 7:1, and no mask with
+# Sq != T (whisper's cross-attention)
+BF16_BWD_CASES = [
+    (1, 256, 256, 8, 8, 64, True, 0, 0.0, 0),
+    (2, 384, 384, 32, 4, 64, True, 0, 0.0, 0),
+    (1, 300, 300, 8, 4, 256, True, 128, 50.0, 0),
+    (1, 200, 200, 56, 8, 128, True, 0, 0.0, 0),
+    (2, 65, 129, 4, 4, 32, False, 0, 30.0, 0),
+]
+
+
+@pytest.mark.parametrize("b,sq,t,h,kv,hd,causal,win,cap,q_offset",
+                         BF16_BWD_CASES)
+def test_flash_backward_kernel_bf16_launches_and_matches_plain_version(
+        cuda_device, monkeypatch, b, sq, t, h, kv, hd, causal, win, cap,
+        q_offset):
+    """bfloat16 under autograd through the wrapper: one forward and one
+    backward launch, bf16 gradients equal to the backward kernel's on the
+    same tensors, which hold against the plain version at one rounding
+    step; in one-key-tile chunks (the running dq sums in float32 between
+    chunks) the same bits."""
+    from repro_torch.kernels.attention import flash
+    q, k, v, do = (x.bfloat16() for x in _grad_case(
+        (b, sq, h, kv, hd), cuda_device, seed=sq + t, t=t))
+    kw = dict(scale=hd ** -0.5, causal=causal, window=win, attn_softcap=cap,
+              q_offset=q_offset)
+    whole = _check_backward(q, k, v, do, kw)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    before = (attn_ops.launches, attn_ops.bwd_launches)
+    grads = torch.autograd.grad(attn_ops.flash_attention(qg, kg, vg, **kw),
+                                (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert (attn_ops.launches - before[0],
+            attn_ops.bwd_launches - before[1]) == (1, 1)
+    out, lse = flash.flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+    monkeypatch.setattr(flash, "BWD_SCRATCH_BYTES", 0)
+    chunked = flash.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, b_, c in zip(("dq", "dk", "dv"), whole, grads, chunked):
+        assert a.dtype == torch.bfloat16, name
+        assert torch.equal(a, b_) and torch.equal(a, c), name
 
 
 # (B, S, H, KV, hd, causal, window, softcap): tinyllama-1.1b's G = 8 at a
@@ -1124,6 +1171,41 @@ def test_flash_vmap_grad_launches_once_per_folded_call(cuda_device, arch):
                                        err_msg=f"run {i} {name} vs plain")
             np.testing.assert_allclose(to_np(got[i]), to_np(w), **GRAD_TOL,
                                        err_msg=f"run {i} {name} vs a call")
+
+
+def test_flash_vmap_grad_bf16_folds_into_one_launch(cuda_device):
+    """vmap(grad(...)) in bfloat16 over 16 runs of reduced gemma2-2b's
+    local layer (window 16, softcap 50): one forward and one backward
+    launch, and each run's bf16 gradients equal to a separate wrapper
+    call's at one rounding step."""
+    cfg = get_config("gemma2-2b").reduced()
+    kw = _layer_kwargs(cfg, local=True)
+    rs = np.random.default_rng(22)
+    r, b, s = 16, 4, 32
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v, do = (torch.from_numpy(rs.standard_normal(shape).astype(
+        np.float32)).to(cuda_device, torch.bfloat16) for shape in (
+        (r, b, s, h, hd), (r, b, s, kv, hd), (r, b, s, kv, hd),
+        (r, b, s, h, hd)))
+
+    def loss(q, k, v, do):
+        return (attn_ops.flash_attention(q, k, v, **kw).float()
+                * do.float()).sum()
+
+    before = (attn_ops.launches, attn_ops.bwd_launches)
+    grads = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(
+        q, k, v, do)
+    torch.cuda.synchronize()
+    assert (attn_ops.launches - before[0],
+            attn_ops.bwd_launches - before[1]) == (1, 1)
+    for i in range(r):
+        qi, ki, vi = (x[i].clone().requires_grad_() for x in (q, k, v))
+        own = torch.autograd.grad(loss(qi, ki, vi, do[i]), (qi, ki, vi))
+        for name, got, w in zip(("dq", "dk", "dv"), grads, own):
+            assert got.dtype == torch.bfloat16, name
+            np.testing.assert_allclose(
+                to_np(got[i].float()), to_np(w.float()), **bf16_grad_tol(w),
+                err_msg=f"run {i} {name}")
 
 
 LM_GENOMES = np.concatenate([

@@ -21,6 +21,17 @@ ATTN_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 # flash attention gradients (tests/test_kernels.py:96-97, the reference's
 # kernel gradient against the dense one): dq, dk, dv
 GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
+# the bfloat16 backward kernel against its plain version on the same
+# inputs: both compute in float32 and round once, so one bf16 rounding
+# step elementwise (2^-7 of the value) plus the float32 sums' own
+# difference, 2^-12 of the gradient's largest magnitude
+BF16_GRAD_RTOL, BF16_GRAD_ATOL_FRAC = 2.0 ** -7, 2.0 ** -12
+
+
+def bf16_grad_tol(ref) -> dict:
+    """``assert_allclose`` keywords for a bf16 gradient against ``ref``."""
+    return dict(rtol=BF16_GRAD_RTOL, atol=BF16_GRAD_ATOL_FRAC
+                * float(ref.float().abs().max()))
 # SSD chunked scan (tests/test_kernels.py:122-125)
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
 # whole model (tests/test_models_smoke.py:74-99): logits and caches 2e-4,
