@@ -46,7 +46,8 @@ order; any failure exits non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
 2. build:  every CUDA kernel of the port (fused variation, flash attention
-           forward and backward, SSD intra-chunk, delay chain), compiled
+           forward, float32 and bf16 backward, SSD intra-chunk, delay
+           chain), compiled
            from this
            checkout's sources for
            sm_90a (one nvcc per source, all started together); ptxas's
@@ -147,8 +148,9 @@ order; any failure exits non-zero:
            tinyllama-1.1b's train_4k layer (4, 4096, 32, 4, 64), gemma2-2b's
            (1, 4500, 8, 4, 256) windowed and global with softcap 50 and
            the trained families' shapes; at tinyllama's and gemma2's
-           global shape two more calls and a call in one-key-tile chunks
-           bit-equal;
+           global shape three more calls bit-equal (the bf16 backward,
+           flash_attention_bwd_bf16.cu, keeps no scratch and takes no
+           budget, so the one with none runs the same path);
 4. main:   ``python -m repro_torch.launch.ga_run --fitness rastrigin`` at
            I=32 islands x P=1024 individuals x G=128 genes, 5 generations x
            3 epochs, then again with --sync-every 2 --pipeline-depth 2,
@@ -349,9 +351,12 @@ order; any failure exits non-zero:
            backward at tinyllama's and gemma2-2b's shapes (device_ms)
            beside its bound (bf16 bytes; the two bf16 x bf16 products at
            the bf16 rate, the three with a float32 operand at the
-           cheaper of 2 TF32 and 3 bf16 passes), its plain version and,
-           at tinyllama's,
-           SDPA's fastest bf16 backward like for like;
+           cheaper of 2 TF32 and 3 bf16 passes), its plain version, each
+           of its three kernels' traced ms (``say_bwd_split``) and, at
+           tinyllama's, SDPA's bf16 backward by every backend like for
+           like; the bf16 forward with lse at those shapes beside its
+           bound (Q K^T at the bf16 rate, P V at 3 bf16 passes) and, at
+           tinyllama's, SDPA's bf16 forward;
 6. trace:  one prefill and 8 decode steps of each served model, and one
            train step of the training path, under torch.profiler: the
            device's idle share and the kernels' share of each window and
@@ -691,13 +696,18 @@ BATCH_PROMPT, BATCH_NEW, BATCH_SEED = (256, 4500), (8, 32), 65
 BATCH_MARGIN = 1e-3
 # decode steps in each traced decode window; the device symbols of the
 # port's kernels, as they appear in a trace: the flash forward, then the
-# backward's two kernels (flash_attention_bwd.cu: dk, dv and dq partials;
-# the partials' sum)
+# float32 backward's two kernels (flash_attention_bwd.cu: dk, dv and dq
+# partials; the partials' sum), which every float32 training trace must
+# show; the bf16 backward's three (flash_attention_bwd_bf16.cu: D, the
+# dk / dv pass, the dq pass)
 TRACE_DECODE = 8
 FLASH_SYMBOLS = ("flash_fwd_kernel", "flash_bwd_kernel",
                  "flash_bwd_dq_reduce_kernel")
+BF16_BWD_SYMBOLS = ("flash_bwd_bf16_dsum_kernel", "flash_bwd_bf16_dkdv_kernel",
+                    "flash_bwd_bf16_dq_kernel")
 KERNEL_SYMBOLS = ("fused_variation_kernel", *FLASH_SYMBOLS,
-                  "ssd_chunk_kernel", "delay_chain_kernel")
+                  *BF16_BWD_SYMBOLS, "ssd_chunk_kernel",
+                  "delay_chain_kernel")
 # tests/test_kernels.py:53-61: (B, S, H, KV, hd, causal, window, softcap,
 # dtype); then gemma2-2b's layer shapes on the serving path (batch 4,
 # prompt 4500): its windowed and its global layers
@@ -3520,15 +3530,17 @@ def say_kernel_time(label, ms, plain, bnd):
 
 def sdpa_yardstick(q, k, v, scale, out, causal=True):
     """The fastest backend of F.scaled_dot_product_attention that computes
-    this float32 GQA case (causal or not, no softcap, no window; Sq may
+    this GQA case (causal or not, no softcap, no window; Sq may
     differ from T where it is not causal) on the kernel's
     own tensors, in SDPA's (B, H, S, hd) layout: (ms, backend). The flash
-    backend refuses float32. MATH takes the KV heads as they are
+    backend refuses float32 (tried for bfloat16 only, with K and V
+    repeated). MATH takes the KV heads as they are
     (enable_gqa); EFFICIENT_ATTENTION and CUDNN_ATTENTION refuse
     enable_gqa, so they get K and V with each KV head repeated for its G
     query heads (what enable_gqa means), built before the timed calls.
     Each backend's output is held against the kernel's ``out``. The port
     never calls SDPA."""
+    import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -3537,6 +3549,8 @@ def sdpa_yardstick(q, k, v, scale, out, causal=True):
     tries = [(SDPBackend.EFFICIENT_ATTENTION, ke, ve, False),
              (SDPBackend.CUDNN_ATTENTION, ke, ve, False),
              (SDPBackend.MATH, kt, vt, True)]
+    if q.dtype == torch.bfloat16:
+        tries.insert(0, (SDPBackend.FLASH_ATTENTION, ke, ve, False))
     best = None
     for backend, kb, vb, gqa in tries:
         def call(backend=backend, kb=kb, vb=vb, gqa=gqa):
@@ -3552,7 +3566,7 @@ def sdpa_yardstick(q, k, v, scale, out, causal=True):
             say(f"times: scaled_dot_product_attention {backend.name}: "
                 f"refused ({str(err).splitlines()[0][:120]})")
             continue
-        err = float((got.transpose(1, 2) - out).abs().max())
+        err = float((got.transpose(1, 2) - out).float().abs().max())
         del got
         ms = cuda_ms(call, repeats=5, inner=3)
         say(f"times: scaled_dot_product_attention {backend.name}"
@@ -3750,8 +3764,10 @@ def scratch_budget(nbytes):
 def check_bwd_deterministic(case, device, seed, grads):
     """Two more backward calls through the wrapper on the tensors that gave
     ``grads`` (``check_flash_bwd``, same seed), and one call of the kernel
-    with no scratch budget (its key tiles in chunks of one): dq, dk, dv
-    must equal ``grads`` bit for bit, or fail."""
+    with no scratch budget (float32: its key tiles in chunks of one; the
+    bf16 backward keeps no scratch and takes no budget, so there it is the
+    same path a third time): dq, dk, dv must equal ``grads`` bit for bit,
+    or fail."""
     import torch
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.attention.flash import (flash_attention_bwd_cuda,
@@ -3774,8 +3790,10 @@ def check_bwd_deterministic(case, device, seed, grads):
     if not all(same):
         fail(f"flash attention backward in one-key-tile chunks differs from "
              f"one launch at {case}: bit-equal (dq, dk, dv) {same}")
-    say(f"check: flash attention backward {case}: three calls, and a call "
-        f"in one-key-tile chunks, give the same dq, dk, dv bit for bit")
+    chunks = ("a call in one-key-tile chunks" if case[8] == "float32" else
+              "a fourth with no scratch budget (no chunks in bf16)")
+    say(f"check: flash attention backward {case}: three calls, and "
+        f"{chunks}, give the same dq, dk, dv bit for bit")
 
 
 def check_bwd_long(device):
@@ -3952,16 +3970,39 @@ def flash_bwd_bound(case, card):
               + 4 * b * s * h)
     if item == 4:
         return tensor_bound(flops, nbytes, card)
-    _, _, tf32_rate, bf16_rate = peaks(card)
     raw = flops * 2 // BWD_PRODUCTS
-    mixed_s = (flops - raw) * min(2 / tf32_rate, 3 / bf16_rate)
-    return tensor_bound(flops, nbytes, card,
+    return bf16_bound(raw, flops - raw, nbytes, card)
+
+
+def bf16_bound(raw, mixed, nbytes, card):
+    """``tensor_bound`` of bf16 inputs computed in float32: ``raw`` FLOP
+    of bf16 x bf16 products at the bf16 rate (exact in float32 sums),
+    ``mixed`` FLOP with a float32 operand at the cheaper of its two
+    float32-exact forms: 2 TF32 passes (hi and lo of the float32 operand,
+    the bf16 one exact in TF32) or 3 bf16 passes (the float32 operand as
+    three bf16 planes, 24 significand bits)."""
+    _, _, tf32_rate, bf16_rate = peaks(card)
+    mixed_s = mixed * min(2 / tf32_rate, 3 / bf16_rate)
+    return tensor_bound(raw + mixed, nbytes, card,
                         tc_ms=(raw / bf16_rate + mixed_s) * 1e3,
                         tc_rates=(
                             f"{raw} FLOP bf16 x bf16 at {bf16_rate:.3g} "
-                            f"op/s, {flops - raw} FLOP with a float32 "
+                            f"op/s, {mixed} FLOP with a float32 "
                             f"operand at min(2 TF32 at {tf32_rate:.3g}, 3 "
                             f"bf16 at {bf16_rate:.3g}) passes"))
+
+
+def flash_fwd_bf16_bound(case, card):
+    """The bf16 forward with its lse output (the training path's call):
+    Q K^T multiplies two bf16 tensors, P V a float32 P by bf16 V
+    (``bf16_bound``), over ``flash_bound``'s pairs; q, k, v read and out
+    written once in bf16, lse written in float32."""
+    b, s, h, kv, hd = case[:5]
+    t = case[9] if len(case) > 9 else s
+    flops = flash_bound(case, card)["flops"]
+    return bf16_bound(flops // 2, flops - flops // 2,
+                      2 * (2 * b * s * h * hd + 2 * b * t * kv * hd)
+                      + 4 * b * s * h, card)
 
 
 def sdpa_bwd_yardstick(q, k, v, do, scale, dq, causal=True):
@@ -4252,11 +4293,15 @@ def phase_train_bf16(device):
 
 def phase_times_bf16(device, card, runs, f32_stats, err, shares):
     """The bf16 train runs' step ms, tokens/s and peak memory (the float32
-    main run's beside the bf16 one at its shape), and the bf16 backward at
-    tinyllama-1.1b's and gemma2-2b's shapes (device_ms, the wrapper's row
-    sum and its two kernels) beside its bound, its plain version and, where
-    SDPA computes the same function (causal, global, no softcap),
-    SDPA's bf16 backward. Returns the bf16 backward's kernels entry."""
+    main run's beside the bf16 one at its shape); at tinyllama-1.1b's and
+    gemma2-2b's train_4k layers the bf16 backward (device_ms, the wrapper's
+    three kernels) beside its bound, its plain version, its traced split
+    (each kernel's ms a launch, ``say_bwd_split``) and, where SDPA computes
+    the same function (causal, global, no softcap), SDPA's bf16 backward
+    by every backend that takes it; and the bf16 forward with its lse
+    output (the training path's call) beside its bound and SDPA's bf16
+    forward. Returns (the bf16 backward's kernels entry, the bf16
+    forward's numbers at those layers)."""
     import torch
     from repro_torch.kernels.attention.flash import (flash_attention_bwd_cuda,
                                                      flash_attention_fwd_cuda)
@@ -4271,7 +4316,7 @@ def phase_times_bf16(device, card, runs, f32_stats, err, shares):
         f"{f32_ms:.3f} ms (no remat, {f32_stats['peak_bytes']} B peak) | "
         f"bf16 step {side['step_ms']:.3f} ms (remat, {side['peak_bytes']} B "
         f"peak); information, not a claim: remat recomputes the forward")
-    rows = {}
+    rows, fwd_rows = {}, {}
     for i, case in enumerate([BF16_TINYLLAMA] + BF16_GEMMA):
         q, k, v, do = grad_tensors(case, device, seed=800 + i)
         kw = attn_kwargs(case)
@@ -4283,7 +4328,13 @@ def phase_times_bf16(device, card, runs, f32_stats, err, shares):
         bnd = flash_bwd_bound(case, card)
         say_kernel_time(f"flash attention bf16 backward {case}", ms, plain,
                         bnd)
-        sdpa = backend = None
+        split = say_bwd_split(case, device, card, seed=800 + i)
+        fwd_ms = cuda_ms(lambda: flash_attention_fwd_cuda(
+            q, k, v, with_lse=True, **kw), repeats=5, inner=3)
+        fbnd = flash_fwd_bf16_bound(case, card)
+        say_kernel_time(f"flash attention bf16 forward with lse {case}",
+                        fwd_ms, None, fbnd)
+        sdpa = backend = sdpa_fwd = fwd_backend = None
         if not case[6] and not case[7]:
             dq = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)[0]
             sdpa, backend = sdpa_bwd_yardstick(q, k, v, do, kw["scale"], dq)
@@ -4291,32 +4342,96 @@ def phase_times_bf16(device, card, runs, f32_stats, err, shares):
                 f"{ms:.4f} ms, scaled_dot_product_attention's bf16 backward "
                 f"({backend}) {sdpa:.4f} ms")
             del dq
+            sdpa_fwd, fwd_backend = sdpa_yardstick(q, k, v, kw["scale"], out)
+            say(f"times: like for like at {case}: bf16 forward kernel with "
+                f"lse {fwd_ms:.4f} ms, scaled_dot_product_attention's bf16 "
+                f"forward ({fwd_backend}) {sdpa_fwd:.4f} ms")
         else:
             say(f"times: like for like at {case}: none "
                 f"(scaled_dot_product_attention has no softcap or window)")
-        rows[str(case)] = dict(ms=ms, plain_ms=plain,
-                               bound_ms=bnd["bound_ms"],
-                               bound_by=bnd["bound_by"], library_ms=sdpa,
-                               library_backend=backend)
+        rows[str(case)] = dict(
+            ms=ms, plain_ms=plain, bound_ms=bnd["bound_ms"],
+            bound_by=bnd["bound_by"], library_ms=sdpa,
+            library_backend=backend, kernels={
+                next((s for s in BF16_BWD_SYMBOLS if s in name), name[:60]):
+                {"launches": n, "ms": t} for name, (n, t) in split.items()})
+        fwd_rows[str(case)] = dict(
+            ms=fwd_ms, bound_ms=fbnd["bound_ms"], bound_by=fbnd["bound_by"],
+            library_ms=sdpa_fwd, library_backend=fwd_backend)
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
     main = rows[str(BF16_TINYLLAMA)]
+    fwd_launches = {f"bf16 train {k}": r["flash_launches"] / r["steps"]
+                    for k, r in runs.items()}
     say("times: " + json.dumps({"card": card, "bf16_train": runs,
                                 "f32_step_ms_at_side_shape": f32_ms,
-                                "flash_bwd_bf16": rows}))
+                                "flash_bwd_bf16": rows,
+                                "flash_fwd_bf16": fwd_rows,
+                                "flash_fwd_bf16_launches_per_step":
+                                fwd_launches}))
     launches = {f"bf16 train {k}": r["bwd_launches"] for k, r in runs.items()}
-    return {"name": "flash_attention_bwd_bf16", "route": "cuda",
-            "source": "src/repro_torch/kernels/attention/csrc/"
-                      "flash_attention_bwd.cu",
-            "replaces": "src/repro/kernels/attention/ops.py:37",
-            "launches": sum(launches.values()), "max_abs_err": err,
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"],
-            "library_backend": main["library_backend"],
-            "shape": list(BF16_TINYLLAMA[:8]), "launches_by_path": launches,
-            "bit_equal_share": shares, "gemma2_shapes": {
-                k: v for k, v in rows.items() if k != str(BF16_TINYLLAMA)}}
+    entry = {"name": "flash_attention_bwd_bf16", "route": "cuda",
+             "source": "src/repro_torch/kernels/attention/csrc/"
+                       "flash_attention_bwd_bf16.cu",
+             "replaces": "src/repro/kernels/attention/ops.py:37",
+             "launches": sum(launches.values()), "max_abs_err": err,
+             "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+             "library_ms": main["library_ms"],
+             "library_backend": main["library_backend"],
+             "shape": list(BF16_TINYLLAMA[:8]), "launches_by_path": launches,
+             "kernels": main["kernels"], "bit_equal_share": shares,
+             "gemma2_shapes": {k: v for k, v in rows.items()
+                               if k != str(BF16_TINYLLAMA)}}
+    return entry, {"shapes": fwd_rows, "launches_per_step": fwd_launches}
+
+
+def bwd_split(case, device, seed=800):
+    """One backward call (``flash_attention_bwd_cuda``) at ``case`` traced
+    under torch.profiler after a warm-up call: {device kernel name:
+    (launches, summed ms)}. The wrapper's row sum D = rowsum(dO O) shows
+    as torch's elementwise and reduction kernels, the port's kernels by
+    their FLASH_SYMBOLS and BF16_BWD_SYMBOLS names."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.attention.flash import (flash_attention_bwd_cuda,
+                                                     flash_attention_fwd_cuda)
+    q, k, v, do = grad_tensors(case, device, seed)
+    kw = attn_kwargs(case)
+    out, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+    flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, ms = split.get(e.name, (0, 0.0))
+            split[e.name] = (n + 1, ms + (e.time_range.end
+                                          - e.time_range.start) / 1e3)
+    del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+    return split
+
+
+def say_bwd_split(case, device, card, seed=800):
+    """Print ``bwd_split`` at ``case``, one "times:" line: each device
+    kernel's launches, summed ms and ms per launch, the port's kernels
+    named by their symbol; returns the split."""
+    split = bwd_split(case, device, seed)
+    total = sum(ms for _, ms in split.values())
+    parts = []
+    for name, (n, ms) in sorted(split.items(), key=lambda x: -x[1][1]):
+        sym = next((s for s in FLASH_SYMBOLS + BF16_BWD_SYMBOLS
+                    if s in name), name[:60])
+        parts.append(f"{sym}: {n} launch(es), {ms:.4f} ms "
+                     f"({ms / n:.4f} a launch)")
+    say(f"times: traced split of one flash attention backward {case} "
+        f"({card}): {total:.4f} ms of device kernels; " + "; ".join(parts))
+    return split
 
 
 def profiled(fn):
@@ -4462,7 +4577,8 @@ def phase_trace_train(device, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
     flash = {k: sum(v for name, v in by_name.items() if k in name)
              for k in FLASH_SYMBOLS}
     unlisted = [name for name in by_name if "flash" in name
-                and not any(k in name for k in FLASH_SYMBOLS)]
+                and not any(k in name for k in FLASH_SYMBOLS
+                            + BF16_BWD_SYMBOLS)]
     if unlisted or (busy is not None and not all(flash.values())):
         fail(f"train trace: flash kernels {unlisted} are not in "
              f"FLASH_SYMBOLS, or a listed one did not run: {flash}")
@@ -5638,7 +5754,8 @@ def phase_trace_lm_fitness(device, card):
     flash = {k: sum(v for name, v in by_name.items() if k in name)
              for k in FLASH_SYMBOLS}
     unlisted = [name for name in by_name if "flash" in name
-                and not any(k in name for k in FLASH_SYMBOLS)]
+                and not any(k in name for k in FLASH_SYMBOLS
+                            + BF16_BWD_SYMBOLS)]
     if unlisted or (busy is not None and not all(flash.values())):
         fail(f"LM fitness trace: flash kernels {unlisted} are not in "
              f"FLASH_SYMBOLS, or a listed one did not run: {flash}")
@@ -6277,7 +6394,10 @@ def main():
     t0 = time.perf_counter()
     logs = _build.build()
     say(f"build: {len(logs)} kernel(s) compiled in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s (nvcc of each source, all "
+        f"started together: " + ", ".join(
+            f"{n} {sec:.2f} s" for n, sec in _build.build_seconds.items())
+        + ")")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
@@ -6401,8 +6521,9 @@ def main():
         ("grad_max_rel_err", "min_topk_margin", "peak_bytes_no_remat",
          "peak_bytes_remat"), remat_check))
     kernels.append(bwd_entry)
-    kernels.append(phase_times_bf16(device, card, bf16_runs, train_stats,
-                                    bf16_err, bf16_shares))
+    bf16_bwd, kernels[1]["bf16_train_shapes"] = phase_times_bf16(
+        device, card, bf16_runs, train_stats, bf16_err, bf16_shares)
+    kernels.append(bf16_bwd)
     lm_times = phase_times_lm_fitness(device, card, ssm_stats)
     for entry in (kernels[1], bwd_entry):
         entry["lm_fitness"] = {

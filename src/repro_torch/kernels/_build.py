@@ -20,6 +20,8 @@ import os
 import re
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
@@ -34,6 +36,8 @@ SOURCES = {
     "flash_attention": KERNELS_DIR / "attention" / "csrc" / "flash_attention.cu",
     "flash_attention_bwd": (KERNELS_DIR / "attention" / "csrc"
                             / "flash_attention_bwd.cu"),
+    "flash_attention_bwd_bf16": (KERNELS_DIR / "attention" / "csrc"
+                                 / "flash_attention_bwd_bf16.cu"),
     "ssd_chunk": KERNELS_DIR / "ssd" / "csrc" / "ssd_chunk.cu",
     "delay_chain": KERNELS_DIR / "delay" / "csrc" / "delay_chain.cu",
 }
@@ -52,6 +56,8 @@ def flags(name: str) -> tuple:
     return ARCH_FLAGS + NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 _loaded: dict = {}
+#: seconds each source's nvcc took in the last build that compiled it
+build_seconds: dict = {}
 
 
 def nvcc_path() -> str:
@@ -112,17 +118,25 @@ def build(names=None) -> dict:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
+    procs, logs = {}, {}
+
+    def drain(name, proc, t0):
+        logs[name] = proc.communicate()[0]
+        build_seconds[name] = time.perf_counter() - t0
+
     for name, out in todo.items():
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *flags(name), "-I", str(INCLUDE_DIR), "-o", str(tmp),
                str(SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    logs, failed = {}, {}
-    for name, (proc, tmp, out) in procs.items():
-        logs[name] = proc.communicate()[0]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        waiter = threading.Thread(target=drain,
+                                  args=(name, proc, time.perf_counter()))
+        waiter.start()
+        procs[name] = (proc, waiter, tmp, out)
+    failed = {}
+    for name, (proc, waiter, tmp, out) in procs.items():
+        waiter.join()
         if proc.returncode == 0:
             os.replace(tmp, out)
         else:

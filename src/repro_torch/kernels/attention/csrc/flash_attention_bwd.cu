@@ -95,33 +95,14 @@
 //    / 210,688 bytes, under the 232,448 a block may use: one block per SM.
 //    Key tiles go to blockIdx.y, so the first blocks to start are those of
 //    the first key tile, which causal rows see most.
-//  * bfloat16 inputs (is_bf16; the reference's _bwd widens bf16 q, k, v and
-//    dO to float32, does the backward in float32 and returns bf16 grads):
-//    the kernels are templated on the element type T of q, k, v, dO, dq, dk
-//    and dv; loads widen to float32, the last stores round to nearest even
-//    (io::load4, io::store4 in mma_tf32.cuh, shared with the forward), and
-//    everything between (lse, D, the dq partials, every product and sum)
-//    is the float32 path's.
-//    K and V go to shared memory through registers (widened), not cp.async.
-//    A bf16 value is exact in TF32 (8 significant bits of 11), so its lo
-//    plane is 0 and a 3xTF32 product with a bf16 operand drops the pass
-//    that reads that plane: S^T = K Q^T and dP^T = V dO^T run one pass
-//    (hi x hi), dQ_part = dS K, dV += P^T dO and dK += dS^T Q two (lo x hi,
-//    hi x hi), 8 mma.sync per step where float32 runs 15. The dropped
-//    passes only add zeros, so the bits are those of all three; this needs
-//    the scale applied to the product (s = scale * q.k), never folded into
-//    Q before the split. Between chunks of key tiles the running dq sums
-//    stay float32 (dq_acc, a float32 buffer; float32 runs keep them in dq),
-//    so every chunking still gives the same bits.
+// bfloat16 inputs have a backward of their own on the bf16 tensor cores,
+// with no dq partials: flash_attention_bwd_bf16.cu.
 // Row math is int32 within one (batch, KV head): Sq * H must stay below
 // 2^31 (the launcher refuses more).
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "mma_tf32.cuh"
 
@@ -182,14 +163,11 @@ struct FragB {
     }
 };
 
-// d += a * b in float32 accuracy, both operands split: small terms first.
-// A_EXACT / B_EXACT: that operand is exact in TF32 (a widened bf16 value),
-// its lo plane 0, so the pass that reads it would add zeros and is skipped
-template <bool A_EXACT = false, bool B_EXACT = false>
+// d += a * b in float32 accuracy, both operands split: small terms first
 __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
                                      const FragB& b) {
-    if constexpr (!A_EXACT) tf32x3::mma(d, a.lo, b.hi[0], b.hi[1]);
-    if constexpr (!B_EXACT) tf32x3::mma(d, a.hi, b.lo[0], b.lo[1]);
+    tf32x3::mma(d, a.lo, b.hi[0], b.hi[1]);
+    tf32x3::mma(d, a.hi, b.lo[0], b.lo[1]);
     tf32x3::mma(d, a.hi, b.hi[0], b.hi[1]);
 }
 
@@ -313,23 +291,21 @@ struct Rows {             // the flattened rows of one (batch, KV head)
     }
 };
 
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_kernel(const T* __restrict__ q,           // (B, Sq, H, HD)
-                 const T* __restrict__ k,           // (B, Tk, KV, HD)
-                 const T* __restrict__ v,           // (B, Tk, KV, HD)
-                 const T* __restrict__ dout,        // (B, Sq, H, HD)
+flash_bwd_kernel(const float* __restrict__ q,       // (B, Sq, H, HD)
+                 const float* __restrict__ k,       // (B, Tk, KV, HD)
+                 const float* __restrict__ v,       // (B, Tk, KV, HD)
+                 const float* __restrict__ dout,    // (B, Sq, H, HD)
                  const float* __restrict__ lse,     // (B, Sq, H)
                  const float* __restrict__ dsum,    // (B, Sq, H)
-                 T* __restrict__ dk,                // (B, Tk, KV, HD)
-                 T* __restrict__ dv,                // (B, Tk, KV, HD)
+                 float* __restrict__ dk,            // (B, Tk, KV, HD)
+                 float* __restrict__ dv,            // (B, Tk, KV, HD)
                  float* __restrict__ dq_part,       // scratch, see top
                  int sq, int tk, int h, int kvh, float scale, int causal,
                  int window, float cap, int64_t q_offset, int kt0,
                  int64_t seg_rows) {
     using TL = Tile<HD>;
-    // bf16 inputs are exact in TF32: their lo planes are 0 (see top)
-    constexpr bool EXACT = std::is_same<T, __nv_bfloat16>::value;
     constexpr int BKV = TL::BKV, BR = TL::BR;
     constexpr int S = HD + 4, PS = BR + 8;
     constexpr int AR = WARPS / TL::AK, CH = WARPS / TL::CK;
@@ -370,14 +346,8 @@ flash_bwd_kernel(const T* __restrict__ q,           // (B, Sq, H, HD)
         const bool ok = j < kmax;
         const int64_t off = ok ? (((int64_t)b * tk + k0 + j) * kvh + kh) * HD
                                  + d : 0;
-        if constexpr (EXACT) {         // widened through registers
-            const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            store4(Ks + j * S + d, ok ? load4(k + off) : zero);
-            store4(Vs + j * S + d, ok ? load4(v + off) : zero);
-        } else {
-            tf32x3::cp_async16(Ks + j * S + d, k + off, ok ? 16 : 0);
-            tf32x3::cp_async16(Vs + j * S + d, v + off, ok ? 16 : 0);
-        }
+        tf32x3::cp_async16(Ks + j * S + d, k + off, ok ? 16 : 0);
+        tf32x3::cp_async16(Vs + j * S + d, v + off, ok ? 16 : 0);
     }
     tf32x3::cp_async_commit();
 
@@ -425,13 +395,8 @@ flash_bwd_kernel(const T* __restrict__ q,           // (B, Sq, H, HD)
         for (int j = 0; j < NLD; ++j) {
             const int idx = tid + j * THREADS;
             const int o = idx / (HD / 4) * S + (idx % (HD / 4)) * 4;
-            if constexpr (EXACT) {     // hi = x, no product reads lo
-                store4(reinterpret_cast<float*>(Qhi + o), rq[j]);
-                store4(reinterpret_cast<float*>(Ohi + o), ro[j]);
-            } else {
-                split4(rq[j], Qhi + o, Qlo + o);
-                split4(ro[j], Ohi + o, Olo + o);
-            }
+            split4(rq[j], Qhi + o, Qlo + o);
+            split4(ro[j], Ohi + o, Olo + o);
         }
     };
 
@@ -487,8 +452,8 @@ flash_bwd_kernel(const T* __restrict__ q,           // (B, Sq, H, HD)
                     bo.load(Ohi, Olo, o, o + 4);
 #pragma unroll
                     for (int mi = 0; mi < MA; ++mi) {
-                        mma3<EXACT, EXACT>(sc[mi][ni], ak[mi], bq);
-                        mma3<EXACT, EXACT>(dp[mi][ni], av[mi], bo);
+                        mma3(sc[mi][ni], ak[mi], bq);
+                        mma3(dp[mi][ni], av[mi], bo);
                     }
                 }
             }
@@ -549,7 +514,7 @@ flash_bwd_kernel(const T* __restrict__ q,           // (B, Sq, H, HD)
                     bk.set(kr[0], kr[S]);
 #pragma unroll
                     for (int mi = 0; mi < MQ; ++mi)
-                        mma3<false, EXACT>(acc[mi][ni], a[mi], bk);
+                        mma3(acc[mi][ni], a[mi], bk);
                 }
             }
 #pragma unroll
@@ -596,8 +561,8 @@ flash_bwd_kernel(const T* __restrict__ q,           // (B, Sq, H, HD)
                     bq.load(Qhi, Qlo, o, o + S);
 #pragma unroll
                     for (int mi = 0; mi < MC; ++mi) {
-                        mma3<false, EXACT>(dva[mi][ni], ap[mi], bo);
-                        mma3<false, EXACT>(dka[mi][ni], ad[mi], bq);
+                        mma3(dva[mi][ni], ap[mi], bo);
+                        mma3(dka[mi][ni], ad[mi], bq);
                     }
                 }
             }
@@ -632,14 +597,13 @@ flash_bwd_kernel(const T* __restrict__ q,           // (B, Sq, H, HD)
 
 // dq = scale * sum over the key tiles that row r sees of its partials, in
 // ascending key-tile order, one launch per chunk of key tiles [kt0, kt1)
-// (see launch): the running sum is kept unscaled in float32 in dq_acc
-// between chunks (dq itself for float32), and the last chunk writes dq, so
-// every chunking gives the same bits. One float4 of a row per thread
-template <int HD, typename T>
+// (see launch): the running sum is kept unscaled in dq between chunks,
+// and the last chunk writes it scaled, so every chunking gives the same
+// bits. One float4 of a row per thread
+template <int HD>
 __global__ void __launch_bounds__(256)
 flash_bwd_dq_reduce_kernel(const float* __restrict__ dq_part,
-                           float* dq_acc,           // (B, Sq, H, HD) float32
-                           T* dq,                   // (B, Sq, H, HD)
+                           float* dq,               // (B, Sq, H, HD)
                            int sq, int tk, int h, int kvh, float scale,
                            int causal, int window, int64_t q_offset, int kt0,
                            int kt1, int64_t seg_rows) {
@@ -660,7 +624,7 @@ flash_bwd_dq_reduce_kernel(const float* __restrict__ dq_part,
     const int kt_hi = k_hi < 0 ? -1
                       : (k_hi / BKV < kt1 - 1 ? (int)(k_hi / BKV) : kt1 - 1);
     float4 acc = kt0 == 0 ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
-                          : load4(dq_acc + at);
+                          : load4(dq + at);
     if (k_lo <= k_hi) {
 #pragma unroll 4
         for (int kt = kt_lo; kt <= kt_hi; ++kt) {
@@ -682,7 +646,7 @@ flash_bwd_dq_reduce_kernel(const float* __restrict__ dq_part,
         store4(dq + at, make_float4(acc.x * scale, acc.y * scale,
                                     acc.z * scale, acc.w * scale));
     else
-        store4(dq_acc + at, acc);
+        store4(dq + at, acc);
 }
 
 // rows (query position x query head of one KV head) that see key tile kt
@@ -737,17 +701,16 @@ int64_t scratch_floats(int b, int sq, int tk, int h, int kvh, int causal,
 
 // Key tiles in chunks that fit the scratch (one chunk where it holds all):
 // per chunk, the main kernel writes the chunk's dq partials and the reduce
-// kernel adds them to the rows' running sums (in dq_acc; a chunking needs
-// it, one chunk never touches it)
-template <int HD, typename T>
-int launch(const T* q, const T* k, const T* v, const T* dout,
-           const float* lse, const float* dsum, T* dq, T* dk, T* dv,
-           float* dq_acc, float* dq_part, int64_t part_floats, int b, int sq,
+// kernel adds them to the rows' running sums (in dq)
+template <int HD>
+int launch(const float* q, const float* k, const float* v, const float* dout,
+           const float* lse, const float* dsum, float* dq, float* dk,
+           float* dv, float* dq_part, int64_t part_floats, int b, int sq,
            int tk, int h, int kvh, float scale, int causal, int window,
            float cap, int64_t q_offset, cudaStream_t stream) {
     const int nkt = (tk + Tile<HD>::BKV - 1) / Tile<HD>::BKV;
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes<HD>());
     if (err != cudaSuccess) return (int)err;
     int kt0 = 0;
@@ -758,11 +721,9 @@ int launch(const T* q, const T* k, const T* v, const T* dout,
                   part_floats, kt1, seg_rows);
         if ((int64_t)b * kvh * (kt1 - kt0) * seg_rows * HD > part_floats)
             return (int)cudaErrorInvalidValue;   // scratch below one tile's
-        if (dq_acc == nullptr && (kt0 > 0 || kt1 < nkt))
-            return (int)cudaErrorInvalidValue;   // chunks need the sums
         if (kt1 > kt0) {
             const dim3 grid((unsigned)(b * kvh), (unsigned)(kt1 - kt0));
-            flash_bwd_kernel<HD, T>
+            flash_bwd_kernel<HD>
                 <<<grid, THREADS, smem_bytes<HD>(), stream>>>(
                     q, k, v, dout, lse, dsum, dk, dv, dq_part, sq, tk, h, kvh,
                     scale, causal, window, cap, q_offset, kt0, seg_rows);
@@ -772,9 +733,9 @@ int launch(const T* q, const T* k, const T* v, const T* dout,
         if (sq > 0) {
             const int64_t n4 = (int64_t)sq * (h / kvh) * (HD / 4);
             const dim3 grid((unsigned)((n4 + 255) / 256), (unsigned)(b * kvh));
-            flash_bwd_dq_reduce_kernel<HD, T><<<grid, 256, 0, stream>>>(
-                dq_part, dq_acc, dq, sq, tk, h, kvh, scale, causal, window,
-                q_offset, kt0, kt1, seg_rows);
+            flash_bwd_dq_reduce_kernel<HD><<<grid, 256, 0, stream>>>(
+                dq_part, dq, sq, tk, h, kvh, scale, causal, window, q_offset,
+                kt0, kt1, seg_rows);
             const cudaError_t e = cudaGetLastError();
             if (e != cudaSuccess) return (int)e;
         }
@@ -786,37 +747,6 @@ int launch(const T* q, const T* k, const T* v, const T* dout,
 bool takes(int sq, int tk, int h, int kvh) {
     return kvh > 0 && h % kvh == 0 && sq >= 0 && tk >= 0 &&
            (int64_t)sq * h < INT_MAX;
-}
-
-template <typename T>
-int launch_hd(int hd, const void* q, const void* k, const void* v,
-              const void* dout, const float* lse, const float* dsum, void* dq,
-              void* dk, void* dv, float* dq_acc, float* dq_part,
-              int64_t part_floats, int b, int sq, int tk, int h, int kvh,
-              float scale, int causal, int window, float cap,
-              int64_t q_offset, cudaStream_t st) {
-    const T *tq = (const T*)q, *tk_ = (const T*)k, *tv = (const T*)v,
-            *to = (const T*)dout;
-    T *gq = (T*)dq, *gk = (T*)dk, *gv = (T*)dv;
-    switch (hd) {
-        case 32: return launch<32, T>(tq, tk_, tv, to, lse, dsum, gq, gk, gv,
-                                      dq_acc, dq_part, part_floats, b, sq, tk,
-                                      h, kvh, scale, causal, window, cap,
-                                      q_offset, st);
-        case 64: return launch<64, T>(tq, tk_, tv, to, lse, dsum, gq, gk, gv,
-                                      dq_acc, dq_part, part_floats, b, sq, tk,
-                                      h, kvh, scale, causal, window, cap,
-                                      q_offset, st);
-        case 128: return launch<128, T>(tq, tk_, tv, to, lse, dsum, gq, gk,
-                                        gv, dq_acc, dq_part, part_floats, b,
-                                        sq, tk, h, kvh, scale, causal, window,
-                                        cap, q_offset, st);
-        case 256: return launch<256, T>(tq, tk_, tv, to, lse, dsum, gq, gk,
-                                        gv, dq_acc, dq_part, part_floats, b,
-                                        sq, tk, h, kvh, scale, causal, window,
-                                        cap, q_offset, st);
-        default: return (int)cudaErrorInvalidValue;
-    }
 }
 
 }  // namespace
@@ -842,35 +772,38 @@ extern "C" int64_t flash_attention_bwd_scratch_floats(
 }
 
 // Plain C entry point (loaded with ctypes). q, dout, dq (B, Sq, H, hd);
-// k, v, dk, dv (B, Tk, KV, hd), all float32 (is_bf16 = 0) or all bfloat16
-// (is_bf16 = 1); lse, dsum (B, Sq, H) float32; all contiguous and 16-byte
-// aligned; hd in {32, 64, 128, 256}; H % KV == 0; Sq * H below 2^31. lse is
-// the forward's (flash_attention_fwd_launch's lse output), dsum
-// rowsum(dout * out) in float32; dq_part a float32 scratch of part_floats
-// floats, 16-byte aligned, at least what flash_attention_bwd_scratch_floats
-// gives for a budget of 0. dq_acc: for bf16, a float32 (B, Sq, H, hd)
-// buffer for the running dq sums, needed only where the scratch holds
-// fewer floats than flash_attention_bwd_scratch_floats gives with no
-// budget (the key tiles then run in chunks), else null; unread for
-// float32. Launches two kernels on `stream` per chunk of key tiles that
-// fits the scratch; returns 0 or the CUDA error.
+// k, v, dk, dv (B, Tk, KV, hd), all float32; lse, dsum (B, Sq, H) float32;
+// all contiguous and 16-byte aligned; hd in {32, 64, 128, 256}; H % KV ==
+// 0; Sq * H below 2^31. lse is the forward's (flash_attention_fwd_launch's
+// lse output), dsum rowsum(dout * out); dq_part a float32 scratch of
+// part_floats floats, 16-byte aligned, at least what
+// flash_attention_bwd_scratch_floats gives for a budget of 0. Launches two
+// kernels on `stream` per chunk of key tiles that fits the scratch;
+// returns 0 or the CUDA error.
 extern "C" int flash_attention_bwd_launch(
-        const void* q, const void* k, const void* v, const void* dout,
-        const void* lse, const void* dsum, void* dq, void* dk, void* dv,
-        void* dq_acc, void* dq_part, int64_t part_floats, int b, int sq,
-        int tk, int h, int kvh, int hd, int is_bf16, float scale, int causal,
-        int window, float cap, int64_t q_offset, void* stream) {
+        const float* q, const float* k, const float* v, const float* dout,
+        const float* lse, const float* dsum, float* dq, float* dk, float* dv,
+        float* dq_part, int64_t part_floats, int b, int sq, int tk, int h,
+        int kvh, int hd, float scale, int causal, int window, float cap,
+        int64_t q_offset, void* stream) {
     if (b <= 0) return (int)cudaGetLastError();
     if (!takes(sq, tk, h, kvh)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    const float *fl = (const float*)lse, *fd = (const float*)dsum;
-    float* gp = (float*)dq_part;
-    return is_bf16
-        ? launch_hd<__nv_bfloat16>(hd, q, k, v, dout, fl, fd, dq, dk, dv,
-                                   (float*)dq_acc, gp, part_floats, b, sq, tk,
-                                   h, kvh, scale, causal, window, cap,
-                                   q_offset, st)
-        : launch_hd<float>(hd, q, k, v, dout, fl, fd, dq, dk, dv, (float*)dq,
-                           gp, part_floats, b, sq, tk, h, kvh, scale, causal,
-                           window, cap, q_offset, st);
+    switch (hd) {
+        case 32: return launch<32>(q, k, v, dout, lse, dsum, dq, dk, dv,
+                                   dq_part, part_floats, b, sq, tk, h, kvh,
+                                   scale, causal, window, cap, q_offset, st);
+        case 64: return launch<64>(q, k, v, dout, lse, dsum, dq, dk, dv,
+                                   dq_part, part_floats, b, sq, tk, h, kvh,
+                                   scale, causal, window, cap, q_offset, st);
+        case 128: return launch<128>(q, k, v, dout, lse, dsum, dq, dk, dv,
+                                     dq_part, part_floats, b, sq, tk, h, kvh,
+                                     scale, causal, window, cap, q_offset,
+                                     st);
+        case 256: return launch<256>(q, k, v, dout, lse, dsum, dq, dk, dv,
+                                     dq_part, part_floats, b, sq, tk, h, kvh,
+                                     scale, causal, window, cap, q_offset,
+                                     st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

@@ -471,13 +471,19 @@ def test_flash_backward_kernel_fully_masked_rows(cuda_device):
 # bfloat16 (B, Sq, T, H, KV, hd, causal, window, softcap, q_offset): the
 # tests' bf16 case, tinyllama-1.1b's G = 8, hd 256 with a window and
 # softcap 50 (gemma2-2b's), hd 128 at llava's GQA 7:1, and no mask with
-# Sq != T (whisper's cross-attention)
+# Sq != T (whisper's cross-attention); q_offset > 0 with a window, rows
+# from 15 on seeing no key; rows and keys that are no multiple of the bf16
+# kernel's tiles (64 keys a warpgroup, 32 or 64 rows a step, 64 rows a dq
+# block) at hd 32 and 128, GQA 3:1 and 2:1, softcap and window at hd 128
 BF16_BWD_CASES = [
     (1, 256, 256, 8, 8, 64, True, 0, 0.0, 0),
     (2, 384, 384, 32, 4, 64, True, 0, 0.0, 0),
     (1, 300, 300, 8, 4, 256, True, 128, 50.0, 0),
     (1, 200, 200, 56, 8, 128, True, 0, 0.0, 0),
     (2, 65, 129, 4, 4, 32, False, 0, 30.0, 0),
+    (1, 40, 64, 4, 2, 64, True, 16, 0.0, 64),
+    (1, 70, 100, 6, 2, 32, True, 0, 0.0, 30),
+    (2, 45, 77, 6, 3, 128, True, 20, 30.0, 40),
 ]
 
 
@@ -489,8 +495,11 @@ def test_flash_backward_kernel_bf16_launches_and_matches_plain_version(
     """bfloat16 under autograd through the wrapper: one forward and one
     backward launch, bf16 gradients equal to the backward kernel's on the
     same tensors, which hold against the plain version at one rounding
-    step; in one-key-tile chunks (the running dq sums in float32 between
-    chunks) the same bits."""
+    step; a third call with no scratch budget gives the same bits (the
+    bf16 kernel keeps no dq partials and takes no budget, so this runs the
+    same path again; the float32 kernel would run its key tiles in
+    chunks of one). Rows that see no key (a window and q_offset) get zero
+    gradients."""
     from repro_torch.kernels.attention import flash
     q, k, v, do = (x.bfloat16() for x in _grad_case(
         (b, sq, h, kv, hd), cuda_device, seed=sq + t, t=t))
@@ -511,6 +520,9 @@ def test_flash_backward_kernel_bf16_launches_and_matches_plain_version(
     for name, a, b_, c in zip(("dq", "dk", "dv"), whole, grads, chunked):
         assert a.dtype == torch.bfloat16, name
         assert torch.equal(a, b_) and torch.equal(a, c), name
+    if causal and win:
+        first_masked = max(t + win - 1 - q_offset, 0)
+        assert bool((whole[0][:, first_masked:] == 0).all())
 
 
 # (B, S, H, KV, hd, causal, window, softcap): tinyllama-1.1b's G = 8 at a
