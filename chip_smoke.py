@@ -41,13 +41,14 @@ over the model axis, cost-balanced dispatch across ranks), and LM
 training over a device mesh (``launch.train.train(mesh=)``: parameters
 and moments as each rank's fsdp / tensor-parallel blocks, the int8
 compressed pod reduce), and bf16 training at the dry run's train_4k cell
-(tinyllama-1.1b and gemma2-2b, remat, the flash backward in bf16). Phases, in
+(tinyllama-1.1b and gemma2-2b, remat, the flash forward and backward in
+bf16, each its own kernel on the bf16 tensor cores). Phases, in
 order; any failure exits non-zero:
 
 1. card:   the GPU's name and power limit, as nvidia-smi reports them;
 2. build:  every CUDA kernel of the port (fused variation, flash attention
-           forward, float32 and bf16 backward, SSD intra-chunk, delay
-           chain), compiled
+           forward and backward, float32 and bf16 each, SSD intra-chunk,
+           delay chain), compiled
            from this
            checkout's sources for
            sm_90a (one nvcc per source, all started together); ptxas's
@@ -61,7 +62,8 @@ order; any failure exits non-zero:
            generation on the card against the same generation on the CPU;
            flash attention at tests/test_kernels.py's cases, a q_offset
            case with fully masked rows and gemma2-2b's layer shapes
-           (float32 3e-5, bfloat16 2e-2); the SSD kernel and the whole
+           (float32 3e-5, bfloat16 one rounding step: rtol 2^-7, atol
+           2^-12 of the largest magnitude); the SSD kernel and the whole
            chunked scan at the reference's cases and mamba2-780m's shapes
            (1e-4); the fused variation at the HVDC runs' shapes (2, 16 and
            8, 18); the HVDC fitness on the card against the same code on
@@ -150,7 +152,13 @@ order; any failure exits non-zero:
            the trained families' shapes; at tinyllama's and gemma2's
            global shape three more calls bit-equal (the bf16 backward,
            flash_attention_bwd_bf16.cu, keeps no scratch and takes no
-           budget, so the one with none runs the same path);
+           budget, so the one with none runs the same path); at each of
+           those shapes, at the fully masked rows' case in bf16 (those
+           rows zero) and at hd 32 with a window and softcap 30, the bf16
+           forward (flash_attention_fwd_bf16.cu) with its lse against the
+           plain forward: the output at one rounding step, with its share
+           of bit-equal elements, lse at 1e-5 relative plus 1e-5, and two
+           calls bit-equal;
 4. main:   ``python -m repro_torch.launch.ga_run --fitness rastrigin`` at
            I=32 islands x P=1024 individuals x G=128 genes, 5 generations x
            3 epochs, then again with --sync-every 2 --pipeline-depth 2,
@@ -355,8 +363,9 @@ order; any failure exits non-zero:
            of its three kernels' traced ms (``say_bwd_split``) and, at
            tinyllama's, SDPA's bf16 backward by every backend like for
            like; the bf16 forward with lse at those shapes beside its
-           bound (Q K^T at the bf16 rate, P V at 3 bf16 passes) and, at
-           tinyllama's, SDPA's bf16 forward;
+           bound (Q K^T at the bf16 rate, P V at 3 bf16 passes), its plain
+           version and, at tinyllama's, SDPA's bf16 forward by every
+           backend that takes it;
 6. trace:  one prefill and 8 decode steps of each served model, and one
            train step of the training path, under torch.profiler: the
            device's idle share and the kernels' share of each window and
@@ -364,11 +373,16 @@ order; any failure exits non-zero:
            step each flash kernel's ms per launch (a flash kernel missing
            from FLASH_SYMBOLS fails the run), and one granite-moe-1b-a400m
            train step (4 x 2048) likewise; one batched LM fitness call
-           (128 genomes): idle share, flash share, largest entries;
-7. the ``{"kernels": [...]}`` line (five kernels, the flash backward's
-   bf16 launches in an entry of their own; flash and SSD with
-   their launches by path, the families' prefills among them), the card
-   line, and last
+           (128 genomes): idle share, flash share, largest entries; one
+           tinyllama-1.1b step at the bf16 train_4k cell (4 x 4096,
+           remat): idle share, each bf16 flash kernel's ms, launches and
+           ms a launch (the forward 44 times, each backward kernel 22, no
+           float32 flash kernel), the GEMMs' share, largest entries;
+7. the ``{"kernels": [...]}`` line (seven kernel sources, an entry
+   each: the bf16 flash backward's and forward's launches in entries of
+   their own;
+   flash and SSD with their launches by path, the families' prefills
+   among them), the card line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or outside a checkout, it exits non-zero and prints no
@@ -695,18 +709,20 @@ BATCH_ARCH, BATCH_SLOTS, BATCH_CACHE, BATCH_N = "gemma2-2b", 4, 4608, 12
 BATCH_PROMPT, BATCH_NEW, BATCH_SEED = (256, 4500), (8, 32), 65
 BATCH_MARGIN = 1e-3
 # decode steps in each traced decode window; the device symbols of the
-# port's kernels, as they appear in a trace: the flash forward, then the
-# float32 backward's two kernels (flash_attention_bwd.cu: dk, dv and dq
-# partials; the partials' sum), which every float32 training trace must
-# show; the bf16 backward's three (flash_attention_bwd_bf16.cu: D, the
-# dk / dv pass, the dq pass)
+# port's kernels, as they appear in a trace: the float32 flash forward,
+# then the float32 backward's two kernels (flash_attention_bwd.cu: dk, dv
+# and dq partials; the partials' sum), which every float32 training trace
+# must show; the bf16 forward (flash_attention_fwd_bf16.cu) and the bf16
+# backward's three (flash_attention_bwd_bf16.cu: D, the dk / dv pass, the
+# dq pass), which every bf16 training trace must show
 TRACE_DECODE = 8
 FLASH_SYMBOLS = ("flash_fwd_kernel", "flash_bwd_kernel",
                  "flash_bwd_dq_reduce_kernel")
+BF16_FWD_SYMBOLS = ("flash_fwd_bf16_kernel",)
 BF16_BWD_SYMBOLS = ("flash_bwd_bf16_dsum_kernel", "flash_bwd_bf16_dkdv_kernel",
                     "flash_bwd_bf16_dq_kernel")
 KERNEL_SYMBOLS = ("fused_variation_kernel", *FLASH_SYMBOLS,
-                  *BF16_BWD_SYMBOLS, "ssd_chunk_kernel",
+                  *BF16_FWD_SYMBOLS, *BF16_BWD_SYMBOLS, "ssd_chunk_kernel",
                   "delay_chain_kernel")
 # tests/test_kernels.py:53-61: (B, S, H, KV, hd, causal, window, softcap,
 # dtype); then gemma2-2b's layer shapes on the serving path (batch 4,
@@ -721,7 +737,12 @@ ATTN_CASES = [
 ]
 ATTN_MAIN = [(4, 4500, 8, 4, 256, True, 4096, 50.0, "float32"),
              (4, 4500, 8, 4, 256, True, 0, 50.0, "float32")]
-ATTN_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (2e-2, 2e-2)}
+# float32 at tests/test_kernels.py:75's tolerance; bf16 (the bf16 forward,
+# computed in float32 and rounded once, as the plain version) by
+# ``fwd_close``: the output at one rounding step (GRAD_TOL's bf16 entry),
+# lse at BF16_LSE_TOL (the float32 sums' order, base-2 exponentials)
+ATTN_TOL = {"float32": (3e-5, 3e-5)}
+BF16_LSE_TOL = (1e-5, 1e-5)
 # queries at 64..95 against keys 0..63, window 16: rows >= 15 see no key
 ATTN_MASKED = dict(case=(1, 32, 4, 2, 64, True, 16, 0.0, "float32"), t=64,
                    q_offset=64, first_masked=15)
@@ -835,6 +856,11 @@ BF16_TINYLLAMA = (4, 4096, 32, 4, 64, True, 0, 0.0, "bfloat16")
 BF16_GEMMA = [(1, 4500, 8, 4, 256, True, 4096, 50.0, "bfloat16"),
               (1, 4500, 8, 4, 256, True, 0, 50.0, "bfloat16")]
 BF16_BITS = (BF16_TINYLLAMA, BF16_GEMMA[1])
+# the bf16 forward's checks beyond those shapes (with the backward too):
+# ATTN_MASKED in bf16 (rows that see no key are 0), and hd 32 (held as 64
+# columns) with a window and a softcap
+BF16_MASKED = dict(ATTN_MASKED, case=ATTN_MASKED["case"][:8] + ("bfloat16",))
+BF16_HD32 = (2, 200, 4, 4, 32, True, 50, 30.0, "bfloat16")
 
 # one train step of each reduced family on the card against the CPU
 # (``train_step.reduced_train_step``): (arch, Model switches)
@@ -3309,6 +3335,17 @@ def attn_kwargs(case, q_offset=0):
                 attn_softcap=cap, q_offset=q_offset)
 
 
+def fwd_close(out, ref):
+    """(all close, max abs error) of a flash forward's output against its
+    plain version's: float32 at ATTN_TOL, bf16 at one rounding step (rtol
+    2^-7, atol 2^-12 of the plain output's largest magnitude)."""
+    if str(out.dtype) == "torch.float32":
+        return close(out, ref, *ATTN_TOL["float32"])
+    rtol, frac = GRAD_TOL["bfloat16"]
+    return close(out.float(), ref.float(), rtol,
+                 frac * float(ref.float().abs().max()))
+
+
 def check_flash(case, device, seed, t=None, q_offset=0):
     import torch
     from repro_torch.kernels.attention import ops as attn_ops
@@ -3317,7 +3354,7 @@ def check_flash(case, device, seed, t=None, q_offset=0):
     out = attn_ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     ref = attn_ops.flash_attention_plain(q, k, v, **kw)
-    ok, err = close(out.float(), ref.float(), *ATTN_TOL[case[8]])
+    ok, err = fwd_close(out, ref)
     if not ok or out.dtype != q.dtype:
         fail(f"flash attention kernel disagrees with its plain version at "
              f"{case} q_offset={q_offset}: max abs err {err}")
@@ -3695,10 +3732,13 @@ def check_flash_bwd(case, device, seed, t=None, q_offset=0):
     q, k, v, dO and the forward kernel's out and lse. The wrapper's output
     and the forward kernel's lse (``flash_attention_fwd_cuda(with_lse=
     True)``, what the backward reads) are held against the plain forward
-    (``flash_attention_fwd_plain``) at ATTN_TOL, dq, dk, dv at GRAD_TOL of
-    the dtype (in bf16 the atol a share of each gradient's largest
-    magnitude): (max abs error of dq, dk, dv, (out max abs error, lse max
-    relative error), (dq, dk, dv), share of bit-equal gradient elements)."""
+    (``flash_attention_fwd_plain``), the output by ``fwd_close``, lse at
+    ATTN_TOL in float32 and BF16_LSE_TOL in bf16, where two forward calls
+    must also give the same bits; dq, dk, dv at GRAD_TOL of the dtype (in
+    bf16 the atol a share of each gradient's largest magnitude): (max abs
+    error of dq, dk, dv, (out max abs error, lse max relative error, share
+    of the output bit-equal to the plain one), (dq, dk, dv), share of
+    bit-equal gradient elements)."""
     import torch
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.attention.flash import flash_attention_fwd_cuda
@@ -3720,10 +3760,17 @@ def check_flash_bwd(case, device, seed, t=None, q_offset=0):
              f"{launched}, expected (1, 1); output equal to the forward "
              f"kernel's {torch.equal(fwd, out.detach())}")
     p_out, p_lse = flash_attention_fwd_plain(q, k, v, **kw)
-    ok_out, out_err = close(out.detach().float(), p_out.float(),
-                            *ATTN_TOL[case[8]])
-    ok_lse, _ = close(lse, p_lse, *ATTN_TOL["float32"])
+    ok_out, out_err = fwd_close(out.detach(), p_out)
+    ok_lse, _ = close(lse, p_lse, *(ATTN_TOL["float32"] if case[8] ==
+                                    "float32" else BF16_LSE_TOL))
     lse_err = float(((lse - p_lse).abs() / p_lse.abs().clamp_min(1.0)).max())
+    out_same = float((out.detach() == p_out).float().mean())
+    if case[8] == "bfloat16":
+        again = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+        if not (torch.equal(again[0], fwd) and torch.equal(again[1], lse)):
+            fail(f"the bf16 flash forward is not deterministic at {case}: "
+                 f"a second call's out and lse differ from the first's")
+        del again
     if not (ok_out and ok_lse):
         fail(f"flash attention forward kernel's output or lse (training "
              f"path) disagrees with its plain version at {case} "
@@ -3744,7 +3791,7 @@ def check_flash_bwd(case, device, seed, t=None, q_offset=0):
         err = max(err, e)
         same += int((a == b).sum())
         n += a.numel()
-    return err, (out_err, lse_err), grads, same / n
+    return err, (out_err, lse_err, out_same), grads, same / n
 
 
 @contextlib.contextmanager
@@ -4173,49 +4220,65 @@ def phase_times_train(device, card, fwd_launches, bwd_launches, bwd_err,
 
 
 def phase_check_bf16(device):
-    """The bf16 backward kernel at every BF16 shape: the tests' bf16 case,
-    tinyllama-1.1b's and gemma2-2b's, and the trained families' in bf16.
-    Returns (largest max abs error, {case: bit-equal share})."""
+    """The bf16 forward and backward kernels at every BF16 shape: the
+    tests' bf16 case, tinyllama-1.1b's and gemma2-2b's, the trained
+    families' in bf16, BF16_MASKED (rows that see no key 0) and BF16_HD32
+    (``check_flash_bwd``: the forward's output at one rounding step, lse at
+    BF16_LSE_TOL, two forward calls bit-equal; the gradients at one
+    rounding step). Returns (largest gradient max abs error, {case:
+    gradients' bit-equal share}, the forward's {"max_abs_err",
+    "lse_max_rel_err", "out_bit_equal_share": {case: share}})."""
     import torch
-    cases = ([c for c in ATTN_CASES if c[8] == "bfloat16"]
-             + [BF16_TINYLLAMA] + BF16_GEMMA
-             + [c[:8] + ("bfloat16",) + c[9:]
-                for c, _ in TRAIN_FAMILY_BWD.values()])
+    from repro_torch.kernels.attention.flash import flash_attention_fwd_cuda
+    m = BF16_MASKED
+    cases = ([(c, None, 0) for c in ATTN_CASES if c[8] == "bfloat16"]
+             + [(BF16_TINYLLAMA, None, 0)] + [(c, None, 0) for c in BF16_GEMMA]
+             + [(c[:8] + ("bfloat16",) + c[9:], None, 0)
+                for c, _ in TRAIN_FAMILY_BWD.values()]
+             + [(m["case"], m["t"], m["q_offset"]), (BF16_HD32, None, 0)])
     errs, shares = [], {}
-    for i, case in enumerate(cases):
-        e, _, grads, share = check_flash_bwd(case, device, seed=700 + i)
-        say(f"check: flash attention bf16 backward {case}: max abs err "
-            f"{e:.3g}, {share:.4f} of dq, dk, dv bit-equal to the plain "
-            f"version")
+    fwd = {"max_abs_err": 0.0, "lse_max_rel_err": 0.0,
+           "out_bit_equal_share": {}}
+    for i, (case, t, q_offset) in enumerate(cases):
+        e, (out_err, lse_err, out_same), grads, share = check_flash_bwd(
+            case, device, seed=700 + i, t=t, q_offset=q_offset)
+        say(f"check: flash attention bf16 forward {case} q_offset "
+            f"{q_offset}: out max abs err {out_err:.3g}, {out_same:.4f} "
+            f"bit-equal to the plain version; lse max rel err "
+            f"{lse_err:.3g}; two calls bit-equal")
+        say(f"check: flash attention bf16 backward {case} q_offset "
+            f"{q_offset}: max abs err {e:.3g}, {share:.4f} of dq, dk, dv "
+            f"bit-equal to the plain version")
         if case in BF16_BITS:
             check_bwd_deterministic(case, device, seed=700 + i, grads=grads)
         errs.append(e)
         shares[str(case)] = share
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], out_err)
+        fwd["lse_max_rel_err"] = max(fwd["lse_max_rel_err"], lse_err)
+        fwd["out_bit_equal_share"][str(case)] = out_same
         del grads
         torch.cuda.empty_cache()
-    return max(errs), shares
+    q, k, v = attn_tensors(m["case"], device, 7, m["t"])
+    out = flash_attention_fwd_cuda(q, k, v, **attn_kwargs(m["case"],
+                                                          m["q_offset"]))
+    if not bool((out[:, m["first_masked"]:] == 0).all()):
+        fail("the bf16 flash forward: fully masked rows are not zero")
+    say(f"check: flash attention bf16 forward q_offset {m['q_offset']}: "
+        f"rows >= {m['first_masked']} (fully masked) are zero")
+    return max(errs), shares, fwd
 
 
-def bf16_train_run(arch, device, *, batch, steps, seq=None, falls=True):
+def bf16_train_setup(arch, device, *, batch, steps, seq=None):
     """``arch`` at its published widths in the dry run's train_4k
-    configuration (see BF16_TRAIN) for ``steps`` steps of ``batch``
-    sequences of ``seq`` tokens (the cell's 4096 by default), with the
-    launch counts zeroed just before and read just after. Fails unless
-    every loss is finite, the last loss and the mean of the last three
-    are below the first (the mamba2 run's rule), and the flash forward
-    launched 2 x layers x microbatches a step (the forward and the remat
-    recompute) and the backward layers x microbatches. Returns its
-    numbers. ``falls=False`` (a run too short to leave the warmup) skips
-    the loss's rule."""
+    configuration (see BF16_TRAIN), built through the library's entry
+    points: (config, input_specs' token spec, sequence length, moment
+    dtype, microbatches, model, step function, train state, bigram data,
+    attention layers)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import SyntheticTokens, place
-    from repro_torch.kernels.attention import ops as attn_ops
-    from repro_torch.kernels.genetic import ops
-    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.launch.specs import input_specs
     from repro_torch.models.model import Model
-    from repro_torch.models.sharding import ShardingCtx
     from repro_torch.train.optimizer import optimizer_for_arch
     from repro_torch.train.train_step import (init_train_state,
                                               make_train_step)
@@ -4233,6 +4296,28 @@ def bf16_train_run(arch, device, *, batch, steps, seq=None, falls=True):
         device=device).manual_seed(0), moment)
     data = SyntheticTokens(cfg, batch, seq, seed=0, mode="bigram")
     layers = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.num_layers))
+    return cfg, spec, seq, moment, mb, model, step_fn, state, data, layers
+
+
+def bf16_train_run(arch, device, *, batch, steps, seq=None, falls=True):
+    """``arch`` at its published widths in the dry run's train_4k
+    configuration (see BF16_TRAIN) for ``steps`` steps of ``batch``
+    sequences of ``seq`` tokens (the cell's 4096 by default), with the
+    launch counts zeroed just before and read just after. Fails unless
+    every loss is finite, the last loss and the mean of the last three
+    are below the first (the mamba2 run's rule), and the flash forward
+    launched 2 x layers x microbatches a step (the forward and the remat
+    recompute) and the backward layers x microbatches. Returns its
+    numbers. ``falls=False`` (a run too short to leave the warmup) skips
+    the loss's rule."""
+    import torch
+    from repro_torch.data.pipeline import place
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.genetic import ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models.sharding import ShardingCtx
+    cfg, spec, seq, moment, mb, model, step_fn, state, data, layers = \
+        bf16_train_setup(arch, device, batch=batch, steps=steps, seq=seq)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     attn_ops.launches = attn_ops.bwd_launches = 0
@@ -4291,7 +4376,7 @@ def phase_train_bf16(device):
     return runs
 
 
-def phase_times_bf16(device, card, runs, f32_stats, err, shares):
+def phase_times_bf16(device, card, runs, f32_stats, err, shares, fwd_check):
     """The bf16 train runs' step ms, tokens/s and peak memory (the float32
     main run's beside the bf16 one at its shape); at tinyllama-1.1b's and
     gemma2-2b's train_4k layers the bf16 backward (device_ms, the wrapper's
@@ -4299,13 +4384,15 @@ def phase_times_bf16(device, card, runs, f32_stats, err, shares):
     (each kernel's ms a launch, ``say_bwd_split``) and, where SDPA computes
     the same function (causal, global, no softcap), SDPA's bf16 backward
     by every backend that takes it; and the bf16 forward with its lse
-    output (the training path's call) beside its bound and SDPA's bf16
-    forward. Returns (the bf16 backward's kernels entry, the bf16
-    forward's numbers at those layers)."""
+    output (the training path's call) beside its bound, its plain version
+    and SDPA's bf16 forward. Returns the kernels entries of the bf16
+    backward and of the bf16 forward (``fwd_check``: phase_check_bf16's
+    forward numbers)."""
     import torch
     from repro_torch.kernels.attention.flash import (flash_attention_bwd_cuda,
                                                      flash_attention_fwd_cuda)
-    from repro_torch.kernels.attention.ref import flash_attention_bwd_plain
+    from repro_torch.kernels.attention.ref import (flash_attention_bwd_plain,
+                                                   flash_attention_fwd_plain)
     f32_ms = statistics.median(f32_stats["step_ms"][1:])
     for label, r in runs.items():
         say(f"times: bf16 train {label} ({card}): step {r['step_ms']:.3f} ms "
@@ -4331,9 +4418,11 @@ def phase_times_bf16(device, card, runs, f32_stats, err, shares):
         split = say_bwd_split(case, device, card, seed=800 + i)
         fwd_ms = cuda_ms(lambda: flash_attention_fwd_cuda(
             q, k, v, with_lse=True, **kw), repeats=5, inner=3)
+        fwd_plain = cuda_ms(lambda: flash_attention_fwd_plain(q, k, v, **kw),
+                            repeats=3, inner=1)
         fbnd = flash_fwd_bf16_bound(case, card)
         say_kernel_time(f"flash attention bf16 forward with lse {case}",
-                        fwd_ms, None, fbnd)
+                        fwd_ms, fwd_plain, fbnd)
         sdpa = backend = sdpa_fwd = fwd_backend = None
         if not case[6] and not case[7]:
             dq = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)[0]
@@ -4356,8 +4445,9 @@ def phase_times_bf16(device, card, runs, f32_stats, err, shares):
                 next((s for s in BF16_BWD_SYMBOLS if s in name), name[:60]):
                 {"launches": n, "ms": t} for name, (n, t) in split.items()})
         fwd_rows[str(case)] = dict(
-            ms=fwd_ms, bound_ms=fbnd["bound_ms"], bound_by=fbnd["bound_by"],
-            library_ms=sdpa_fwd, library_backend=fwd_backend)
+            ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fbnd["bound_ms"],
+            bound_by=fbnd["bound_by"], library_ms=sdpa_fwd,
+            library_backend=fwd_backend)
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
     main = rows[str(BF16_TINYLLAMA)]
@@ -4383,7 +4473,26 @@ def phase_times_bf16(device, card, runs, f32_stats, err, shares):
              "kernels": main["kernels"], "bit_equal_share": shares,
              "gemma2_shapes": {k: v for k, v in rows.items()
                                if k != str(BF16_TINYLLAMA)}}
-    return entry, {"shapes": fwd_rows, "launches_per_step": fwd_launches}
+    fmain = fwd_rows[str(BF16_TINYLLAMA)]
+    fwd_paths = {f"bf16 train {k}": r["flash_launches"]
+                 for k, r in runs.items()}
+    fwd_entry = {
+        "name": "flash_attention_fwd_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/attention/csrc/"
+                  "flash_attention_fwd_bf16.cu",
+        "replaces": "src/repro/kernels/attention/flash.py:119",
+        "launches": sum(fwd_paths.values()),
+        "max_abs_err": fwd_check["max_abs_err"], "ms": fmain["ms"],
+        "plain_ms": fmain["plain_ms"], "bound_ms": fmain["bound_ms"],
+        "bound_by": fmain["bound_by"], "library_ms": fmain["library_ms"],
+        "library_backend": fmain["library_backend"], "with_lse": True,
+        "shape": list(BF16_TINYLLAMA[:8]), "launches_by_path": fwd_paths,
+        "launches_per_step": fwd_launches,
+        "lse_max_rel_err": fwd_check["lse_max_rel_err"],
+        "out_bit_equal_share": fwd_check["out_bit_equal_share"],
+        "gemma2_shapes": {k: v for k, v in fwd_rows.items()
+                          if k != str(BF16_TINYLLAMA)}}
+    return entry, fwd_entry
 
 
 def bwd_split(case, device, seed=800):
@@ -4434,12 +4543,13 @@ def say_bwd_split(case, device, card, seed=800):
     return split
 
 
-def profiled(fn):
+def profiled(fn, counts=None):
     """Run ``fn`` once under torch.profiler (CPU and CUDA activity), then
     synchronise. Returns (window ms from the first to the last traced
     event, device busy ms = the union of the device's kernel, copy and
     set intervals, {device event name: summed ms}); busy is None where the
-    trace holds no device activity."""
+    trace holds no device activity. ``counts``, a dict, receives {device
+    event name: events}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4458,6 +4568,8 @@ def profiled(fn):
     cur_start, cur_end = device[0][:2]
     for start, end, name in device:
         by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
+        if counts is not None:
+            counts[name] = counts.get(name, 0) + 1
         if start > cur_end:
             busy += cur_end - cur_start
             cur_start = start
@@ -4578,7 +4690,7 @@ def phase_trace_train(device, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
              for k in FLASH_SYMBOLS}
     unlisted = [name for name in by_name if "flash" in name
                 and not any(k in name for k in FLASH_SYMBOLS
-                            + BF16_BWD_SYMBOLS)]
+                            + BF16_FWD_SYMBOLS + BF16_BWD_SYMBOLS)]
     if unlisted or (busy is not None and not all(flash.values())):
         fail(f"train trace: flash kernels {unlisted} are not in "
              f"FLASH_SYMBOLS, or a listed one did not run: {flash}")
@@ -4607,6 +4719,84 @@ def phase_trace_train(device, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
             + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top))
     key = "train_step" if arch == TRAIN_ARCH else f"train_step {arch}"
     say("trace: " + json.dumps({"card": card, key: row}))
+    return row
+
+
+# the device entries of matrix products outside the port's kernels
+# (cuBLAS and cuBLASLt on Hopper: sm90_xmma_gemm_*, nvjet_*, cutlass*)
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def phase_trace_bf16_train(device, card, arch=TRAIN_ARCH):
+    """One step of ``arch`` at the bf16 train_4k cell (``bf16_train_setup``
+    at BF16_TRAIN's batch, published widths, remat) under torch.profiler,
+    after a warm-up step and one unprofiled step: the device's idle share,
+    each bf16 flash kernel's ms, launches and ms a launch and the flash
+    share, the GEMMs' share (GEMM_NAMES) and the largest device entries,
+    read from the trace. Fails unless the bf16 forward ran 2 x layers times
+    (the forward and the remat recompute), each bf16 backward kernel layers
+    times, and no float32 flash kernel ran."""
+    import torch
+    from repro_torch.data.pipeline import place
+    from repro_torch.models.sharding import ShardingCtx
+    batch = BF16_TRAIN[arch]["batch"]
+    _, _, seq, _, mb, model, step_fn, state, data, layers = \
+        bf16_train_setup(arch, device, **BF16_TRAIN[arch])
+    st = {"s": state}
+    tokens = place(data.batch(0), ShardingCtx(), device, mb)
+    del state
+
+    def run():
+        st["s"], _ = step_fn(st["s"], tokens)
+
+    run()                                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    counts = {}
+    span, busy, by_name = profiled(run, counts)
+    kernels = {}
+    for sym in FLASH_SYMBOLS + BF16_FWD_SYMBOLS + BF16_BWD_SYMBOLS:
+        names = [n for n in by_name if sym in n]
+        kernels[sym] = (sum(counts[n] for n in names),
+                        sum(by_name[n] for n in names))
+    want = {sym: (2 * layers * mb if sym in BF16_FWD_SYMBOLS else
+                  layers * mb if sym in BF16_BWD_SYMBOLS else 0)
+            for sym in kernels}
+    if busy is not None and {s: n for s, (n, _) in kernels.items()} != want:
+        fail(f"bf16 train trace {arch}: flash kernel launches "
+             f"{ {s: n for s, (n, _) in kernels.items()} }, expected {want}")
+    gemm = sum(v for n, v in by_name.items()
+               if any(g in n.lower() for g in GEMM_NAMES))
+    flash = sum(ms for _, ms in kernels.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    row = {"host_ms": host_ms, "traced_ms": span, "device_busy_ms": busy,
+           "idle_share": None if busy is None else 1 - busy / span,
+           "kernels": {s: {"launches": n, "ms": ms} for s, (n, ms)
+                       in kernels.items() if n},
+           "flash_share": flash / span, "gemm_ms": gemm,
+           "gemm_share": gemm / span,
+           "top_device_ms": {k[:90]: v for k, v in top}}
+    del st, model, step_fn
+    torch.cuda.empty_cache()
+    if busy is None:
+        say(f"trace: bf16 train_4k {arch} step: the profiler recorded no "
+            f"device activity; idle share not measured")
+    else:
+        say(f"trace: bf16 train_4k {arch} step ({batch} x {seq}, remat; "
+            f"{card}): host {host_ms:.3f} ms unprofiled, {span:.3f} ms "
+            f"traced; device busy {busy:.3f} ms, idle share "
+            f"{row['idle_share']:.4f} of the traced window; "
+            + ", ".join(f"{s} {ms:.3f} ms in {n} launches ({ms / n:.4f} a "
+                        f"launch)" for s, (n, ms) in kernels.items() if n)
+            + f": flash {flash / span:.4f} of the window; GEMMs "
+            f"({'/'.join(GEMM_NAMES)}) {gemm:.3f} ms = "
+            f"{row['gemm_share']:.4f}")
+        say(f"trace: bf16 train_4k {arch} step, largest device entries: "
+            + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top))
+    say("trace: " + json.dumps({"card": card, "bf16_train_step": row}))
     return row
 
 
@@ -5755,7 +5945,7 @@ def phase_trace_lm_fitness(device, card):
              for k in FLASH_SYMBOLS}
     unlisted = [name for name in by_name if "flash" in name
                 and not any(k in name for k in FLASH_SYMBOLS
-                            + BF16_BWD_SYMBOLS)]
+                            + BF16_FWD_SYMBOLS + BF16_BWD_SYMBOLS)]
     if unlisted or (busy is not None and not all(flash.values())):
         fail(f"LM fitness trace: flash kernels {unlisted} are not in "
              f"FLASH_SYMBOLS, or a listed one did not run: {flash}")
@@ -6408,7 +6598,7 @@ def main():
     flash_err, ssd_err = phase_check_lm(device)
     lap("check: variation, lm")
     bwd_err = phase_check_train(device)
-    bf16_err, bf16_shares = phase_check_bf16(device)
+    bf16_err, bf16_shares, bf16_fwd_check = phase_check_bf16(device)
     fam_bwd_err, remat_check = phase_check_train_families(device)
     lap("check: train, bf16, families' train")
     phase_check_hvdc(device)
@@ -6474,20 +6664,17 @@ def main():
                **{f"serve {k} prefill": v["flash_launches"]
                   for k, v in family_runs.items()}}
     trained = {f"train {k}": v for k, v in family_train.items()}
-    bf16_trained = {f"bf16 train {k}": v for k, v in bf16_runs.items()}
     meshed = {f"train(mesh=) ({run}) rank {r}": n
               for run, ns in mesh_train.items()
               for r, n in enumerate(ns if isinstance(ns[0], list)
                                     else [ns])}
     kernels[1]["launches"] = sum(serving.values()) + sum(
         v["flash_launches"] for v in trained.values()) + sum(
-        n[0] for n in meshed.values()) + sum(
-        v["flash_launches"] for v in bf16_trained.values())
+        n[0] for n in meshed.values())
     kernels[1]["max_abs_err"] = max(flash_err, serving_err, fam_flash_err)
     kernels[1]["launches_by_path"] = {
         **serving, f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_fwd,
         **{k: v["flash_launches"] for k, v in trained.items()},
-        **{k: v["flash_launches"] for k, v in bf16_trained.items()},
         **{k: n[0] for k, n in meshed.items()},
         **{k: v["launches"] for k, v in lm_paths.items()}}
     kernels[1]["serving_shapes"] = phase_times_serving(device, card)
@@ -6521,9 +6708,10 @@ def main():
         ("grad_max_rel_err", "min_topk_margin", "peak_bytes_no_remat",
          "peak_bytes_remat"), remat_check))
     kernels.append(bwd_entry)
-    bf16_bwd, kernels[1]["bf16_train_shapes"] = phase_times_bf16(
-        device, card, bf16_runs, train_stats, bf16_err, bf16_shares)
-    kernels.append(bf16_bwd)
+    bf16_bwd, bf16_fwd = phase_times_bf16(
+        device, card, bf16_runs, train_stats, bf16_err, bf16_shares,
+        bf16_fwd_check)
+    kernels += [bf16_bwd, bf16_fwd]
     lm_times = phase_times_lm_fitness(device, card, ssm_stats)
     for entry in (kernels[1], bwd_entry):
         entry["lm_fitness"] = {
@@ -6542,6 +6730,7 @@ def main():
     phase_trace_train(device, card)
     phase_trace_train(device, card, MOE_TRAIN_ARCH, MOE_TRAIN_BATCH,
                       MOE_TRAIN_SEQ, get_config(MOE_TRAIN_ARCH).num_layers)
+    phase_trace_bf16_train(device, card)
     phase_trace_lm_fitness(device, card)
     lap("trace")
     say("phases (s): " + json.dumps(laps))

@@ -34,6 +34,8 @@ BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 SOURCES = {
     "fused_variation": KERNELS_DIR / "genetic" / "csrc" / "fused_variation.cu",
     "flash_attention": KERNELS_DIR / "attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_fwd_bf16": (KERNELS_DIR / "attention" / "csrc"
+                                 / "flash_attention_fwd_bf16.cu"),
     "flash_attention_bwd": (KERNELS_DIR / "attention" / "csrc"
                             / "flash_attention_bwd.cu"),
     "flash_attention_bwd_bf16": (KERNELS_DIR / "attention" / "csrc"

@@ -53,8 +53,9 @@
 //  * numerics follow flash.py:52-83: softcap before the mask, masked scores
 //    -inf, the running max clamped at -0.7 * FLT_MAX so a fully masked row
 //    gives p = 0 and output 0, l == 0 treated as 1. expf and tanhf are the
-//    accurate versions (no --use_fast_math). bf16 inputs are widened to
-//    float32 on load and take the same path.
+//    accurate versions (no --use_fast_math). float32 only: bf16 inputs have
+//    a forward of their own on the bf16 tensor cores,
+//    flash_attention_fwd_bf16.cu.
 //  * optional output (the training path's, for flash_attention_bwd.cu):
 //    each row's log-sum-exp in float32, written as max(m, MIN_CLAMP) +
 //    log(l), so a fully masked row gets the finite clamped max and its
@@ -62,7 +63,6 @@
 // Flags: default nvcc contraction (-fmad=true); the float32 tolerance of
 // the tests (3e-5) covers the split products and the summation order.
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -85,12 +85,12 @@ constexpr size_t smem_bytes() {
     return sizeof(float) * (size_t)(R + 2 * BK) * (HD + 4);
 }
 
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_fwd_kernel(const T* __restrict__ q,      // (B, Sq, H, HD)
-                 const T* __restrict__ k,      // (B, Tk, KV, HD)
-                 const T* __restrict__ v,      // (B, Tk, KV, HD)
-                 T* __restrict__ out,          // (B, Sq, H, HD)
+flash_fwd_kernel(const float* __restrict__ q,  // (B, Sq, H, HD)
+                 const float* __restrict__ k,  // (B, Tk, KV, HD)
+                 const float* __restrict__ v,  // (B, Tk, KV, HD)
+                 float* __restrict__ out,      // (B, Sq, H, HD)
                  float* __restrict__ lse,      // (B, Sq, H) or null
                  int sq, int tk, int h, int kvh, float scale, int causal,
                  int window, float cap, int64_t q_offset) {
@@ -157,7 +157,7 @@ flash_fwd_kernel(const T* __restrict__ q,      // (B, Sq, H, HD)
     const int64_t qpos1 = q_offset + (w_r0 + g + 8) / G;
 
     // one tile (BK keys) of k or v into its buffer; one commit group
-    auto load_tile = [&](int it, const T* src, float* dst) {
+    auto load_tile = [&](int it, const float* src, float* dst) {
         const int64_t k0 = k_begin + (int64_t)it * BK;
         for (int idx = tid; idx < BK * HD / 4; idx += THREADS) {
             const int j = idx / (HD / 4), d = (idx % (HD / 4)) * 4;
@@ -165,13 +165,7 @@ flash_fwd_kernel(const T* __restrict__ q,      // (B, Sq, H, HD)
             const bool ok = kp < tk;         // padded keys: zero, masked
             const int64_t off = ok ? (((int64_t)b * tk + kp) * kvh + kh) * HD
                                      + d : 0;
-            if constexpr (sizeof(T) == 4) {
-                tf32x3::cp_async16(dst + j * S + d, src + off, ok ? 16 : 0);
-            } else {
-                *reinterpret_cast<float4*>(dst + j * S + d) =
-                    ok ? load4(src + off)
-                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            }
+            tf32x3::cp_async16(dst + j * S + d, src + off, ok ? 16 : 0);
         }
         tf32x3::cp_async_commit();
     };
@@ -310,79 +304,63 @@ flash_fwd_kernel(const T* __restrict__ q,      // (B, Sq, H, HD)
             lse[row_index(rg1)] = fmaxf(m1, MIN_CLAMP) + logf(l1);
     }
     if (rg0 < rows_total) {
-        T* o = out + row_offset(rg0) + 2 * t;
+        float* o = out + row_offset(rg0) + 2 * t;
 #pragma unroll
         for (int c = 0; c < NT; ++c)
             store2(o + c * 8, acc[c][0] / l0, acc[c][1] / l0);
     }
     if (rg1 < rows_total) {
-        T* o = out + row_offset(rg1) + 2 * t;
+        float* o = out + row_offset(rg1) + 2 * t;
 #pragma unroll
         for (int c = 0; c < NT; ++c)
             store2(o + c * 8, acc[c][2] / l1, acc[c][3] / l1);
     }
 }
 
-template <int HD, typename T>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int b, int sq, int tk, int h, int kvh, float scale,
            int causal, int window, float cap, int64_t q_offset,
            cudaStream_t stream) {
     const size_t bytes = smem_bytes<HD>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return (int)err;
     const int64_t rows = (int64_t)sq * (h / kvh);
     const dim3 grid((unsigned)((rows + R - 1) / R), (unsigned)(b * kvh));
-    flash_fwd_kernel<HD, T><<<grid, THREADS, bytes, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, sq, tk, h, kvh,
-        scale, causal, window, cap, q_offset);
+    flash_fwd_kernel<HD><<<grid, THREADS, bytes, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
+        sq, tk, h, kvh, scale, causal, window, cap, q_offset);
     return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_hd(int hd, const void* q, const void* k, const void* v,
-              void* out, float* lse, int b, int sq, int tk, int h, int kvh,
-              float scale, int causal, int window, float cap,
-              int64_t q_offset, cudaStream_t stream) {
-    switch (hd) {
-        case 32: return launch<32, T>(q, k, v, out, lse, b, sq, tk, h, kvh,
-                                      scale, causal, window, cap, q_offset,
-                                      stream);
-        case 64: return launch<64, T>(q, k, v, out, lse, b, sq, tk, h, kvh,
-                                      scale, causal, window, cap, q_offset,
-                                      stream);
-        case 128: return launch<128, T>(q, k, v, out, lse, b, sq, tk, h, kvh,
-                                        scale, causal, window, cap, q_offset,
-                                        stream);
-        case 256: return launch<256, T>(q, k, v, out, lse, b, sq, tk, h, kvh,
-                                        scale, causal, window, cap, q_offset,
-                                        stream);
-        default: return (int)cudaErrorInvalidValue;
-    }
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). q (B, Sq, H, hd), k/v
-// (B, Tk, KV, hd), out (B, Sq, H, hd), all contiguous and 16-byte aligned,
-// float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); hd in {32, 64, 128,
-// 256}; H % KV == 0. lse: null, or a float32 (B, Sq, H) array that receives
-// each row's log-sum-exp. Launches on `stream`; returns 0 or the CUDA
-// error.
+// (B, Tk, KV, hd), out (B, Sq, H, hd), all float32, contiguous and 16-byte
+// aligned; hd in {32, 64, 128, 256}; H % KV == 0. lse: null, or a float32
+// (B, Sq, H) array that receives each row's log-sum-exp. Launches on
+// `stream`; returns 0 or the CUDA error.
 extern "C" int flash_attention_fwd_launch(
         const void* q, const void* k, const void* v, void* out, void* lse,
-        int b, int sq, int tk, int h, int kvh, int hd, int is_bf16,
-        float scale, int causal, int window, float cap, int64_t q_offset,
-        void* stream) {
+        int b, int sq, int tk, int h, int kvh, int hd, float scale,
+        int causal, int window, float cap, int64_t q_offset, void* stream) {
     if (b <= 0 || sq <= 0) return (int)cudaGetLastError();
     if (kvh <= 0 || h % kvh != 0) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     float* fl = (float*)lse;
-    return is_bf16
-        ? launch_hd<__nv_bfloat16>(hd, q, k, v, out, fl, b, sq, tk, h, kvh,
-                                   scale, causal, window, cap, q_offset, st)
-        : launch_hd<float>(hd, q, k, v, out, fl, b, sq, tk, h, kvh, scale,
-                           causal, window, cap, q_offset, st);
+    switch (hd) {
+        case 32: return launch<32>(q, k, v, out, fl, b, sq, tk, h, kvh,
+                                   scale, causal, window, cap, q_offset, st);
+        case 64: return launch<64>(q, k, v, out, fl, b, sq, tk, h, kvh,
+                                   scale, causal, window, cap, q_offset, st);
+        case 128: return launch<128>(q, k, v, out, fl, b, sq, tk, h, kvh,
+                                     scale, causal, window, cap, q_offset,
+                                     st);
+        case 256: return launch<256>(q, k, v, out, fl, b, sq, tk, h, kvh,
+                                     scale, causal, window, cap, q_offset,
+                                     st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

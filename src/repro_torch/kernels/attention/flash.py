@@ -1,7 +1,8 @@
-"""Build and launch of the flash attention CUDA kernels: the forward
-(``csrc/flash_attention.cu``; it replaces the TPU kernel
+"""Build and launch of the flash attention CUDA kernels: the forward,
+float32 (``csrc/flash_attention.cu``) and bfloat16
+(``csrc/flash_attention_fwd_bf16.cu``); both replace the TPU kernel
 ``repro/kernels/attention/flash.py::_kernel``, launched there by
-``flash_attention_fwd``) and the backward, float32
+``flash_attention_fwd``); and the backward, float32
 (``csrc/flash_attention_bwd.cu``) and bfloat16
 (``csrc/flash_attention_bwd_bf16.cu``); both stand beside
 ``repro/kernels/attention/ops.py::_bwd``, the reference's custom VJP,
@@ -22,9 +23,12 @@ import torch
 from repro_torch.kernels import _build
 
 KERNEL = "flash_attention"
+FWD_BF16_KERNEL = "flash_attention_fwd_bf16"
 BWD_KERNEL = "flash_attention_bwd"
 BWD_BF16_KERNEL = "flash_attention_bwd_bf16"
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+#: both forwards' entry points (flash_attention_fwd_launch, float32;
+#: flash_attention_fwd_bf16_launch)
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_int64, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int64]
@@ -61,24 +65,28 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, scale: float, causal: bool,
                              window: int, attn_softcap: float,
                              q_offset: int, with_lse: bool = False):
-    """One launch on the current stream (arguments checked by the caller).
-    Returns the output in q's dtype, or (output, lse) with ``with_lse``:
-    lse (B, Sq, H) float32 holds each row's log-sum-exp of its capped,
-    masked scores (the clamped max for a fully masked row)."""
+    """One launch on the current stream (arguments checked by the caller):
+    the float32 forward, or for bfloat16 the bf16 forward (computed in
+    float32, rounded once). Returns the output in q's dtype, or (output,
+    lse) with ``with_lse``: lse (B, Sq, H) float32 holds each row's
+    log-sum-exp of its capped, masked scores (the clamped max for a fully
+    masked row)."""
     b, sq, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = (torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    launch = _launcher(KERNEL, "flash_attention_fwd_launch", _ARGTYPES)
+    kernel, symbol = ((FWD_BF16_KERNEL, "flash_attention_fwd_bf16_launch")
+                      if q.dtype == torch.bfloat16 else
+                      (KERNEL, "flash_attention_fwd_launch"))
+    launch = _launcher(kernel, symbol, _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), 0 if lse is None else lse.data_ptr(),
-                     b, sq, t, h, kvh, hd, int(q.dtype == torch.bfloat16),
-                     float(scale), int(bool(causal)), int(window),
-                     float(attn_softcap), int(q_offset), stream)
-    _raise_on(err, KERNEL, q, k)
+                     b, sq, t, h, kvh, hd, float(scale), int(bool(causal)),
+                     int(window), float(attn_softcap), int(q_offset), stream)
+    _raise_on(err, kernel, q, k)
     return (out, lse) if with_lse else out
 
 

@@ -15,9 +15,12 @@ the call goes through ``_FlashAttention``, an ``autograd.Function`` (the
 reference wraps its kernel in ``jax.custom_vjp``, ``ops.py:25-46``): its
 forward launches the forward kernel with the per-row log-sum-exp output
 and saves q, k, v, out and lse; its backward runs ``_FlashAttentionBwd``,
-which launches the backward kernel (``csrc/flash_attention_bwd.cu``),
-float32 or bfloat16 (widened, float32 arithmetic, the gradients rounded
-to bfloat16 at the end, as the reference's ``_bwd``). On CPU tensors both
+which launches the backward kernel. Each direction has a float32 kernel
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) and a
+bfloat16 one on the bf16 tensor cores (``csrc/flash_attention_fwd_bf16.cu``,
+``csrc/flash_attention_bwd_bf16.cu``: float32 arithmetic, the outputs
+rounded to bfloat16 at the end, as the reference's kernel and ``_bwd``),
+picked by the inputs' dtype. On CPU tensors both
 directions run the plain versions (``flash_attention_fwd_plain``,
 ``flash_attention_bwd_plain``). Otherwise
 ``_FlashAttentionFwd`` launches the forward kernel with no lse.

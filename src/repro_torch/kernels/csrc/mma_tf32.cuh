@@ -1,6 +1,6 @@
 // Float32 products on Hopper's tensor cores (3xTF32) and 16-byte cp.async
 // copies, shared by the port's attention and SSD kernels; and the
-// attention kernels' float32 / bf16 global loads and stores (namespace io).
+// attention kernels' float32 loads and float32 / bf16 stores (namespace io).
 //
 // A TF32 operand keeps 10 bits of mantissa, about three decimal digits. To
 // keep float32 accuracy, each float32 operand x is split into a TF32 high
@@ -110,32 +110,17 @@ __device__ __forceinline__ void cp_async_wait() {
 
 }  // namespace tf32x3
 
-// Elements of a float32 or bf16 tensor in float32 registers: loads widen
-// (exact), bf16 stores round to nearest even (__floats2bfloat162_rn).
+// Elements of a float32 or bf16 tensor in float32 registers: float32
+// loads and stores, and bf16 stores that round to nearest even
+// (__floats2bfloat162_rn).
 namespace io {
 
-// four elements (16 bytes of float32, 8 of bf16)
+// four float32 elements (16 bytes)
 __device__ __forceinline__ float4 load4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 x) {
     *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-    uint2 raw;
-    *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(x.x,
-                                                                       x.y);
-    *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(x.z,
-                                                                       x.w);
-    *reinterpret_cast<uint2*>(p) = raw;
 }
 // two elements
 __device__ __forceinline__ void store2(float* p, float a, float b) {

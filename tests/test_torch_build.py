@@ -47,7 +47,8 @@ def test_a_missing_header_is_an_error(tmp_path, monkeypatch):
 def test_every_kernel_source_resolves_its_headers(name):
     headers = [p.name for p in _build.includes(_build.SOURCES[name])]
     expect = ([] if name in ("fused_variation", "delay_chain")
-              else ["mma_tf32.cuh"])
+              else ["wgmma_bf16.cuh", "mma_tf32.cuh"]
+              if name.endswith("_bf16") else ["mma_tf32.cuh"])
     assert headers == expect
     assert _build.library_path(name).name.startswith(f"lib{name}-")
 

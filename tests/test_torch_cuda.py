@@ -46,8 +46,8 @@ from repro_torch.powerflow.newton import newton_powerflow
 from repro_torch.serve import Request
 from repro_torch.train.train_step import (make_compute_grads,
                                           reduced_train_step)
-from torch_parity import (ATTN_BF16_TOL, ATTN_CASES, ATTN_TOL,  # noqa: F401
-                          GA_RUN_HP, GRAD_TOL, MASKED_CASE, MODEL_TOL,
+from torch_parity import (ATTN_CASES, ATTN_TOL,  # noqa: F401
+                          BF16_LSE_TOL, GA_RUN_HP, GRAD_TOL, MASKED_CASE, MODEL_TOL,
                           SSD_CASES, SSD_CHUNK256_CASES, SSD_MIN_DECAY,
                           SSD_TOL, TOL, attn_grad_inputs, attn_inputs,
                           bf16_grad_tol, cuda_device, kernel_args,
@@ -273,9 +273,16 @@ def test_flash_kernel_matches_plain_version(cuda_device, b, s, h, kv, hd,
     assert attn_ops.launches == before + 1
     assert out.dtype == q.dtype and out.shape == q.shape
     plain = attn_ops.flash_attention_plain(q, k, v, **kw)
-    tol = ATTN_BF16_TOL if dtype == "bfloat16" else ATTN_TOL
     np.testing.assert_allclose(to_np(out.float()), to_np(plain.float()),
-                               **tol)
+                               **_fwd_tol(plain))
+
+
+def _fwd_tol(plain):
+    """The forward kernel's tolerance against its plain version: float32
+    at ATTN_TOL, bfloat16 (the bf16 kernel, computed in float32 and rounded
+    once, as the plain version) at one rounding step."""
+    return (bf16_grad_tol(plain) if plain.dtype == torch.bfloat16
+            else ATTN_TOL)
 
 
 def test_flash_kernel_fully_masked_rows(cuda_device):
@@ -291,10 +298,11 @@ def test_flash_kernel_fully_masked_rows(cuda_device):
     assert np.all(out[:, first_masked:] == 0.0)
 
 
-# tiling edges of the kernel (8 warps of 16 rows = 128 flattened (position,
-# head) rows, 32-key tiles): G = 1, 2, 3, 4, 8; rows and keys that are not
-# multiples of the tiles; a window shorter than one key tile; q_offset > 0
-# with Sq < Tk; hd 32 to 256; bf16.
+# tiling edges of the kernels (float32: 8 warps of 16 rows = 128 flattened
+# (position, head) rows, 32-key tiles; bf16: 64 or 128 rows, 32- or 64-key
+# tiles): G = 1, 2, 3, 4, 8; rows and keys that are not multiples of the
+# tiles; a window shorter than one key tile; q_offset > 0 with Sq < Tk; hd
+# 32 to 256; bf16 at hd 256 with a window and softcap and at hd 128.
 # (B, Sq, Tk, H, KV, hd, causal, window, softcap, q_offset, dtype)
 FLASH_EDGE_CASES = [
     (1, 100, 100, 4, 4, 64, True, 0, 0.0, 0, "float32"),       # G = 1
@@ -323,9 +331,30 @@ def test_flash_kernel_tiling_edges(cuda_device, b, sq, t, h, kv, hd, causal,
     torch.cuda.synchronize()
     assert attn_ops.launches == before + 1
     plain = attn_ops.flash_attention_plain(q, k, v, **kw)
-    tol = ATTN_BF16_TOL if dtype == "bfloat16" else ATTN_TOL
     np.testing.assert_allclose(to_np(out.float()), to_np(plain.float()),
-                               **tol)
+                               **_fwd_tol(plain))
+
+
+def test_flash_kernel_bf16_fully_masked_rows_and_repeats(cuda_device):
+    """The bf16 forward with lse at MASKED_CASE: rows that see no key are
+    0 and their lse the clamped max, as the plain version's; two calls give
+    the same bits."""
+    from repro_torch.kernels.attention.flash import flash_attention_fwd_cuda
+    c = MASKED_CASE
+    q, k, v = _attn((c["b"], c["sq"], c["h"], c["kv"], c["hd"]), "bfloat16",
+                    cuda_device, seed=5, t=c["t"])
+    kw = dict(scale=c["hd"] ** -0.5, causal=True, window=c["window"],
+              attn_softcap=0.0, q_offset=c["q_offset"])
+    out, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+    again = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    plain, plain_lse = flash_attention_fwd_plain(q, k, v, **kw)
+    np.testing.assert_allclose(to_np(out.float()), to_np(plain.float()),
+                               **_fwd_tol(plain))
+    np.testing.assert_allclose(to_np(lse), to_np(plain_lse), **BF16_LSE_TOL)
+    first_masked = c["t"] + c["window"] - 1 - c["q_offset"]
+    assert bool((out[:, first_masked:] == 0).all())
 
 
 # the audio, VLM and hybrid families' layer shapes as their serving paths
@@ -419,10 +448,11 @@ def _check_backward(q, k, v, do, kw):
         flash_attention_bwd_cuda, flash_attention_fwd_cuda)
     out, lse = flash_attention_fwd_cuda(q, k, v, with_lse=True, **kw)
     plain_out, plain_lse = flash_attention_fwd_plain(q, k, v, **kw)
-    fwd_tol = ATTN_TOL if q.dtype == torch.float32 else ATTN_BF16_TOL
     np.testing.assert_allclose(to_np(out.float()), to_np(plain_out.float()),
-                               **fwd_tol)
-    np.testing.assert_allclose(to_np(lse), to_np(plain_lse), **fwd_tol)
+                               **_fwd_tol(plain_out))
+    np.testing.assert_allclose(
+        to_np(lse), to_np(plain_lse),
+        **(ATTN_TOL if q.dtype == torch.float32 else BF16_LSE_TOL))
     got = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     ref = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)

@@ -1,9 +1,10 @@
-"""The bf16 flash backward's arithmetic on the CPU
-(``src/repro_torch/kernels/attention/csrc/flash_attention_bwd_bf16.cu``),
-which itself runs only on the card.
+"""The bf16 flash kernels' arithmetic on the CPU, backward
+(``src/repro_torch/kernels/attention/csrc/flash_attention_bwd_bf16.cu``)
+and forward (``flash_attention_fwd_bf16.cu``), which themselves run only
+on the card.
 
-The kernel multiplies bf16 tiles on the bf16 tensor cores. Where a product
-has a float32 operand (P or dS), it splits that operand into three bf16
+The kernels multiply bf16 tiles on the bf16 tensor cores. Where a product
+has a float32 operand (P or dS), they split that operand into three bf16
 planes, each what the planes before it leave rounded toward zero (the
 float32 bits with the low 16 cleared, ``split3``), and issues one bf16
 product per plane into a float32 sum. Here that split is written in torch
@@ -19,7 +20,13 @@ as the kernel does it (``planes``), and checked:
   backward rule of ``repro.kernels.attention.ops.flash_attention``'s custom
   VJP, called as ``jax.vjp`` calls it (its residuals are q, k, v) under one
   ``jax.jit``: it skips the Pallas forward, which it does not read, and
-  the eager dispatch's one compilation an operation."""
+  the eager dispatch's one compilation an operation;
+* the forward written as its kernel computes it (``_plane_fwd``: S in
+  float32 from bf16 tiles, the scale after, base-2 exponentials, P's planes
+  into V) at the tests' bf16 case and a GQA case with a window and a
+  softcap holds against the reference's Pallas forward in interpret mode
+  (one rounding step), the port's plain forward (lse at 1e-5) and the
+  direct float32 P V (1e-5 before the last rounding)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -149,3 +156,71 @@ def test_plane_products_give_the_reference_bf16_grads():
                                    err_msg=name)
         np.testing.assert_allclose(to_np(got.float()), to_np(pl.float()),
                                    **bf16_grad_tol(pl), err_msg=name)
+
+
+def _plane_fwd(q, k, v, *, scale, causal, window, attn_softcap):
+    """The bf16 forward kernel's arithmetic
+    (``csrc/flash_attention_fwd_bf16.cu``) on bf16 tensors, densely: S =
+    Q K^T from the widened bf16 tiles in float32, the scale applied to S
+    (and the softcap, tanh(S scale / cap)), masked scores -inf, the row max
+    clamped at the reference's MIN_CLAMP in base 2, P = 2^(t - max t) with
+    t = S times scale (or cap) times log2(e), O from P's three planes
+    multiplied into V, small planes first. Returns (O / l before the last
+    rounding, lse, P, l): lse = max(S scale) (or cap max tanh) + log(l)."""
+    b, sq, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    cap = abs(attn_softcap)
+    kn = np.float32(cap if cap else scale)
+    f = np.float32(kn * np.float32(1.4426950408889634))
+    if cap:
+        s = torch.tanh(s * np.float32(scale / cap))
+    rel = torch.arange(sq)[:, None] - torch.arange(t)[None, :]
+    msk = torch.ones(rel.shape, dtype=torch.bool)
+    if causal:
+        msk &= rel >= 0
+    if window:
+        msk &= rel < window
+    s = torch.where(msk, s, -torch.inf)
+    mx = s.amax(-1, keepdim=True)
+    ms = torch.clamp_min(mx * f, -0.7 * float(np.finfo(np.float32).max))
+    p = torch.exp2(torch.addcmul(-ms, s, torch.full_like(s, f)))
+    l = p.sum(-1, keepdim=True)
+    o = plane_einsum("bkgst,btkd->bkgsd", p, v)
+    l1 = torch.where(l == 0, torch.ones_like(l), l)
+    lse = torch.where(mx == -torch.inf,
+                      -0.7 * float(np.finfo(np.float32).max), mx * kn)
+    lse = (lse + torch.log(l1))[..., 0].permute(0, 3, 1, 2).reshape(b, sq, h)
+    out = (o / l1).permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    return out, lse, p, l1
+
+
+@pytest.mark.parametrize("case", [
+    next(c for c in ATTN_CASES if c[8] == "bfloat16"),
+    (1, 96, 6, 2, 64, True, 40, 50.0, "bfloat16")])
+def test_plane_forward_gives_the_reference_bf16_forward(case):
+    """The kernel's forward arithmetic against the reference's Pallas
+    forward (interpret mode, bf16 in and out): the output within one bf16
+    rounding step; against the port's plain forward: lse at 1e-5; before
+    the last rounding, the plane products are the float32 products P V up
+    to summation order (1e-5)."""
+    from repro.kernels.attention.flash import flash_attention_fwd
+    b, s, h, kv, hd, causal, win, cap, dtype = case
+    q, k, v = attn_grad_inputs(b, s, h, kv, hd, seed=s)[:3]
+    kw = dict(scale=hd ** -0.5, causal=causal, window=win, attn_softcap=cap)
+    ref = np.asarray(flash_attention_fwd(
+        *(jnp.asarray(x, dtype) for x in (q, k, v)), **kw,
+        interpret=True), np.float32)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    wide, lse, p, l = _plane_fwd(q, k, v, **kw)
+    _, plain_lse = flash_attention_fwd_plain(q, k, v, **kw)
+    direct = torch.einsum("bkgst,btkd->bkgsd", p, v.float()) / l
+    direct = direct.permute(0, 3, 1, 2, 4).reshape(wide.shape)
+    np.testing.assert_allclose(to_np(wide), to_np(direct), rtol=1e-5,
+                               atol=1e-6 * float(direct.abs().max()))
+    got = to_np(wide.to(torch.bfloat16).float())
+    np.testing.assert_allclose(got, ref, **bf16_grad_tol(torch.from_numpy(ref)))
+    np.testing.assert_allclose(to_np(lse), to_np(plain_lse), rtol=1e-5,
+                               atol=1e-5)

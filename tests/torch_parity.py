@@ -32,6 +32,11 @@ def bf16_grad_tol(ref) -> dict:
     """``assert_allclose`` keywords for a bf16 gradient against ``ref``."""
     return dict(rtol=BF16_GRAD_RTOL, atol=BF16_GRAD_ATOL_FRAC
                 * float(ref.float().abs().max()))
+# the bf16 forward kernel against its plain version on the same inputs:
+# the output at one rounding step (``bf16_grad_tol``: both compute in
+# float32 and round once), its float32 lse at 1e-5 (the float32 sums'
+# order, the base-2 exponentials' round-off)
+BF16_LSE_TOL = dict(rtol=1e-5, atol=1e-5)
 # SSD chunked scan (tests/test_kernels.py:122-125)
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
 # whole model (tests/test_models_smoke.py:74-99): logits and caches 2e-4,
