@@ -190,11 +190,13 @@ order; any failure exits non-zero:
            updates > 0);
            ``ga_run --fitness rastrigin`` at the main shape under
            --dispatch-backend mq --mq-fleet local, mq-mock (with
-           --cost-ema --metrics-dir --events-log), mq-net, slurm-mock and
-           k8s-mock (4 workers; 15 launches each, retries=0, fitness
-           bit-equal to hostsim.rastrigin, the best genome bit-identical
-           to host-thread's; the broker's tasks/, claimed/ and runs/
-           empty after, the spool pruned to --keep-jobs; the mq-mock
+           --cost-ema --metrics-dir --events-log), mq-net and k8s-mock,
+           and slurm-mock cut to one epoch (4 workers; 15 launches each,
+           5 for slurm-mock, retries=0, fitness bit-equal to
+           hostsim.rastrigin, the best genome bit-identical to
+           host-thread's, slurm-mock's best fitness bit-equal to
+           host-thread's after its first epoch; the broker's tasks/,
+           claimed/ and runs/ empty after, the spool pruned to --keep-jobs; the mq-mock
            run's chambga.prom parsed, its
            dispatch_chunk_duration_seconds count equal to the chunks
            dispatched); the meta-GA at Fig. 6's setup (3 islands x 32,
@@ -254,11 +256,11 @@ order; any failure exits non-zero:
            tokens/s, peak memory; ``ga_run --fitness lm --epochs 0`` on
            reduced whisper, llava and jamba, one fitness call of 16
            genomes each against the same call on the CPU (1e-4 / 2e-6).
-           ``GAEngine(ctx=)`` at the GA cell's shape (32, 1024, 128), 3
+           ``GAEngine(ctx=)`` at the GA cell's shape (32, 1024, 128), 2
            epochs, right after the first ga_run: unsharded, then on a
            one-rank NCCL mesh (``launch.mesh.init_distributed``,
            ``make_local_mesh(1, 1)``; population and best trace bit-equal,
-           15 launches each, nothing staged through the host), then
+           10 launches each, nothing staged through the host), then
            ``ga_run --fitness hvdc``'s German-size grid (2715 buses, 18
            lines) on that mesh, pop 8, 4 contingencies, one generation
            with the cost model over 4 lanes (1 launch; the survivors'
@@ -266,7 +268,7 @@ order; any failure exits non-zero:
            dispatch), then 4 processes of ``mesh_rank`` on one gloo group
            sharing the card (8 islands each, bit-equal to the one-rank
            run; per rank the epoch s, a migration's ms, the collectives'
-           calls and bytes, all staged through the host, and 15
+           calls and bytes, all staged through the host, and 10
            launches); then ``launch.train.train(mesh=)`` (mesh train:)
            of tinyllama-1.1b at its published widths, all 22 layers, 2
            steps: (a) at 4 x 2048 on a one-rank NCCL mesh, losses, grad
@@ -275,13 +277,27 @@ order; any failure exits non-zero:
            rank 0 first running one rank's baselines: (b) losses and grad
            norms at rtol 2e-5 of one rank, the gathered parameters at
            tests/test_torch_train.py's PARAM_TOL on its held elements, and
-           (c) granite-moe-1b-a400m (16 experts a tp rank) 2 steps, step
-           1's routes exactly one rank's with num_groups=2, loss and aux
-           at rtol 2e-5; (d) 2 gloo ranks on (pod 2, data 1, model 1)
+           (c) granite-moe-1b-a400m (16 experts a tp rank) 1 step, its
+           routes exactly one rank's with num_groups=2, loss and aux at
+           rtol 2e-5; (d) 2 gloo ranks on (pod 2, data 1, model 1)
            with compress_pod_reduce=True, the last loss within 5% of the
            exact run's and int8 on the pod axis; per rank the step ms,
            collectives a step (every call on gloo staged and counted),
            peak memory, block bytes and flash launches (layers x steps);
+           (b)'s parameters gathered for its check are the embedding's,
+           the final norm's and those of layers 0 and 21; then
+           ``launch.serve.serve(mesh=)`` (mesh serve:) of gemma2-2b at its published widths, all 26
+           layers, greedy: (a) 4 x 4500 prompts, 8 tokens on a one-rank
+           NCCL mesh, tokens and every step's logits bit-equal to the
+           unsharded serve; (b) 4 x 1024 prompts, 16 tokens on 4 gloo
+           ranks sharing the card on (data 2, model 2), every rank's
+           tokens its rows of one rank's (run in this process) and its
+           logits (its rows and vocab block) within 2e-4; per rank the
+           prefill ms and decode ms/token (CUDA events), the collectives
+           of the prefill and of a decode step by axis, flash launches
+           (26 a prefill: 13 windowed and 13 global layers over the
+           rank's 4 heads), peak memory and its cache block's bytes
+           beside the one-rank cache's;
            the dry run's train_4k cell trained in bf16 through the
            library's entry points (``Model(compute_dtype="bfloat16",
            attn_impl="kernel", remat=True, max_seq=4096)``,
@@ -402,8 +418,10 @@ ROOT = Path(__file__).resolve().parent
 
 MAIN = dict(islands=32, pop=1024, genes=128, gens_per_epoch=5, epochs=3)
 # the mesh phase: the GA cell on a one-rank NCCL mesh and on MESH_RANKS
-# gloo ranks sharing the card; HVDC at German size on the one-rank mesh
-MESH_EPOCHS, MESH_RANKS, MESH_MIGRATIONS, MESH_TIMEOUT_S = 3, 4, 5, 300
+# gloo ranks sharing the card; HVDC at German size on the one-rank mesh.
+# MESH_EPOCHS cut from 3 to 2 for the smoke's time (each epoch of a gloo
+# rank took 4.5 s on an H100): every run still migrates between epochs
+MESH_EPOCHS, MESH_RANKS, MESH_MIGRATIONS, MESH_TIMEOUT_S = 2, 4, 5, 300
 MESH_HVDC = dict(fitness="hvdc", islands=1, pop=8, gens_per_epoch=1,
                  epochs=1, grid_size=2715, hvdc_lines=18, contingencies=4,
                  screen_top_k=0)
@@ -418,9 +436,10 @@ MESH_HVDC_WORKERS = 4
 # compressed pod reduce against the exact run. (b)-(d) run MESH_TRAIN_CUT
 # (batch, context): cut from 4 x 2048 so that the phase fits its budget;
 # MESH_TRAIN_STEPS cut from 3 to 2 for the smoke's time (a gloo step of
-# (b) takes ~12 s)
+# (b) takes ~12 s), MESH_MOE_STEPS from 2 to 1 (its checks are step 1's;
+# a gloo step of (c) took 9.8 s on an H100)
 MESH_TRAIN_ARCH, MESH_MOE_ARCH = "tinyllama-1.1b", "granite-moe-1b-a400m"
-MESH_TRAIN_STEPS, MESH_MOE_STEPS = 2, 2
+MESH_TRAIN_STEPS, MESH_MOE_STEPS = 2, 1
 MESH_TRAIN_ONE = (4, 2048)
 MESH_TRAIN_CUT = (4, 512)
 MESH_TRAIN_RANKS, MESH_POD_RANKS, MESH_TRAIN_TIMEOUT_S = 4, 2, 600
@@ -444,6 +463,25 @@ MESH_COMPRESS_DROP_TOL, MESH_COMPRESS_BYTES_TOL = 0.1, 0.01
 # probabilities by ~1e-7 (ROADMAP's rule: MoE results are held where the
 # routers keep their top-k margins)
 MESH_ROUTE_MARGIN = 1e-5
+# (b)'s parameter check gathers the embedding, the final norm and the
+# leaves of layers MESH_GATHER_LAYERS (the first and the last: every spec
+# a layer's leaves take), cut from all leaves for the smoke's time (17.2 s
+# on an H100). The unembedding is left out: most of its gradient is below
+# the held-element floor, and with it the held share of this subset fell
+# to 0.851, under MESH_MIN_KEPT
+MESH_GATHER_LAYERS = (0, 21)
+# the mesh serving phase (serve(mesh=)): gemma2-2b at its published
+# widths, all 26 layers, greedy; (a) MESH_SERVE_ONE (batch, prompt, gen)
+# on a one-rank NCCL mesh against the unsharded serve, tokens equal and
+# logits bit for bit; (b) MESH_SERVE_CUT on MESH_SERVE_RANKS gloo ranks
+# sharing the card on (data 2, model 2) against one rank in this process,
+# tokens equal and logits within MODEL_TOL. (b)'s prompt is cut from 4500
+# so that the phase fits its budget (each decode step of a rank stages
+# ~190 collectives through the host)
+MESH_SERVE_ARCH = "gemma2-2b"
+MESH_SERVE_ONE = (4, 4500, 8)
+MESH_SERVE_CUT = (4, 1024, 16)
+MESH_SERVE_RANKS, MESH_SERVE_TIMEOUT_S = 4, 300
 MAIN_ARGS = ["--fitness", "rastrigin", "--genes", str(MAIN["genes"]),
              "--islands", str(MAIN["islands"]), "--pop", str(MAIN["pop"]),
              "--gens-per-epoch", str(MAIN["gens_per_epoch"]),
@@ -573,6 +611,10 @@ QUEUE_RUNS = {
     "slurm-mock": ["--dispatch-backend", "slurm-mock"],
     "k8s-mock": ["--dispatch-backend", "k8s-mock"]}
 QUEUE_METRICS_RUN = "mq-mock"
+# runs cut to fewer epochs (slurm-mock: 37.0 s at the main shape's 3 on an
+# H100's host; its mock spawns numpy-only worker processes for every job):
+# checked against host-thread's best fitness after as many epochs
+QUEUE_EPOCHS = {"slurm-mock": 1}
 QUEUE_LATENCY_REPS, QUEUE_METRICS_REPS = 30, 5
 # the paper's hierarchical meta-GA (§4.2.2, Fig. 6): meta_ga_config() (3
 # islands x 32 meta-individuals, 2 generations an epoch, 4 epochs, the
@@ -1394,8 +1436,8 @@ def phase_mesh(device, card):
 def mesh_train_counts(steps):
     """This process's collectives a step, by mesh axis."""
     from repro_torch.core import collectives
-    return {axis: {k: (v / steps if k != "ops" else
-                       {op: n / steps for op, n in v.items()})
+    return {axis: {k: ({op: n / steps for op, n in v.items()}
+                       if isinstance(v, dict) else v / steps)
                    for k, v in c.items()}
             for axis, c in collectives.counts.items()}
 
@@ -1409,7 +1451,8 @@ def mesh_train_report(label, device, stats, steps, state_numel):
     from repro_torch.kernels.attention import ops as attn_ops
     return {"run": label, "device": str(device),
             "step_ms_first": stats["step_ms"][0],
-            "step_ms": statistics.median(stats["step_ms"][1:]),
+            "step_ms": statistics.median(stats["step_ms"][1:]
+                                         or stats["step_ms"]),
             "collectives_per_step": mesh_train_counts(steps),
             "peak_bytes": torch.cuda.max_memory_allocated(device),
             "param_and_moment_bytes": 3 * 4 * state_numel,
@@ -1486,11 +1529,20 @@ def mesh_train_baseline(arch, device, steps, batch, seq, **model_kw):
         state, met = step(state, b)
         for key in ("loss", "grad_norm", "aux"):
             out[key].append(float(met[key]))
-    out["params"] = {n: p.detach().cpu() for n, p in state["params"].items()}
-    out["sure"] = {n: m.cpu() for n, m in sure.items()}
+    out["params"] = {n: p.detach().cpu() for n, p in state["params"].items()
+                     if mesh_gathered(n)}
+    out["sure"] = {n: m.cpu() for n, m in sure.items() if mesh_gathered(n)}
     del state, model, step, grads_fn, sure
     torch.cuda.empty_cache()
     return out
+
+
+def mesh_gathered(name):
+    """Whether (b)'s parameter check gathers leaf ``name``."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return int(parts[1]) in MESH_GATHER_LAYERS
+    return parts[0] != "unembed"
 
 
 def mesh_params_check(got, base, steps):
@@ -1573,7 +1625,9 @@ def mesh_train_rank(rank, world, where, kind):
                 model_ctx = train_cli.make_train_ctx(mesh)
                 layouts = {n: p._layout for n, p in params.items()}
                 if run == "b":
-                    whole = gather_params(params, layouts, model_ctx)
+                    whole = gather_params(
+                        {n: p for n, p in params.items() if mesh_gathered(n)},
+                        layouts, model_ctx)
                 else:
                     first = [r for r, _ in routes][
                         :get_config(arch).num_layers]
@@ -1643,13 +1697,14 @@ def mesh_train_rank(rank, world, where, kind):
         dist.destroy_process_group()
 
 
-def mesh_train_spawn(where, kind, world):
-    """``world`` processes of mesh_train_rank (each one's output in a file
-    under ``where``); rank 0's results. A rank that fails stops the others
-    at once."""
+def mesh_train_spawn(where, kind, world, rank_fn="mesh_train_rank",
+                     timeout_s=None):
+    """``world`` processes of ``rank_fn`` (mesh_train_rank, or
+    mesh_serve_rank; each one's output in a file under ``where``); rank
+    0's results. A rank that fails stops the others at once."""
     import torch
     cmd = "import sys; sys.path.insert(0, {!r}); import chip_smoke; " \
-          "chip_smoke.mesh_train_rank({}, {}, {!r}, {!r})"
+          "chip_smoke." + rank_fn + "({}, {}, {!r}, {!r})"
     logs = [Path(where) / f"{kind}.rank{r}.log" for r in range(world)]
     procs = []
     try:
@@ -1659,7 +1714,7 @@ def mesh_train_spawn(where, kind, world):
                     [sys.executable, "-c",
                      cmd.format(str(ROOT), r, world, where, kind)],
                     stdout=out, stderr=subprocess.STDOUT))
-        deadline = time.monotonic() + MESH_TRAIN_TIMEOUT_S
+        deadline = time.monotonic() + (timeout_s or MESH_TRAIN_TIMEOUT_S)
         while any(p.poll() is None for p in procs):
             if (any(p.poll() not in (None, 0) for p in procs)
                     or time.monotonic() > deadline):
@@ -1672,7 +1727,7 @@ def mesh_train_spawn(where, kind, world):
                 p.wait()
     for r, p in enumerate(procs):
         if p.returncode != 0:
-            fail(f"mesh train: rank {r} of {world} ({kind}) exited "
+            fail(f"mesh {kind}: rank {r} of {world} exited "
                  f"{p.returncode}:\n{logs[r].read_text()[-3000:]}")
     return torch.load(Path(where) / f"{kind}.pt", weights_only=False)
 
@@ -1866,6 +1921,238 @@ def phase_mesh_train(device, card):
                                   f"call staged through the host on gloo")
     if errors:
         fail("mesh train: " + "; ".join(errors))
+    return launches
+
+
+@contextlib.contextmanager
+def recorded_logits():
+    """Every greedy step's logits under it (``train.serve_step.greedy``'s
+    input: this rank's rows and vocab block, kept on the device), and the
+    collective counts after the first (the prefill's)."""
+    import copy
+    from repro_torch.core import collectives
+    from repro_torch.train import serve_step
+    seen, at_prefill = [], {}
+    greedy = serve_step.greedy
+
+    def record(model, logits):
+        out = greedy(model, logits)
+        seen.append(logits.clone())
+        if len(seen) == 1:
+            at_prefill.update(copy.deepcopy(collectives.counts))
+        return out
+
+    serve_step.greedy = record
+    try:
+        yield seen, at_prefill
+    finally:
+        serve_step.greedy = greedy
+
+
+def mesh_serve_run(device, mesh, batch, prompt, gen):
+    """``launch.serve.serve`` of MESH_SERVE_ARCH at its published widths
+    (over ``mesh`` where given, this process one rank), the flash launches
+    and the collective counts zeroed just before: its tokens and every
+    step's logits (on the CPU), CUDA-event times, peak memory, cache bytes,
+    flash launches and the collectives of the prefill and of a decode
+    step, by axis."""
+    import torch
+    from repro_torch.core import collectives
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.launch import serve as serve_cli
+    collectives.reset_counts()
+    attn_ops.launches = 0
+    torch.cuda.empty_cache()
+    stats = {}
+    with recorded_logits() as (seen, at_prefill):
+        toks = serve_cli.serve(MESH_SERVE_ARCH, reduced=False, batch=batch,
+                               prompt_len=prompt, gen=gen, device=device,
+                               mesh=mesh, log_fn=lambda *_: None,
+                               stats=stats)
+        logits = [x.cpu() for x in seen]
+    keys = ("calls", "bytes", "staged_calls")
+    decode = {axis: {k: (c[k] - at_prefill.get(axis, {}).get(k, 0))
+                     / (gen - 1) for k in keys}
+              for axis, c in collectives.counts.items()}
+    torch.cuda.empty_cache()
+    return {"tokens": toks, "logits": logits, "device": str(device),
+            "flash_launches": attn_ops.launches,
+            "prefill_ms": stats["prefill_ms"],
+            "decode_ms_per_token": stats["decode_ms_per_token"],
+            "peak_bytes": stats["peak_bytes"],
+            "cache_bytes": stats["cache_bytes"],
+            "logits_finite": stats["logits_finite"],
+            "collectives_prefill": {a: {k: c[k] for k in keys}
+                                    for a, c in at_prefill.items()},
+            "collectives_per_decode_step": decode}
+
+
+def mesh_serve_check(run, base, coord):
+    """A (b) rank's run against the one-rank run ``base``: whether its
+    tokens are its rows of base's, whether every step's logits (its rows
+    and vocab block) are within MODEL_TOL of base's, and the largest
+    difference."""
+    import torch
+    from repro_torch.configs import get_config
+    b = MESH_SERVE_CUT[0]
+    vp = get_config(MESH_SERVE_ARCH).padded_vocab
+    d, m = coord
+    rows = slice(d * b // 2, (d + 1) * b // 2)
+    lo = sum(vp // 2 + (i < vp % 2) for i in range(m))
+    rtol, atol = MODEL_TOL
+    close, worst = len(run["logits"]) == len(base["logits"]), 0.0
+    for x, y in zip(run["logits"], base["logits"]):
+        y = y[rows, lo:lo + x.shape[1]]
+        worst = max(worst, float((x - y).abs().max()))
+        close &= torch.allclose(x, y, rtol=rtol, atol=atol)
+    return {"tokens_equal": torch.equal(run["tokens"],
+                                        base["tokens"][rows]),
+            "logits_close": close, "max_abs_diff": worst}
+
+
+def mesh_serve_rank(rank, world, where, kind):
+    """One rank of (b) (run in its own process by phase_mesh_serve): serve
+    over (data 2, model 2) on the card shared over gloo, checked here
+    against the one-rank run the phase saved; rank 0 saves every rank's
+    report."""
+    import torch.distributed as dist
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    device = init_distributed(rank, world, f"file://{where}/{kind}.store",
+                              local_world_size=world)
+    try:
+        t0 = time.perf_counter()
+        mesh = make_local_mesh(2, 2)
+        run = mesh_serve_run(device, mesh, *MESH_SERVE_CUT)
+        run["coord"] = [int(c) for c in mesh.get_coordinate()]
+        run["seconds"] = time.perf_counter() - t0
+        run["backend"] = dist.get_backend()
+        run["steps"] = len(run["logits"])
+        run.update(mesh_serve_check(run, torch.load(
+            Path(where) / f"{kind}.base.pt"), run["coord"]))
+        del run["tokens"], run["logits"]
+        every = [None] * world
+        dist.all_gather_object(every, run)
+        if rank == 0:
+            torch.save(every, Path(where) / f"{kind}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def say_serve_report(label, run, card, one=None):
+    """One serving run's numbers on this rank (with the one-rank run's
+    cache bytes beside its own)."""
+    cache = f"cache {run['cache_bytes']} B"
+    if one is not None:
+        cache += (f" (the one-rank cache {one['cache_bytes']} B: "
+                  f"{run['cache_bytes'] / one['cache_bytes']:.4f} of it)")
+    say(f"mesh serve: {label} on {run['device']}: prefill "
+        f"{run['prefill_ms']:.3f} ms, decode "
+        f"{run['decode_ms_per_token']:.3f} ms/token (CUDA events), flash "
+        f"launches {run['flash_launches']}, peak device memory "
+        f"{run['peak_bytes']} B, {cache}; collectives of the prefill "
+        + json.dumps(run["collectives_prefill"]) + ", a decode step "
+        + json.dumps({a: {k: round(v, 1) for k, v in c.items()}
+                      for a, c in run["collectives_per_decode_step"].items()})
+        + f"; card: {card}")
+
+
+def phase_mesh_serve(device, card):
+    """serve(mesh=) on the card: (a) one NCCL rank against the unsharded
+    serve, (b) MESH_SERVE_RANKS gloo ranks against one rank. Returns the
+    flash launches by run."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    t_phase = time.perf_counter()
+    cfg = get_config(MESH_SERVE_ARCH)
+    layers = cfg.num_layers
+    runs, launches = [], {}
+    with tempfile.TemporaryDirectory() as where:
+        for mesh_run in (False, True):
+            if mesh_run:
+                init_distributed(0, 1, f"file://{where}/serve_one.store",
+                                 local_world_size=1)
+            try:
+                if mesh_run and dist.get_backend() != "nccl":
+                    fail(f"mesh serve: a one-rank mesh on the card runs on "
+                         f"{dist.get_backend()}, not NCCL")
+                runs.append(mesh_serve_run(
+                    device, make_local_mesh(1, 1) if mesh_run else None,
+                    *MESH_SERVE_ONE))
+            finally:
+                if mesh_run:
+                    dist.destroy_process_group()
+        plain, one = runs
+        b, p, g = MESH_SERVE_ONE
+        if not (torch.equal(plain["tokens"], one["tokens"])
+                and len(plain["logits"]) == len(one["logits"]) == g
+                and all(torch.equal(x, y) for x, y in
+                        zip(plain["logits"], one["logits"]))):
+            fail("mesh serve (a): the one-rank NCCL mesh's tokens or logits "
+                 "differ from the unsharded serve's")
+        for r in runs:
+            if r["flash_launches"] != layers or not r["logits_finite"]:
+                fail(f"mesh serve (a): flash launches "
+                     f"{r['flash_launches']}, expected {layers}; logits "
+                     f"finite {r['logits_finite']}")
+        say(f"mesh serve: (a) {MESH_SERVE_ARCH} {b} x {p}, {g} tokens, "
+            f"one-rank NCCL mesh: tokens and every step's logits bit-equal "
+            f"to the unsharded serve; card: {card}")
+        say_serve_report("(a) unsharded", plain, card)
+        say_serve_report("(a) one-rank NCCL mesh", one, card, plain)
+        launches["(a) unsharded"] = plain["flash_launches"]
+        launches["(a) one-rank NCCL mesh"] = one["flash_launches"]
+        del runs, plain, one
+        a_s = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        base = mesh_serve_run(device, None, *MESH_SERVE_CUT)
+        torch.save({k: base[k] for k in ("tokens", "logits")},
+                   Path(where) / "serve.base.pt")
+        base_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = mesh_train_spawn(where, "serve", MESH_SERVE_RANKS,
+                                 "mesh_serve_rank", MESH_SERVE_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+    b, p, g = MESH_SERVE_CUT
+    errors = []
+    rtol, atol = MODEL_TOL
+    worst = max(run["max_abs_diff"] for run in ranks)
+    for r, run in enumerate(ranks):
+        if run["backend"] != "gloo":
+            errors.append(f"rank {r} ran on {run['backend']}, not gloo")
+        if not run["tokens_equal"]:
+            errors.append(f"rank {r}'s tokens differ from one rank's")
+        if not run["logits_close"]:
+            errors.append(f"rank {r}'s logits off one rank's")
+        if run["steps"] != g:
+            errors.append(f"rank {r}: {run['steps']} steps")
+        if run["flash_launches"] != layers or not run["logits_finite"]:
+            errors.append(f"rank {r}: flash launches "
+                          f"{run['flash_launches']}, expected {layers}")
+        for axis, c in run["collectives_per_decode_step"].items():
+            if c["staged_calls"] != c["calls"]:
+                errors.append(f"rank {r} axis {axis}: not every call staged "
+                              f"through the host on gloo")
+        launches[f"(b) rank {r}"] = run["flash_launches"]
+    say(f"mesh serve: (b) {MESH_SERVE_ARCH} {b} x {p}, {g} tokens on "
+        f"{MESH_SERVE_RANKS} gloo ranks (data 2, model 2): every rank's "
+        f"tokens one rank's rows, its logits (its rows and vocab block) "
+        f"within {rtol} / {atol} of one rank's (largest difference "
+        f"{worst:.3e}); card: {card}")
+    say_serve_report("(b) one rank", base, card)
+    for r, run in enumerate(ranks):
+        say_serve_report(f"(b) rank {r} {tuple(run['coord'])}", run, card,
+                         base)
+    say(f"mesh serve: phase {time.perf_counter() - t_phase:.1f} s ((a) "
+        f"{a_s:.1f} s, (b)'s one rank {base_s:.1f} s, its {MESH_SERVE_RANKS}"
+        f"-rank world {ranks_s:.1f} s; rank 0's own "
+        f"{ranks[0]['seconds']:.1f} s); card: {card}")
+    if errors:
+        fail("mesh serve: " + "; ".join(errors))
     return launches
 
 
@@ -2554,7 +2841,8 @@ def phase_main_host():
                  f"the genomes bit for bit")
         best = g[int(torch.argmin(fit[:, 0]))].clone()
         runs[name] = dict(launches=launches, wall_s=wall, best=best,
-                          best_fitness=hist[-1]["best"])
+                          best_fitness=hist[-1]["best"],
+                          hist_best=[h["best"] for h in hist])
     names = list(HOST_RUNS)
     for other in names[1:]:
         if not torch.equal(runs[names[0]]["best"], runs[other]["best"]):
@@ -3042,12 +3330,13 @@ def phase_main_queue(host_runs):
     from repro_torch.kernels.genetic import ops
     from repro_torch.obs import parse_prometheus_text
     from repro_torch.runtime import netbroker
-    expect = MAIN["gens_per_epoch"] * MAIN["epochs"]
-    evaluations = expect + 1                 # the initial population too
     runs = {}
     for name, extra in QUEUE_RUNS.items():
+        epochs = QUEUE_EPOCHS.get(name, MAIN["epochs"])
+        expect = MAIN["gens_per_epoch"] * epochs
+        evaluations = expect + 1             # the initial population too
         with tempfile.TemporaryDirectory() as root:
-            argv = MAIN_ARGS + HOST_ARGS + extra
+            argv = MAIN_ARGS + HOST_ARGS + extra + ["--epochs", str(epochs)]
             if name.startswith("mq") and name != "mq-net":
                 argv += ["--mq-dir", str(Path(root) / "mq")]
             elif name != "mq-net":
@@ -3088,7 +3377,13 @@ def phase_main_queue(host_runs):
                 fail(f"ga_run {name}: stored fitness is not "
                      f"hostsim.rastrigin of the genomes bit for bit")
             best = g[int(torch.argmin(fit[:, 0]))]
-            if not torch.equal(best, host_runs["host-thread"]["best"]):
+            host = host_runs["host-thread"]
+            if epochs != MAIN["epochs"]:
+                if hist[-1]["best"] != host["hist_best"][epochs - 1]:
+                    fail(f"ga_run {name}: best fitness after {epochs} "
+                         f"epoch(s) {hist[-1]['best']!r}, host-thread's "
+                         f"{host['hist_best'][epochs - 1]!r}")
+            elif not torch.equal(best, host["best"]):
                 fail(f"ga_run {name}: best genome differs from host-thread's")
             queue_dirs_clean(name, root,
                              listing if name == "mq-net" else None)
@@ -3122,8 +3417,9 @@ def phase_main_queue(host_runs):
                     f"updates; {len(events)} events")
         runs[name] = row
     say(f"main: best genome under {', '.join(QUEUE_RUNS)} bit-identical to "
-        f"host-thread's; stored fitness hostsim.rastrigin bit for bit; "
-        f"brokers clean")
+        f"host-thread's (cut to fewer epochs {QUEUE_EPOCHS}: the best "
+        f"fitness, host-thread's after as many); stored fitness "
+        f"hostsim.rastrigin bit for bit; brokers clean")
     return runs
 
 
@@ -6615,6 +6911,8 @@ def main():
     lap("main GA and mesh")
     mesh_train = phase_mesh_train(device, card)
     lap("mesh train")
+    mesh_serve = phase_mesh_serve(device, card)
+    lap("mesh serve")
     lm_launches = phase_serve()
     new_runs = phase_serve_new()
     batch_run = phase_batcher(device)
@@ -6668,14 +6966,15 @@ def main():
               for run, ns in mesh_train.items()
               for r, n in enumerate(ns if isinstance(ns[0], list)
                                     else [ns])}
+    served = {f"serve(mesh=) {run}": n for run, n in mesh_serve.items()}
     kernels[1]["launches"] = sum(serving.values()) + sum(
         v["flash_launches"] for v in trained.values()) + sum(
-        n[0] for n in meshed.values())
+        n[0] for n in meshed.values()) + sum(served.values())
     kernels[1]["max_abs_err"] = max(flash_err, serving_err, fam_flash_err)
     kernels[1]["launches_by_path"] = {
         **serving, f"train {TRAIN_ARCH} ({TRAIN_STEPS} steps)": train_fwd,
         **{k: v["flash_launches"] for k, v in trained.items()},
-        **{k: n[0] for k, n in meshed.items()},
+        **{k: n[0] for k, n in meshed.items()}, **served,
         **{k: v["launches"] for k, v in lm_paths.items()}}
     kernels[1]["serving_shapes"] = phase_times_serving(device, card)
     fam_flash, fam_ssd = phase_times_families(device, card)

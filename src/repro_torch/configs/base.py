@@ -199,6 +199,10 @@ class ModelConfig:
         """gemma2: even layers sliding-window, odd layers global."""
         return bool(self.local_global_alternate) and (layer_idx % 2 == 0)
 
+    def active_params(self) -> int:
+        """Active parameter count per token (MoE counts top-k experts)."""
+        return _param_count(self, active_only=True)
+
     def total_params(self) -> int:
         return _param_count(self)
 
@@ -252,8 +256,9 @@ class ModelConfig:
         )
 
 
-def _param_count(cfg: ModelConfig) -> int:
-    """Analytic parameter count."""
+def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Analytic parameter count (with ``active_only``, a token's: top-k
+    experts of each MoE layer)."""
     n = 0
     n += cfg.vocab_size * cfg.d_model                    # embed
     if not cfg.tie_embeddings:
@@ -277,7 +282,8 @@ def _param_count(cfg: ModelConfig) -> int:
         if f == "dense":
             n += 3 * cfg.d_model * cfg.d_ff
         elif f == "moe":
-            n += 3 * cfg.d_model * cfg.moe_d_ff * cfg.num_experts
+            e = cfg.experts_per_token if active_only else cfg.num_experts
+            n += 3 * cfg.d_model * cfg.moe_d_ff * e
             n += cfg.d_model * cfg.num_experts           # router
             if cfg.num_shared_experts:
                 n += 3 * cfg.d_model * (cfg.shared_d_ff or cfg.moe_d_ff * cfg.num_shared_experts)

@@ -20,8 +20,9 @@ the max or min) elementwise over the group.
 ``counts`` records per mesh axis the calls and the bytes of each call's
 full-size buffer (the gathered buffer of an all-gather, the input of a
 reduce-scatter, the tensor of an all-reduce; padding included), the
-staged calls and bytes among them, and the calls by kind ("ops"), so
-tests and ``chip_smoke.py`` can show that a collective ran.
+staged calls and bytes among them, and the calls and bytes by kind
+("ops", "op_bytes"), so tests, ``chip_smoke.py`` and the dry run can show
+which collectives ran.
 ``reset_counts()`` zeroes them.
 
 The autograd pairs that training over a mesh needs (``Gather``,
@@ -37,8 +38,8 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
-#: {axis: {"calls", "bytes", "staged_calls", "staged_bytes", "ops"}} of this
-#: process
+#: {axis: {"calls", "bytes", "staged_calls", "staged_bytes", "ops",
+#: "op_bytes"}} of this process
 counts: dict = {}
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
@@ -51,8 +52,10 @@ def reset_counts() -> None:
 
 def _count(axis: str, nbytes: int, staged: bool, op: str) -> None:
     c = counts.setdefault(axis, {"calls": 0, "bytes": 0, "staged_calls": 0,
-                                 "staged_bytes": 0, "ops": {}})
+                                 "staged_bytes": 0, "ops": {},
+                                 "op_bytes": {}})
     c["ops"][op] = c["ops"].get(op, 0) + 1
+    c["op_bytes"][op] = c["op_bytes"].get(op, 0) + nbytes
     c["calls"] += 1
     c["bytes"] += nbytes
     if staged:

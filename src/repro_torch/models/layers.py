@@ -161,6 +161,44 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, 1, h, hd)
 
 
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, valid: torch.Tensor,
+                             scale: float, attn_softcap: float = 0.0):
+    """``decode_attention`` over one block of a cache's slots, left
+    unnormalised (flash-decode's partial softmax): (o, m, l), float32, per
+    (b, kv head, query head of the group): o (B, KV, G, hd) the sum of
+    exp(logit - m) v over the block, m (B, KV, G, 1) the block's largest
+    logit and l (B, KV, G, 1) the sum of exp(logit - m).
+
+    q: (B, 1, H, hd); k/v: (B, T_block, KV, hd); ``valid`` (T_block,):
+    the slots that hold a position. Masked slots take the finite
+    ``NEG_INF``, so a block with no valid slot has m = NEG_INF and adds
+    exactly 0 once ``combine_decode_partials`` rescales it."""
+    b, _, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, hd)
+    logits = torch.einsum("bkgd,btkd->bkgt", qg.float(), k.float()) * scale
+    logits = softcap(logits, attn_softcap)
+    logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    o = torch.einsum("bkgt,btkd->bkgd", p, v.float())
+    return o, m, p.sum(-1, keepdim=True)
+
+
+def combine_decode_partials(o, m, l, all_reduce, dtype) -> torch.Tensor:
+    """The attention output (B, 1, H, hd) in ``dtype`` from every block's
+    ``decode_attention_partial`` (o, m, l), in two collectives over the
+    blocks: ``all_reduce(m, "max")`` gives the row max M, then one
+    ``all_reduce(., "sum")`` of [l e^(m - M), o e^(m - M)]."""
+    top = all_reduce(m, "max")
+    s = torch.exp(m - top)
+    sums = all_reduce(torch.cat([l * s, o * s], -1), "sum")
+    out = sums[..., 1:] / sums[..., :1]
+    b, kvh, g, hd = o.shape
+    return out.reshape(b, 1, kvh * g, hd).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Dense FFN (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------

@@ -82,8 +82,25 @@ load-balance aux over the global tokens and the dispatch in
 reference's ``num_groups=max(ctx.dp_size, 1)``); the embedding and the
 logits split the vocab (out-of-block ids masked, then summed over tp;
 ``train.loss`` reduces the logsumexp over tp). The Mamba-2 mixer runs
-whole on every tp rank (its leaves gathered over both axes). Prefill and
-decode take no mesh.
+whole on every tp rank (its leaves gathered over both axes).
+
+Serving over a device mesh (``ctx=make_serve_ctx(mesh, ...)``): the
+parameters are blocks as in training (tp, and fsdp over the data axes for
+models above 20e9 parameters), ``prefill`` / ``decode_step`` take this
+rank's block of the batch over dp (all of it where the long-context cache
+splits its sequence over the data axis instead) and return its block of
+the logits, and each rank holds its ``cache_specs`` block of the cache:
+the self-attention k / v with every kv head and this rank's block of the
+slots (``cache_pos`` whole), whisper's ``xk`` / ``xv`` whole, the Mamba-2
+``state`` / ``conv`` split over tp. Prefill computes attention on this
+rank's heads (the flash kernel over them, as in training), then gathers
+the kv heads over tp and keeps its block of the slots: the gather rather
+than an all-to-all from heads to slots, since ``core.collectives`` has it
+on NCCL and gloo with uneven blocks, and a prefill runs once a request
+(the all-to-all would move 1/tp of its bytes). A ring cache is laid out
+on the whole sequence first, then cut, so slot ``pos % T_cache`` keeps its
+meaning. A decode step combines every block's partial softmax over the
+slots' axes (flash-decode, ``Attention._decode``).
 
 Parameters are created with ``requires_grad=False``, which serving wants;
 training turns them on with ``model.requires_grad_(True)``
@@ -112,10 +129,14 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.attention import IMPLS, attend
-from repro_torch.models.sharding import ShardingCtx, shard_params, sharded, use
+from repro_torch.models.sharding import (ShardingCtx, cache_seq_axes,
+                                         cut_cache_leaf, gather_cache_leaf,
+                                         shard_params, sharded, use)
 from repro_torch.models.layers import (apply_norm, apply_rope,
-                                       decode_attention, dense_init_, ffn,
-                                       rope_tables, softcap)
+                                       combine_decode_partials,
+                                       decode_attention,
+                                       decode_attention_partial, dense_init_,
+                                       ffn, rope_tables, softcap)
 
 MOE_IMPLS = ("auto", "dense", "sorted")
 
@@ -246,6 +267,25 @@ class Attention(_Weights):
             // (self.cfg.num_heads // self.cfg.num_kv_heads)
         return k[:, :, idx], v[:, :, idx]
 
+    def _local_kv(self, k, v, plan):
+        """``_kv_heads`` of k, v that hold every kv head (a cache): where
+        the kv heads split alike, this rank's block of them."""
+        if plan is not None and plan[2]:
+            n = self.cfg.num_kv_heads * plan[1] // self.cfg.num_heads
+            lo = plan[0] * self.cfg.num_kv_heads // self.cfg.num_heads
+            return k.narrow(2, lo, n), v.narrow(2, lo, n)
+        return self._kv_heads(k, v, plan)
+
+    def _all_kv(self, k, v, plan, ctx):
+        """k, v (B, T, KV, hd) with every kv head, for a cache: gathered
+        over tp (together, one collective) where each rank computed its
+        block of them."""
+        if plan is not None and plan[2]:
+            kv = ctx.gather(torch.cat([k, v], -1), self.cfg.num_kv_heads,
+                            ctx.tp, 2)
+            return kv.chunk(2, -1)
+        return k, v
+
     def forward(self, h, *, sincos, mode, cache, pos, max_cache_len, cd,
                 ctx=None, enc_out=None):
         if self.cross:
@@ -261,7 +301,6 @@ class Attention(_Weights):
         q = (x @ w["q"]).reshape(b, s, -1, hd)
         k = (x @ w["k"]).reshape(b, s, -1, hd)
         v = (x @ w["v"]).reshape(b, s, -1, hd)
-        k, v = self._kv_heads(k, v, plan)
         if sincos is not None:
             sin, cos = sincos
             q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
@@ -269,21 +308,57 @@ class Attention(_Weights):
         window = cfg.sliding_window if self.local else 0
         new_cache = {}
         if mode == "decode":
-            _write_decode_kv(cache, k, v, pos)
-            out = decode_attention(q, cache["k"], cache["v"], kv_len=0,
-                                   cache_pos=cache["cache_pos"], scale=scale,
-                                   attn_softcap=cfg.attn_softcap)
+            out = self._decode(q, k, v, cache, pos, scale, plan, ctx)
             new_cache = cache
         else:
-            out = attend(q, k, v, scale=scale, causal=self.causal,
-                         window=window, attn_softcap=cfg.attn_softcap,
-                         impl=self.attn_impl)
             if mode == "prefill":
                 tc = (min(window, max_cache_len) if (self.local and window)
                       else max_cache_len)
-                new_cache = _build_prefill_cache(k, v, tc)
+                new_cache = _build_prefill_cache(
+                    *self._all_kv(k, v, plan, ctx), tc)
+                if sharded(ctx):
+                    new_cache = {n: cut_cache_leaf(n, c, ctx)
+                                 for n, c in new_cache.items()}
+            k, v = self._kv_heads(k, v, plan)
+            out = attend(q, k, v, scale=scale, causal=self.causal,
+                         window=window, attn_softcap=cfg.attn_softcap,
+                         impl=self.attn_impl)
         out = out.reshape(b, s, -1) @ w["o"]
         return (out if plan is None else ctx.tp_g(out)), new_cache
+
+    def _decode(self, q, k, v, cache, pos, scale, plan, ctx):
+        """One step's attention against the cache, after writing its k / v.
+
+        Over a mesh the cache holds every kv head and this rank's block of
+        the slots (``models.sharding.cache_seq_axes``; ``cache_pos`` whole):
+        the step's k / v are gathered over tp where the kv heads split, and
+        written by the rank whose block holds slot ``pos % T_cache``. Where
+        the slots lie over live axes, q is gathered over tp (every head, so
+        the block is read once for all of them), each rank takes the
+        partial softmax of its block and the partials are combined over
+        those axes (``layers.combine_decode_partials``); the rank then
+        keeps its own heads for the row-parallel ``o``. Where the slots are
+        whole on every rank, each rank attends its heads to their kv
+        heads, exchanging nothing."""
+        cfg = self.cfg
+        cp = cache["cache_pos"]
+        tc = cp.shape[-1]
+        axes = ctx.live(cache_seq_axes(tc, ctx)) if sharded(ctx) else ()
+        rows = ctx.rows(tc, axes) if axes else None
+        _write_decode_kv(cache, *self._all_kv(k, v, plan, ctx), pos, rows)
+        if not axes:
+            ck, cv = self._local_kv(cache["k"], cache["v"], plan)
+            return decode_attention(q, ck, cv, kv_len=0, cache_pos=cp,
+                                    scale=scale,
+                                    attn_softcap=cfg.attn_softcap)
+        if plan is not None:
+            q = ctx.gather(q, cfg.num_heads, ctx.tp, 2)
+        o, m, l = decode_attention_partial(
+            q, cache["k"], cache["v"], valid=cp[rows[0]:rows[1]] >= 0,
+            scale=scale, attn_softcap=cfg.attn_softcap)
+        out = combine_decode_partials(
+            o, m, l, lambda x, op: ctx.all_reduce(x, axes, op), q.dtype)
+        return out if plan is None else out.narrow(2, plan[0], plan[1])
 
     def _cross(self, h, *, mode, cache, enc_out, cd, ctx):
         cfg = self.cfg
@@ -292,23 +367,27 @@ class Attention(_Weights):
         w, plan = self._head_weights(cd, ctx)
         x = self.ln(h)
         if plan is not None:
-            x, enc_out = ctx.tp_f(x), ctx.tp_f(enc_out)
+            x = ctx.tp_f(x)
+            if enc_out is not None:          # decode reads the cache
+                enc_out = ctx.tp_f(enc_out)
         q = (x @ w["q"]).reshape(b, s, -1, hd)
         scale = (cfg.query_pre_attn_scalar or hd) ** -0.5
         new_cache = {}
         if mode == "decode":
-            out = decode_attention(q, cache["xk"], cache["xv"],
-                                   kv_len=cache["xk"].shape[1], scale=scale)
+            # the cache holds every kv head: each rank reads its heads'
+            ck, cv = self._local_kv(cache["xk"], cache["xv"], plan)
+            out = decode_attention(q, ck, cv, kv_len=ck.shape[1], scale=scale)
             new_cache = cache
         else:
             t = enc_out.shape[1]
             k = (enc_out @ w["k"]).reshape(b, t, -1, hd)
             v = (enc_out @ w["v"]).reshape(b, t, -1, hd)
+            if mode == "prefill":
+                xk, xv = self._all_kv(k, v, plan, ctx)
+                new_cache = {"xk": xk, "xv": xv}
             k, v = self._kv_heads(k, v, plan)
             out = attend(q, k, v, scale=scale, causal=False,
                          impl=self.attn_impl)
-            if mode == "prefill":
-                new_cache = {"xk": k, "xv": v}
         out = out.reshape(b, s, -1) @ w["o"]
         return (out if plan is None else ctx.tp_g(out)), new_cache
 
@@ -432,16 +511,36 @@ class Mamba2(_Weights):
 
     def forward(self, h, *, mode, cache, cd, ctx=None):
         """Over a mesh every tp rank runs the whole mixer (its leaves
-        gathered over both axes): no tensor-parallel SSM yet."""
+        gathered over both axes): no tensor-parallel SSM yet. Each rank
+        holds its ``cache_specs`` block of the cache (``state``'s heads and
+        ``conv``'s channels over tp): a decode step gathers the whole cache
+        first, and prefill and decode keep the rank's block of the cache
+        they compute."""
         x = self.ln(h)
         w = self.weights(cd, ctx)
+        if mode == "fwd":
+            return SSM.mamba2_forward(self.cfg, w, x,
+                                      use_kernel=self.use_kernel), {}
         if mode == "decode":
-            return SSM.mamba2_decode(self.cfg, w, x, cache)
-        if mode == "prefill":
-            return SSM.mamba2_forward(self.cfg, w, x, return_cache=True,
-                                      use_kernel=self.use_kernel)
-        return SSM.mamba2_forward(self.cfg, w, x,
-                                  use_kernel=self.use_kernel), {}
+            if sharded(ctx):
+                cache = {n: gather_cache_leaf(n, c, self._cache_shape(n, c),
+                                              ctx) for n, c in cache.items()}
+            out, new = SSM.mamba2_decode(self.cfg, w, x, cache)
+        else:
+            out, new = SSM.mamba2_forward(self.cfg, w, x, return_cache=True,
+                                          use_kernel=self.use_kernel)
+        if sharded(ctx):
+            new = {n: cut_cache_leaf(n, c, ctx) for n, c in new.items()}
+        return out, new
+
+    def _cache_shape(self, name, block):
+        """The whole shape of a cache leaf from this rank's block of it."""
+        cfg = self.cfg
+        whole = {"state": (1, cfg.ssm_heads),
+                 "conv": (2, cfg.d_inner + 2 * cfg.ssm_state)}[name]
+        shape = list(block.shape)
+        shape[whole[0]] = whole[1]
+        return tuple(shape)
 
 
 class Block(nn.Module):
@@ -815,8 +914,10 @@ class Model(nn.Module):
 
     def prefill(self, batch, max_cache_len: int):
         """Populate the decode cache; returns (last_logits (B, 1, V),
-        cache). A VLM's patches are cached as the first P positions."""
-        self._serving()
+        cache). A VLM's patches are cached as the first P positions. Over
+        a mesh (``make_serve_ctx``), ``batch`` is this rank's block over dp,
+        the logits are its block (the vocab over tp where it splits,
+        ``logits_block``) and the cache is its ``cache_specs`` block."""
         h, enc_out = self._assemble_inputs(batch)
         h, sincos = self._pos_tables(h)
         h, cache, _ = self._run_stack(h, sincos=sincos, mode="prefill",
@@ -825,11 +926,11 @@ class Model(nn.Module):
                                       enc_out=enc_out)
         return self._logits(h, last_only=True), cache
 
-    def _serving(self):
-        if sharded(self.ctx):
-            raise NotImplementedError(
-                "prefill and decode over a mesh are not ported (ROADMAP "
-                "queue 1): serve on one rank")
+    def logits_block(self):
+        """[lo, hi) of the vocab columns this rank's logits hold where the
+        vocab splits over tp, else None (every column)."""
+        return self._vocab_block(self.embed["tokens"] if self.cfg.tie_embeddings
+                                 else self.unembed)
 
     def decode_step(self, cache, tokens, pos):
         """One decode step. tokens: (B, 1); pos: the next index, an int for
@@ -838,10 +939,16 @@ class Model(nn.Module):
         ``pos[b] % T_cache`` and cache positions its own, so the attention
         caches' ``cache_pos`` must be (B, T_cache), as the continuous
         batcher's pool holds them; nothing is read back to the host).
-        Returns (logits (B, 1, V), cache); the cache is updated in place."""
-        self._serving()
+        Returns (logits (B, 1, V), cache); the cache is updated in place.
+        Over a mesh ``tokens`` and the logits are this rank's blocks, as in
+        ``prefill``, the cache is its ``cache_specs`` block and ``pos`` an
+        int."""
         h = self._embed(tokens)
         if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+            if sharded(self.ctx):
+                raise NotImplementedError(
+                    "decode at a position per lane over a mesh (the "
+                    "continuous batcher) is not ported; see ROADMAP.md")
             pos = pos.to(self.device)
             positions = pos[:, None]                          # (B, 1)
         else:
@@ -900,16 +1007,21 @@ class Model(nn.Module):
 # ---------------------------------------------------------------------------
 
 def _write_decode_kv(cache: dict, k: torch.Tensor, v: torch.Tensor,
-                     pos) -> None:
+                     pos, rows=None) -> None:
     """Write one step's k/v (B, 1, KV, hd) into a ring cache in place, at
     slot ``pos % T_cache``: one slot for the batch (int ``pos``) or one per
-    lane ((B,) tensor ``pos`` and a (B, T_cache) ``cache_pos``)."""
-    tc = cache["k"].shape[1]
+    lane ((B,) tensor ``pos`` and a (B, T_cache) ``cache_pos``). With
+    ``rows`` = [lo, hi), the cache's k / v hold only those slots (a mesh
+    rank's block; ``cache_pos`` stays whole): the step is written only
+    where its slot falls in them."""
+    tc = cache["cache_pos"].shape[-1]
     kd, vd = k[:, 0].to(cache["k"].dtype), v[:, 0].to(cache["v"].dtype)
     if isinstance(pos, int):
         slot = pos % tc
-        cache["k"][:, slot] = kd
-        cache["v"][:, slot] = vd
+        lo, hi = rows or (0, tc)
+        if lo <= slot < hi:
+            cache["k"][:, slot - lo] = kd
+            cache["v"][:, slot - lo] = vd
         cache["cache_pos"][..., slot] = pos
         return
     lanes = torch.arange(k.shape[0], device=k.device)

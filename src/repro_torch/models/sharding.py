@@ -222,7 +222,8 @@ _FLAT_GROUPS: dict = {}
 def _flat_group(mesh, axes: tuple):
     """One group per slice of the mesh along several axes, made once per
     (mesh, axes) by every rank together (``new_subgroups_by_enumeration``
-    is collective), in the axes' row-major order."""
+    is collective), in the axes' row-major order. The cache holds the
+    mesh, so its id names no other mesh while the group is kept."""
     key = (id(mesh), axes)
     if key not in _FLAT_GROUPS:
         import torch.distributed as dist
@@ -233,9 +234,22 @@ def _flat_group(mesh, axes: tuple):
         for d in idx:
             n *= mesh.shape[d]
         ranks = mesh.mesh.permute(rest + idx).reshape(-1, n)
-        _FLAT_GROUPS[key] = dist.new_subgroups_by_enumeration(
-            ranks.tolist())[0]
-    return _FLAT_GROUPS[key]
+        _FLAT_GROUPS[key] = (mesh, dist.new_subgroups_by_enumeration(
+            ranks.tolist())[0])
+    return _FLAT_GROUPS[key][1]
+
+
+def make_flat_groups(mesh) -> None:
+    """Make the group of every set of two or more of ``mesh``'s axes (in
+    the mesh's order) now, every rank together, rather than at a
+    collective's first call. The dry run calls it before its
+    ``FakeTensorMode``, under which the mesh's rank grid reads as a fake
+    tensor."""
+    import itertools
+    names = tuple(mesh.mesh_dim_names)
+    for n in range(2, len(names) + 1):
+        for axes in itertools.combinations(names, n):
+            _flat_group(mesh, axes)
 
 
 REPLICATED = ()
@@ -501,18 +515,21 @@ def reduce_replicated_grads(grads: Dict[str, torch.Tensor],
 # Cache specs
 # ---------------------------------------------------------------------------
 
+def cache_seq_axes(t: int, ctx: ShardingCtx):
+    """The axes a self-attention cache's sequence dim of length ``t`` lies
+    over (None where it is replicated): tp, or for long-context serving
+    (``shard_cache_seq``) data AND model (flash-decode both ways), falling
+    back to data only where that does not divide."""
+    if ctx.shard_cache_seq and ctx.seq and ctx.tp:
+        return ctx.if_div(t, (ctx.seq, ctx.tp)) or ctx.if_div(t, ctx.seq)
+    return ctx.if_div(t, ctx.tp)
+
+
 def _cache_leaf_spec(name: str, shp: tuple, ctx: ShardingCtx) -> tuple:
     nd = len(shp)
     if name in ("k", "v"):
-        b, t = shp[0], shp[1]
-        if ctx.shard_cache_seq and ctx.seq and ctx.tp:
-            # long-context: seq over data AND model (flash-decode both
-            # ways); falls back to data-only if not divisible
-            seq_axes = (ctx.if_div(t, (ctx.seq, ctx.tp))
-                        or ctx.if_div(t, ctx.seq))
-        else:
-            seq_axes = ctx.if_div(t, ctx.tp)
-        spec = (ctx.if_div(b, ctx.dp_spec), seq_axes, None, None)
+        spec = (ctx.if_div(shp[0], ctx.dp_spec), cache_seq_axes(shp[1], ctx),
+                None, None)
     elif name in ("xk", "xv"):
         spec = (ctx.if_div(shp[0], ctx.dp_spec), None, None, None)
     elif name == "state":                        # (B, H, P, N)
@@ -527,11 +544,12 @@ def _cache_leaf_spec(name: str, shp: tuple, ctx: ShardingCtx) -> tuple:
 
 
 def _map_cache(cache, fn, name=""):
+    """``fn(leaf name, leaf)`` over every leaf of a cache tree."""
     if isinstance(cache, dict):
         return {k: _map_cache(v, fn, k) for k, v in cache.items()}
     if isinstance(cache, list):
         return [_map_cache(v, fn, name) for v in cache]
-    return fn(name, tuple(cache.shape))
+    return fn(name, cache)
 
 
 def cache_specs(cache: Any, ctx: ShardingCtx):
@@ -545,15 +563,52 @@ def cache_specs(cache: Any, ctx: ShardingCtx):
     caches (whisper, 1500 frames) shard batch only. Every rule is guarded
     by exact divisibility; non-divisible dims replicate.
     """
-    return _map_cache(cache, lambda n, s: _cache_leaf_spec(n, s, ctx))
+    return _map_cache(cache, lambda n, x: _cache_leaf_spec(
+        n, tuple(x.shape), ctx))
+
+
+def cache_blocks(cache: Any, ctx: ShardingCtx):
+    """This rank's block of every leaf of a whole cache (the global batch)
+    under ``cache_specs``; the cache itself without a mesh."""
+    return _map_cache(cache, lambda n, x: ctx.cs(
+        x, *_cache_leaf_spec(n, tuple(x.shape), ctx)))
+
+
+def _inner_axes(name: str, shape: tuple, ctx: ShardingCtx) -> list:
+    """(dim, live axes) of every dim but the batch that ``cache_specs``
+    splits a cache leaf of the whole ``shape`` over."""
+    live = [ctx.live(a) for a in _cache_leaf_spec(name, tuple(shape), ctx)]
+    return [(d, axes) for d, axes in enumerate(live) if d and axes]
+
+
+def cut_cache_leaf(name: str, x: torch.Tensor, ctx: ShardingCtx
+                   ) -> torch.Tensor:
+    """This rank's block of the cache leaf ``name`` along every dim but the
+    batch (``x`` holds this rank's rows already, and is whole along the
+    others), as a tensor of its own: a view would keep the whole leaf's
+    memory."""
+    inner = _inner_axes(name, x.shape, ctx)
+    for d, axes in inner:
+        lo, hi = ctx.rows(x.shape[d], axes)
+        x = x.narrow(d, lo, hi - lo)
+    return x.clone() if inner else x
+
+
+def gather_cache_leaf(name: str, x: torch.Tensor, shape: tuple,
+                      ctx: ShardingCtx) -> torch.Tensor:
+    """``cut_cache_leaf``'s inverse: the leaf whole along every dim but the
+    batch, whose whole extents ``shape`` gives, from every rank's block."""
+    for d, axes in _inner_axes(name, shape, ctx):
+        x = ctx.gather(x, shape[d], axes, d)
+    return x
 
 
 def cache_shardings(cache: Any, ctx: ShardingCtx):
     """``cache_specs`` as DTensor placements; None without a mesh."""
     if ctx.mesh is None:
         return None
-    return _map_cache(cache, lambda n, s: ctx.named(
-        *_cache_leaf_spec(n, s, ctx)))
+    return _map_cache(cache, lambda n, x: ctx.named(
+        *_cache_leaf_spec(n, tuple(x.shape), ctx)))
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,8 @@ inactive lanes are ignored on the host. The one host read a tick is the
 The batcher runs where the model lives (``model.device``). Requests are
 token prompts only: an arch with a frontend (VLM patches, whisper frames)
 is refused, as the reference's batcher cannot prefill one either (it
-passes no ``frontend_embeds``).
+passes no ``frontend_embeds``). A model over a device mesh is refused:
+``Model.decode_step`` serves a mesh at one position for the batch.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.models.sharding import sharded
 
 
 @dataclasses.dataclass
@@ -65,6 +67,11 @@ class ContinuousBatcher:
             raise NotImplementedError(
                 f"{model.cfg.name}: the continuous batcher takes token "
                 f"prompts only, not a {model.cfg.frontend} frontend")
+        if sharded(model.ctx):
+            raise NotImplementedError(
+                "the continuous batcher over a device mesh is not ported "
+                "(lanes at their own positions need a cache block per "
+                "lane); see ROADMAP.md")
         self.model = model
         self.slots = slots
         self.max_cache_len = max_cache_len
