@@ -269,7 +269,17 @@ order; any failure exits non-zero:
            sharing the card (8 islands each, bit-equal to the one-rank
            run; per rank the epoch s, a migration's ms, the collectives'
            calls and bytes, all staged through the host, and 10
-           launches); then ``launch.train.train(mesh=)`` (mesh train:)
+           launches); each of these runs (unsharded, one-rank NCCL, every
+           gloo rank) then goes on through ``GAEngine.resize`` 32 -> 16 ->
+           32 islands, an epoch after each resize, cost dispatch over 8
+           lanes rescaled with the islands (bit-equal to the unsharded
+           run, the best kept through the shrink, no +inf after the grow,
+           10 more launches a rank; each resize's ms, collectives and
+           staged bytes), and the gloo ranks run the learned cost model's
+           first vs learned dispatch (CostEMA, each rank's own host
+           pool; every rank's table and permutation equal after each
+           evaluate; skew vs naive skew, ms per evaluate a rank); then
+           ``launch.train.train(mesh=)`` (mesh train:)
            of tinyllama-1.1b at its published widths, all 22 layers, 2
            steps: (a) at 4 x 2048 on a one-rank NCCL mesh, losses, grad
            norms and parameters bit-equal to the unsharded train; on 4
@@ -426,6 +436,11 @@ MESH_HVDC = dict(fitness="hvdc", islands=1, pop=8, gens_per_epoch=1,
                  epochs=1, grid_size=2715, hvdc_lines=18, contingencies=4,
                  screen_top_k=0)
 MESH_HVDC_WORKERS = 4
+# the mesh runs' continuation through RESIZE_ISLANDS (cost dispatch over
+# RESIZE_WORKERS lanes); the gloo ranks' CostEMA: EMA_DISPATCH's first
+# dispatch after a reset, then MESH_EMA_ROUNDS learned ones (a warm-up and
+# the timed rest)
+MESH_EMA_ROUNDS = 4
 # the mesh training phase (train(mesh=)): tinyllama-1.1b at its published
 # widths, all 22 layers, MESH_TRAIN_STEPS steps (a) at the training path's
 # 4 x 2048 on a one-rank NCCL mesh against the unsharded run, bit for bit;
@@ -1288,6 +1303,154 @@ def mesh_hvdc(ctx, device, card):
     return {"launches": launches, "seconds": seconds}
 
 
+def resize_cost(genomes):
+    """The resize runs' static cost model."""
+    return genomes.abs().sum(-1) + 0.1
+
+
+def mesh_resize(cfg, fit, pop, ctx, device):
+    """Go on from a mesh-phase run's global population ``pop`` through
+    RESIZE_ISLANDS' resizes, one epoch after each, cost dispatch over
+    RESIZE_WORKERS lanes rescaled with the islands (as resize_schedule),
+    on ``ctx`` (no mesh: the unsharded run). Returns the global
+    population, the best traces, kernel 1's launches and, for each
+    resize, its ms (host clock, synchronised), its collectives, the lanes
+    after it and the global population's best before and after."""
+    import numpy as np
+    import torch
+    from repro_torch.core import collectives, island
+    from repro_torch.core.engine import GAEngine
+    from repro_torch.kernels.genetic import ops
+    eng = GAEngine(cfg, fit, cost_fn=resize_cost, num_workers=RESIZE_WORKERS,
+                   ctx=ctx, device=device)
+    ops.launches = 0
+    traces, resizes = [], {}
+    for old, new in zip(RESIZE_ISLANDS, RESIZE_ISLANDS[1:]):
+        before = float(pop.fitness.min())
+        collectives.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pop = eng.resize(pop, new)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: dict(v) for k, v in collectives.counts.items()}
+        after = island.gather_pop(pop, ctx).fitness
+        resizes[f"{old}->{new}"] = {
+            "ms": ms, "collectives": counts,
+            "workers": eng.broker.num_workers,
+            "best": (before, float(after.min())),
+            "finite": bool(torch.isfinite(after).all())}
+        pop, hist = eng.run(pop, epochs=1)
+        traces.append(np.stack([h["trace"] for h in hist]))
+    torch.cuda.synchronize()
+    return {"pop": pop, "traces": traces, "launches": ops.launches,
+            "resizes": resizes}
+
+
+def check_mesh_resize(label, run, base=None):
+    """A mesh_resize run's own checks, and bit-equality with ``base``."""
+    import numpy as np
+    import torch
+    shrink, grow = run["resizes"].values()
+    if shrink["best"][1] != shrink["best"][0]:
+        fail(f"{label}: the shrink lost the best: {shrink['best']}")
+    if not grow["finite"]:
+        fail(f"{label}: the grow left unevaluated (+inf) fitness")
+    expect = MAIN["gens_per_epoch"] * (len(RESIZE_ISLANDS) - 1)
+    if run["launches"] != expect:
+        fail(f"{label}: fused_variation launched {run['launches']} times "
+             f"over the resize run, expected {expect}")
+    if base is not None and not (
+            torch.equal(run["pop"].genomes.cpu(), base["pop"].genomes.cpu())
+            and torch.equal(run["pop"].fitness.cpu(),
+                            base["pop"].fitness.cpu())
+            and all(np.array_equal(a, b) for a, b in
+                    zip(run["traces"], base["traces"]))):
+        fail(f"{label}: the resized run's population or best trace differs "
+             f"from the unsharded run's")
+
+
+def say_mesh_resize(label, run, card):
+    parts = []
+    for step, r in run["resizes"].items():
+        c = {axis: {k: v[k] for k in ("calls", "bytes", "staged_calls",
+                                      "staged_bytes")}
+             for axis, v in r["collectives"].items()}
+        parts.append(f"{step} {r['ms']:.3f} ms, {r['workers']} lanes after, "
+                     f"collectives {json.dumps(c)}")
+    say(f"mesh: resize {' -> '.join(map(str, RESIZE_ISLANDS))} on {label} "
+        f"(host clock, synchronised; cost dispatch over {RESIZE_WORKERS} "
+        f"lanes rescaled): " + "; ".join(parts)
+        + f"; fused_variation launches {run['launches']}; card: {card}")
+
+
+def ema_batches(device):
+    """EMA_DISPATCH's batches (benchmarks/broker_overhead.py:150-180): the
+    heterogeneous one, whose hot rows are exactly one lane of the uniform
+    balanced assignment, and an all-fast one."""
+    import numpy as np
+    import torch
+    from repro_torch.core.broker import balanced_permutation
+    n, w, genes = (EMA_DISPATCH[k] for k in ("n", "w", "genes"))
+    perm0 = balanced_permutation(torch.ones(n), w).numpy()
+    hot = np.zeros(n, bool)
+    hot[perm0[:n // w]] = True
+    het = np.random.default_rng(0).uniform(-1, 1, (n, genes)).astype(
+        np.float32)
+    het[:, 0] = np.where(hot, 1.0, -1.0)
+    fast = het.copy()
+    fast[:, 0] = -1.0
+    return tuple(torch.tensor(a, device=device) for a in (het, fast))
+
+
+def mesh_ema(ctx, device):
+    """The learned cost model over this rank's rows of EMA_DISPATCH's
+    batches, each rank with its own host thread pool: a round on the fast
+    batch, a reset, the first dispatch of the heterogeneous batch, then
+    MESH_EMA_ROUNDS learned ones. After each evaluate every rank's table
+    and next permutation must be rank 0's. Returns ms per evaluate (host
+    clock, synchronised; learned: the mean after a warm-up) and the
+    stats of the first and last."""
+    import functools
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.broker import (Broker, CostEMA, HostPoolBackend,
+                                         balanced_permutation)
+    from repro_torch.fitness import hostsim
+    n, w, slow_s = (EMA_DISPATCH[k] for k in ("n", "w", "slow_s"))
+    het, fast = ema_batches(device)
+    rows = ctx.sizes(n, ctx.dp)
+    first, end = ctx.rows(n, ctx.dp)
+    ema = CostEMA(alpha=0.6)
+    fn = functools.partial(hostsim.delay_sphere, slow_s=slow_s)
+    with HostPoolBackend(fn, num_workers=w) as backend:
+        broker = Broker(cost_fn=ema, num_workers=w, backend=backend, ctx=ctx)
+
+        def evaluate(x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, stats = broker.evaluate(x[first:end], rows=rows)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            table = ema.snapshot(n)
+            perm = balanced_permutation(torch.from_numpy(table), w).numpy()
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, (table.tobytes(), perm.tobytes()))
+            if any(e != every[0] for e in every):
+                fail(f"mesh CostEMA: the ranks' tables or permutations "
+                     f"part after an evaluate (rank {dist.get_rank()})")
+            return ms, {k: float(v) for k, v in stats.items()}
+
+        evaluate(fast)
+        ema.reset()
+        first_ms, first_stats = evaluate(het)
+        learned = [evaluate(het) for _ in range(MESH_EMA_ROUNDS)]
+    return {"first_ms": first_ms, "first": first_stats,
+            "learned_ms": statistics.mean(ms for ms, _ in learned[1:]),
+            "learned": learned[-1][1], "updates": ema.updates,
+            "lanes": broker.lanes}
+
+
 def mesh_rank(rank, world, where):
     """One of the MESH_RANKS gloo ranks sharing the card (run in its own
     process by phase_mesh): the GA cell on its islands; rank 0 saves the
@@ -1322,18 +1485,26 @@ def mesh_rank(rank, world, where):
             island.migrate_ring(cfg, local, gen, ctx)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
+        resized = mesh_resize(cfg, fit, run["pop"], ctx, device)
+        check_mesh_resize(f"gloo rank {rank}", resized)
         report = {"rank": rank, "device": str(device),
                   "backend": str(dist.get_backend()),
                   "islands": local.genomes.shape[0],
                   "epoch_s": run["epoch_s"],
                   "migration_ms": statistics.median(times),
-                  "launches": run["launches"], "collectives": counts}
+                  "launches": run["launches"], "collectives": counts,
+                  "resize": {k: v for k, v in resized.items()
+                             if k not in ("pop", "traces")},
+                  "ema": mesh_ema(ctx, device)}
         reports = [None] * world
         dist.all_gather_object(reports, report)
         if rank == 0:
             torch.save({"genomes": run["pop"].genomes.cpu(),
                         "fitness": run["pop"].fitness.cpu(),
                         "trace": np.asarray(run["trace"]),
+                        "resized": {"genomes": resized["pop"].genomes.cpu(),
+                                    "fitness": resized["pop"].fitness.cpu(),
+                                    "traces": resized["traces"]},
                         "reports": reports}, Path(where) / "mesh.pt")
     finally:
         dist.destroy_process_group()
@@ -1379,6 +1550,9 @@ def phase_mesh(device, card):
     cfg, fit, _ = ga_run.build("rastrigin", mesh_args(), device)
     one = mesh_engine_run(GAEngine(cfg, fit, device=device), MESH_EPOCHS)
     shape = tuple(one["pop"].genomes.shape)
+    one_resized = mesh_resize(cfg, fit, one["pop"], ShardingCtx(), device)
+    check_mesh_resize("unsharded", one_resized)
+    say_mesh_resize("the unsharded engine", one_resized, card)
     with tempfile.TemporaryDirectory() as where:
         init_distributed(0, 1, f"file://{where}/one.store",
                          local_world_size=1)
@@ -1392,6 +1566,7 @@ def phase_mesh(device, card):
             mesh1 = mesh_engine_run(GAEngine(cfg, fit, ctx=ctx,
                                              device=device), MESH_EPOCHS)
             counts = {k: dict(v) for k, v in collectives.counts.items()}
+            resized1 = mesh_resize(cfg, fit, mesh1["pop"], ctx, device)
             hvdc = mesh_hvdc(ctx, device, card)
         finally:
             dist.destroy_process_group()
@@ -1408,6 +1583,10 @@ def phase_mesh(device, card):
             f"(unsharded {one['epoch_s']:.4f} s); fused_variation launches "
             f"{mesh1['launches']} (unsharded {one['launches']}); "
             f"collectives {json.dumps(counts)}; card: {card}")
+        check_mesh_resize("one-rank NCCL mesh", resized1, one_resized)
+        say_mesh_resize("a one-rank NCCL mesh", resized1, card)
+        say("mesh: resize on a one-rank NCCL mesh: population and best "
+            "traces bit-equal to the unsharded engine's")
         del one
         torch.cuda.empty_cache()
         got = mesh_spawn(where)
@@ -1415,6 +1594,12 @@ def phase_mesh(device, card):
                                          fitness=got["fitness"]),
             "trace": got["trace"]}
     same_run(mesh1, four, f"{MESH_RANKS} gloo ranks")
+    res = got["resized"]
+    check_mesh_resize(f"{MESH_RANKS} gloo ranks", {
+        "pop": one_resized["pop"]._replace(genomes=res["genomes"],
+                                           fitness=res["fitness"]),
+        "traces": res["traces"], **got["reports"][0]["resize"]},
+        one_resized)
     for rep in got["reports"]:
         if rep["launches"] != expect or rep["backend"] != "gloo":
             fail(f"mesh rank {rep['rank']}: {rep['backend']}, "
@@ -1427,10 +1612,29 @@ def phase_mesh(device, card):
             f"{c['bytes']} B ({c['staged_calls']} staged, "
             f"{c['staged_bytes']} B), fused_variation launches "
             f"{rep['launches']}; card: {card}")
+        say_mesh_resize(f"gloo rank {rep['rank']}/{MESH_RANKS}",
+                        rep["resize"], card)
+        e = rep["ema"]
+        say(f"mesh: CostEMA on gloo rank {rep['rank']}/{MESH_RANKS} (n "
+            f"{EMA_DISPATCH['n']}, w {EMA_DISPATCH['w']}, {e['lanes']} lanes "
+            f"a rank, delay_sphere slow_s {EMA_DISPATCH['slow_s']}, its own "
+            f"host thread pool; host clock, synchronised): first dispatch "
+            f"{e['first_ms']:.3f} ms per evaluate, skew "
+            f"{e['first']['skew']:.4f} vs naive skew "
+            f"{e['first']['naive_skew']:.4f}; learned {e['learned_ms']:.3f} "
+            f"ms per evaluate (mean of {MESH_EMA_ROUNDS - 1} after a "
+            f"warm-up), skew {e['learned']['skew']:.4f} vs naive skew "
+            f"{e['learned']['naive_skew']:.4f}; {e['updates']} folded "
+            f"observations; card: {card}")
     say(f"mesh: {MESH_RANKS} gloo ranks sharing the card: population and "
-        f"best trace bit-equal to the one-rank run")
+        f"best trace bit-equal to the one-rank run, before and after the "
+        f"resizes; every rank's CostEMA table and permutation equal after "
+        f"each evaluate")
     return {"one_rank": mesh1["launches"], "hvdc": hvdc["launches"],
-            "ranks": [r["launches"] for r in got["reports"]]}
+            "ranks": [r["launches"] for r in got["reports"]],
+            "one_rank_resize": resized1["launches"],
+            "ranks_resize": [r["resize"]["launches"]
+                             for r in got["reports"]]}
 
 
 def mesh_train_counts(steps):
@@ -3147,22 +3351,10 @@ def ema_dispatch_times(device, card):
     (learned; cuda_ms). ms per evaluate, and the skew vs naive skew the
     broker reports."""
     import functools
-    import numpy as np
-    import torch
-    from repro_torch.core.broker import (Broker, CostEMA, HostPoolBackend,
-                                         balanced_permutation)
+    from repro_torch.core.broker import Broker, CostEMA, HostPoolBackend
     from repro_torch.fitness import hostsim
-    n, w, slow_s, genes = (EMA_DISPATCH[k] for k in ("n", "w", "slow_s",
-                                                     "genes"))
-    perm0 = balanced_permutation(torch.ones(n), w).numpy()
-    hot = np.zeros(n, bool)
-    hot[perm0[:n // w]] = True
-    het = np.random.default_rng(0).uniform(-1, 1, (n, genes)).astype(
-        np.float32)
-    het[:, 0] = np.where(hot, 1.0, -1.0)
-    fast = het.copy()
-    fast[:, 0] = -1.0
-    het_g, fast_g = (torch.tensor(a, device=device) for a in (het, fast))
+    n, w, slow_s = (EMA_DISPATCH[k] for k in ("n", "w", "slow_s"))
+    het_g, fast_g = ema_batches(device)
     ema = CostEMA(alpha=0.6)
     fn = functools.partial(hostsim.delay_sphere, slow_s=slow_s)
     with HostPoolBackend(fn, num_workers=w) as backend:
@@ -5654,7 +5846,7 @@ def resize_schedule(fixed_workers, device):
                    generations_per_epoch=MAIN["gens_per_epoch"],
                    mutation_prob=0.7, mutation_eta=20.0, crossover_prob=0.9,
                    crossover_eta=15.0, seed=2)
-    eng = GAEngine(cfg, rastrigin, cost_fn=lambda g: g.abs().sum(-1) + 0.1,
+    eng = GAEngine(cfg, rastrigin, cost_fn=resize_cost,
                    num_workers=RESIZE_WORKERS, device=device)
     ops.launches = 0
     pop, _ = eng.run(eng.init(), epochs=1)
@@ -6947,6 +7139,12 @@ def main():
            "ga hvdc GAEngine(ctx=) one-rank NCCL mesh": mesh_runs["hvdc"]},
         **{f"GAEngine(ctx=) {MESH_RANKS} gloo ranks, rank {r}": n
            for r, n in enumerate(mesh_runs["ranks"])},
+        **{"GAEngine(ctx=) one-rank NCCL mesh, resize "
+           + "->".join(map(str, RESIZE_ISLANDS)):
+           mesh_runs["one_rank_resize"]},
+        **{f"GAEngine(ctx=) {MESH_RANKS} gloo ranks, rank {r}, resize "
+           + "->".join(map(str, RESIZE_ISLANDS)): n
+           for r, n in enumerate(mesh_runs["ranks_resize"])},
         **{"meta-GA (Fig. 6)": meta_run["launches"],
            "resize " + "->".join(map(str, RESIZE_ISLANDS)):
            resize_run["launches"]})

@@ -20,9 +20,20 @@ default ``ShardingCtx()`` has no mesh: one rank holds them all). With the
 identity dispatch it evaluates its own rows. With a cost model every rank
 all-gathers the genomes, computes the same global cost and permutation,
 and evaluates its share of the lanes (lane chunks
-``tensor_split(range(W), dp)[r]``: chunk r when W equals the data ranks);
-the ranks then all-gather the fitness, undo the permutation and keep their
-rows. The dispatch stats are the global permutation's.
+``tensor_split(range(W), dp)[r]``: chunk r when W equals the data ranks;
+a rank with no lane, W below the data ranks, joins the gathers with an
+empty block); the ranks then all-gather the fitness, undo the permutation
+and keep their rows. The dispatch stats are the global permutation's. A
+decoupled backend on a mesh cuts its rank's share into the rank's own
+whole lanes (``Broker.lanes``), so each chunk is the lane one rank would
+cut.
+
+A :class:`CostEMA` over several ranks defers each rank's observations;
+after the fitness gather every rank gathers them all and folds them in
+rank order (:meth:`CostEMA.sync`), so every rank ends an ``evaluate``
+with the table one rank would hold had it timed every lane. The tp ranks
+of a data rank evaluate the same lanes: the times of the one at tp
+coordinate 0 stand for them all.
 
 Evaluation itself is pluggable (the paper's decoupled "simulation backend"
 microservice): a :class:`DispatchBackend` executes the shuffled batch.
@@ -176,6 +187,12 @@ class _FailedSubmit:
 # Online cost-model learning
 # ---------------------------------------------------------------------------
 
+def _fold_axes(ctx: ShardingCtx) -> tuple:
+    """The mesh axes of more than one rank that a learned cost model's
+    observations are folded over: the data axes and tp."""
+    return ctx.live(ctx.dp + ((ctx.tp,) if ctx.tp else ()))
+
+
 class CostEMA:
     """Learned cost model: an online EMA of measured per-lane wall times.
 
@@ -208,6 +225,8 @@ class CostEMA:
         self._est: Optional[np.ndarray] = None
         self._lock = threading.Lock()
         self.updates = 0
+        # observations held for sync() on a mesh; None: applied at once
+        self._pending: Optional[list] = None
 
     def snapshot(self, n: int, prime: Optional[np.ndarray] = None) -> np.ndarray:
         """Current (n,) cost estimates. A cold (or re-keyed after resize)
@@ -230,24 +249,38 @@ class CostEMA:
         perm: the (padded) dispatch permutation the chunks were taken
         from; entries ``>= n`` (sentinel pads) are skipped. Every real
         slot in chunk ``w`` is charged ``durations[w] / chunk_sizes[w]``.
+        After :meth:`defer` the charges wait for :meth:`sync`.
         """
         perm = np.asarray(perm)
         with self._lock:
             if self._est is None:
                 return                      # no reader yet — nothing keyed
             n = self._est.shape[0]
-            a = self.alpha
+            charges = []
             off = 0
             for size, dur in zip(chunk_sizes, durations):
                 idx = perm[off:off + size]
                 off += size
                 idx = idx[idx < n]
                 if idx.size:
-                    per_item = np.float32(dur / max(size, 1))
-                    self._est[idx] = ((1.0 - a) * self._est[idx]
-                                      + a * per_item)
-            self.updates += 1
+                    charges.append((idx, np.float32(dur / max(size, 1))))
+            if self._pending is not None:
+                self._pending.append(charges)
+                return
+            self._apply(charges)
             est = self._est
+        self._publish(est)
+
+    def _apply(self, charges) -> None:
+        """One observation's ``(slots, per-item cost)`` charges (the
+        caller holds the lock)."""
+        a = self.alpha
+        for idx, per_item in charges:
+            self._est[idx] = ((1.0 - a) * self._est[idx] + a * per_item)
+        self.updates += 1
+
+    @staticmethod
+    def _publish(est: np.ndarray) -> None:
         m = _metrics.get_registry()
         if m.enabled:
             # per-slot costs, summarized: per-slot labels would blow the
@@ -257,10 +290,70 @@ class CostEMA:
             m.set_gauge("cost_ema_max_seconds", float(est.max()))
             m.set_gauge("cost_ema_min_seconds", float(est.min()))
 
+    def defer(self) -> None:
+        """Hold observations for :meth:`sync` (a broker over several
+        ranks calls this): each rank then times only its own lanes."""
+        with self._lock:
+            if self._pending is None:
+                self._pending = []
+
+    def take(self) -> np.ndarray:
+        """The observations held since the last call, removed: (m, 3)
+        float64 rows of slot, per-item cost and observation number, in
+        the order observed (float64 holds both exactly)."""
+        with self._lock:
+            held = self._pending or []
+            if self._pending is not None:
+                self._pending = []
+        rows = [np.stack([idx.astype(np.float64),
+                          np.full(idx.size, per_item, np.float64),
+                          np.full(idx.size, k, np.float64)], 1)
+                for k, charges in enumerate(held)
+                for idx, per_item in charges]
+        return np.concatenate(rows) if rows else np.zeros((0, 3))
+
+    def fold(self, blocks) -> None:
+        """Apply :meth:`take`'s rows of each rank, ``blocks`` in rank
+        order: each observation as :meth:`observe` would have applied it
+        (one rank's charges of one observation touch distinct slots)."""
+        with self._lock:
+            if self._est is None:
+                return                      # reset since: nothing keyed
+            n = self._est.shape[0]
+            for rows in blocks:
+                starts = np.flatnonzero(np.diff(rows[:, 2])) + 1
+                for obs in np.split(rows, starts) if len(rows) else ():
+                    idx = obs[:, 0].astype(np.int64)
+                    keep = idx < n
+                    self._apply([(idx[keep],
+                                  obs[keep, 1].astype(np.float32))])
+            est = self._est
+        self._publish(est)
+
+    def sync(self, ctx: ShardingCtx, device) -> None:
+        """Gather every rank's held observations over the mesh's data and
+        tp axes (counts first, the blocks being ragged) and fold them on
+        every rank in rank order; a tp rank off coordinate 0 sends none
+        (its data rank's coordinate-0 times stand for it)."""
+        rows = self.take()
+        if ctx.coord(ctx.tp) != 0:
+            rows = rows[:0]
+        axes = _fold_axes(ctx)
+        counts = ctx.gather(
+            torch.tensor([len(rows)], dtype=torch.int64, device=device),
+            [1] * ctx.axes_size(axes), axes).tolist()
+        if sum(counts):
+            every = ctx.gather(torch.from_numpy(rows).to(device), counts,
+                               axes).cpu().numpy()
+            self.fold(np.split(every, np.cumsum(counts)[:-1]))
+
     def reset(self) -> None:
-        """Drop learned state (e.g. after a resize re-keys slots)."""
+        """Drop learned state (e.g. after a resize re-keys slots), and
+        any observation held for :meth:`sync`."""
         with self._lock:
             self._est = None
+            if self._pending is not None:
+                self._pending = []
 
     def __call__(self, genomes: torch.Tensor) -> torch.Tensor:
         n = genomes.shape[0]
@@ -445,22 +538,31 @@ class Broker:
         self.cost_fn = cost_fn
         self.num_workers = max(1, num_workers)
         self.ctx = ctx
-        if ctx.dp_size > 1 and cost_fn is not None:
-            if isinstance(cost_fn, CostEMA):
-                raise ValueError(
-                    "a learned cost model (CostEMA) over several data ranks "
-                    "is not ported: each rank would learn only its own "
-                    "lanes' times and the ranks' permutations would part")
-            if self.num_workers < ctx.dp_size:
-                raise ValueError(
-                    f"num_workers {self.num_workers} under a mesh must be "
-                    f"at least its {self.ctx.dp_size} data ranks")
+        # a learned cost model over several ranks: each times its own
+        # lanes, and evaluate folds every rank's times on every rank
+        self._shared = isinstance(cost_fn, CostEMA) and bool(
+            _fold_axes(ctx))
+        if self._shared:
+            cost_fn.defer()
+        if (ctx.mesh is not None and cost_fn is not None
+                and hasattr(backend, "num_workers")):
+            # a decoupled backend chunks by its own num_workers: cut this
+            # rank's share into its own whole lanes
+            backend.num_workers = max(1, self.lanes)
         # learned cost model: wire the EMA into a decoupled backend that
         # can report measured per-chunk wall times back to it
         if (isinstance(cost_fn, CostEMA)
                 and hasattr(backend, "cost_ema")
                 and getattr(backend, "cost_ema") is None):
             backend.cost_ema = cost_fn
+
+    @property
+    def lanes(self) -> int:
+        """The lanes this rank evaluates under cost dispatch: its chunk
+        of ``tensor_split(range(num_workers), dp)`` (all of them without
+        a mesh; none on a rank past the lane count)."""
+        return self.ctx.sizes(self.num_workers,
+                              self.ctx.dp)[self.ctx.coord(self.ctx.dp)]
 
     def backend_stats(self) -> dict:
         """Snapshot of the dispatch backend's host-side counters (retries
@@ -509,12 +611,16 @@ class Broker:
         lane_cost = torch.where(real, padded_take(cost, perm, n), 0.0)
         # this rank's lanes: contiguous worker chunks of n_pad / w
         per = n_pad // w
-        share = [len(c) * per for c in
-                 torch.arange(w).tensor_split(ctx.dp_size)]
+        share = [k * per for k in ctx.sizes(w, ctx.dp)]
         r = ctx.coord(ctx.dp)
         mine = slice(sum(share[:r]), sum(share[:r + 1]))
         shuffled = padded_take(everyone, perm[mine], n)
-        if hasattr(self.backend, "eval_with_perm"):
+        if not share[r]:
+            # no lane on this rank: an empty block of the fitness's width
+            width = getattr(self.backend, "num_objectives", None)
+            fit_mine = (self.backend(shuffled) if width is None
+                        else shuffled.new_empty((0, width)))
+        elif hasattr(self.backend, "eval_with_perm"):
             # decoupled backend: `perm` keys measured per-chunk wall times
             # back into the EMA cost model; sentinel pads are marked -inf,
             # not their zero stats-cost: a pad slot re-evaluates a
@@ -526,6 +632,8 @@ class Broker:
         else:
             fit_mine = self.backend(shuffled)
         fit_shuf = ctx.gather(fit_mine, share, ctx.dp)
+        if self._shared:
+            self.cost_fn.sync(ctx, genomes.device)
         fit = torch.index_select(fit_shuf, 0, inverse_permutation(perm, n))
         fit = fit[sum(rows[:r]):sum(rows[:r + 1])]
         # stats: per-worker predicted load skew (max/mean), before/after;

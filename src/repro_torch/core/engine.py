@@ -31,8 +31,9 @@ otherwise, as in the reference. ``init`` returns this rank's islands; ``run`` ta
 population or a rank's block and returns the global population on every
 rank. Metrics and ``evals_host`` count every island once. Checkpoints
 hold the global population in the reference's layout: rank 0 writes
-them, every rank restores and keeps its rows. ``resize`` is not ported
-under a mesh.
+them, every rank restores and keeps its rows. ``resize`` on a mesh
+repartitions the global population identically on every rank and keeps
+the rank's block of the new island count (see its docstring).
 """
 from __future__ import annotations
 
@@ -70,9 +71,7 @@ class GAEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ctx = ctx
-        if cfg.num_islands < ctx.dp_size:
-            raise ValueError(f"{cfg.num_islands} islands cannot cover the "
-                             f"mesh's {ctx.dp_size} data ranks")
+        self._check_islands(cfg.num_islands)
         self.broker = Broker(fitness_fn, cost_fn, num_workers=(
             num_workers if num_workers is not None else ctx.dp_size),
             backend=backend, ctx=ctx)
@@ -85,6 +84,11 @@ class GAEngine:
         # "evals_host" (the reference's key for its unbounded counter)
         self.evals_host: int = 0
         self._build_steps()
+
+    def _check_islands(self, islands: int) -> None:
+        if islands < self.ctx.dp_size:
+            raise ValueError(f"{islands} islands cannot cover the "
+                             f"mesh's {self.ctx.dp_size} data ranks")
 
     def _build_steps(self) -> None:
         """(Re)build the epoch step for the current cfg and broker: at
@@ -153,16 +157,26 @@ class GAEngine:
         ``rng`` is a stream's key words, by default the seed's folded with
         1000 + new_islands, as in the reference) and rebuild the broker for
         the resized fleet: ``num_workers`` scales with the island count
-        unless given, a backend with its own ``num_workers`` follows it,
-        and a cost model with ``reset`` is reset (its slots changed). A
-        grown population (clones at +inf) is evaluated before the engine
-        goes on, and counted. Dispatch permutations never change fitness
-        values, so a re-balanced run tracks a fixed-lane run exactly on a
-        deterministic fitness."""
-        if sharded(self.ctx):
-            raise NotImplementedError(
-                "GAEngine.resize under a mesh is not ported (ROADMAP.md, "
-                "queue 1 item 6)")
+        unless given, a backend with its own ``num_workers`` follows this
+        rank's lanes, and a cost model with ``reset`` is reset (its slots
+        changed). A grown population (clones at +inf) is evaluated before
+        the engine goes on, and counted. Dispatch permutations never
+        change fitness values, so a re-balanced run tracks a fixed-lane
+        run exactly on a deterministic fitness.
+
+        On a mesh every rank calls it alike, with the global population
+        (as ``run`` returns it: the same on every rank, so nothing moves)
+        or with its own block (gathered first). Every rank repartitions
+        the global population with the same ``rng`` and returns its block
+        of the new island count, evaluated: a run that goes on from it is
+        bit for bit one rank's. Fewer islands than data ranks raise a
+        ``ValueError`` on every rank before any collective. A lane count
+        that falls below the data ranks leaves the ranks past it with no
+        lane: they take part in the broker's gathers with empty blocks,
+        so fitness and dispatch stats stay one rank's."""
+        self._check_islands(new_islands)
+        if pop.genomes.shape[0] != pop.rng.shape[0]:
+            pop = gather_pop(pop, self.ctx)
         old_islands = pop.genomes.shape[0]
         if rng is None:
             rng = fold_rng(seed_rng(self.cfg.seed), 1000 + new_islands)
@@ -174,17 +188,20 @@ class GAEngine:
                 1, self.broker.num_workers * new_islands // old_islands)
         self.broker = Broker(self.broker.fitness_fn, self.broker.cost_fn,
                              num_workers=num_workers,
-                             backend=self.broker.backend)
+                             backend=self.broker.backend, ctx=self.ctx)
         backend = self.broker.backend
         if hasattr(backend, "num_workers"):
             # decoupled backends chunk by their own num_workers; keep the
-            # split aligned with the broker's lanes
-            backend.num_workers = num_workers
+            # split aligned with this rank's lanes
+            backend.num_workers = max(1, self.broker.lanes)
         if hasattr(self.broker.cost_fn, "reset"):
             self.broker.cost_fn.reset()      # slot-keyed EMA: N changed
         self._build_steps()
-        if bool(torch.isinf(pop.fitness).any()):
-            pop = evaluate_population(self.cfg, self.broker, pop)
+        # decided on the global population: every rank evaluates, or none
+        grown = bool(torch.isinf(pop.fitness).any())
+        pop = constrain_pop(pop, self.ctx)
+        if grown:
+            pop = evaluate_population(self.cfg, self.broker, pop, self.ctx)
             self.evals_host += self.cfg.global_pop
         return pop
 

@@ -13,7 +13,8 @@ globally. Clones read +inf fitness until they are evaluated again.
 Lane re-balance: repartitioning only reshapes the population; the
 broker's dispatch lane count is engine state. ``GAEngine.resize`` wraps
 this function and also recomputes ``num_workers`` and rebuilds the broker
-and the epoch step for the new island count.
+and the epoch step for the new island count. On a mesh every rank calls it
+on the global population with the same ``rng`` and keeps its block.
 
 Streams: ``rng`` is a stream's key words (``core/population.py``). The
 clones' mutation draws come from a ``torch.Generator`` seeded from it,

@@ -15,6 +15,15 @@ it reads what rank 0 saved:
   replayed from the reference's draws; the cost-model broker on a
   (data 2, model 2) mesh, one lane chunk per data rank; the HVDC fitness
   on that mesh with 8 contingencies, full AC and screened to 4.
+* Elastic runs and the learned cost model: ``GAEngine.resize`` on 8 ranks
+  (8 -> 16 -> 8 islands), on 4 (8 -> 4 -> 12, two ranks without a lane
+  after the shrink) and on (data 2, model 2), bit-identical to one rank's
+  resize run (population, best trace, ``evals_host``, dispatch stats); a
+  resize below the data ranks refused on every rank; a ``CostEMA`` over 4
+  data ranks and over (data 2, model 2) with a deterministic decoupled
+  backend equal to one rank's (tables after each evaluate, permutations,
+  fitness), with real host pools equal across ranks, and through a
+  resize.
 
 HVDC parity with the reference follows ``tests/test_torch_powerflow.py``:
 flags exact, objectives on converged lanes at rtol 1e-4 / atol 1e-4
@@ -43,16 +52,19 @@ from repro.powerflow import hvdc as jh
 from repro.powerflow import newton as jn
 from repro_torch.configs.base import GAConfig
 from repro_torch.core import island
-from repro_torch.core.broker import (Broker, balanced_permutation,
+from repro_torch.core.broker import (Broker, CostEMA, balanced_permutation,
                                      inverse_permutation, padded_take)
 from repro_torch.core.engine import GAEngine
 from repro_torch.core.population import init_population, population_from_numpy
 from repro_torch.core.uniforms import ArrayUniforms
-from repro_torch.fitness import HVDCDispatchFitness, rastrigin, sphere
+from repro_torch.fitness import (HVDCDispatchFitness, hostsim, rastrigin,
+                                 sphere)
 from repro_torch.powerflow.grid import make_synthetic_grid
-from torch_mesh_worker import (BROKER_G, BROKER_N, EIGHT, HVDC_CASES,
-                               HVDC_GRID, HVDC_SCREENS, MIGRATIONS, SIX,
-                               broker_cost, hvdc_parts)
+from torch_mesh_worker import (BROKER_G, BROKER_N, EIGHT, EMA_ALPHA,
+                               EMA_GENS, EMA_W, HVDC_CASES, HVDC_GRID,
+                               HVDC_SCREENS, MIGRATIONS, RESIZES, SIX,
+                               TimedSphere, broker_cost, ema_broker,
+                               ema_genomes, hvdc_parts, resize_run)
 from torch_parity import jax_generation_draws, jax_migration_draws, to_np
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -100,6 +112,19 @@ def assert_same_pop(got: dict, pop):
     assert int(got["evals"]) == pop.evals
 
 
+def assert_same_resize(got: dict, want: dict):
+    """Two ``resize_run`` results: population, best trace, dispatch
+    stats, ``evals_host`` and lanes bit for bit."""
+    for k, v in want["pop"].items():
+        np.testing.assert_array_equal(got["pop"][k], v, err_msg=k)
+    assert len(got["trace"]) == len(want["trace"])
+    for a, b in zip(got["trace"], want["trace"]):
+        np.testing.assert_array_equal(a, b)
+    assert got["stats"] == want["stats"]
+    assert got["evals_host"] == want["evals_host"]
+    assert got["workers"] == want["workers"]
+
+
 def one_rank_run(cfg, fitness):
     eng = GAEngine(cfg, fitness, device="cpu")
     pop, hist = eng.run()
@@ -137,6 +162,13 @@ def test_migration_issues_one_collective_per_shift(eight, topology):
     got = eight[topology]
     assert got["calls"] == len(island._migration_shifts(topology, 8))
     assert_same_pop(got["pop"], want)
+
+
+def test_resize_on_eight_ranks_bit_identical_to_one(eight):
+    want = resize_run(*RESIZES["eight"])
+    assert want["workers"] == [16, 8]
+    assert all(b == 1.0 for _, b in want["stats"])
+    assert_same_resize(eight["resize"], want)
 
 
 # ---------------------------------------------------------------------------
@@ -306,3 +338,79 @@ def test_hvdc_on_a_2x2_mesh_matches_one_rank_and_reference(four, jax_hvdc,
     if screen == 0:
         np.testing.assert_allclose(got["objective"][conv], ref[conv],
                                    **OBJ_TOL)
+
+
+def test_resize_on_four_ranks_bit_identical_to_one(four):
+    """8 -> 4 -> 12 islands: 4 -> 2 -> 6 lanes, so after the shrink two
+    data ranks evaluate no lane; on (data 2, model 2) every rank, tp
+    peers included, holds one rank's run."""
+    want = resize_run(*RESIZES["four"])
+    assert want["workers"] == [2, 6]
+    assert_same_resize(four["resize"], want)
+    assert len(four["resize22"]) == 4
+    for got in four["resize22"]:
+        assert_same_resize(got, want)
+
+
+def test_resize_below_the_data_ranks_raises_on_every_rank(four):
+    assert len(four["refused"]) == 4
+    assert all(m and "2 islands cannot cover the mesh's 4 data ranks" in m
+               for m in four["refused"])
+
+
+@pytest.mark.parametrize("name,data_ranks", [("ema", 4), ("ema22", 2)])
+def test_cost_ema_on_a_mesh_equals_one_rank(four, name, data_ranks):
+    """Every rank's table after each evaluate, the fitness and the stats
+    are one rank's under the same deterministic backend; the data ranks'
+    lane permutations, in rank order, are one rank's, and a tp peer sees
+    its data rank's."""
+    backend = TimedSphere(EMA_W)
+    want = ema_broker(backend, prime_fn=broker_cost if name == "ema22"
+                      else None)
+    ranks = four[name]
+    for rank in ranks:
+        assert len(rank["run"]) == EMA_GENS
+        for got, exp in zip(rank["run"], want):
+            np.testing.assert_array_equal(got["table"], exp["table"])
+            np.testing.assert_array_equal(got["fitness"], exp["fitness"])
+            assert got["stats"] == exp["stats"]
+    tp = len(ranks) // data_ranks
+    for k, perm in enumerate(backend.perms):
+        np.testing.assert_array_equal(
+            np.concatenate([r["perms"][k] for r in ranks[::tp]]), perm)
+        for r, rank in enumerate(ranks):
+            np.testing.assert_array_equal(rank["perms"][k],
+                                          ranks[r - r % tp]["perms"][k])
+    # the learned times moved the dispatch
+    assert not np.array_equal(backend.perms[0], backend.perms[-1])
+
+
+@pytest.mark.parametrize("name", ["ema_pool", "ema22_pool"])
+def test_cost_ema_with_host_pools_agrees_across_ranks(four, name):
+    """Each rank's own thread pool times its lanes; after every evaluate
+    all ranks hold one table (tp peers included) and the fitness."""
+    ranks = four[name]
+    for k, g in enumerate(ema_genomes()):
+        first = ranks[0][k]
+        assert first["table"].shape == (len(g),)
+        assert not np.all(first["table"] == 1.0)        # it learned
+        for rank in ranks:
+            np.testing.assert_array_equal(rank[k]["table"], first["table"])
+            np.testing.assert_array_equal(rank[k]["fitness"],
+                                          hostsim.sphere(g))
+            assert rank[k]["stats"] == first["stats"]
+
+
+def test_resize_with_a_cost_ema_on_a_mesh(four):
+    """The shrink resets every rank's table (no clone to evaluate), the
+    grow's clone evaluation learns it anew, and the run goes on as one
+    rank's."""
+    want = resize_run(*RESIZES["four"], cost_fn=CostEMA(alpha=EMA_ALPHA),
+                      backend=TimedSphere(4))
+    assert want["tables"][0] is None and want["tables"][1] is not None
+    for got in four["ema_resize"]:
+        assert got["tables"][0] is None
+        np.testing.assert_array_equal(got["tables"][1], want["tables"][1])
+        np.testing.assert_array_equal(got["final_table"],
+                                      want["final_table"])
+        assert_same_resize(got, want)

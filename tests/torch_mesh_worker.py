@@ -17,13 +17,16 @@ import torch.distributed as dist
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs.base import GAConfig
 from repro_torch.core import collectives, island
-from repro_torch.core.broker import Broker
+from repro_torch.core.broker import Broker, CostEMA, HostPoolBackend
 from repro_torch.core.engine import GAEngine
+from repro_torch.core.hostbridge import (PureCallbackBridge,
+                                         collect_chunk_results)
 from repro_torch.core.population import (init_population,
                                          population_from_numpy,
                                          population_to_numpy)
 from repro_torch.core.uniforms import ArrayUniforms
-from repro_torch.fitness import HVDCDispatchFitness, rastrigin, sphere
+from repro_torch.fitness import (HVDCDispatchFitness, hostsim, rastrigin,
+                                 sphere)
 from repro_torch.launch.mesh import init_distributed, make_local_mesh
 from repro_torch.models.sharding import ShardingCtx
 from repro_torch.powerflow.contingency import contingency_loadings
@@ -47,6 +50,14 @@ BROKER_N, BROKER_G = 21, 5
 HVDC_GRID = dict(n_bus=60, n_line=110, n_gen=15, n_hvdc=4, seed=1)
 HVDC_SCREENS = (0, 4)
 HVDC_CASES = 8
+# elastic runs at EIGHT's shape: an epoch, then a resize to each later
+# island count and an epoch after it, cost dispatch over RESIZE_WORKERS
+# lanes rescaled with the islands (4 ranks: 4 -> 2 -> 6 lanes, so two
+# ranks have none after the shrink)
+RESIZES = {"four": ((8, 4, 12), 4), "eight": ((8, 16, 8), 8)}
+# the learned cost model over a mesh: EMA_GENS evaluations of EMA_N x
+# EMA_G genomes over EMA_W lanes (N pads to 24)
+EMA_N, EMA_G, EMA_W, EMA_GENS, EMA_ALPHA = 21, 5, 4, 3, 0.5
 
 
 def broker_cost(genomes):
@@ -71,6 +82,92 @@ def hvdc_parts(fit, genomes, ctx=ShardingCtx()) -> dict:
     calls = collectives.counts.get("model", {}).get("calls", 0)
     return {"objective": fit(genomes).numpy(), "converged": conv.numpy(),
             "loadings": loadings.numpy(), "model_calls": calls}
+
+
+class TimedSphere(PureCallbackBridge):
+    """A decoupled backend whose chunk "wall times" are a fixed function
+    of the chunk's genomes, reported through ``collect_chunk_results`` as
+    a host pool reports its clocks: a mesh's ranks and one rank learn the
+    same table when they cut the same lanes. Keeps every permutation it
+    is handed."""
+
+    name = "timed-sphere"
+    num_objectives = 1
+
+    def __init__(self, num_workers: int):
+        self.num_workers = num_workers
+        self.cost_ema = None
+        self.perms = []
+
+    def _host_eval(self, genomes, perm=None, cost=None):
+        if perm is not None:
+            self.perms.append(perm)
+        chunks = np.array_split(genomes, min(self.num_workers,
+                                             max(1, len(genomes))))
+        outs = [(hostsim.sphere(c), 1e-3 + float(np.abs(c).sum()))
+                for c in chunks]
+        return collect_chunk_results(outs, self.cost_ema, perm,
+                                     [len(c) for c in chunks])
+
+    def close(self):
+        pass
+
+
+def ema_genomes() -> np.ndarray:
+    """(EMA_GENS, EMA_N, EMA_G) genomes, one batch a generation."""
+    return np.random.default_rng(31).uniform(
+        -1, 1, (EMA_GENS, EMA_N, EMA_G)).astype(np.float32)
+
+
+def cost_table(cost_fn):
+    """A CostEMA's slot table, None while it is cold."""
+    est = getattr(cost_fn, "_est", None)
+    return None if est is None else est.copy()
+
+
+def ema_broker(backend, ctx=ShardingCtx(), prime_fn=None) -> list:
+    """ema_genomes() through a Broker with a CostEMA over EMA_W lanes,
+    this rank's rows of each batch: per generation the table after it,
+    the global fitness and the dispatch stats."""
+    ema = CostEMA(alpha=EMA_ALPHA, prime_fn=prime_fn)
+    broker = Broker(cost_fn=ema, num_workers=EMA_W, backend=backend,
+                    ctx=ctx)
+    rows = ctx.sizes(EMA_N, ctx.dp)
+    first, end = ctx.rows(EMA_N, ctx.dp)
+    out = []
+    for g in ema_genomes():
+        fit, stats = broker.evaluate(torch.from_numpy(g[first:end]),
+                                     rows=rows)
+        out.append({"table": cost_table(ema),
+                    "fitness": ctx.gather(fit, rows, ctx.dp).numpy(),
+                    "stats": {k: v.item() for k, v in stats.items()}})
+    return out
+
+
+def resize_run(schedule, workers, ctx=ShardingCtx(), **engine_kw) -> dict:
+    """EIGHT's GA on sphere: an epoch, then a resize to each island count
+    of ``schedule[1:]`` and an epoch after it, cost dispatch over
+    ``workers`` lanes (``broker_cost`` unless ``cost_fn`` is given). The
+    first resize is handed the global population, as ``run`` returns it,
+    the later ones this rank's block."""
+    engine_kw.setdefault("cost_fn", broker_cost)
+    eng = GAEngine(GAConfig(**dict(EIGHT, num_islands=schedule[0])), sphere,
+                   num_workers=workers, ctx=ctx, device="cpu", **engine_kw)
+    pop, hist = eng.run(eng.init(), epochs=1)
+    lanes, tables = [], []
+    for k, new in enumerate(schedule[1:]):
+        if k:
+            pop = island.constrain_pop(pop, ctx)
+        pop = eng.resize(pop, new)
+        lanes.append(eng.broker.num_workers)
+        tables.append(cost_table(eng.broker.cost_fn))
+        pop, more = eng.run(pop, epochs=1)
+        hist += more
+    return {"pop": population_to_numpy(pop),
+            "trace": [h["trace"] for h in hist],
+            "stats": [(h["skew"], h["balanced"]) for h in hist],
+            "evals_host": eng.evals_host, "workers": lanes,
+            "tables": tables, "final_table": cost_table(eng.broker.cost_fn)}
 
 
 def gathered(value) -> list:
@@ -112,6 +209,32 @@ def eight(inputs) -> dict:
         calls = collectives.counts["data"]["calls"]
         out[topology] = {"pop": population_to_numpy(
             island.gather_pop(new, ctx)), "calls": calls}
+    out["resize"] = resize_run(*RESIZES["eight"], ctx)
+    return out
+
+
+def four_elastic(ctx, ctx22) -> dict:
+    """Resize and the learned cost model on (data 4) and (data 2, model
+    2): every rank's view where ranks must agree."""
+    out = {"resize": resize_run(*RESIZES["four"], ctx),
+           "resize22": gathered(resize_run(*RESIZES["four"], ctx22))}
+    # below the data ranks: every rank refuses, and all reach the gather
+    eng = GAEngine(GAConfig(**EIGHT), sphere, ctx=ctx, device="cpu")
+    try:
+        eng.resize(eng.init(), 2)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    out["refused"] = gathered(refused)
+    for name, c, prime in (("ema", ctx, None), ("ema22", ctx22, broker_cost)):
+        backend = TimedSphere(EMA_W)
+        run = ema_broker(backend, c, prime)
+        out[name] = gathered({"run": run, "perms": backend.perms})
+        with HostPoolBackend(hostsim.sphere, num_workers=EMA_W) as pool:
+            out[f"{name}_pool"] = gathered(ema_broker(pool, c))
+    ema = CostEMA(alpha=EMA_ALPHA)
+    out["ema_resize"] = gathered(resize_run(
+        *RESIZES["four"], ctx, cost_fn=ema, backend=TimedSphere(4)))
     return out
 
 
@@ -180,6 +303,8 @@ def four(inputs) -> dict:
     out["broker"] = {"fitness": ctx22.gather(fit, rows, ctx22.dp).numpy(),
                      "stats": {k: v.item() for k, v in stats.items()},
                      "seen": gathered(seen)}
+
+    out.update(four_elastic(ctx, ctx22))
 
     grid = make_synthetic_grid(**HVDC_GRID)
     genomes = torch.from_numpy(inputs["hvdc_genomes"])
