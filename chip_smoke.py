@@ -452,9 +452,13 @@ MESH_EMA_ROUNDS = 4
 # (batch, context): cut from 4 x 2048 so that the phase fits its budget;
 # MESH_TRAIN_STEPS cut from 3 to 2 for the smoke's time (a gloo step of
 # (b) takes ~12 s), MESH_MOE_STEPS from 2 to 1 (its checks are step 1's;
-# a gloo step of (c) took 9.8 s on an H100)
+# a gloo step of (c) took 9.8 s on an H100). (b) and (c) carry the
+# hidden state as each rank's sequence block (make_train_ctx's default);
+# "b whole" runs (b)'s first MESH_WHOLE_STEPS steps on the same ranks with
+# make_train_ctx(mesh, seq_parallel=False), the hidden state whole on
+# every model rank, held to (b)'s (one step for the phase's time)
 MESH_TRAIN_ARCH, MESH_MOE_ARCH = "tinyllama-1.1b", "granite-moe-1b-a400m"
-MESH_TRAIN_STEPS, MESH_MOE_STEPS = 2, 1
+MESH_TRAIN_STEPS, MESH_MOE_STEPS, MESH_WHOLE_STEPS = 2, 1, 1
 MESH_TRAIN_ONE = (4, 2048)
 MESH_TRAIN_CUT = (4, 512)
 MESH_TRAIN_RANKS, MESH_POD_RANKS, MESH_TRAIN_TIMEOUT_S = 4, 2, 600
@@ -1768,23 +1772,55 @@ def mesh_params_check(got, base, steps):
     return kept / total, worst
 
 
+def mesh_train_steps(ctx, device, batch, seq, steps, **step_kw):
+    """``steps`` steps of MESH_TRAIN_ARCH over ``ctx`` as train(mesh=)
+    takes them (the same model, initialisation, optimizer and bigram
+    batches; the peak memory reset after the set-up): (stats with each
+    step's ms, loss and grad norm; this rank's parameter elements; the
+    leaves)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens, place
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import optimizer_for_arch
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    cfg = get_config(MESH_TRAIN_ARCH)
+    model = Model(cfg, device=device, attn_impl="kernel",
+                  use_ssd_kernel=False, max_seq=seq + 8, ctx=ctx)
+    state = init_train_state(model,
+                             torch.Generator(device=device).manual_seed(0))
+    step = make_train_step(model, optimizer_for_arch(
+        MESH_TRAIN_ARCH, lr=MESH_TRAIN_LR,
+        warmup_steps=max(MESH_TRAIN_STEPS // 20, 5),
+        total_steps=MESH_TRAIN_STEPS), **step_kw)
+    data = SyntheticTokens(cfg, batch, seq, seed=0, mode="bigram")
+    torch.cuda.reset_peak_memory_stats(device)
+    stats = {"step_ms": [], "loss": [], "grad_norm": []}
+    for i in range(steps):
+        b = place(data.batch(i), ctx, device)
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        torch.cuda.synchronize(device)
+        stats["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        stats["loss"].append(float(met["loss"]))
+        stats["grad_norm"].append(float(met["grad_norm"]))
+    params = state["params"]
+    return stats, sum(p.numel() for p in params.values()), len(params)
+
+
 def mesh_train_rank(rank, world, where, kind):
     """One rank of a mesh training world sharing the card (run in its own
-    process by phase_mesh_train): "dm" runs (b) and (c) on (data 2, model
-    2), rank 0 first running the one-rank baselines; "pod" runs (d). Rank
-    0 saves every rank's reports and its checks' numbers."""
+    process by phase_mesh_train): "dm" runs (b), (c) and "b whole" on
+    (data 2, model 2), rank 0 first running the one-rank baselines; "pod"
+    runs (d). Rank 0 saves every rank's reports and its checks' numbers."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import SyntheticTokens, place
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.mesh import init_distributed, make_local_mesh
-    from repro_torch.models.model import Model
     from repro_torch.models.sharding import ShardingCtx, gather_params
-    from repro_torch.train.optimizer import optimizer_for_arch
-    from repro_torch.train.train_step import (init_train_state,
-                                              make_train_step)
     device = init_distributed(rank, world, f"file://{where}/{kind}.store",
                               local_world_size=world)
     batch, seq = MESH_TRAIN_CUT
@@ -1857,40 +1893,29 @@ def mesh_train_rank(rank, world, where, kind):
                                                               base["c"])
                 del whole
                 lap(f"({run}) gather and check")
+            # (b) with the hidden state whole on every model rank
+            mesh_train_zero()
+            stats, numel, _ = mesh_train_steps(
+                train_cli.make_train_ctx(mesh, seq_parallel=False), device,
+                batch, seq, MESH_WHOLE_STEPS)
+            reports.append(mesh_train_report("b whole", device, stats,
+                                             MESH_WHOLE_STEPS, numel))
+            out["b whole"] = {k: stats[k] for k in ("loss", "grad_norm")}
+            lap("(b whole) build and train")
         else:
             from torch.distributed.device_mesh import init_device_mesh
             mesh = init_device_mesh("cuda", (2, 1, 1),
                                     mesh_dim_names=("pod", "data", "model"))
             ctx = ShardingCtx(mesh=mesh, dp=("pod", "data"), tp="model",
                               fsdp=("data",))
-            cfg = get_config(MESH_TRAIN_ARCH)
             mesh_train_zero()
-            model = Model(cfg, device=device, attn_impl="kernel",
-                          max_seq=seq + 8, ctx=ctx)
-            state = init_train_state(
-                model, torch.Generator(device=device).manual_seed(0))
-            step = make_train_step(model, optimizer_for_arch(
-                MESH_TRAIN_ARCH, lr=MESH_TRAIN_LR,
-                warmup_steps=max(MESH_TRAIN_STEPS // 20, 5),
-                total_steps=MESH_TRAIN_STEPS), compress_pod_reduce=True)
-            data = SyntheticTokens(cfg, batch, seq, seed=0, mode="bigram")
-            torch.cuda.reset_peak_memory_stats(device)
-            stats = {"step_ms": [], "loss": [], "grad_norm": []}
-            for i in range(MESH_TRAIN_STEPS):
-                b = place(data.batch(i), ctx, device)
-                t0 = time.perf_counter()
-                state, met = step(state, b)
-                torch.cuda.synchronize(device)
-                stats["step_ms"].append((time.perf_counter() - t0) * 1e3)
-                stats["loss"].append(float(met["loss"]))
-                stats["grad_norm"].append(float(met["grad_norm"]))
-            numel = sum(p.numel() for p in state["params"].values())
+            stats, numel, out["leaves"] = mesh_train_steps(
+                ctx, device, batch, seq, MESH_TRAIN_STEPS,
+                compress_pod_reduce=True)
             reports.append(mesh_train_report("d", device, stats,
                                              MESH_TRAIN_STEPS, numel))
             reports[-1]["state_numel"] = numel
-            out["leaves"] = len(state["params"])
             out["d"] = {k: stats[k] for k in ("loss", "grad_norm")}
-            del state, model, step
             lap("(d) build and train")
         every = [None] * world
         dist.all_gather_object(every, reports)
@@ -1954,11 +1979,52 @@ def say_mesh_report(rep, card):
         + f"; card: {card}")
 
 
+def say_seq_parallel(reports, card):
+    """Each rank's (b) (sequence-parallel) beside "b whole" (the hidden
+    state whole on every model rank) at the same shape: peak memory,
+    model-axis collectives a step and step time."""
+    for rep in reports:
+        by = {r["run"]: r for r in rep}
+        sp, whole = by["b"], by["b whole"]
+        on = [r["collectives_per_step"]["model"] for r in (sp, whole)]
+        say(f"mesh train: sequence parallelism on rank {rep[0]['device']} "
+            f"at (b)'s shape, (b) / b whole: peak device memory "
+            f"{sp['peak_bytes']} / {whole['peak_bytes']} B; model-axis "
+            f"collective bytes a step {on[0]['bytes']:.0f} / "
+            f"{on[1]['bytes']:.0f} (by kind {json.dumps(on[0]['op_bytes'])} "
+            f"/ {json.dumps(on[1]['op_bytes'])}); step {sp['step_ms']:.3f} / "
+            f"{whole['step_ms']:.3f} ms ((b): the median of steps 2-N; b "
+            f"whole: its one step, after (b) and (c) on the same ranks); "
+            f"card: {card}")
+
+
+def seq_parallel_errors(reports):
+    """(b) and (c) gather and reduce-scatter along the sequence over
+    model on every rank; "b whole" sums its activations by all-reduce, more
+    bytes of it than (b)."""
+    errors = []
+    for rep in reports:
+        by = {r["run"]: r["collectives_per_step"]["model"] for r in rep}
+        dev = rep[0]["device"]
+        for run in ("b", "c"):
+            if not all(by[run]["ops"].get(op) for op in ("all_gather",
+                                                         "reduce_scatter")):
+                errors.append(f"({run}) on {dev}: no all-gather and "
+                              f"reduce-scatter over model")
+        if not (by["b whole"]["op_bytes"].get("all_reduce_sum", 0)
+                > by["b"]["op_bytes"].get("all_reduce_sum", 0)):
+            errors.append(f"(b whole) on {dev}: model-axis all-reduce "
+                          f"bytes not above (b)'s")
+    return errors
+
+
 def phase_mesh_train(device, card):
     """train(mesh=) on the card: (a) tinyllama-1.1b at 4 x 2048 on a
     one-rank NCCL mesh, bit-equal to the unsharded train; (b), (c) on
-    MESH_TRAIN_RANKS gloo ranks, (d) on MESH_POD_RANKS with the compressed
-    pod reduce, against one rank. Returns the flash launches by run."""
+    MESH_TRAIN_RANKS gloo ranks (sequence-parallel), and (b)'s first step
+    with the hidden state whole ("b whole"), (d) on MESH_POD_RANKS with
+    the compressed pod reduce, against one rank. Returns the flash
+    launches by run."""
     import tempfile
     import torch
     import torch.distributed as dist
@@ -2029,7 +2095,7 @@ def phase_mesh_train(device, card):
             fail(f"mesh train: {ranks} ranks sharing the card ran on "
                  f"{got['backend']}, not gloo")
     base = dm["base"]
-    b, c, d = dm["b"], dm["c"], pod["d"]
+    b, c, d, whole = dm["b"], dm["c"], pod["d"], dm["b whole"]
     routes = c["routes"]
     exact = base["b"]["loss"][-1]
     gap = abs(d["loss"][-1] - exact) / exact
@@ -2047,6 +2113,12 @@ def phase_mesh_train(device, card):
         f"{mesh_rel(b['grad_norm'], base['b']['grad_norm']):.3e}); gathered "
         f"parameters (held share, largest difference) {b['params']}; "
         f"card: {card}")
+    say(f"mesh train: (b whole) (b)'s first {MESH_WHOLE_STEPS} step(s) on "
+        f"the same ranks with make_train_ctx(mesh, seq_parallel=False): "
+        f"losses {whole['loss']}, grad norms {whole['grad_norm']} "
+        f"(sequence-parallel (b): largest rel "
+        f"{mesh_rel(whole['loss'], b['loss']):.3e} and "
+        f"{mesh_rel(whole['grad_norm'], b['grad_norm']):.3e}); card: {card}")
     say(f"mesh train: (c) {MESH_MOE_ARCH} {batch} x {seq}, {MESH_MOE_STEPS} "
         f"steps on the same ranks (16 experts a tp rank): step 1's routes "
         f"against one rank with num_groups=2 {json.dumps(routes)} "
@@ -2075,6 +2147,7 @@ def phase_mesh_train(device, card):
         for r in rep:
             say_mesh_report(r, card)
             launches.setdefault(r["run"], []).append(r["flash_launches"])
+    say_seq_parallel(dm["reports"], card)
     say(f"mesh train: phase {time.perf_counter() - t_phase:.1f} s ((a) "
         f"{a_s:.1f} s, 4-rank world {dm_s:.1f} s, 2-rank world {pod_s:.1f} "
         f"s); rank 0's seconds {json.dumps(dm['seconds'])} "
@@ -2085,6 +2158,10 @@ def phase_mesh_train(device, card):
             errors.append(f"(b) {key} off one rank's")
     if isinstance(b["params"], str):
         errors.append(f"(b) parameters: {b['params']}")
+    for key in ("loss", "grad_norm"):
+        if mesh_rel(whole[key], b[key]) > MESH_TRAIN_RTOL:
+            errors.append(f"(b whole) {key} off (b)'s")
+    errors += seq_parallel_errors(dm["reports"])
     if (routes["differ_held"] or not dm["tp_peers_alike"]
             or routes["calls"] != routes["calls_one_rank"]):
         errors.append("(c) routes differ from one rank's where its margin "
@@ -2114,7 +2191,8 @@ def phase_mesh_train(device, card):
     layers_moe = get_config(MESH_MOE_ARCH).num_layers
     for rep in dm["reports"] + pod["reports"]:
         for r in rep:
-            steps = MESH_MOE_STEPS if r["run"] == "c" else MESH_TRAIN_STEPS
+            steps = {"c": MESH_MOE_STEPS, "b whole": MESH_WHOLE_STEPS}.get(
+                r["run"], MESH_TRAIN_STEPS)
             nl = layers_moe if r["run"] == "c" else layers
             if r["flash_launches"] != [nl * steps] * 2:
                 errors.append(f"({r['run']}) flash launches "

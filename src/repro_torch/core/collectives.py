@@ -25,11 +25,16 @@ staged calls and bytes among them, and the calls and bytes by kind
 which collectives ran.
 ``reset_counts()`` zeroes them.
 
-The autograd pairs that training over a mesh needs (``Gather``,
-``CopyToTP``, ``ReduceFromTP``) carry a collective in one direction and
-its transpose in the other: an all-gather whose gradient is reduce-scattered,
-the identity whose gradient is all-reduced ("f"), and the all-reduce whose
-gradient passes through ("g").
+The autograd pairs that training over a mesh needs carry a collective in
+one direction and its transpose in the other: ``Gather``, an all-gather
+whose gradient is reduce-scattered (or cut to the block where every rank
+computed it whole); ``CopyToTP``, the identity whose gradient is
+all-reduced ("f"); ``ReduceFromTP``, the all-reduce whose gradient passes
+through ("g"). Sequence parallelism replaces "f" and "g" by two pairs
+along the sequence: ``Gather`` before a column-parallel product, and
+``ReduceScatter`` after a row-parallel one, whose gradient is
+all-gathered; ``Split`` cuts a tensor every rank holds whole into the
+rank's block, its gradient all-gathered too.
 """
 from __future__ import annotations
 
@@ -197,3 +202,37 @@ class ReduceFromTP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` in the forward (every rank's partial
+    sums, of which this rank keeps its block of ``sizes``); the gradient
+    all-gathered in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, sizes, group, axis, dim):
+        ctx.args = (sizes, group, axis, dim)
+        return reduce_scatter(x, sizes, group, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, *ctx.args), None, None, None, None
+
+
+class Split(torch.autograd.Function):
+    """This rank's block (of ``sizes``, along ``dim``) of a tensor every
+    rank of the group holds whole and alike, as a tensor of its own; in the
+    backward, every rank's block of the gradient all-gathered, so each rank
+    holds the whole gradient, as every rank's whole computation before the
+    split needs it."""
+
+    @staticmethod
+    def forward(ctx, x, sizes, group, axis, dim):
+        ctx.args = (sizes, group, axis, dim)
+        rank = dist.get_rank(group)
+        return x.narrow(dim, sum(sizes[:rank]), sizes[rank]).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, *ctx.args), None, None, None, None

@@ -32,10 +32,12 @@ Per cell (``run_cell``) a record with the reference's keys, a device:
 
 The port runs every layer in Python, so its counts are whole: there is no
 scan body counted once and no depth probe (``--no-depth-probe`` is not
-taken), and each ``*_corrected`` key equals its count. The port has no
-sequence-parallel activations, so every train record says
-``seq_parallel: false``: the ``no_seqpar`` variant is the baseline, and
-its record says so.
+taken), and each ``*_corrected`` key equals its count. A train record's
+``seq_parallel`` is its context's: true where the mesh's model axis holds
+more than one rank (``make_train_ctx``'s default: the hidden state carried
+as each rank's sequence block between sub-layers, moved by all-gather and
+reduce-scatter over model); the ``no_seqpar`` variant runs the same cell
+with the hidden state whole on every model rank, summed by all-reduce.
 
 Usage (no GPU needed; one cell at a time, the fake group made per mesh):
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
@@ -242,7 +244,7 @@ def _lower_one(cfg, shape, mesh, *, microbatches, label, verbose,
                                   f"{label} train mb={mb}", ctx, verbose,
                                   train=True)
             rec["microbatches"] = mb
-            rec["seq_parallel"] = False
+            rec["seq_parallel"] = ctx.seq_split
         else:
             ctx = make_serve_ctx(mesh, global_batch=shape.global_batch,
                                  big_model=big)
@@ -335,8 +337,6 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         rec[f"{key}_corrected"] = rec[key]
     rec.update(base)
     rec["variant"] = variant
-    if variant == "no_seqpar" and shape.kind == "train":
-        rec["same_as"] = "baseline"       # no sequence-parallel activations
     rec["status"] = "ok"
     rec["chips"] = 512 if multi_pod else 256
     rec["total_params"] = cfg.total_params()

@@ -84,6 +84,20 @@ logits split the vocab (out-of-block ids masked, then summed over tp;
 ``train.loss`` reduces the logsumexp over tp). The Mamba-2 mixer runs
 whole on every tp rank (its leaves gathered over both axes).
 
+Sequence parallelism (``make_train_ctx``'s default, the reference's
+``cs_hidden``): ``forward`` carries the hidden state between sub-layers as
+this rank's block of the sequence over tp (uneven blocks in ``rows``
+order), through the residual adds and the norms; the embedding's
+vocab-parallel sum is reduce-scattered into the block (after a VLM's
+patches, before the learned positions of its rows). Each sub-layer gathers
+its normed block over tp and, in place of "f" and "g", reduce-scatters its
+row-parallel output into the block; a sub-layer that runs whole on every
+tp rank (Mamba-2, heads or d_ff or experts that do not split) keeps its
+rows, and the MoE gathers before routing. Whisper's encoder runs whole,
+as the reference's. The final norm runs on the block, then one gather
+gives the logits their layout. ``models.sharding`` states the gradient
+rule. Prefill and decode never split the sequence.
+
 Serving over a device mesh (``ctx=make_serve_ctx(mesh, ...)``): the
 parameters are blocks as in training (tp, and fsdp over the data axes for
 models above 20e9 parameters), ``prefill`` / ``decode_step`` take this
@@ -114,6 +128,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import itertools
 import math
 from typing import Optional
 
@@ -169,6 +184,28 @@ def _param(shape, dtype, device, fill=None) -> nn.Parameter:
 
 def _layout(p):
     return getattr(p, "_layout", None)
+
+
+def _enter(x, split: bool, ctx, seq):
+    """A sub-layer's normed input as it computes with it: under sequence
+    parallelism (``seq``, the whole length, where ``x`` is this rank's
+    block) the whole sequence gathered over tp, its gradient
+    reduce-scattered where the sub-layer ``split``s over tp (each rank's
+    products give part of it) and cut to the block where it runs whole on
+    every tp rank; else ``x``, through "f" where it splits."""
+    if seq is not None:
+        return ctx.sp_gather(x, seq, "scatter" if split else "none")
+    return ctx.tp_f(x) if split else x
+
+
+def _leave(out, split: bool, ctx, seq):
+    """``_enter``'s counterpart for the sub-layer's output (B, S, D): this
+    rank's sequence block under sequence parallelism (its partial sums
+    reduce-scattered where it splits over tp, its rows kept where it runs
+    whole); else summed over tp ("g") where it splits."""
+    if seq is not None:
+        return ctx.sp_scatter(out) if split else ctx.cs_hidden(out)
+    return ctx.tp_g(out) if split else out
 
 
 class _Weights(nn.Module):
@@ -287,17 +324,18 @@ class Attention(_Weights):
         return k, v
 
     def forward(self, h, *, sincos, mode, cache, pos, max_cache_len, cd,
-                ctx=None, enc_out=None):
+                ctx=None, enc_out=None, seq=None):
+        """(out, new cache). ``seq``: the whole sequence length where ``h``
+        is this rank's sequence block (sequence parallelism: the normed
+        block is gathered, and the output is this rank's block)."""
         if self.cross:
             return self._cross(h, mode=mode, cache=cache, enc_out=enc_out,
-                               cd=cd, ctx=ctx)
+                               cd=cd, ctx=ctx, seq=seq)
         cfg = self.cfg
-        b, s, _ = h.shape
         hd = cfg.head_dim
         w, plan = self._head_weights(cd, ctx)
-        x = self.ln(h)
-        if plan is not None:
-            x = ctx.tp_f(x)
+        x = _enter(self.ln(h), plan is not None, ctx, seq)
+        b, s, _ = x.shape
         q = (x @ w["q"]).reshape(b, s, -1, hd)
         k = (x @ w["k"]).reshape(b, s, -1, hd)
         v = (x @ w["v"]).reshape(b, s, -1, hd)
@@ -324,7 +362,7 @@ class Attention(_Weights):
                          window=window, attn_softcap=cfg.attn_softcap,
                          impl=self.attn_impl)
         out = out.reshape(b, s, -1) @ w["o"]
-        return (out if plan is None else ctx.tp_g(out)), new_cache
+        return _leave(out, plan is not None, ctx, seq), new_cache
 
     def _decode(self, q, k, v, cache, pos, scale, plan, ctx):
         """One step's attention against the cache, after writing its k / v.
@@ -360,16 +398,16 @@ class Attention(_Weights):
             o, m, l, lambda x, op: ctx.all_reduce(x, axes, op), q.dtype)
         return out if plan is None else out.narrow(2, plan[0], plan[1])
 
-    def _cross(self, h, *, mode, cache, enc_out, cd, ctx):
+    def _cross(self, h, *, mode, cache, enc_out, cd, ctx, seq):
+        """Cross-attention: the queries as the self-attention's (gathered
+        under sequence parallelism); ``enc_out`` whole on every tp rank."""
         cfg = self.cfg
-        b, s, _ = h.shape
         hd = cfg.head_dim
         w, plan = self._head_weights(cd, ctx)
-        x = self.ln(h)
-        if plan is not None:
-            x = ctx.tp_f(x)
-            if enc_out is not None:          # decode reads the cache
-                enc_out = ctx.tp_f(enc_out)
+        x = _enter(self.ln(h), plan is not None, ctx, seq)
+        if plan is not None and enc_out is not None:   # decode reads the cache
+            enc_out = ctx.tp_f(enc_out)
+        b, s, _ = x.shape
         q = (x @ w["q"]).reshape(b, s, -1, hd)
         scale = (cfg.query_pre_attn_scalar or hd) ** -0.5
         new_cache = {}
@@ -389,7 +427,7 @@ class Attention(_Weights):
             out = attend(q, k, v, scale=scale, causal=False,
                          impl=self.attn_impl)
         out = out.reshape(b, s, -1) @ w["o"]
-        return (out if plan is None else ctx.tp_g(out)), new_cache
+        return _leave(out, plan is not None, ctx, seq), new_cache
 
 
 class FFN(_Weights):
@@ -410,15 +448,16 @@ class FFN(_Weights):
         for w, fan_in in ((self.wi, d), (self.wg, d), (self.wo, f)):
             dense_init_(w, fan_in, gen)
 
-    def forward(self, h, cd, ctx=None):
+    def forward(self, h, cd, ctx=None, seq=None):
         """The FFN's output; over a mesh with d_ff split over tp, wi / wg
-        column-parallel and wo row-parallel, summed over tp."""
-        x = self.ln(h)
+        column-parallel and wo row-parallel, summed over tp (``seq``: as
+        ``Attention.forward``'s)."""
         lay = _layout(self.wi)
-        if lay is None or lay.tdim != 1:
-            return ffn(self.cfg, self.weights(cd, ctx), x)
-        return ctx.tp_g(ffn(self.cfg, self.weights(cd, ctx, "local"),
-                            ctx.tp_f(x)))
+        split = lay is not None and lay.tdim == 1
+        x = _enter(self.ln(h), split, ctx, seq)
+        out = ffn(self.cfg, self.weights(cd, ctx, "local" if split
+                                         else "whole"), x)
+        return _leave(out, split, ctx, seq)
 
 
 class MoE(_Weights):
@@ -450,13 +489,16 @@ class MoE(_Weights):
             # fan-in: the model width, or the hidden width into wo / swo
             dense_init_(w, w.shape[-2] if name in ("wo", "swo") else d, gen)
 
-    def forward(self, h, cd, num_groups: int, ctx=None):
+    def forward(self, h, cd, num_groups: int, ctx=None, seq=None):
         """(out, aux). ``num_groups``: the sorted dispatch's groups. Over a
         mesh whose tp axis splits the experts (or their d_ff), this rank
         runs its part and the combine is summed over tp
         (``models.moe.ExpertSplit``); the aux is taken over the global
-        tokens."""
-        x = self.ln(h)
+        tokens. Under sequence parallelism (``seq``) the normed block is
+        gathered before routing, so every tp rank routes its data rank's
+        tokens alike in the reference's groups, and the combine is
+        reduce-scattered into this rank's block."""
+        x = _enter(self.ln(h), False, ctx, seq)
         lay = _layout(self.wi)
         split = None
         if lay is None or lay.tdim is None:
@@ -466,12 +508,17 @@ class MoE(_Weights):
             shared = _layout(getattr(self, "swi", None))
             split = MOE.ExpertSplit(
                 ctx, ctx.rows(lay.shape[0], ctx.tp) if lay.tdim == 0
-                else None, shared is not None and shared.tdim == 1)
+                else None, shared is not None and shared.tdim == 1,
+                seq is not None)
         if self.impl == "dense":
-            return MOE.moe_dense(self.cfg, w, x, ctx=ctx, split=split)
-        return MOE.moe_sorted(self.cfg, w, x, num_groups=num_groups,
-                              capacity_factor=self.capacity_factor,
-                              ctx=ctx, split=split)
+            out, aux = MOE.moe_dense(self.cfg, w, x, ctx=ctx, split=split)
+        else:
+            out, aux = MOE.moe_sorted(self.cfg, w, x, num_groups=num_groups,
+                                      capacity_factor=self.capacity_factor,
+                                      ctx=ctx, split=split)
+        if split is None:               # every tp rank ran the whole MoE
+            out = _leave(out, False, ctx, seq)
+        return out, aux
 
 
 class Mamba2(_Weights):
@@ -509,18 +556,21 @@ class Mamba2(_Weights):
             self.dt_bias.copy_(torch.log(torch.expm1(torch.exp(
                 self.dt_bias))))
 
-    def forward(self, h, *, mode, cache, cd, ctx=None):
+    def forward(self, h, *, mode, cache, cd, ctx=None, seq=None):
         """Over a mesh every tp rank runs the whole mixer (its leaves
-        gathered over both axes): no tensor-parallel SSM yet. Each rank
-        holds its ``cache_specs`` block of the cache (``state``'s heads and
+        gathered over both axes): no tensor-parallel SSM yet; under
+        sequence parallelism (``seq``) on the gathered sequence, keeping
+        this rank's rows of its output. Each rank holds its
+        ``cache_specs`` block of the cache (``state``'s heads and
         ``conv``'s channels over tp): a decode step gathers the whole cache
         first, and prefill and decode keep the rank's block of the cache
         they compute."""
-        x = self.ln(h)
+        x = _enter(self.ln(h), False, ctx, seq)
         w = self.weights(cd, ctx)
         if mode == "fwd":
-            return SSM.mamba2_forward(self.cfg, w, x,
-                                      use_kernel=self.use_kernel), {}
+            return _leave(SSM.mamba2_forward(self.cfg, w, x,
+                                             use_kernel=self.use_kernel),
+                          False, ctx, seq), {}
         if mode == "decode":
             if sharded(ctx):
                 cache = {n: gather_cache_leaf(n, c, self._cache_shape(n, c),
@@ -572,23 +622,25 @@ class Block(nn.Module):
         return h + self.cfg.residual_scale * out
 
     def forward(self, h, *, sincos, mode, cache, pos, max_cache_len, cd,
-                enc_out=None, ctx=None, moe_groups: int = 1):
+                enc_out=None, ctx=None, moe_groups: int = 1, seq=None):
         """(h, this layer's new cache, MoE aux or None). ``moe_groups``:
         the MoE dispatch's groups of a forward or prefill (decode makes
-        each lane its own)."""
+        each lane its own). ``seq``: the whole sequence length where ``h``
+        is this rank's sequence block (sequence parallelism), which every
+        sub-layer's output and residual stay."""
         nc = {}
         if self.attn is not None:
             out, c = self.attn(h, sincos=sincos, mode=mode,
                                cache=cache["attn"] if cache else None,
                                pos=pos, max_cache_len=max_cache_len, cd=cd,
-                               ctx=ctx)
+                               ctx=ctx, seq=seq)
             h = self._residual(h, out, self.attn.post_ln)
             if c:
                 nc["attn"] = c
         else:
             out, c = self.ssm(h, mode=mode,
                               cache=cache["ssm"] if cache else None, cd=cd,
-                              ctx=ctx)
+                              ctx=ctx, seq=seq)
             h = self._residual(h, out, None)
             if c:
                 if cache:
@@ -599,17 +651,18 @@ class Block(nn.Module):
             out, c = self.cross(h, sincos=None, mode=mode,
                                 cache=cache["cross"] if cache else None,
                                 pos=pos, max_cache_len=max_cache_len, cd=cd,
-                                ctx=ctx, enc_out=enc_out)
+                                ctx=ctx, enc_out=enc_out, seq=seq)
             h = self._residual(h, out, None)
             if c:
                 nc["cross"] = c
         aux = None
         if self.ffn is not None:
-            h = self._residual(h, self.ffn(h, cd, ctx), self.ffn.post_ln)
+            h = self._residual(h, self.ffn(h, cd, ctx, seq),
+                               self.ffn.post_ln)
         elif self.moe is not None:
             # decode: each lane is its own dispatch group
             out, aux = self.moe(h, cd, h.shape[0] if mode == "decode"
-                                else moe_groups, ctx)
+                                else moe_groups, ctx, seq)
             h = self._residual(h, out, self.moe.post_ln)
         return h, nc, aux
 
@@ -781,11 +834,14 @@ class Model(nn.Module):
         return groups // dp
 
     def _run_stack(self, h, *, sincos, mode, cache, pos, max_cache_len,
-                   enc_out=None):
+                   enc_out=None, seq=None):
         """(h, cache, aux): aux is the MoE load-balance loss summed over
         the layers (float32, 0 without MoE layers). Under ``remat`` each
         period of a ``forward`` that autograd records is one checkpointed
-        body (the reference's ``jax.checkpoint`` around its scan body)."""
+        body (the reference's ``jax.checkpoint`` around its scan body),
+        which keeps ``h`` as it enters: under sequence parallelism
+        (``seq``) this rank's block, and recomputation runs the period's
+        gathers again, in the same order on every rank."""
         period = self.cfg.scan_period
         new_cache = {f"sub{s}": [] for s in range(period)}
         ctx, groups = self.ctx, self._moe_groups()
@@ -797,7 +853,7 @@ class Model(nn.Module):
                 h, nc, a = layer(h, sincos=sincos, mode=mode, cache=lc,
                                  pos=pos, max_cache_len=max_cache_len,
                                  cd=self.compute_dtype, enc_out=enc_out,
-                                 ctx=ctx, moe_groups=groups)
+                                 ctx=ctx, moe_groups=groups, seq=seq)
                 if a is not None:
                     aux = aux + a
                 new_cache[f"sub{s}"].append(nc)
@@ -839,61 +895,90 @@ class Model(nn.Module):
             return None
         return self.ctx.rows(lay.shape[want], self.ctx.tp)
 
-    def _embed(self, tokens):
+    def _embed(self, tokens, sizes=None):
+        """The token embeddings (B, S, D); with ``sizes`` (sequence
+        parallelism: every tp rank's rows of the tokens, in rank order)
+        this rank's rows of them."""
         ids = tokens.to(self.device).long()
         table = self.embed["tokens"]
         block = self._vocab_block(table)
         if block is None:
             h = use(table, self.ctx)[ids].to(self.compute_dtype)
+            if sizes is not None:
+                h = self.ctx.cs_hidden(h, sizes)
         else:
             # vocab-parallel: this rank's rows, out-of-block ids masked,
-            # then summed over tp
+            # then summed over tp (reduce-scattered into this rank's rows
+            # of the sequence with ``sizes``)
             lo, hi = block
             inb = (ids >= lo) & (ids < hi)
             rows = use(table, self.ctx, "local")[torch.where(inb, ids - lo,
                                                              0)]
-            h = self.ctx.tp_g(torch.where(inb[..., None],
-                                          rows.to(self.compute_dtype), 0.0))
+            part = torch.where(inb[..., None], rows.to(self.compute_dtype),
+                               0.0)
+            h = (self.ctx.tp_g(part) if sizes is None
+                 else self.ctx.sp_scatter(part, sizes))
         if self.cfg.embed_scale != 1.0:
             h = h * self.cfg.embed_scale
         return h
 
-    def _assemble_inputs(self, batch):
-        """(token embeddings, with a VLM's patches in front; whisper's
-        encoder output or None)."""
-        cfg = self.cfg
-        h = self._embed(batch["tokens"])
-        enc_out = None
+    def _assemble_inputs(self, batch, split: bool = False):
+        """(h, sincos, enc_out, seq) of a forward or prefill: the token
+        embeddings with a VLM's patches in front and the positions (RoPE's
+        tables, or the learned rows added), whisper's encoder output or
+        None. With ``split`` (sequence parallelism, the reference's
+        ``cs_hidden`` after the positions) ``h`` is this rank's block over
+        tp of the ``seq`` rows of patches and tokens: its rows of the token
+        embeddings (their vocab-parallel sum reduce-scattered) after its
+        rows of the patches, with its rows' learned positions; RoPE's
+        tables span all rows. Else ``h`` is whole and ``seq`` None."""
+        cfg, ctx = self.cfg, self.ctx
+        tokens = batch["tokens"]
+        fe = None
         if cfg.frontend == "vision_patches":
             fe = batch["frontend_embeds"].to(self.device, self.compute_dtype)
-            h = torch.cat([fe, h], dim=1)
-        elif cfg.is_encoder_decoder:
-            enc_out = self._encode(batch["frontend_embeds"])
-        return h, enc_out
+        p = 0 if fe is None else fe.shape[1]
+        n = p + tokens.shape[1]
+        lo, hi, sizes = 0, n, None
+        if split:
+            # each rank's rows of the tokens: its block's overlap with [p, n)
+            ends = list(itertools.accumulate(ctx.sizes(n, ctx.tp)))
+            sizes = [max(e, p) - max(b, p)
+                     for b, e in zip([0] + ends[:-1], ends)]
+            lo, hi = ctx.rows(n, ctx.tp)
+        h = self._embed(tokens, sizes)
+        if fe is not None:
+            h = torch.cat([fe[:, lo:min(hi, p)], h], dim=1)
+        enc_out = (self._encode(batch["frontend_embeds"])
+                   if cfg.is_encoder_decoder else None)
+        h, sincos = self._pos_tables(h, torch.arange(n, device=self.device),
+                                     rows=(lo, hi))
+        return h, sincos, enc_out, (n if split else None)
 
-    def _pos_tables(self, h, positions=None):
-        """(h, sincos): RoPE's tables for ``positions`` (default 0..S-1),
-        or h plus the learned table's rows at them (sincos None)."""
+    def _pos_tables(self, h, positions, rows=None):
+        """(h, sincos): RoPE's tables for ``positions``, or h plus the
+        learned table's rows at them (sincos None); with ``rows`` = [lo,
+        hi), ``h`` holds those of the positions only."""
         cfg = self.cfg
-        if positions is None:
-            positions = torch.arange(h.shape[1], device=self.device)
         if cfg.pos_embedding == "rope" and cfg.num_heads:
             return h, rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         if cfg.pos_embedding == "learned":
+            if rows is not None:
+                positions = positions[rows[0]:rows[1]]
             h = h + self.pos["table"][positions].to(h.dtype)
         return h, None
 
-    def _logits(self, h, last_only: bool = False):
+    def _logits(self, h, last_only: bool = False, seq=None):
         """float32 logits; over a mesh whose tp axis splits the vocab, this
-        rank's columns (the reference's ``(dp, None, tp)``)."""
+        rank's columns (the reference's ``(dp, None, tp)``). Under sequence
+        parallelism (``seq``) the final norm runs on this rank's block,
+        whose whole sequence is then gathered over tp."""
         cfg, ctx = self.cfg, self.ctx
         if last_only:
             h = h[:, -1:]
-        h = self.final_norm(h)
         w = self.embed["tokens"] if cfg.tie_embeddings else self.unembed
         split = self._vocab_block(w) is not None
-        if split:
-            h = ctx.tp_f(h)
+        h = _enter(self.final_norm(h), split, ctx, seq)
         w = use(w, ctx, "local" if split else "whole").to(self.compute_dtype)
         logits = h @ (w.t() if cfg.tie_embeddings else w)
         return softcap(logits.float(), cfg.final_softcap)
@@ -904,13 +989,15 @@ class Model(nn.Module):
         MoE load-balance loss summed over the layers, float32 (0 for the
         families without MoE layers). Over a mesh, ``batch`` is this rank's
         block over dp and the logits are its block of (B, P + S, vocab)
-        (the vocab over tp where it splits)."""
-        h, enc_out = self._assemble_inputs(batch)
-        h, sincos = self._pos_tables(h)
+        (the vocab over tp where it splits). Under sequence parallelism
+        (``ShardingCtx.seq_split``) the hidden state between sub-layers is
+        this rank's block of the sequence over tp."""
+        h, sincos, enc_out, seq = self._assemble_inputs(
+            batch, self.ctx.seq_split)
         h, _, aux = self._run_stack(h, sincos=sincos, mode="fwd",
                                     cache=None, pos=None, max_cache_len=0,
-                                    enc_out=enc_out)
-        return self._logits(h), aux
+                                    enc_out=enc_out, seq=seq)
+        return self._logits(h, seq=seq), aux
 
     def prefill(self, batch, max_cache_len: int):
         """Populate the decode cache; returns (last_logits (B, 1, V),
@@ -918,8 +1005,7 @@ class Model(nn.Module):
         a mesh (``make_serve_ctx``), ``batch`` is this rank's block over dp,
         the logits are its block (the vocab over tp where it splits,
         ``logits_block``) and the cache is its ``cache_specs`` block."""
-        h, enc_out = self._assemble_inputs(batch)
-        h, sincos = self._pos_tables(h)
+        h, sincos, enc_out, _ = self._assemble_inputs(batch)
         h, cache, _ = self._run_stack(h, sincos=sincos, mode="prefill",
                                       cache=None, pos=None,
                                       max_cache_len=max_cache_len,

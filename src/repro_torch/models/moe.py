@@ -30,7 +30,9 @@ means over the global tokens (their sums and the token count summed over
 dp before the product); with the experts split over tp
 (:class:`ExpertSplit`) each rank runs its experts (or its part of every
 expert's d_ff) on the dispatched buffers and the combine is summed over
-tp, with no all-to-all: tp peers hold the same tokens.
+tp, with no all-to-all: tp peers hold the same tokens. Under sequence
+parallelism the caller gathers those tokens over tp before routing, and
+the combine is reduce-scattered into the rank's sequence block.
 """
 from __future__ import annotations
 
@@ -50,10 +52,12 @@ class ExpertSplit:
     ``experts`` = [lo, hi) of the (padded) experts where they split by
     expert, None where every expert's d_ff splits; ``shared`` whether the
     shared expert's width splits too. The routed output is then a partial
-    sum over tp."""
+    sum over tp. ``seq``: the output is this rank's sequence block (the
+    partial sums reduce-scattered over tp) rather than summed whole."""
     ctx: ShardingCtx
     experts: Optional[Tuple[int, int]]
     shared: bool
+    seq: bool = False
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
@@ -119,14 +123,19 @@ def shared_expert(cfg: ModelConfig, p, x: torch.Tensor,
 
 def _finish(cfg: ModelConfig, p, x, out, split: Optional[ExpertSplit]):
     """The routed output ``out`` (a partial sum over tp under ``split``)
-    plus the shared expert, summed over tp."""
+    plus the shared expert, summed over tp (into this rank's sequence block
+    under ``split.seq``, where a shared expert that does not split keeps
+    its rows)."""
     shared = cfg.num_shared_experts
-    if split is not None:
-        if shared and split.shared:
-            out, shared = out + shared_expert(cfg, p, x, split.ctx), 0
-        out = split.ctx.tp_g(out)
+    if split is None:
+        return out + shared_expert(cfg, p, x) if shared else out
+    ctx = split.ctx
+    if shared and split.shared:
+        out, shared = out + shared_expert(cfg, p, x, ctx), 0
+    out = ctx.sp_scatter(out) if split.seq else ctx.tp_g(out)
     if shared:
-        out = out + shared_expert(cfg, p, x)
+        s = shared_expert(cfg, p, x)
+        out = out + (ctx.cs_hidden(s) if split.seq else s)
     return out
 
 

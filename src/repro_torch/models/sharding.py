@@ -32,6 +32,32 @@ reduced back into the block (``core.collectives.Gather``). ``tp_f`` /
 ``tp_g`` / ``dp_g`` are the activations' autograd pairs (see
 ``core.collectives``). Collectives over axes that hold one rank are
 skipped: a one-rank mesh exchanges nothing.
+
+Sequence parallelism (``seq_parallel``, ``make_train_ctx``'s default; live
+where the tp axis holds more than one rank, ``seq_split``): a training
+forward carries the hidden state (B, S, D) as this rank's block over dp
+of the batch and over tp of the sequence (``cs_hidden``, the reference's
+``(dp, tp, None)``; ``rows`` order, uneven blocks allowed) between
+sub-layers, through the residual adds and the norms. A sub-layer gathers
+the normed block over tp (``sp_gather``) and leaves its output as the
+rank's block: a row-parallel product's partial sums reduce-scattered
+(``sp_scatter``), in place of "f" and "g"; a sub-layer that runs whole on
+every tp rank keeps its rows (``cs_hidden``). The gradient rule:
+
+* each gradient is one rank's whole gradient of what the rank computes
+  with. A gather's backward reduce-scatters where each rank's computation
+  gives part of the gradient (column-parallel products, the vocab-split
+  logits) and cuts the block where every rank computes it whole (a
+  sub-layer whole on every tp rank, the routing, the logits whose vocab
+  does not split); summing there would count it tp times;
+* the cut of a whole result into the rank's rows all-gathers its gradient
+  (``core.collectives.Split``), so what every tp rank computed whole
+  before it gets the whole gradient: such a sub-layer's leaves need no
+  sum over tp;
+* a leaf every tp rank holds whole but applies to its own rows only (the
+  decoder's norm scales and biases, ``final_norm``, the learned position
+  table: ``seq_rows_leaf``) has a part of its gradient on each tp rank:
+  ``reduce_replicated_grads`` sums them over tp in one flat all-reduce.
 """
 from __future__ import annotations
 
@@ -42,7 +68,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import collectives
-from repro_torch.core.collectives import (CopyToTP, Gather, ReduceFromTP)
+from repro_torch.core.collectives import (CopyToTP, Gather, ReduceFromTP,
+                                          ReduceScatter, Split)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,13 +221,42 @@ class ShardingCtx:
         sum every data rank takes the gradient of for its own part)."""
         return self._pair(ReduceFromTP, x, self.dp)
 
-    def cs_hidden(self, h: torch.Tensor) -> torch.Tensor:
-        """Activation block (B, S, D) at layer boundaries."""
-        if self.mesh is None:
+    # -- sequence parallelism over tp (training) ------------------------
+    @property
+    def seq_split(self) -> bool:
+        """Whether a training forward carries the hidden state as this
+        rank's sequence block: ``seq_parallel`` with a tp axis of more than
+        one rank."""
+        return self.seq_parallel and bool(self.live(self.tp))
+
+    def _seq_args(self, n, sizes):
+        return (list(sizes) if sizes is not None else self.sizes(n, self.tp),
+                self.group(self.tp), self.tp, 1)
+
+    def cs_hidden(self, h: torch.Tensor, sizes=None) -> torch.Tensor:
+        """The hidden state (B, S, D) as layer boundaries hold it: under
+        ``seq_split`` this rank's block of the sequence over tp (of
+        ``sizes`` in rank order where given), cut from the ``h`` every tp
+        rank holds whole and alike, its gradient all-gathered
+        (``core.collectives.Split``); else ``h``. ``h`` holds this rank's
+        rows of the batch already (``data.pipeline.place``)."""
+        if not self.seq_split:
             return h
-        if self.seq_parallel and self.tp:
-            return self.cs(h, self.dp_spec, self.tp, None)
-        return self.cs(h, self.dp_spec, None, None)
+        return Split.apply(h, *self._seq_args(h.shape[1], sizes))
+
+    def sp_gather(self, x: torch.Tensor, n: int, grad: str = "scatter"
+                  ) -> torch.Tensor:
+        """The whole sequence (dim 1, ``n`` rows) from every tp rank's
+        block ``x``; the gradient reduce-scattered into the block
+        (``grad="scatter"``: each rank computes part of it) or cut to it
+        (``"none"``: every rank computes it whole)."""
+        return Gather.apply(x, *self._seq_args(n, None), grad)
+
+    def sp_scatter(self, x: torch.Tensor, sizes=None) -> torch.Tensor:
+        """This rank's sequence block (of ``sizes`` where given) of ``x``
+        (B, S, ...) summed over tp (a row-parallel product's partial sums);
+        the gradient all-gathered."""
+        return ReduceScatter.apply(x, *self._seq_args(x.shape[1], sizes))
 
 
 def _spec(entries) -> tuple:
@@ -486,28 +542,55 @@ def use(p: torch.Tensor, ctx: ShardingCtx, tp: str = "whole"
     return x
 
 
+# the leaves every tp rank applies to its own sequence block only under
+# sequence parallelism: the decoder's norms and the learned positions
+_SEQ_ROWS = re.compile(r"^(layers\.\d+\..*\.|final_norm\.)(scale|bias)$"
+                       r"|^pos\.table$")
+
+
+def seq_rows_leaf(name: str) -> bool:
+    """Whether leaf ``name`` acts on the hidden state's sequence block
+    (a decoder norm, ``final_norm``, the learned position table), so that
+    under ``seq_split`` each tp rank holds part of its gradient."""
+    return bool(_SEQ_ROWS.match(name))
+
+
+def _sum_buckets(grads: dict, buckets: dict, ctx: ShardingCtx) -> dict:
+    """``grads`` with each bucket's leaves ({(axes, dtype): names}) summed
+    over its axes, one flat all-reduce a bucket."""
+    out = dict(grads)
+    for (axes, _), names in buckets.items():
+        flat = ctx.all_reduce(torch.cat([grads[n].reshape(-1)
+                                         for n in names]), axes)
+        for n, part in zip(names, flat.split(
+                [grads[n].numel() for n in names])):
+            out[n] = part.view_as(grads[n])
+    return out
+
+
 def reduce_replicated_grads(grads: Dict[str, torch.Tensor],
                             layouts: Dict[str, Layout], ctx: ShardingCtx
                             ) -> Dict[str, torch.Tensor]:
     """Sum each gradient over the dp axes its leaf's block is not split
     over (the data ranks' parts of a leaf they all hold whole, such as a
-    norm scale), one flat all-reduce per set of axes and dtype."""
+    norm scale), one flat all-reduce per set of axes and dtype; then under
+    ``seq_split`` the gradients of ``seq_rows_leaf`` leaves over tp (the
+    tp ranks' parts from their sequence blocks), one flat all-reduce per
+    dtype."""
     dp = ctx.live(ctx.dp)
-    if not dp:
-        return grads
     buckets: dict = {}
     for name, g in grads.items():
         lay = layouts.get(name)
         rest = tuple(a for a in dp if lay is None or a not in lay.axes)
         if rest:
             buckets.setdefault((rest, g.dtype), []).append(name)
-    out = dict(grads)
-    for (rest, _), names in buckets.items():
-        flat = ctx.all_reduce(torch.cat([grads[n].reshape(-1)
-                                         for n in names]), rest)
-        for n, part in zip(names, flat.split(
-                [grads[n].numel() for n in names])):
-            out[n] = part.view_as(grads[n])
+    out = _sum_buckets(grads, buckets, ctx)
+    if ctx.seq_split:
+        buckets = {}
+        for name, g in out.items():
+            if seq_rows_leaf(name):
+                buckets.setdefault((ctx.tp, g.dtype), []).append(name)
+        out = _sum_buckets(out, buckets, ctx)
     return out
 
 

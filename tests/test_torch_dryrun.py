@@ -98,7 +98,8 @@ def test_shallow_cells_run_on_the_fake_mesh(records, arch, shape):
     assert rec["count_all-gather"] > 0 and rec["coll_bytes"] > 0
     assert rec["total_params"] >= rec["active_params"] > 0
     if SHAPES_KIND[shape] == "train":
-        assert rec["seq_parallel"] is False and rec["microbatches"] == 1
+        # sequence-parallel activations over the 16 model ranks
+        assert rec["seq_parallel"] is True and rec["microbatches"] == 1
         assert rec["count_reduce-scatter"] > 0
     json.dumps(rec)
 
@@ -113,6 +114,33 @@ def test_microbatched_train_cell_holds_less(records):
     assert (rec["status"], rec["microbatches"]) == ("ok", 2)
     assert rec["cost"]["flops"] == one["cost"]["flops"]
     assert rec["mem"]["peak_bytes"] < one["mem"]["peak_bytes"]
+
+
+def test_no_seqpar_train_cell_holds_more(records):
+    """The ``no_seqpar`` variant, every model rank holding the whole hidden
+    state: the same FLOPs as the baseline, a higher peak, and the
+    activations summed over model by all-reduce where the baseline
+    all-gathers and reduce-scatters them along the sequence."""
+    one = records[("tinyllama-1.1b", "train_4k")]
+    model_bytes = {}
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for variant in ("baseline", "no_seqpar"):
+            rec = dryrun.run_cell("tinyllama-1.1b", "train_4k", periods=1,
+                                  variant=variant, verbose=False)
+            model_bytes[variant] = dict(
+                collectives.counts["model"]["op_bytes"])
+    finally:
+        torch.set_num_threads(n)
+    assert (rec["status"], rec["seq_parallel"]) == ("ok", False)
+    assert "same_as" not in rec
+    assert rec["cost"]["flops"] == one["cost"]["flops"]
+    assert rec["mem"]["peak_bytes"] > one["mem"]["peak_bytes"]
+    sp, whole = model_bytes["baseline"], model_bytes["no_seqpar"]
+    assert whole["all_reduce_sum"] > 100 * sp["all_reduce_sum"]
+    for op in ("all_gather", "reduce_scatter"):
+        assert sp[op] > 100 * whole.get(op, 0), op
 
 
 def reference_argument_bytes(arch: str, shape_name: str) -> int:

@@ -9,9 +9,13 @@ test's tmp dir), every scenario of the world in one spawn, and every test
 of it reads what rank 0 saved:
 
 * 4 ranks on (data 2, model 2) (``make_train_ctx``: fsdp over data, tp
-  over model), reduced widths: tinyllama-1.1b three steps; granite-moe
+  over model, the hidden state carried as each rank's sequence block
+  between sub-layers), reduced widths: tinyllama-1.1b three steps, and
+  one step with ``seq_parallel=False``; granite-moe
   through the sorted dispatch (16 experts a tp rank at published widths,
   here 4) and the dense oracle; mamba2 (its mixer whole on every tp rank);
+  whisper (cross-attention, learned positions); llava with a sequence of
+  patches and tokens that splits unevenly over tp;
   ``lm_loss`` on vocab-split logits with ties across the blocks; a loss
   mask uneven across the data ranks; ``shard_grads``; a checkpointed
   ``train(mesh=)`` resumed; ``place``.
@@ -53,10 +57,10 @@ from repro_torch.models.convert import params_to_numpy
 from repro_torch.models.sharding import ShardingCtx
 from repro_torch.train import compress
 from repro_torch.train.train_step import train_rng
-from torch_train_mesh_worker import (CKPT_EVERY, CKPT_STEPS, LR, MOE_ARCH,
-                                     OPT, POD_BATCH, SEQ, SPLITS, STEPS,
-                                     loss_case, run, tokens, train_run,
-                                     uneven_mask)
+from torch_train_mesh_worker import (BATCH, CKPT_EVERY, CKPT_STEPS, LR,
+                                     MOE_ARCH, OPT, PATCHES, POD_BATCH, SEQ,
+                                     SPLITS, STEPS, loss_case, run, tokens,
+                                     train_run, uneven_mask)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = Path(__file__).with_name("torch_train_mesh_worker.py")
@@ -260,12 +264,58 @@ def test_tinyllama_mesh_equals_one_rank(four, tiny_one):
     assert_params(got["params"], tiny_one["params"],
                   sure_elements(tiny_one["grads"]), STEPS)
     assert got["rng"] == tiny_one["rng"] == int(train_rng(0, STEPS))
-    # the weight blocks gathered over data, the activations summed over
-    # model, one global norm a step over the whole mesh
+    # the weight blocks gathered over data, the activations gathered and
+    # reduce-scattered along the sequence over model, one global norm a
+    # step over the whole mesh
     counts = got["counts"]
     assert counts["data"]["ops"]["all_gather"] > 0
-    assert counts["model"]["ops"]["all_reduce_sum"] > 0
+    assert counts["model"]["ops"]["all_gather"] > 0
+    assert counts["model"]["ops"]["reduce_scatter"] > 0
     assert counts["data+model"]["ops"] == {"all_reduce_sum": STEPS}
+
+
+def test_seq_parallel_equals_the_whole_hidden_state(four):
+    """``make_train_ctx(mesh, seq_parallel=False)``: every tp rank holds
+    the whole hidden state and sums each sub-layer's output over model by
+    all-reduce. Its step is the sequence-parallel run's first, which moves
+    fewer all-reduce bytes over model a step."""
+    sp, whole = four["tinyllama"], four["no_seq_parallel"]
+    assert_metrics(whole["metrics"], sp["metrics"][:1], RANK_TOL)
+    assert_grads(whole["grads"][0], sp["grads"][0], RANK_GRAD_RTOL,
+                 RANK_GRAD_ATOL_FRAC)
+    on_sp, on_whole = sp["counts"]["model"], whole["counts"]["model"]
+    assert on_whole["ops"]["all_reduce_sum"] > 0
+    assert "reduce_scatter" not in on_whole["ops"]
+    assert (on_sp["op_bytes"]["all_reduce_sum"] / STEPS
+            < on_whole["op_bytes"]["all_reduce_sum"])
+
+
+@pytest.mark.parametrize("case,arch,kw", [
+    ("whisper", "whisper-large-v3", {}),
+    ("llava_uneven", "llava-next-34b", dict(patches=PATCHES))])
+def test_frontends_under_seq_parallel_equal_one_rank(four, case, arch, kw):
+    """whisper (its encoder whole on every tp rank, cross-attention on the
+    gathered queries, learned positions on each rank's rows) and llava
+    (5 patches and 32 tokens: blocks of 19 and 18 rows, the first holding
+    the patches): one step, one rank's numbers."""
+    got = four[case]
+    want = run(arch, ONE, steps=1, **kw)
+    assert_metrics(got["metrics"], want["metrics"], RANK_TOL)
+    assert_grads(got["grads"][0], want["grads"][0], RANK_GRAD_RTOL,
+                 RANK_GRAD_ATOL_FRAC)
+
+
+def test_hidden_state_is_each_ranks_sequence_block(four):
+    """The hidden state a layer returns on rank (data d, model m): its
+    block of the batch over data and of the sequence over model, in
+    ``tensor_split`` order, uneven blocks included."""
+    for case, arch, rows in (("whisper", "whisper-large-v3", SEQ),
+                             ("llava_uneven", "llava-next-34b",
+                              PATCHES + SEQ)):
+        d = get_config(arch).reduced().d_model
+        blocks = [len(b) for b in np.array_split(np.arange(rows), 2)]
+        assert four[case]["hidden"] == [(BATCH // 2, blocks[r % 2], d)
+                                        for r in range(4)], case
 
 
 def _nested(flat, cfg):

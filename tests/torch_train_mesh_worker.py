@@ -13,6 +13,7 @@ the port only, never JAX.
     python tests/torch_train_mesh_worker.py WORLD RANK DIR
 """
 import contextlib
+import copy
 import dataclasses
 import shutil
 import sys
@@ -28,7 +29,7 @@ from repro_torch.data.pipeline import place
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import init_distributed, make_local_mesh
 from repro_torch.models import moe as MOE
-from repro_torch.models.model import Model
+from repro_torch.models.model import Block, Model
 from repro_torch.models.sharding import (ShardingCtx, gather_params,
                                          make_train_ctx)
 from repro_torch.train import compress
@@ -47,6 +48,9 @@ CKPT_STEPS, CKPT_EVERY = 4, 2
 # a vocab whose valid columns reach both tp blocks of the padded 2048
 TIE_VOCAB = 1500
 TIE_COLS = (100, 1200)
+# llava's patches in front of the SEQ tokens: 37 rows, blocks of 19 and 18
+# over tp 2, the first holding the patches and 14 tokens
+PATCHES = 5
 
 
 # the other ways a sub-layer splits over tp 2, one step each: kv heads
@@ -66,6 +70,13 @@ def tokens(cfg, step: int, batch: int = BATCH) -> np.ndarray:
         0, cfg.vocab_size, (batch, SEQ + 1)).astype(np.int32)
 
 
+def frontend(cfg, step: int, rows: int, batch: int = BATCH) -> np.ndarray:
+    """A frontend's (batch, rows, d) embeddings, scaled by 0.02 as
+    ``data.pipeline`` draws them."""
+    return (np.random.default_rng((2, step)).standard_normal(
+        (batch, rows, cfg.d_model)) * 0.02).astype(np.float32)
+
+
 def uneven_mask(batch: int = BATCH) -> np.ndarray:
     """A loss mask that keeps 1 in 8 tokens of the first half of the batch
     (the first data rank's rows) and 7 in 8 of the second."""
@@ -78,6 +89,25 @@ def whole(tree: dict, model) -> dict:
     """Whole tensors from this rank's blocks, as numpy (every rank)."""
     return {n: t.float().numpy() for n, t in
             gather_params(tree, model.layouts, model.ctx).items()}
+
+
+@contextlib.contextmanager
+def recorded_hidden():
+    """The shape of the hidden state every layer returns under it, in call
+    order."""
+    seen = []
+    forward = Block.forward
+
+    def record(self, *args, **kw):
+        out = forward(self, *args, **kw)
+        seen.append(tuple(out[0].shape))
+        return out
+
+    Block.forward = record
+    try:
+        yield seen
+    finally:
+        Block.forward = forward
 
 
 @contextlib.contextmanager
@@ -100,12 +130,13 @@ def recorded_routes():
 
 def run(arch: str, ctx: ShardingCtx, *, steps: int = STEPS,
         batch: int = BATCH, mask=None, step_kw=None, every_grad=False,
-        cfg_kw=None, **model_kw) -> dict:
+        cfg_kw=None, patches: int = 0, **model_kw) -> dict:
     """``steps`` train steps of reduced ``arch`` (its fields replaced by
     ``cfg_kw``) over ``ctx`` (one rank without a mesh): the first step's
     gradients (every step's with ``every_grad``) and routes, every step's
     metrics, the last parameters, the "rng" seed and the collectives of
-    the steps, all whole."""
+    the steps, all whole. A frontend arch gets its embeddings: whisper's
+    ``encoder_seq`` frames, a VLM's ``patches``."""
     cfg = dataclasses.replace(get_config(arch).reduced(), **(cfg_kw or {}))
     model = Model(cfg, device="cpu", max_seq=SEQ + 8, attn_impl="kernel",
                   ctx=ctx, **model_kw)
@@ -115,6 +146,9 @@ def run(arch: str, ctx: ShardingCtx, *, steps: int = STEPS,
     out = {"metrics": [], "grads": []}
     for i in range(steps):
         data = {"tokens": tokens(cfg, i, batch)}
+        if cfg.frontend != "none":
+            data["frontend_embeds"] = frontend(
+                cfg, i, patches or cfg.encoder_seq, batch)
         if mask is not None:
             data["loss_mask"] = mask
         b = place(data, ctx, "cpu")
@@ -129,7 +163,8 @@ def run(arch: str, ctx: ShardingCtx, *, steps: int = STEPS,
             collectives.reset_counts()
         state, met = step(state, b)
         out["metrics"].append({k: float(v) for k, v in met.items()})
-    out["counts"] = {k: dict(v) for k, v in collectives.counts.items()}
+    # a copy of its own: the gathers below count into the live dicts
+    out["counts"] = copy.deepcopy(collectives.counts)
     out["params"] = whole(state["params"], model)
     out["block_numel"] = sum(p.numel() for p in state["params"].values())
     out["rng"] = int(state["rng"])
@@ -206,7 +241,19 @@ def four(where: Path) -> dict:
            "mamba2": run("mamba2-780m", ctx, steps=2),
            **{name: run(arch, ctx, steps=1, cfg_kw=kw, **model_kw)
               for name, (arch, kw, model_kw) in SPLITS.items()},
-           "loss": loss_case(ctx)}
+           "loss": loss_case(ctx),
+           # the same mesh with the hidden state whole on every tp rank
+           "no_seq_parallel": run("tinyllama-1.1b", make_train_ctx(
+               mesh, seq_parallel=False), steps=1)}
+    # cross-attention and learned positions; a sequence of patches and
+    # tokens that splits unevenly over tp; the hidden state each layer
+    # returns on every rank
+    for name, arch, kw in (("whisper", "whisper-large-v3", {}),
+                           ("llava_uneven", "llava-next-34b",
+                            dict(patches=PATCHES))):
+        with recorded_hidden() as shapes:
+            out[name] = run(arch, ctx, steps=1, **kw)
+        out[name]["hidden"] = gathered(shapes[0])
     # a checkpointed run, resumed from its step-2 checkpoint
     ckpt = where / "ckpt"
     out["ckpt_straight"] = train_run(mesh, ckpt)
